@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Chip smoke for the PyTorch port: drives its training path on one GPU.
+"""Chip smoke for the PyTorch port: drives its training and serving paths
+on one GPU.
 
     python3 chip_smoke.py
 
@@ -7,13 +8,18 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases,
 each printed as JSON lines; any failure raises and the script exits
 non-zero without the final result line:
 
-  1. the card's name and power limit (nvidia-smi); build both CUDA kernels
-     from ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
-  2. each kernel against its plain PyTorch version on the card, on small
-     odd shapes (isolated node, star hub, NaN-poisoned padding, more
-     receivers than one tile) and at the path's largest leaf
-     [4, 276,824,064]: max error, kernel / plain / library times (CUDA
-     events, median) and the least time the card could take (bound);
+  1. the card's name and power limit (nvidia-smi); build the four CUDA
+     kernels from ``src/repro_torch/csrc`` (one nvcc per source, in
+     parallel);
+  2. each kernel against its plain PyTorch version on the card: gossip and
+     PME average on small odd shapes (isolated node, star hub, NaN-poisoned
+     padding, more receivers than one tile) and at the training paths'
+     largest leaf [4, 276,824,064]; flash attention on the JAX tests'
+     sweep (f32, bf16) and at path C's [8, 2048, 32, 64] bf16; SSD
+     intra-chunk on the JAX tests' shapes and at path C's
+     [8, 16, 128, 64, 64] bf16.  Max error, kernel / plain / library
+     times (CUDA events, median) and the least time the card could take
+     (bound);
   3. path A: the trainer CLI, stablelm-1.6b at full width and depth, PaME
      with the sparse exchange, 4 nodes, 3 steps — the gossip kernel must
      launch 11 times a step;
@@ -22,7 +28,15 @@ non-zero without the final result line:
      kernel must launch 10 times a step;
   5. one ``pame_step`` of each path with injected draws, through the
      kernels and through the plain versions: new params within one bf16 ulp;
-  6. the kernel table line, then the result line.
+  6. path C: ``ServeLoop`` on zamba2-1.2b at full width and depth (38
+     layers) with both kernel flags, 4 node models, 8 prompts of 2048
+     tokens, 32 generated, one round serving local models and one the
+     consensus mean — flash must launch 7 and SSD 38 times per prefill,
+     every logit be finite and each node return [8, 32] tokens; then one
+     node's prefill through the kernels and through the plain route: in
+     f32 within 1e-3 (relative logit error), in bf16 no further from the
+     f32 logits than the plain route (within 1.1x);
+  7. the kernel table line, then the result line.
 
 Exits non-zero with no result when no CUDA device is present, or when the
 port's sources are not beside this script.
@@ -39,13 +53,18 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 
-# H100 SXM data-sheet peaks (see PERF.md): HBM bytes/s, f32 (non-tensor) FLOP/s
+# H100 SXM data-sheet peaks (see PERF.md): HBM bytes/s, f32 (non-tensor)
+# FLOP/s, bf16 dense tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 BIG_N = 24 * 2048 * 5632  # the largest leaf of stablelm-1.6b (w_gate / w_up / w_down)
 M = 4
 MODEL_ARGS = ["--arch", "stablelm-1.6b", "--variant", "full", "--algo", "pame",
               "--nodes", str(M), "--batch", "4", "--seq", "128"]
+# path C: zamba2-1.2b serving, 8 prompts of 2048 tokens, 32 generated
+SERVE = dict(prompt_len=2048, gen=32, batch=8, seed=0)
+FLASH_SITES, MAMBA_LAYERS = 7, 38  # zamba2-1.2b: shared-block sites, Mamba2 layers
 
 
 def emit(**kw):
@@ -80,6 +99,25 @@ def bf16_ulps(got, want):
     w = want.float()
     ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=2.0 ** -126))) - 7)
     return ((got.float() - w).abs() / ulp).max().item()
+
+
+def bf16_ulps_floored(got, want):
+    """max |got - want| in bf16 ulps of max(|want|, max|want| / 256): below
+    1/256 of the output's scale, f32 sums taken in another order differ by
+    more than an ulp of the tiny value itself."""
+    import torch
+
+    w = want.float()
+    mag = torch.maximum(w.abs(), w.abs().max() / 256).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return ((got.float() - w).abs() / ulp).max().item()
+
+
+def bound(bytes_, flops, peak=BF16_FLOPS):
+    """(least ms, what bounds it): the larger of bytes over the HBM rate and
+    operations over the peak."""
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def free():
@@ -241,6 +279,118 @@ def check_pme(dev):
     return row
 
 
+def _hold(kernel, case, got, want, plain_work, row):
+    """Hold a kernel's output against its plain version fed the same inputs
+    in f32: 1e-5 x scale for an f32 output, one bf16 ulp (floored at 1/256
+    of the scale) for a bf16 one."""
+    import torch
+
+    err = (got.float() - want).abs().max().item()
+    scale = max(1.0, want.abs().max().item())
+    if got.dtype == torch.float32:
+        ok, tol = err <= 1e-5 * scale, 1e-5 * scale
+    else:
+        row["bf16_ulps"] = bf16_ulps(got, want)
+        row["bf16_ulps_floored"] = bf16_ulps_floored(got, want)
+        ok, tol = row["bf16_ulps_floored"] <= 1.0, "1 bf16 ulp (floored)"
+        # against the plain version in the working type
+        row["err_vs_plain_bf16"] = (got.float() - plain_work.float()).abs().max().item()
+    row.update(kernel=kernel, case=case, max_abs_err=err, tol=tol)
+    if not ok or not torch.isfinite(got).all():
+        emit(**row)
+        fail(f"{kernel} kernel disagrees with its plain version ({case})")
+
+
+def check_flash(dev):
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def case(name, b, s, h, kv, d, win, dtype, reps=0):
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                   for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
+        got = flash_attention_cuda(q, k, v, window=win)
+        want = attention_ref(q.float(), k.float(), v.float(), win)
+        plain = attention_ref(q, k, v, win) if dtype != torch.float32 else want
+        torch.cuda.synchronize()
+        row = {"shape": [b, s, h, kv, d], "window": win, "dtype": str(dtype)}
+        _hold("flash_attention", name, got, want, plain, row)
+        del want, plain
+        if reps:
+            row["ms"] = time_ms(lambda: flash_attention_cuda(q, k, v, window=win), reps)
+            row["plain_ms"] = time_ms(lambda: attention_ref(q, k, v, win), reps)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # [B, heads, S, D]
+            row["library_ms"] = time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True), reps)
+            flops = 4 * b * h * d * (s * (s + 1) // 2)  # q.k and p.v, causal half
+            bytes_ = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+            row["bound_ms"], row["bound_by"] = bound(bytes_, flops)
+            row["bound_ms_f32_cuda_cores"] = bound(bytes_, flops, F32_FLOPS)[0]
+            row["flops"], row["bytes"] = flops, bytes_
+        emit(**row)
+        return row
+
+    # tests/test_kernels.py's sweep: window < block, extreme GQA
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((2, 64, 4, 2, 16, None), (1, 128, 4, 4, 32, None), (2, 64, 4, 2, 16, 24),
+                      (1, 64, 8, 1, 64, None), (1, 32, 2, 2, 8, 5)):
+            case(f"sweep-{shape}-{dtype}", *shape, dtype)
+    row = case("path-c", 8, 2048, 32, 32, 64, None, torch.bfloat16, reps=10)
+    free()
+    return row
+
+
+def check_ssd(dev):
+    import torch
+    from repro_torch.kernels.ssd_scan.kernel import ssd_intra_chunk_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def case(name, b, nc, l, h, p, g, n, dtype, reps=0):
+        rnd = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+        xc = rnd(b, nc, l, h, p).to(dtype)
+        dtc = torch.rand((b, nc, l, h), generator=gen, device=dev) * 0.2 + 0.01
+        cum = torch.cumsum(dtc * -torch.exp(rnd(h) * 0.2), dim=2)
+        bc, cc = rnd(b, nc, l, g, n).to(dtype), rnd(b, nc, l, g, n).to(dtype)
+        y, st = ssd_intra_chunk_cuda(xc, dtc, cum, bc, cc, h // g)
+        y_r, st_r = ssd_intra_chunk_ref(xc.float(), dtc, cum, bc.float(), cc.float(), h // g)
+        y_p = ssd_intra_chunk_ref(xc, dtc, cum, bc, cc, h // g)[0] if dtype != torch.float32 else y_r
+        torch.cuda.synchronize()
+        row = {"shape": [b, nc, l, h, p, g, n], "dtype": str(dtype)}
+        _hold("ssd_intra_chunk", name, y, y_r, y_p, row)
+        st_err = (st - st_r).abs().max().item()
+        row["state_max_abs_err"] = st_err
+        if st_err > 1e-5 * max(1.0, st_r.abs().max().item()) or not torch.isfinite(st).all():
+            emit(**row)
+            fail(f"ssd_intra_chunk state disagrees with its plain version ({name})")
+        row["max_abs_err"] = max(row["max_abs_err"], st_err)
+        del y_r, st_r, y_p
+        if reps:
+            row["ms"] = time_ms(lambda: ssd_intra_chunk_cuda(xc, dtc, cum, bc, cc, h // g), reps)
+            row["plain_ms"] = time_ms(lambda: ssd_intra_chunk_ref(xc, dtc, cum, bc, cc, h // g), reps)
+            row["library_ms"] = None  # no single PyTorch call computes this function
+            pairs = l * (l + 1) // 2
+            flops = 2 * b * nc * h * (pairs * (n + p) + l * p * n)  # W, W x, state (causal half)
+            bytes_ = (2 * xc.numel() + 2 * bc.numel()) * xc.element_size() \
+                + 2 * dtc.numel() * 4 + st.numel() * 4
+            row["bound_ms"], row["bound_by"] = bound(bytes_, flops)
+            row["bound_ms_f32_cuda_cores"] = bound(bytes_, flops, F32_FLOPS)[0]
+            row["flops"], row["bytes"] = flops, bytes_
+        emit(**row)
+        return row
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((2, 3, 16, 4, 8, 2, 8), (1, 2, 32, 2, 16, 1, 4), (1, 1, 8, 8, 4, 4, 16)):
+            case(f"jax-{shape}-{dtype}", *shape, dtype)
+    row = case("path-c", 8, 16, 128, 64, 64, 1, 64, torch.bfloat16, reps=10)
+    free()
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phases 3-5: the training paths
 # ---------------------------------------------------------------------------
@@ -378,6 +528,113 @@ def parity(dev):
     return results
 
 
+# ---------------------------------------------------------------------------
+# path C: serving zamba2-1.2b (flash attention and SSD kernels)
+# ---------------------------------------------------------------------------
+def path_c(dev):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan.kernel import ssd_intra_chunk_cuda
+    from repro_torch.models import init_params, prefill
+    from repro_torch.serve import ServeLoop
+    from repro_torch.tree import tree_leaves, tree_map
+
+    class CheckedLoop(ServeLoop):
+        """ServeLoop that also keeps, on the card, whether every logit of the
+        prefills and decode steps was finite (read once at the end)."""
+
+        def _pf(self, params, batch):
+            logits, caches = super()._pf(params, batch)
+            self.finite = self.finite & torch.isfinite(logits).all()
+            return logits, caches
+
+        def _dc(self, params, tok, pos, caches):
+            logits, caches = super()._dc(params, tok, pos, caches)
+            self.finite = self.finite & torch.isfinite(logits).all()
+            return logits, caches
+
+    cfg = get_config("zamba2-1.2b", "full").replace(use_flash=True, use_ssd_kernel=True)
+    t0 = time.perf_counter()
+    params0 = init_params(0, cfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+    # distinct node models: seed-0 weights plus a little per-node noise
+    stacked = tree_map(lambda x: (x.unsqueeze(0) + 0.01 * torch.randn(
+        (M,) + tuple(x.shape), generator=g, device=dev)).to(x.dtype), params0)
+    del params0
+    n_params = sum(x[0].numel() for x in tree_leaves(stacked))
+    loop = CheckedLoop(cfg, device=dev, **SERVE)
+    loop.finite = torch.ones((), dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_cuda.launches = ssd_intra_chunk_cuda.launches = 0
+    rounds = {}
+    for policy in ("local", "consensus"):
+        f0, s0 = flash_attention_cuda.launches, ssd_intra_chunk_cuda.launches
+        t = time.perf_counter()
+        stats = loop.serve_round(stacked, [0, 1, 2, 3], policy=policy)
+        secs = time.perf_counter() - t
+        per = {"flash": flash_attention_cuda.launches - f0, "ssd": ssd_intra_chunk_cuda.launches - s0}
+        shapes = sorted({tuple(st["tokens"].shape) for st in stats.values()})
+        rounds[policy] = {
+            "seconds": secs, "launches": per, "token_shapes": shapes,
+            "prefill_ms": [st["prefill_ms"] for st in stats.values()],
+            "decode_ms_per_token": [st["decode_ms"] / (SERVE["gen"] - 1) for st in stats.values()],
+            "tokens_per_s": [st["tokens_per_s"] for st in stats.values()],
+        }
+        emit(phase="path_c", policy=policy, **rounds[policy])
+        if per != {"flash": M * FLASH_SITES, "ssd": M * MAMBA_LAYERS}:
+            fail(f"path C ({policy}): expected {FLASH_SITES} flash and {MAMBA_LAYERS} SSD "
+                 f"launches per prefill, {M} prefills; got {per}")
+        if shapes != [(SERVE["batch"], SERVE["gen"])]:
+            fail(f"path C ({policy}): expected [{SERVE['batch']}, {SERVE['gen']}] tokens per node")
+    launches = {"flash": flash_attention_cuda.launches, "ssd": ssd_intra_chunk_cuda.launches}
+    finite = bool(loop.finite)
+    peak = torch.cuda.max_memory_allocated()
+    emit(phase="path_c_done", params_per_node=n_params, depth=cfg.n_layers, setup_s=setup_s,
+         peak_bytes=peak, logits_finite=finite, launches=launches)
+    if not finite:
+        fail("path C: a prefill or decode logit was not finite")
+
+    # One node's prefill through the kernels and through the plain route
+    # (flags off), in bf16 and with the weights upcast to f32.  In bf16 both
+    # routes sit some 15 % (relative) from the f32 logits at this depth with
+    # random weights (PERF.md, PR 12), so the bf16 check is that the kernel
+    # route is no further from f32 than the plain route; in f32 the two
+    # routes differ only by summation order.
+    node = tree_map(lambda x: x[0], stacked)
+    del stacked
+    free()
+    batch = ServeLoop(cfg, device=dev, **SERVE).make_batch()  # node 0's prompts
+    plain_cfg = cfg.replace(use_flash=False, use_ssd_kernel=False)
+    logits = {}
+    with torch.inference_mode():
+        node32 = tree_map(lambda x: x.float(), node)
+        for name, p, c in (("kernel", node, cfg), ("plain", node, plain_cfg),
+                           ("kernel_f32", node32, cfg.replace(dtype="float32")),
+                           ("plain_f32", node32, plain_cfg.replace(dtype="float32"))):
+            logits[name] = prefill(p, c, batch, loop.capacity)[0]
+            free()
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+    agree = lambda a, b: (a.argmax(-1) == b.argmax(-1)).float().mean().item()  # noqa: E731
+    lk, lp, lf = logits["kernel"], logits["plain"], logits["plain_f32"]
+    row = {"rel_logit_err": rel(lk, lp), "argmax_agree": agree(lk, lp), "rows": lk.shape[0],
+           "kernel_vs_f32": rel(lk, lf), "plain_vs_f32": rel(lp, lf),
+           "kernel_argmax_agree_f32": agree(lk, lf), "plain_argmax_agree_f32": agree(lp, lf),
+           "f32_rel_logit_err": rel(logits["kernel_f32"], lf), "f32_tol": 1e-3,
+           "f32_argmax_agree": agree(logits["kernel_f32"], lf)}
+    emit(phase="path_c_parity", **row)
+    del node, node32, logits, lk, lp, lf
+    free()
+    if row["f32_rel_logit_err"] > 1e-3:
+        fail(f"path C: f32 kernel and plain prefill logits differ by "
+             f"{row['f32_rel_logit_err']} (relative) > 1e-3")
+    if row["kernel_vs_f32"] > 1.1 * row["plain_vs_f32"]:
+        fail("path C: the bf16 kernel route is further from the f32 logits than the plain route")
+    return launches
+
+
 def main():
     try:
         import torch
@@ -410,6 +667,8 @@ def main():
     t = time.perf_counter()
     gossip = check_gossip(dev)
     pme_row = check_pme(dev)
+    flash = check_flash(dev)
+    ssd = check_ssd(dev)
     emit(phase="kernels_checked", seconds=time.perf_counter() - t)
 
     t = time.perf_counter()
@@ -421,6 +680,9 @@ def main():
     t = time.perf_counter()
     parity(dev)
     emit(phase="parity_done", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    serve_launches = path_c(dev)
+    emit(phase="path_c_total", seconds=time.perf_counter() - t)
 
     def entry(name, source, replaces, launches, row):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -434,6 +696,10 @@ def main():
               "src/repro/kernels/gossip/kernel.py:95", gossip_launches, gossip),
         entry("pme_average", "src/repro_torch/csrc/pme_average.cu",
               "src/repro/kernels/pme_average/kernel.py:46", pme_launches, pme_row),
+        entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention/kernel.py:78", serve_launches["flash"], flash),
+        entry("ssd_intra_chunk", "src/repro_torch/csrc/ssd_intra_chunk.cu",
+              "src/repro/kernels/ssd_scan/kernel.py:53", serve_launches["ssd"], ssd),
     ]
     emit(phase="total", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

@@ -6,9 +6,11 @@ package's, so each module's counterpart is easy to find:
 
   core/      topology, PME samplers and averages, gossip contraction,
              the chunked engine, PaME (Algorithm 1) and the registry
-  kernels/   hand-written CUDA kernels for the two PaME Pallas kernels,
-             each beside its plain PyTorch version
-  models/    the dense decoder (stablelm) for the LM trainer
+  kernels/   hand-written CUDA kernels for the four Pallas kernels (PME
+             average, gossip, flash attention, SSD intra-chunk), each
+             beside its plain PyTorch version
+  models/    dense, ssm and hybrid decoders: train loss, prefill, decode
+  serve/     ServeLoop: batched greedy decode against each node's model
   launch/    the training CLI
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

@@ -1,9 +1,9 @@
 """Architecture registry (port of `repro.configs`).
 
 Each config module exposes FULL (the exact published config) and SMOKE
-(reduced for tests).  The port carries stablelm-1.6b so far; the other
-nine architectures of the JAX package come in later slices and raise
-until then.
+(reduced for tests).  The port carries stablelm-1.6b, zamba2-1.2b and
+mamba2-1.3b so far; the other seven architectures of the JAX package come
+in later slices and raise until then.
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ from typing import List
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS: List[str] = ["stablelm_1p6b"]
+ARCH_IDS: List[str] = ["mamba2_1p3b", "zamba2_1p2b", "stablelm_1p6b"]
 
 # CLI aliases (the assignment's spelling) -> module names
 ALIASES = {

@@ -29,7 +29,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-KERNELS = ("gossip_gather", "pme_average")
+KERNELS = ("gossip_gather", "pme_average", "flash_attention", "ssd_intra_chunk")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # what the last build of each kernel printed (ptxas register / spill report)

@@ -1,0 +1,3 @@
+"""CUDA SSD intra-chunk contraction: `ops.ssd_intra_chunk` (wrapper),
+`kernel.ssd_intra_chunk_cuda` (launcher), `ref.ssd_intra_chunk_ref` (plain
+version) and `ref.ssd_sequential_ref` (the per-token recurrence)."""

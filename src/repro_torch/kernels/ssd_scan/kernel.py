@@ -1,0 +1,89 @@
+"""Launch the CUDA SSD intra-chunk contraction (``csrc/ssd_intra_chunk.cu``).
+
+Replaces ``src/repro/kernels/ssd_scan/kernel.py::ssd_intra_chunk_pallas``;
+see the source for the design and what bounds it.  `ssd_intra_chunk_cuda`
+takes CUDA tensors only, checks them, allocates the outputs and launches on
+the current stream.  ``ssd_intra_chunk_cuda.launches`` counts its launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_CHUNK = 128
+MAX_SMEM = 232448  # an H100 block's dynamic shared memory limit, bytes
+
+
+def smem_bytes(l: int, p: int, n: int) -> int:
+    """Shared memory one block takes (the layout of ``ssd_intra_chunk.cu``:
+    B and C transposed with a padded row where it fits, x, W, dt, cum and
+    the decay, all f32)."""
+    lp = -(-l // 4) * 4
+    rest = lp * p + lp * lp + 3 * lp
+    sl = lp + 4 if (lp // 4) % 2 == 0 else lp
+    if 4 * (2 * n * sl + rest) > MAX_SMEM:
+        sl = lp
+    return 4 * (2 * n * sl + rest)
+
+
+def _bind():
+    fn = _build.load("ssd_intra_chunk").ssd_intra_chunk
+    # xc, dtc, cum, bc, cc, y, state; B, Nc, L, H, P, G, N; dtype; stream
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ssd_intra_chunk_cuda(
+    xc: torch.Tensor,   # [B, Nc, L, H, P]
+    dtc: torch.Tensor,  # [B, Nc, L, H] f32
+    cum: torch.Tensor,  # [B, Nc, L, H] f32
+    bc: torch.Tensor,   # [B, Nc, L, G, N]
+    cc: torch.Tensor,   # [B, Nc, L, G, N]
+    rep: int,           # heads per group, H = G * rep
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y [B,Nc,L,H,P] in xc's type, state [B,Nc,H,P,N] f32)."""
+    if not xc.is_cuda:
+        raise ValueError("ssd_intra_chunk_cuda launches a CUDA kernel: pass CUDA tensors")
+    if xc.dim() != 5 or bc.dim() != 5 or cc.shape != bc.shape:
+        raise ValueError(f"need xc [B,Nc,L,H,P] and bc, cc [B,Nc,L,G,N], got "
+                         f"{tuple(xc.shape)}, {tuple(bc.shape)}, {tuple(cc.shape)}")
+    b, nc, l, h, p = xc.shape
+    g, n = bc.shape[3], bc.shape[4]
+    if bc.shape[:3] != xc.shape[:3] or dtc.shape != xc.shape[:4] or cum.shape != dtc.shape:
+        raise ValueError("xc, dtc, cum, bc and cc disagree on [B, Nc, L(, H)]")
+    if g * rep != h:
+        raise ValueError(f"H = {h} heads must be G = {g} groups x rep = {rep}")
+    if l > MAX_CHUNK or p % 4 or n % 4:
+        raise ValueError(f"the kernel takes L <= {MAX_CHUNK} and P, N multiples of 4; "
+                         f"got L={l}, P={p}, N={n}")
+    if smem_bytes(l, p, n) > MAX_SMEM:
+        raise ValueError(f"a chunk of L={l}, P={p}, N={n} needs {smem_bytes(l, p, n)} "
+                         f"bytes of shared memory, above the card's {MAX_SMEM}")
+    if xc.dtype not in _TYPES or bc.dtype != xc.dtype or cc.dtype != xc.dtype:
+        raise TypeError(f"unsupported types: xc {xc.dtype}, bc {bc.dtype}, cc {cc.dtype}")
+    if dtc.dtype != torch.float32 or cum.dtype != torch.float32:
+        raise TypeError("dtc and cum must be float32")
+    if any(t.device != xc.device for t in (dtc, cum, bc, cc)):
+        raise ValueError("all inputs must be on one device")
+    xc, dtc, cum, bc, cc = (t.contiguous() for t in (xc, dtc, cum, bc, cc))
+    y = torch.empty_like(xc)
+    state = torch.empty((b, nc, h, p, n), dtype=torch.float32, device=xc.device)
+    if xc.numel() == 0:
+        return y, state
+    rc = _bind()(
+        xc.data_ptr(), dtc.data_ptr(), cum.data_ptr(), bc.data_ptr(), cc.data_ptr(),
+        y.data_ptr(), state.data_ptr(), b, nc, l, h, p, g, n, _TYPES[xc.dtype],
+        torch.cuda.current_stream(xc.device).cuda_stream,
+    )
+    _build.check(rc, "ssd_intra_chunk")
+    ssd_intra_chunk_cuda.launches += 1
+    return y, state
+
+
+ssd_intra_chunk_cuda.launches = 0

@@ -1,0 +1,21 @@
+"""Public wrapper of the SSD intra-chunk contraction: the device of the
+tensors decides.
+
+CPU tensors take the plain version (`ref.ssd_intra_chunk_ref`); CUDA
+tensors launch the kernel or raise.  There is no fallback from the card to
+the plain version, and no gradient: like the JAX package's Pallas kernel,
+the kernel is forward only, so the wrapper refuses inputs that require grad.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import refuse_grad
+from repro_torch.kernels.ssd_scan.kernel import ssd_intra_chunk_cuda
+from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
+
+
+def ssd_intra_chunk(xc, dtc, cum, bc, cc, rep: int):
+    """(y [B,Nc,L,H,P], state [B,Nc,H,P,N] f32); see `ref.ssd_intra_chunk_ref`."""
+    refuse_grad("ssd_intra_chunk", xc, dtc, cum, bc, cc)
+    if not xc.is_cuda:
+        return ssd_intra_chunk_ref(xc, dtc, cum, bc, cc, rep)
+    return ssd_intra_chunk_cuda(xc, dtc, cum, bc, cc, rep)

@@ -1,5 +1,6 @@
 """Model configuration shared by all assigned architectures (the port's own
-copy of `repro.models.config`; the port runs the dense family so far)."""
+copy of `repro.models.config`; the port runs the dense, ssm and hybrid
+families so far)."""
 from __future__ import annotations
 
 import dataclasses
@@ -83,8 +84,8 @@ class ModelConfig:
     prefill_chunk: int = 0          # >0: chunk prefill queries (memory cap)
     unroll: bool = False            # python-loop layers instead of lax.scan
                                     # (exact HLO cost analysis; probes only)
-    use_flash: bool = False         # flash attention kernel (not yet ported)
-    use_ssd_kernel: bool = False    # SSD intra-chunk kernel (not yet ported)
+    use_flash: bool = False         # flash attention kernel (forward only)
+    use_ssd_kernel: bool = False    # SSD intra-chunk kernel (forward only)
     tie_embeddings: bool = True
 
     # ------------------------------------------------------------------

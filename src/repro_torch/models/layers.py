@@ -2,7 +2,7 @@
 `repro.models.layers`).  Linear weights are [d_in, d_out], as in JAX."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -16,9 +16,10 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     return (out * scale.float()).to(x.dtype)
 
 
-def dense_init(generator: torch.Generator, shape: Tuple[int, ...], dtype) -> torch.Tensor:
+def dense_init(generator: torch.Generator, shape: Tuple[int, ...], dtype,
+               fan_in: Optional[int] = None) -> torch.Tensor:
     x = torch.randn(shape, generator=generator, device=generator.device)
-    return (x * shape[0] ** -0.5).to(dtype)
+    return (x * (fan_in if fan_in is not None else shape[0]) ** -0.5).to(dtype)
 
 
 def embed_init(generator: torch.Generator, vocab: int, d: int, dtype) -> torch.Tensor:

@@ -1,0 +1,198 @@
+"""Mamba2 block, state-space duality (SSD), arXiv:2405.21060 (port of
+`repro.models.ssm`, fused ``in_proj`` form).
+
+Full-sequence path: the chunked SSD algorithm, the intra-chunk quadratic
+form (the SSD kernel when ``cfg.use_ssd_kernel``) plus the inter-chunk
+recurrence h_k = decay_k h_{k-1} + s_k.  JAX runs that recurrence as an
+associative scan; here it is a loop over the Nc chunks in f32, whose sums
+run in another order, so parity with JAX holds to a tolerance.  Decode is
+the O(1) recurrence h <- h exp(dt A) + dt B (x) x, y = C.h + D x.
+
+dtypes follow JAX: ``A_log``, ``D`` and ``dt_bias`` are f32 leaves in any
+model, dt is f32 after softplus and the recurrent state is f32.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import dense_init, linear, rms_norm
+
+__all__ = ["SSMCache", "mamba_init", "mamba_apply", "mamba_decode", "init_ssm_cache"]
+
+
+class SSMCache(NamedTuple):
+    conv: torch.Tensor   # [B, d_conv-1, conv_dim]: the last pre-conv inputs
+    state: torch.Tensor  # [B, H, P, N] f32: the SSD recurrent state
+
+
+def _check(cfg: ModelConfig) -> None:
+    if cfg.ssm_split_proj:
+        raise NotImplementedError("ssm_split_proj not yet ported to repro_torch")
+
+
+def mamba_init(generator: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+    _check(cfg)
+    d, di, g, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    dev = generator.device
+    return {
+        "A_log": torch.zeros((h,), dtype=torch.float32, device=dev),  # A = -1
+        "D": torch.ones((h,), dtype=torch.float32, device=dev),
+        "dt_bias": torch.full((h,), -2.0, dtype=torch.float32, device=dev),
+        "norm": torch.ones((di,), dtype=dtype, device=dev),
+        "out_proj": dense_init(generator, (di, d), dtype),
+        "in_proj": dense_init(generator, (d, 2 * di + 2 * g * n + h), dtype),
+        "conv_w": dense_init(generator, (cfg.d_conv, cfg.conv_dim), dtype, fan_in=cfg.d_conv),
+        "conv_b": torch.zeros((cfg.conv_dim,), dtype=dtype, device=dev),
+    }
+
+
+def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
+    di = cfg.d_inner
+    z = proj[..., :di]
+    xbc = proj[..., di: di + cfg.conv_dim]
+    dt = proj[..., di + cfg.conv_dim:]
+    return z, xbc, dt
+
+
+def _causal_conv(cfg: ModelConfig, xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    """Depthwise causal conv over time; xbc [B, S, C]."""
+    k = cfg.d_conv
+    s = xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    out = sum(pad[:, i: i + s, :] * w[i][None, None] for i in range(k))
+    return F.silu(out + b[None, None])
+
+
+def _split_xbc(cfg: ModelConfig, xbc: torch.Tensor):
+    di, g, n = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
+    shp = tuple(xbc.shape[:-1])
+    return (
+        xbc[..., :di].reshape(shp + (cfg.ssm_heads, cfg.ssm_head_dim)),
+        xbc[..., di: di + g * n].reshape(shp + (g, n)),
+        xbc[..., di + g * n:].reshape(shp + (g, n)),
+    )
+
+
+def _ssd_chunked(
+    cfg: ModelConfig,
+    x: torch.Tensor,   # [B, S, H, P]
+    dt: torch.Tensor,  # [B, S, H] f32 (post-softplus)
+    a: torch.Tensor,   # [H] negative
+    b_: torch.Tensor,  # [B, S, G, N]
+    c_: torch.Tensor,  # [B, S, G, N]
+    h0: Optional[torch.Tensor] = None,  # [B, H, P, N]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y [B, S, H, P], final_state [B, H, P, N] f32)."""
+    bsz, s, h, p = x.shape
+    g, n = b_.shape[2], b_.shape[3]
+    l = min(cfg.ssm_chunk, s)
+    pad = (-s) % l
+    if pad:
+        x, dt, b_, c_ = (F.pad(u, (0, 0) * (u.dim() - 2) + (0, pad)) for u in (x, dt, b_, c_))
+    nc = (s + pad) // l
+    xc = x.reshape(bsz, nc, l, h, p)
+    dtc = dt.reshape(bsz, nc, l, h)
+    bc = b_.reshape(bsz, nc, l, g, n)
+    cc = c_.reshape(bsz, nc, l, g, n)
+    rep = h // g
+    cum = torch.cumsum(dtc * a[None, None, None], dim=2)  # within-chunk
+    intra = ssd_ops.ssd_intra_chunk if cfg.use_ssd_kernel else ssd_intra_chunk_ref
+    y_intra, chunk_state = intra(xc, dtc, cum, bc, cc, rep)
+
+    # inter-chunk recurrence over Nc, in f32: h_k = exp(sum of chunk dA) h_{k-1} + s_k
+    chunk_decay = torch.exp(cum[:, :, -1, :])  # [B, Nc, H]
+    run = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device) if h0 is None else h0
+    prev = []
+    for k in range(nc):
+        prev.append(run)
+        run = run * chunk_decay[:, k, :, None, None] + chunk_state[:, k]
+    prev_states = torch.stack(prev, dim=1)  # state BEFORE chunk k
+    final_state = run
+
+    # inter-chunk contribution: y_i += C_i . (exp(cum_i) h_prev)
+    ch = cc.repeat_interleave(rep, dim=3)
+    inner = torch.einsum("bnlhs,bnhps->bnlhp", ch.to(prev_states.dtype), prev_states)
+    y_inter = inner * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter.to(y_intra.dtype)).reshape(bsz, nc * l, h, p)
+    return y[:, :s], final_state
+
+
+def _project(params: dict, cfg: ModelConfig, x: torch.Tensor):
+    """Returns (z, xs [B,S,H,P], b_ [B,S,G,N], c_, dt_raw, xbc_preconv)."""
+    proj = linear(x, params["in_proj"])
+    z, xbc, dt_raw = _split_proj(cfg, proj)
+    xbc_conv = _causal_conv(cfg, xbc, params["conv_w"], params["conv_b"])
+    xs, b_, c_ = _split_xbc(cfg, xbc_conv)
+    return z, xs, b_, c_, dt_raw, xbc
+
+
+def mamba_apply(
+    params: dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # [B, S, d]
+    return_cache: bool = False,
+) -> Tuple[torch.Tensor, Optional[SSMCache]]:
+    _check(cfg)
+    bsz, s, _ = x.shape
+    z, xs, b_, c_, dt_raw, xbc = _project(params, cfg, x)
+    dt = F.softplus(dt_raw.float() + params["dt_bias"][None, None])
+    a = -torch.exp(params["A_log"])
+    y, final_state = _ssd_chunked(cfg, xs, dt, a, b_, c_)
+    y = y + xs * params["D"][None, None, :, None].to(xs.dtype)
+    y = y.reshape(bsz, s, cfg.d_inner)
+    y = rms_norm(y * F.silu(z), params["norm"])
+    out = linear(y, params["out_proj"])
+    cache = None
+    if return_cache:
+        tail = cfg.d_conv - 1
+        conv_tail = F.pad(xbc, (0, 0, tail, 0))[:, -tail:]
+        cache = SSMCache(conv=conv_tail, state=final_state)
+    return out, cache
+
+
+def mamba_decode(
+    params: dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # [B, 1, d]
+    cache: SSMCache,
+) -> Tuple[torch.Tensor, SSMCache]:
+    """One token.  Updates `cache` (the conv window and the state) in place
+    and returns it."""
+    _check(cfg)
+    bsz = x.shape[0]
+    proj = linear(x, params["in_proj"])
+    z, xbc, dt_raw = _split_proj(cfg, proj)
+    window = torch.cat([cache.conv, xbc], dim=1)  # [B, d_conv, C]
+    conv_out = torch.einsum("bkc,kc->bc", window, params["conv_w"]) + params["conv_b"]
+    conv_out = F.silu(conv_out)[:, None]          # [B, 1, C]
+    xs, b_, c_ = _split_xbc(cfg, conv_out)
+    dt = F.softplus(dt_raw.float() + params["dt_bias"][None, None])
+    a = -torch.exp(params["A_log"])
+    da = torch.exp(dt[:, 0] * a[None])            # [B, H]
+    rep = cfg.ssm_heads // cfg.ssm_groups
+    bh = b_[:, 0].repeat_interleave(rep, dim=1)   # [B, H, N]
+    chh = c_[:, 0].repeat_interleave(rep, dim=1)
+    contrib = (dt[:, 0][..., None, None] * xs[:, 0][..., None]) * bh[:, :, None, :]
+    state = cache.state
+    state.mul_(da[..., None, None]).add_(contrib.to(state.dtype))
+    y = torch.einsum("bhpn,bhn->bhp", state, chh.to(state.dtype))
+    y = y.to(xs.dtype) + xs[:, 0] * params["D"][None, :, None].to(xs.dtype)
+    y = y.reshape(bsz, 1, cfg.d_inner)
+    y = rms_norm(y * F.silu(z), params["norm"])
+    out = linear(y, params["out_proj"])
+    cache.conv.copy_(window[:, 1:])
+    return out, cache
+
+
+def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device) -> SSMCache:
+    return SSMCache(
+        conv=torch.zeros((batch, cfg.d_conv - 1, cfg.conv_dim), dtype=dtype, device=device),
+        state=torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                          dtype=torch.float32, device=device),
+    )

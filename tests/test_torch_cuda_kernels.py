@@ -12,11 +12,15 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import mixing, pme
 from repro_torch.core.topology import build_topology
+from repro_torch.kernels.flash_attention import kernel as fkernel
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.gossip import kernel as gkernel
 from repro_torch.kernels.gossip.ops import gather_terms_kernel
 from repro_torch.kernels.gossip.ref import gather_terms_ref
 from repro_torch.kernels.pme_average import kernel as pkernel
 from repro_torch.kernels.pme_average.ref import pme_average_ref
+from repro_torch.kernels.ssd_scan import kernel as skernel
+from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -94,3 +98,91 @@ def test_pme_route_uses_kernel_on_cuda(dev, monkeypatch):
     assert pkernel.pme_average_cuda.launches == before + 1
     torch.testing.assert_close(out["big"], plain["big"], rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(out["small"], plain["small"], rtol=0, atol=0)
+
+
+def _bf16_ulps_floored(got, want):
+    """|got - want| in bf16 ulps of max(|want|, max|want| / 256): below
+    1/256 of the output's scale, f32 sums taken in another order differ by
+    more than an ulp of the tiny value itself."""
+    w = want.float()
+    mag = torch.maximum(w.abs(), w.abs().max() / 256).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return ((got.float() - w).abs() / ulp).max().item()
+
+
+FLASH_CASES = [
+    (2, 64, 4, 2, 16, None), (1, 128, 4, 4, 32, None), (2, 64, 4, 2, 16, 24),
+    (1, 64, 8, 1, 64, None), (1, 32, 2, 2, 8, 5),   # tests/test_kernels.py's sweep
+    (2, 300, 4, 2, 64, None), (1, 200, 4, 4, 128, 70), (1, 64, 2, 1, 256, None),
+]
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,win", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel(dev, b, s, h, kv, d, win, dtype):
+    g = torch.Generator(device=dev).manual_seed(s + h + d)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+               for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
+    before = fkernel.flash_attention_cuda.launches
+    out = fkernel.flash_attention_cuda(q, k, v, window=win)
+    torch.cuda.synchronize()
+    assert fkernel.flash_attention_cuda.launches == before + 1
+    want = attention_ref(q.float(), k.float(), v.float(), win)
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, rtol=0, atol=1e-5 * max(1.0, want.abs().max().item()))
+    else:
+        assert _bf16_ulps_floored(out, want) <= 1.0
+
+
+SSD_CASES = [(2, 3, 16, 4, 8, 2, 8), (1, 2, 32, 2, 16, 1, 4), (1, 1, 8, 8, 4, 4, 16),
+             (2, 3, 128, 4, 64, 1, 64), (1, 2, 37, 3, 12, 3, 20), (1, 1, 128, 2, 64, 1, 128)]
+
+
+@pytest.mark.parametrize("b,nc,l,h,p,g,n", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_intra_chunk_kernel(dev, b, nc, l, h, p, g, n, dtype):
+    gen = torch.Generator(device=dev).manual_seed(b * 100 + l)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    xc = rnd(b, nc, l, h, p).to(dtype)
+    dtc = torch.rand((b, nc, l, h), generator=gen, device=dev) * 0.2 + 0.01
+    a = -torch.exp(rnd(h) * 0.2)
+    cum = torch.cumsum(dtc * a, dim=2)
+    bc, cc = rnd(b, nc, l, g, n).to(dtype), rnd(b, nc, l, g, n).to(dtype)
+    before = skernel.ssd_intra_chunk_cuda.launches
+    y, st = skernel.ssd_intra_chunk_cuda(xc, dtc, cum, bc, cc, h // g)
+    torch.cuda.synchronize()
+    assert skernel.ssd_intra_chunk_cuda.launches == before + 1
+    y_r, st_r = ssd_intra_chunk_ref(xc.float(), dtc, cum, bc.float(), cc.float(), h // g)
+    assert y.dtype == dtype and st.dtype == torch.float32
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    scale = max(1.0, st_r.abs().max().item())
+    torch.testing.assert_close(st, st_r, rtol=0, atol=1e-5 * scale)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, y_r, rtol=0, atol=1e-5 * max(1.0, y_r.abs().max().item()))
+    else:
+        assert _bf16_ulps_floored(y, y_r) <= 1.0
+
+
+def test_model_kernel_routes_launch_once_per_site(dev):
+    """zamba2 at a small width on the card, in f32: one flash launch per
+    shared-block site and one SSD launch per Mamba2 layer in a prefill,
+    none in a decode step; logits within 1e-4 (relative) of the plain
+    route (both f32; the kernels sum in another order)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = get_config("zamba2-1.2b", "smoke").replace(n_layers=5)
+    params = init_params(0, cfg, device=dev)
+    tok = torch.randint(0, cfg.vocab, (2, 64), device=dev)
+    f0, s0 = fkernel.flash_attention_cuda.launches, skernel.ssd_intra_chunk_cuda.launches
+    with torch.inference_mode():
+        kcfg = cfg.replace(use_flash=True, use_ssd_kernel=True)
+        lk, caches = prefill(params, kcfg, {"tokens": tok}, 70)
+        assert fkernel.flash_attention_cuda.launches - f0 == 3  # 5 layers, attn_every 2
+        assert skernel.ssd_intra_chunk_cuda.launches - s0 == 5
+        decode_step(params, kcfg, lk.argmax(-1), 64, caches)
+        assert fkernel.flash_attention_cuda.launches - f0 == 3
+        lp, _ = prefill(params, cfg, {"tokens": tok}, 70)
+    assert torch.isfinite(lk).all()
+    assert ((lk - lp).norm() / lp.norm()).item() <= 1e-4

@@ -1,7 +1,8 @@
 """The port's plain kernel versions against the JAX kernels (Pallas in
 interpret mode on the CPU), and the CPU dispatch of the port's wrappers.
 
-Tolerances are those of the JAX kernel tests: f32 atol 1e-5, bf16 5e-2.
+Tolerances are those of the JAX kernel tests: PME average f32 atol 1e-5,
+bf16 5e-2; gossip 1e-5; flash attention 2e-5 f32, 2e-2 bf16; SSD 1e-4.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -11,15 +12,23 @@ torch = pytest.importorskip("torch")
 
 from repro.core import build_topology as jbuild
 from repro.core.mixing import gather_terms as jgather, make_mixer
+from repro.kernels.flash_attention.ops import flash_attention as jflash
+from repro.kernels.flash_attention.ref import attention_ref as jattention_ref
 from repro.kernels.gossip.ops import gather_terms_pallas
 from repro.kernels.pme_average.ops import pme_average as jpme_average
+from repro.kernels.ssd_scan.ops import ssd_intra_chunk as jssd_intra_chunk
 from repro_torch.core import mixing as tmix
+from repro_torch.kernels.flash_attention import kernel as fkernel
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.gossip import kernel as gkernel
 from repro_torch.kernels.gossip.ops import gather_terms_kernel
 from repro_torch.kernels.gossip.ref import gather_terms_ref
 from repro_torch.kernels.pme_average import kernel as pkernel
 from repro_torch.kernels.pme_average.ops import pme_average
 from repro_torch.kernels.pme_average.ref import pme_average_ref
+from repro_torch.kernels.ssd_scan import kernel as skernel
+from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk
 
 from _torch_parity import to_np, to_t
 
@@ -167,3 +176,88 @@ def test_impl_resolution(monkeypatch):
     with pytest.raises(ValueError, match="bogus"):
         tmix.gather_terms(torch.zeros(2, 2, dtype=torch.int32),
                           [(torch.zeros(2, 2), torch.zeros(2, 3))], impl="bogus")
+
+
+# ---------------------------------------------------------------------------
+# flash attention and SSD intra-chunk: plain versions against JAX's kernels
+# (tolerances of tests/test_kernels.py: flash 2e-5 f32 / 2e-2 bf16, SSD 1e-4)
+# ---------------------------------------------------------------------------
+FLASH_SWEEP = [
+    (2, 64, 4, 2, 16, None, 32),
+    (1, 128, 4, 4, 32, None, 64),
+    (2, 64, 4, 2, 16, 24, 16),
+    (1, 64, 8, 1, 64, None, 32),   # extreme GQA
+    (1, 32, 2, 2, 8, 5, 16),       # window < block
+]
+SSD_SHAPES = [(2, 3, 16, 4, 8, 2, 8), (1, 2, 32, 2, 16, 1, 4), (1, 1, 8, 8, 4, 4, 16)]
+
+
+def _flash_inputs(b, s, h, kv, d, dtype):
+    rng = np.random.default_rng(s + h)
+    return [jnp.asarray(rng.standard_normal(shape), dtype)
+            for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d))]
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,win,blocks", FLASH_SWEEP)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_matches_jax(b, s, h, kv, d, win, blocks, dtype):
+    q, k, v = _flash_inputs(b, s, h, kv, d, getattr(jnp, dtype))
+    kernel = jflash(q, k, v, window=win, block_q=blocks, block_k=blocks)
+    ref = jattention_ref(q, k, v, window=win)
+    tq, tk, tv = to_t(q), to_t(k), to_t(v)
+    before = fkernel.flash_attention_cuda.launches
+    got = flash_attention(tq, tk, tv, window=win, block_q=blocks, block_k=blocks)
+    assert fkernel.flash_attention_cuda.launches == before
+    assert got.dtype == tq.dtype and tuple(got.shape) == q.shape
+    torch.testing.assert_close(got, attention_ref(tq, tk, tv, win), rtol=0, atol=0)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    for want in (kernel, ref):
+        np.testing.assert_allclose(to_np(got), np.asarray(want, np.float32), atol=tol)
+
+
+def test_flash_attention_wrapper_checks():
+    q = torch.zeros(1, 48, 2, 8)
+    with pytest.raises(ValueError, match="divisible by blocks"):
+        flash_attention(q, q, q, block_q=32, block_k=32)
+    with pytest.raises(RuntimeError, match="forward only"):
+        flash_attention(q.clone().requires_grad_(True), q, q)
+    with torch.no_grad():  # no grad mode: the same call is allowed
+        flash_attention(q.clone().requires_grad_(True), q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        fkernel.flash_attention_cuda(q, q, q)
+
+
+def _ssd_inputs(b, nc, l, h, p, g, n):
+    rng = np.random.default_rng(b * 100 + l)
+    xc = jnp.asarray(rng.standard_normal((b, nc, l, h, p)), jnp.float32)
+    dtc = jnp.asarray(rng.random((b, nc, l, h)) * 0.2 + 0.01, jnp.float32)
+    a = jnp.asarray(-np.exp(rng.standard_normal(h) * 0.2), jnp.float32)
+    cum = jnp.cumsum(dtc * a[None, None, None], axis=2)
+    bc = jnp.asarray(rng.standard_normal((b, nc, l, g, n)), jnp.float32)
+    cc = jnp.asarray(rng.standard_normal((b, nc, l, g, n)), jnp.float32)
+    return xc, dtc, cum, bc, cc
+
+
+@pytest.mark.parametrize("b,nc,l,h,p,g,n", SSD_SHAPES)
+def test_ssd_intra_chunk_plain_matches_jax(b, nc, l, h, p, g, n):
+    args = _ssd_inputs(b, nc, l, h, p, g, n)
+    y_k, st_k = jssd_intra_chunk(*args, h // g)
+    targs = [to_t(x) for x in args]
+    before = skernel.ssd_intra_chunk_cuda.launches
+    y, st = ssd_intra_chunk(*targs, h // g)
+    assert skernel.ssd_intra_chunk_cuda.launches == before
+    assert y.dtype == torch.float32 and st.dtype == torch.float32
+    np.testing.assert_allclose(to_np(y), np.asarray(y_k), atol=1e-4)
+    np.testing.assert_allclose(to_np(st), np.asarray(st_k), atol=1e-4)
+
+
+def test_ssd_intra_chunk_wrapper_checks():
+    targs = [to_t(x) for x in _ssd_inputs(1, 1, 8, 8, 4, 4, 16)]
+    with pytest.raises(RuntimeError, match="forward only"):
+        ssd_intra_chunk(targs[0].requires_grad_(True), *targs[1:], 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        skernel.ssd_intra_chunk_cuda(*targs, 2)
+    # the serving shape fits one block's shared memory, with the padded rows
+    assert skernel.smem_bytes(128, 64, 64) == 4 * (2 * 64 * 132 + 128 * 64 + 128 * 128 + 3 * 128)
+    # a 128-wide state only fits unpadded
+    assert skernel.smem_bytes(128, 64, 128) <= skernel.MAX_SMEM
