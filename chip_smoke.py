@@ -10,16 +10,19 @@ non-zero without the final result line:
 
   1. the card's name and power limit (nvidia-smi); build the four CUDA
      kernels from ``src/repro_torch/csrc`` (one nvcc per source, in
-     parallel);
+     parallel), with ptxas's registers, spills and shared memory of each
+     kernel and the dynamic shared memory of the tensor-core variants;
   2. each kernel against its plain PyTorch version on the card: gossip and
      PME average on small odd shapes (isolated node, star hub, NaN-poisoned
      padding, more receivers than one tile) and at the training paths'
      largest leaf [4, 276,824,064]; flash attention on the JAX tests'
-     sweep (f32, bf16) and at path C's [8, 2048, 32, 64] bf16; SSD
-     intra-chunk on the JAX tests' shapes and at path C's
-     [8, 16, 128, 64, 64] bf16.  Max error, kernel / plain / library
-     times (CUDA events, median) and the least time the card could take
-     (bound);
+     sweep (f32, bf16), on ragged, windowed, D = 128 and 40/8 GQA bf16
+     shapes and at path C's [8, 2048, 32, 64] bf16; SSD intra-chunk on the
+     JAX tests' shapes, on short-chunk and G > 1 bf16 shapes, at path C's
+     [8, 16, 128, 64, 64] bf16 and at mamba2-1.3b's N = 128.  Each row
+     names the variant it launched (tensor_cores or cuda_cores).  Max
+     error, kernel / plain / library times (CUDA events, median), the
+     least time the card could take (bound) and the share of it reached;
   3. path A: the trainer CLI, stablelm-1.6b at full width and depth, PaME
      with the sparse exchange, 4 nodes, 3 steps — the gossip kernel must
      launch 11 times a step;
@@ -32,6 +35,7 @@ non-zero without the final result line:
      layers) with both kernel flags, 4 node models, 8 prompts of 2048
      tokens, 32 generated, one round serving local models and one the
      consensus mean — flash must launch 7 and SSD 38 times per prefill,
+     all of them their tensor-core variants,
      every logit be finite and each node return [8, 32] tokens; then one
      node's prefill through the kernels and through the plain route: in
      f32 within 1e-3 (relative logit error), in bf16 no further from the
@@ -303,7 +307,7 @@ def _hold(kernel, case, got, want, plain_work, row):
 
 def check_flash(dev):
     import torch
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda, flash_variant
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     g = torch.Generator(device=dev).manual_seed(2)
@@ -315,7 +319,8 @@ def check_flash(dev):
         want = attention_ref(q.float(), k.float(), v.float(), win)
         plain = attention_ref(q, k, v, win) if dtype != torch.float32 else want
         torch.cuda.synchronize()
-        row = {"shape": [b, s, h, kv, d], "window": win, "dtype": str(dtype)}
+        row = {"shape": [b, s, h, kv, d], "window": win, "dtype": str(dtype),
+               "variant": flash_variant(dtype, d)}
         _hold("flash_attention", name, got, want, plain, row)
         del want, plain
         if reps:
@@ -328,6 +333,7 @@ def check_flash(dev):
             flops = 4 * b * h * d * (s * (s + 1) // 2)  # q.k and p.v, causal half
             bytes_ = (2 * q.numel() + 2 * k.numel()) * q.element_size()
             row["bound_ms"], row["bound_by"] = bound(bytes_, flops)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
             row["bound_ms_f32_cuda_cores"] = bound(bytes_, flops, F32_FLOPS)[0]
             row["flops"], row["bytes"] = flops, bytes_
         emit(**row)
@@ -338,6 +344,11 @@ def check_flash(dev):
         for shape in ((2, 64, 4, 2, 16, None), (1, 128, 4, 4, 32, None), (2, 64, 4, 2, 16, 24),
                       (1, 64, 8, 1, 64, None), (1, 32, 2, 2, 8, 5)):
             case(f"sweep-{shape}-{dtype}", *shape, dtype)
+    # the tensor-core variant: S not a multiple of a tile, a window inside
+    # one tile, D = 128, qwen3's 40/8 grouping
+    for shape in ((2, 300, 4, 2, 64, None), (1, 1000, 2, 1, 64, 5), (1, 200, 4, 4, 128, 70),
+                  (1, 130, 40, 8, 128, None)):
+        case(f"tc-{shape}", *shape, torch.bfloat16)
     row = case("path-c", 8, 2048, 32, 32, 64, None, torch.bfloat16, reps=10)
     free()
     return row
@@ -345,7 +356,7 @@ def check_flash(dev):
 
 def check_ssd(dev):
     import torch
-    from repro_torch.kernels.ssd_scan.kernel import ssd_intra_chunk_cuda
+    from repro_torch.kernels.ssd_scan.kernel import ssd_intra_chunk_cuda, ssd_variant
     from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
 
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -360,7 +371,8 @@ def check_ssd(dev):
         y_r, st_r = ssd_intra_chunk_ref(xc.float(), dtc, cum, bc.float(), cc.float(), h // g)
         y_p = ssd_intra_chunk_ref(xc, dtc, cum, bc, cc, h // g)[0] if dtype != torch.float32 else y_r
         torch.cuda.synchronize()
-        row = {"shape": [b, nc, l, h, p, g, n], "dtype": str(dtype)}
+        row = {"shape": [b, nc, l, h, p, g, n], "dtype": str(dtype),
+               "variant": ssd_variant(dtype, l, p, n)}
         _hold("ssd_intra_chunk", name, y, y_r, y_p, row)
         st_err = (st - st_r).abs().max().item()
         row["state_max_abs_err"] = st_err
@@ -378,6 +390,7 @@ def check_ssd(dev):
             bytes_ = (2 * xc.numel() + 2 * bc.numel()) * xc.element_size() \
                 + 2 * dtc.numel() * 4 + st.numel() * 4
             row["bound_ms"], row["bound_by"] = bound(bytes_, flops)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
             row["bound_ms_f32_cuda_cores"] = bound(bytes_, flops, F32_FLOPS)[0]
             row["flops"], row["bytes"] = flops, bytes_
         emit(**row)
@@ -386,7 +399,13 @@ def check_ssd(dev):
     for dtype in (torch.float32, torch.bfloat16):
         for shape in ((2, 3, 16, 4, 8, 2, 8), (1, 2, 32, 2, 16, 1, 4), (1, 1, 8, 8, 4, 4, 16)):
             case(f"jax-{shape}-{dtype}", *shape, dtype)
+    # the tensor-core variant: a short chunk, G > 1, P = 128 with N = 48
+    for shape in ((1, 3, 64, 4, 64, 1, 64), (2, 2, 128, 8, 32, 2, 32), (1, 2, 112, 4, 128, 2, 48)):
+        case(f"tc-{shape}", *shape, torch.bfloat16)
     row = case("path-c", 8, 16, 128, 64, 64, 1, 64, torch.bfloat16, reps=10)
+    free()
+    # mamba2-1.3b's chunk: the same heads with a 128-wide state
+    case("mamba2-1.3b-n128", 8, 16, 128, 64, 64, 1, 128, torch.bfloat16, reps=10)
     free()
     return row
 
@@ -569,27 +588,34 @@ def path_c(dev):
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     flash_attention_cuda.launches = ssd_intra_chunk_cuda.launches = 0
+    flash_attention_cuda.variant_launches = dict.fromkeys(flash_attention_cuda.variant_launches, 0)
+    ssd_intra_chunk_cuda.variant_launches = dict.fromkeys(ssd_intra_chunk_cuda.variant_launches, 0)
+    tc = lambda fn: fn.variant_launches["tensor_cores"]  # noqa: E731
     rounds = {}
     for policy in ("local", "consensus"):
-        f0, s0 = flash_attention_cuda.launches, ssd_intra_chunk_cuda.launches
+        f0, s0 = tc(flash_attention_cuda), tc(ssd_intra_chunk_cuda)
+        n0 = flash_attention_cuda.launches + ssd_intra_chunk_cuda.launches
         t = time.perf_counter()
         stats = loop.serve_round(stacked, [0, 1, 2, 3], policy=policy)
         secs = time.perf_counter() - t
-        per = {"flash": flash_attention_cuda.launches - f0, "ssd": ssd_intra_chunk_cuda.launches - s0}
+        per = {"flash": tc(flash_attention_cuda) - f0, "ssd": tc(ssd_intra_chunk_cuda) - s0}
+        others = flash_attention_cuda.launches + ssd_intra_chunk_cuda.launches - n0 \
+            - per["flash"] - per["ssd"]
         shapes = sorted({tuple(st["tokens"].shape) for st in stats.values()})
         rounds[policy] = {
-            "seconds": secs, "launches": per, "token_shapes": shapes,
+            "seconds": secs, "launches": per, "cuda_core_launches": others, "token_shapes": shapes,
             "prefill_ms": [st["prefill_ms"] for st in stats.values()],
             "decode_ms_per_token": [st["decode_ms"] / (SERVE["gen"] - 1) for st in stats.values()],
             "tokens_per_s": [st["tokens_per_s"] for st in stats.values()],
         }
         emit(phase="path_c", policy=policy, **rounds[policy])
-        if per != {"flash": M * FLASH_SITES, "ssd": M * MAMBA_LAYERS}:
+        if per != {"flash": M * FLASH_SITES, "ssd": M * MAMBA_LAYERS} or others:
             fail(f"path C ({policy}): expected {FLASH_SITES} flash and {MAMBA_LAYERS} SSD "
-                 f"launches per prefill, {M} prefills; got {per}")
+                 f"launches per prefill of the tensor-core variants, {M} prefills; got {per} "
+                 f"and {others} of the CUDA-core variants")
         if shapes != [(SERVE["batch"], SERVE["gen"])]:
             fail(f"path C ({policy}): expected [{SERVE['batch']}, {SERVE['gen']}] tokens per node")
-    launches = {"flash": flash_attention_cuda.launches, "ssd": ssd_intra_chunk_cuda.launches}
+    launches = {"flash": tc(flash_attention_cuda), "ssd": tc(ssd_intra_chunk_cuda)}
     finite = bool(loop.finite)
     peak = torch.cuda.max_memory_allocated()
     emit(phase="path_c_done", params_per_node=n_params, depth=cfg.n_layers, setup_s=setup_s,
@@ -660,9 +686,17 @@ def main():
     emit(phase="env", gpu=smi, torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0))
     build_s = _build.build()
-    ptxas = {k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
+    ptxas = {k: [ln.strip() for ln in v.splitlines()
+                 if "entry function" in ln or "registers" in ln or "spill" in ln]
              for k, v in _build.BUILD_LOG.items()}
-    emit(phase="build", seconds=build_s, ptxas=ptxas)
+    from repro_torch.kernels.flash_attention.kernel import tc_smem_bytes as flash_smem
+    from repro_torch.kernels.ssd_scan.kernel import tc_smem_bytes as ssd_smem
+
+    # dynamic shared memory of a tensor-core block (ptxas counts static only)
+    smem = {"flash_tc_kernel<64>": flash_smem(64), "flash_tc_kernel<128>": flash_smem(128),
+            "ssd_tc_kernel path C": ssd_smem(128, 64, 64),
+            "ssd_tc_kernel mamba2-1.3b": ssd_smem(128, 64, 128)}
+    emit(phase="build", seconds=build_s, ptxas=ptxas, tc_dynamic_smem_bytes=smem)
 
     t = time.perf_counter()
     gossip = check_gossip(dev)
@@ -685,11 +719,14 @@ def main():
     emit(phase="path_c_total", seconds=time.perf_counter() - t)
 
     def entry(name, source, replaces, launches, row):
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
-                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"]}
+        e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "launches": launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+             "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
+             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+             "library_ms": row["library_ms"]}
+        if "variant" in row:
+            e["variant"] = row["variant"]
+        return e
 
     kernels = [
         entry("gossip_gather", "src/repro_torch/csrc/gossip_gather.cu",

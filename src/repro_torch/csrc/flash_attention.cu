@@ -16,11 +16,39 @@
 // What bounds it on an H100: operations.  The causal half of the two
 // products is 2 * B * H * D * S^2 flops (137 GFLOP at B = 8, S = 2048,
 // H = 32, D = 64) against 4 * B * S * H * D * |type| bytes, some 500
-// operations a byte.  The least time is that work at the bf16 tensor-core
-// peak; this first kernel runs it in f32 FMAs on the CUDA cores (the Pallas
-// kernel's f32 arithmetic), whose peak is 67 TFLOP/s, not 989.
+// operations a byte: the least time is that work at the bf16 tensor-core
+// peak.  Two variants, chosen by the caller from the type and D alone
+// (kernels/flash_attention/kernel.py, flash_variant):
 //
-// Design.  The TPU grid's sequential kv axis becomes a loop inside the
+// tensor_cores (bf16, D in {64, 128}): an mma.sync design, not wgmma.  One
+// block of 8 warps per (128-row query tile, head, batch), heaviest tiles
+// first; each warp owns 16 query rows, whose q stays in registers as mma A
+// fragments for the whole kv loop.  K and V tiles of 64 keys are copied as
+// bf16 by 16-byte cp.async into a ring of two stages (rows padded by 16
+// bytes, so ldmatrix's eight row addresses fall in eight bank groups): tile
+// k + 1 is in flight while tile k is multiplied, one __syncthreads a tile.
+// A warp scores 64 keys (32 with a window) at a time, S = q K^T by
+// mma.m16n8k16 bf16 -> f32 (exact products, f32 sums), and runs the online
+// softmax on the accumulator fragments: p = 2^(s c - m c) with
+// c = scale * log2 e, one FFMA and one ex2 a score; the row max and sum
+// meet across the 4 lanes of a row by __shfl_xor_sync.  A masked score is
+// -inf, its weight exactly 0, where the Pallas kernel's NEG_INF gives
+// weights that a later rescale zeroes: the same sums.  P stays in
+// registers: its C fragments are the A fragments of O += P V, V read by
+// ldmatrix.trans.  Rounding P to bf16 would cost up to 2^-9 of each weight,
+// some 20 bf16 ulps of the output's floored scale at S = 512 to 2048, so P
+// is split into bf16 hi + lo and P V takes two products (about 2^-18 of
+// each weight; 1.5x the products' operations).  A warp skips keys wholly
+// above its diagonal or before its window and masks only those that cross
+// either; keys and queries past S are zero-filled.  D = 64 fits 128
+// registers a thread, so two blocks (16 warps) share an SM, one block's
+// softmax overlapping the other's products.  What bounds it: the mma.sync
+// rate and the ldmatrix traffic of every warp reading whole K and V tiles
+// (wgmma with TMA would share them across a warpgroup), then the ex2 and
+// the split of every score.
+//
+// cuda_cores (f32 any D, bf16 other D): the first design, kept for the f32
+// parity paths.  The TPU grid's sequential kv axis becomes a loop inside the
 // block: one block per (query tile, head, batch), blocks of the latest
 // (heaviest) query tiles launched first.  Each query row belongs to TPR
 // neighbouring threads, each owning DP = min(D, 32) of its dims in 4-wide
@@ -31,11 +59,14 @@
 // shared memory as f32; only tiles of the causal / window band are loaded,
 // and a thread skips each 16-key sub-tile that lies wholly above its row's
 // diagonal or before its window, as the Pallas kernel skips whole blocks.
-// Sixteen scores are taken before one rescale of the accumulator.
+// Sixteen scores are taken before one rescale of the accumulator; f32 FMAs
+// on the CUDA cores, whose peak is 67 TFLOP/s, not 989.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -198,18 +229,298 @@ int dispatch_d(const void* q, const void* k, const void* v, void* out, int B,
   }
 }
 
+// ---------------------------------------------------------------------------
+// tensor_cores variant (bf16, D in {64, 128})
+// ---------------------------------------------------------------------------
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+using namespace mma_bf16;
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int BQ = 16 * kWarps;  // query rows of a block, 16 a warp
+constexpr int BK = 64;           // keys of a tile
+constexpr int kStages = 2;       // K/V tiles in flight: the ring's length
+
+template <int D>
+struct Shape {
+  static constexpr int LD = D + 8;         // shared row, elements (16-byte pad)
+  static constexpr int TILE = BK * LD;     // one K or V tile, elements
+  static constexpr int STAGE = 2 * TILE;   // K then V
+  static constexpr int SMEM = kStages * STAGE * static_cast<int>(sizeof(bf16));
+  static constexpr int CH = D / 8;         // 16-byte chunks of a row
+  // q is staged in the last stage (read into registers before that stage's
+  // first K/V tile is copied), the output in the first one
+  static_assert(BQ * LD <= STAGE, "a query tile must fit one stage");
+  static_assert(kThreads % CH == 0 && BK % (kThreads / CH) == 0, "whole copy passes");
+};
+
+template <int D, bool kWindow>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
+flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ out, int S, int H,
+                int KV, int window, float scale_log2) {
+  using Sh = Shape<D>;
+  constexpr int LD = Sh::LD, CH = Sh::CH, KD = D / 16, ND = D / 8;
+  // keys scored before one softmax update: 64, or 32 where the window's
+  // checks would otherwise push D = 64 past 128 registers (2 blocks an SM)
+  constexpr int SUB = kWindow ? 32 : 64;
+  constexpr int NS = SUB / 8;  // n8 tiles of scores a warp holds
+  static_assert(BK % SUB == 0 && SUB % 16 == 0, "whole sub-tiles of 16-key steps");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sm = reinterpret_cast<bf16*>(smem_raw);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int qtile = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int q_lo = qtile * BQ;
+  // offsets within one batch row fit 32 bits (S * H * D < 2^31, checked by
+  // the entry point)
+  const int q_step = H * D, kv_step = KV * D;  // between positions
+  const bf16* qb = q + static_cast<int64_t>(b) * S * q_step + h * D;
+  bf16* ob = out + static_cast<int64_t>(b) * S * q_step + h * D;
+  const bf16* kb = k + static_cast<int64_t>(b) * S * kv_step + kvh * D;
+  const bf16* vb = v + static_cast<int64_t>(b) * S * kv_step + kvh * D;
+
+  const int k_end = min(S, q_lo + BQ);  // keys past the tile's last row are masked
+  int k_begin = kWindow ? max(0, q_lo - window + 1) : 0;
+  k_begin -= k_begin % BK;
+  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
+
+  // byte addresses in shared memory; each lane's ldmatrix row within a
+  // 16 x 16 block, so that every fragment's address is one of these plus a
+  // constant: q and K (rows j, no .trans), V (.trans)
+  const uint32_t s_base = smem_addr(sm);
+  const int a_lane = (lane % 16) * LD + 8 * (lane / 16);
+  const int k_lane = ((lane & 7) + 8 * (lane >> 4)) * LD + 8 * ((lane >> 3) & 1);
+  const int v_lane = ((lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 8 * (lane >> 4);
+  constexpr int kB = static_cast<int>(sizeof(bf16));
+
+  // copies: a thread moves 16-byte chunk ld_c of rows ld_r, ld_r + RPP, ...
+  constexpr int RPP = kThreads / CH;  // rows the block copies in one pass
+  const int ld_r = tid / CH, ld_c = 8 * (tid % CH);
+  const uint32_t ld_dst = s_base + (ld_r * LD + ld_c) * kB;
+
+  // K and V rows of tile `it` into stage it % kStages; keys past S read as 0
+  auto load_tile = [&](int it) {
+    const uint32_t dst = ld_dst + (it % kStages) * Sh::STAGE * kB;
+    const int j0 = k_begin + it * BK + ld_r;
+#pragma unroll
+    for (int u = 0; u < BK / RPP; ++u) {
+      const int j = j0 + u * RPP;
+      const bool in = j < S;
+      const int off = (in ? j : 0) * kv_step + ld_c;
+      cp_async16(dst + u * RPP * LD * kB, kb + off, in);
+      cp_async16(dst + (Sh::TILE + u * RPP * LD) * kB, vb + off, in);
+    }
+  };
+
+#pragma unroll
+  for (int u = 0; u < BQ / RPP; ++u) {
+    const int i = q_lo + ld_r + u * RPP;
+    const bool in = i < S;
+    cp_async16(ld_dst + ((kStages - 1) * Sh::STAGE + u * RPP * LD) * kB,
+               qb + (in ? i : 0) * q_step + ld_c, in);
+  }
+  load_tile(0);
+  cp_async_commit();
+#pragma unroll
+  for (int st = 1; st < kStages - 1; ++st) {
+    if (st < n_tiles) load_tile(st);
+    cp_async_commit();
+  }
+  cp_async_wait<kStages - 2>();
+  __syncthreads();
+  uint32_t qa[KD][4];  // this warp's 16 rows of q, as A fragments
+  {
+    const uint32_t qa_addr = s_base + ((kStages - 1) * Sh::STAGE + 16 * warp * LD + a_lane) * kB;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) ldmatrix_x4(qa[kd], qa_addr + 16 * kd * kB);
+  }
+
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // rows g and g + 8
+  const int row_min = q_lo + 16 * warp, row_max = row_min + 15;
+  const int i0 = row_min + g, i1 = i0 + 8;
+  const float minus_inf = -__int_as_float(0x7f800000);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<kStages - 2>();  // tile `it` has landed (this thread's copies)
+    __syncthreads();               // ... everyone's, and stage (it - 1) is free
+    if (it + kStages - 1 < n_tiles) load_tile(it + kStages - 1);
+    cp_async_commit();
+    const uint32_t stage = s_base + (it % kStages) * Sh::STAGE * kB;
+#pragma unroll
+    for (int sub = 0; sub < BK / SUB; ++sub) {
+      const int k0 = k_begin + it * BK + sub * SUB;
+      // wholly above this warp's diagonal, or wholly before its window
+      if (k0 > row_max || (kWindow && k0 + SUB - 1 <= row_min - window)) continue;
+      const uint32_t k_addr = stage + (sub * SUB * LD + k_lane) * kB;
+      const uint32_t v_addr = stage + (Sh::TILE + sub * SUB * LD + v_lane) * kB;
+
+      float s[NS][4];
+#pragma unroll
+      for (int c = 0; c < NS; ++c) s[c][0] = s[c][1] = s[c][2] = s[c][3] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd)
+#pragma unroll
+        for (int p = 0; p < NS / 2; ++p) {
+          uint32_t r[4];
+          ldmatrix_x4(r, k_addr + (16 * p * LD + 16 * kd) * kB);
+          mma(s[2 * p], qa[kd], r[0], r[1]);
+          mma(s[2 * p + 1], qa[kd], r[2], r[3]);
+        }
+
+      // mask only keys that cross the diagonal or the window's edge for
+      // some row of this warp; a masked score is -inf, so its weight is 0
+      if (k0 + SUB - 1 > row_min || (kWindow && row_max - k0 >= window)) {
+#pragma unroll
+        for (int c = 0; c < NS; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e < 2 ? i0 : i1, j = k0 + 8 * c + 2 * t + (e & 1);
+            if (j > i || (kWindow && i - j >= window)) s[c][e] = minus_inf;
+          }
+      }
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int c = 0; c < NS; ++c) {
+        mx0 = fmaxf(mx0, fmaxf(s[c][0], s[c][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[c][2], s[c][3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      // The max starts at NEG_INF (finite), so it stays finite while a row
+      // has seen only masked keys, and those keys' weights are exactly 0;
+      // the Pallas kernel gives them exp(0) = 1 and rescales them by 0 at
+      // the row's first real key, which every row reaches (j = i): the same
+      // sums.  Scores stay unscaled: p = 2^(s c - m c), c = scale log2(e).
+      const float a0 = ex2((m0 - mx0) * scale_log2), a1 = ex2((m1 - mx1) * scale_log2);
+      const float mc0 = mx0 * scale_log2, mc1 = mx1 * scale_log2;
+      m0 = mx0;
+      m1 = mx1;
+      l0 *= a0;
+      l1 *= a1;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        o[n][0] *= a0;
+        o[n][1] *= a0;
+        o[n][2] *= a1;
+        o[n][3] *= a1;
+      }
+#pragma unroll
+      for (int c = 0; c < NS; ++c) {
+        s[c][0] = ex2(fmaf(s[c][0], scale_log2, -mc0));
+        s[c][1] = ex2(fmaf(s[c][1], scale_log2, -mc0));
+        s[c][2] = ex2(fmaf(s[c][2], scale_log2, -mc1));
+        s[c][3] = ex2(fmaf(s[c][3], scale_log2, -mc1));
+        l0 += s[c][0] + s[c][1];
+        l1 += s[c][2] + s[c][3];
+      }
+
+      // O += P V with P = hi + lo (two bf16 products)
+#pragma unroll
+      for (int kj = 0; kj < SUB / 16; ++kj) {
+        uint32_t ph[4], pl[4];
+        ph[0] = split(s[2 * kj][0], s[2 * kj][1]);
+        ph[1] = split(s[2 * kj][2], s[2 * kj][3]);
+        ph[2] = split(s[2 * kj + 1][0], s[2 * kj + 1][1]);
+        ph[3] = split(s[2 * kj + 1][2], s[2 * kj + 1][3]);
+        pl[0] = pack(s[2 * kj][0], s[2 * kj][1]);
+        pl[1] = pack(s[2 * kj][2], s[2 * kj][3]);
+        pl[2] = pack(s[2 * kj + 1][0], s[2 * kj + 1][1]);
+        pl[3] = pack(s[2 * kj + 1][2], s[2 * kj + 1][3]);
+#pragma unroll
+        for (int dq = 0; dq < ND / 2; ++dq) {
+          uint32_t r[4];
+          ldmatrix_x4_trans(r, v_addr + (16 * kj * LD + 16 * dq) * kB);
+          mma(o[2 * dq], pl, r[0], r[1]);
+          mma(o[2 * dq], ph, r[0], r[1]);
+          mma(o[2 * dq + 1], pl, r[2], r[3]);
+          mma(o[2 * dq + 1], ph, r[2], r[3]);
+        }
+      }
+    }
+  }
+
+  // epilogue: out = O / max(l, 1e-30), staged in stage 0 for 16-byte stores
+  cp_async_wait<0>();
+  __syncthreads();
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  bf16* os = sm + 16 * warp * LD;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    *reinterpret_cast<uint32_t*>(os + g * LD + 8 * n + 2 * t) = pack(o[n][0] / d0, o[n][1] / d0);
+    *reinterpret_cast<uint32_t*>(os + (g + 8) * LD + 8 * n + 2 * t) =
+        pack(o[n][2] / d1, o[n][3] / d1);
+  }
+  __syncwarp();
+  for (int e = lane; e < 16 * CH; e += 32) {
+    const int r = e / CH, c = e % CH, i = row_min + r;
+    if (i < S)
+      *reinterpret_cast<uint4*>(ob + i * q_step + c * 8) =
+          *reinterpret_cast<const uint4*>(os + r * LD + c * 8);
+  }
+}
+
+template <int D, bool kWindow>
+int launch_w(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
+             int KV, int window, float scale, cudaStream_t s) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_tc_kernel<D, kWindow>, cudaFuncAttributeMaxDynamicSharedMemorySize, Shape<D>::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + BQ - 1) / BQ, H, B);
+  flash_tc_kernel<D, kWindow><<<grid, kThreads, Shape<D>::SMEM, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), S, H, KV, window, scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
+           int KV, int window, float scale, cudaStream_t s) {
+  return window > 0 ? launch_w<D, true>(q, k, v, out, B, S, H, KV, window, scale, s)
+                    : launch_w<D, false>(q, k, v, out, B, S, H, KV, window, scale, s);
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // q, out [B, S, H, D]; k, v [B, S, KV, D]; all contiguous, of type `dtype`
-// (0 float32, 1 bfloat16).  D in {8, 16, 32, 64, 128, 256}; H a multiple of
-// KV; window <= 0 means full causal.  Launches on `stream`, allocates
-// nothing, does not synchronise.  Returns cudaGetLastError() (0 = launched).
+// (0 float32, 1 bfloat16).  `variant` 0 (cuda_cores) takes D in {8, 16, 32,
+// 64, 128, 256}; 1 (tensor_cores) takes bfloat16 with D in {64, 128} and
+// S * H * D < 2^31.  H a multiple of KV; window <= 0 means full causal.  Launches on `stream`,
+// allocates nothing, does not synchronise.  Returns cudaGetLastError()
+// (0 = launched); a variant that does not take the type or D is refused.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int B, int S, int H, int KV, int D,
-                               int window, float scale, int dtype, void* stream) {
+                               int window, float scale, int dtype, int variant,
+                               void* stream) {
   if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
+  if (variant == 1) {
+    if (dtype != 1 || static_cast<int64_t>(S) * H * D > INT32_MAX)
+      return static_cast<int>(cudaErrorInvalidValue);
+    switch (D) {
+      case 64: return tc::launch<64>(q, k, v, out, B, S, H, KV, window, scale, s);
+      case 128: return tc::launch<128>(q, k, v, out, B, S, H, KV, window, scale, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
     case 0: return dispatch_d<float>(q, k, v, out, B, S, H, KV, D, window, scale, s);
     case 1: return dispatch_d<__nv_bfloat16>(q, k, v, out, B, S, H, KV, D, window, scale, s);

@@ -7,9 +7,10 @@ plain C interface (no PyTorch headers), compiled by ``nvcc`` for Hopper:
          -Xcompiler -fPIC -o build/repro_torch_kernels/<name>-<hash>.so <src>
 
 into ``build/repro_torch_kernels/`` at the repository root (listed in
-``.gitignore``).  The library's file name carries a hash of the source, so
-an edited kernel is rebuilt and a built one is reused.  A failing ``nvcc``
-raises with its stderr.  Nothing here runs at import time: the CPU tests
+``.gitignore``).  The library's file name carries a hash of the source and
+of every header under ``csrc/`` it includes (``mma_bf16.cuh``), so an
+edited kernel or header is rebuilt and a built one is reused.  A failing
+``nvcc`` raises with its stderr.  Nothing here runs at import time: the CPU tests
 import every module on a machine without ``nvcc``.
 """
 from __future__ import annotations
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -46,10 +48,29 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(src: Path) -> List[Path]:
+    """`src` and the headers beside it that it includes, directly or through
+    another header (system headers in <> are not followed)."""
+    seen: List[Path] = []
+    todo = [src]
+    while todo:
+        f = todo.pop()
+        if f in seen:
+            continue
+        seen.append(f)
+        todo += [f.parent / h for h in _INCLUDE.findall(f.read_text())
+                 if (f.parent / h).is_file()]
+    return seen
+
+
+def _target(name: str, csrc: Path = CSRC) -> Path:
+    digest = hashlib.sha256()
+    for f in _sources(csrc / f"{name}.cu"):
+        digest.update(f.name.encode() + b"\0" + f.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = KERNELS) -> float:

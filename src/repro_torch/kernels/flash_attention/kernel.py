@@ -3,7 +3,10 @@
 Replaces ``src/repro/kernels/flash_attention/kernel.py::flash_attention_pallas``;
 see the source for the design and what bounds it.  `flash_attention_cuda`
 takes CUDA tensors only, checks them, allocates the output and launches on
-the current stream.  ``flash_attention_cuda.launches`` counts its launches.
+the current stream one of the source's two variants, which `flash_variant`
+picks from the type and head dim alone.  ``flash_attention_cuda.launches``
+counts its launches, ``flash_attention_cuda.variant_launches`` the same
+launches by variant.
 """
 from __future__ import annotations
 
@@ -15,7 +18,29 @@ import torch
 from repro_torch.kernels import _build
 
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the cuda_cores variant's
+TC_HEAD_DIMS = (64, 128)               # the tensor_cores variant's (bf16 only)
+VARIANTS = {"cuda_cores": 0, "tensor_cores": 1}  # the C entry point's codes
+
+
+def tc_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one tensor-core block: two stages of a
+    64-key K and V tile in bf16, rows padded by 8 elements
+    (``tc::Shape<D>::SMEM`` in the source)."""
+    return 2 * 2 * 64 * (d + 8) * 2
+
+
+def flash_variant(dtype: torch.dtype, d: int) -> str:
+    """The variant a call of this type and head dim launches: bf16 with
+    D in `TC_HEAD_DIMS` takes the tensor cores, f32 and the other D of
+    `HEAD_DIMS` the CUDA cores; anything else raises."""
+    if dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
+        return "tensor_cores"
+    if dtype not in _TYPES:
+        raise TypeError(f"unsupported type {dtype}; the kernel takes {tuple(_TYPES)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not supported; the kernel takes {HEAD_DIMS}")
+    return "cuda_cores"
 
 
 def _bind():
@@ -23,7 +48,7 @@ def _bind():
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -45,10 +70,12 @@ def flash_attention_cuda(
     kv = k.shape[2]
     if k.shape[0] != b or k.shape[1] != s or k.shape[3] != d or h % kv:
         raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not supported; the kernel takes {HEAD_DIMS}")
-    if q.dtype not in _TYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"unsupported types: q {q.dtype}, k {k.dtype}, v {v.dtype}")
+    variant = flash_variant(q.dtype, d)
+    if variant == "tensor_cores" and s * h * d >= 2 ** 31:
+        raise ValueError(f"the tensor-core kernel indexes a batch row of q in 32 bits: "
+                         f"S * H * D = {s * h * d} must be below 2^31")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
     if window is not None and window < 1:
@@ -59,12 +86,14 @@ def flash_attention_cuda(
         return out
     rc = _bind()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, kv, d,
-        window or 0, d ** -0.5, _TYPES[q.dtype],
+        window or 0, d ** -0.5, _TYPES[q.dtype], VARIANTS[variant],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(rc, "flash_attention")
+    _build.check(rc, f"flash_attention ({variant})")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.variant_launches[variant] += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.variant_launches = dict.fromkeys(VARIANTS, 0)

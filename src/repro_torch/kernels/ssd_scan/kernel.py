@@ -3,7 +3,10 @@
 Replaces ``src/repro/kernels/ssd_scan/kernel.py::ssd_intra_chunk_pallas``;
 see the source for the design and what bounds it.  `ssd_intra_chunk_cuda`
 takes CUDA tensors only, checks them, allocates the outputs and launches on
-the current stream.  ``ssd_intra_chunk_cuda.launches`` counts its launches.
+the current stream one of the source's two variants, which `ssd_variant`
+picks from the type and shape alone.  ``ssd_intra_chunk_cuda.launches``
+counts its launches, ``ssd_intra_chunk_cuda.variant_launches`` the same
+launches by variant.
 """
 from __future__ import annotations
 
@@ -17,12 +20,13 @@ from repro_torch.kernels import _build
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 128
 MAX_SMEM = 232448  # an H100 block's dynamic shared memory limit, bytes
+VARIANTS = {"cuda_cores": 0, "tensor_cores": 1}  # the C entry point's codes
 
 
 def smem_bytes(l: int, p: int, n: int) -> int:
-    """Shared memory one block takes (the layout of ``ssd_intra_chunk.cu``:
-    B and C transposed with a padded row where it fits, x, W, dt, cum and
-    the decay, all f32)."""
+    """Shared memory one block of the cuda_cores variant takes (B and C
+    transposed with a padded row where it fits, x, W, dt, cum and the
+    decay, all f32)."""
     lp = -(-l // 4) * 4
     rest = lp * p + lp * lp + 3 * lp
     sl = lp + 4 if (lp // 4) % 2 == 0 else lp
@@ -31,10 +35,37 @@ def smem_bytes(l: int, p: int, n: int) -> int:
     return 4 * (2 * n * sl + rest)
 
 
+def tc_smem_bytes(l: int, p: int, n: int) -> int:
+    """Shared memory one block of the tensor_cores variant takes: x, B and C
+    in bf16 with rows padded by 8 elements, then dt, cum and the decay in
+    f32 (``tc::smem_bytes`` in the source)."""
+    return 2 * (l * (p + 8) + 2 * l * (n + 8)) + 3 * 4 * l
+
+
+def ssd_variant(dtype: torch.dtype, l: int, p: int, n: int) -> str:
+    """The variant a call of this type and chunk shape launches: bf16 with
+    L and P multiples of 16 up to 128 and N a multiple of 16 takes the
+    tensor cores; f32, and bf16 with L <= 128 and P, N multiples of 4, the
+    CUDA cores; anything else (or a chunk that fits no block's shared
+    memory) raises."""
+    if dtype not in _TYPES:
+        raise TypeError(f"unsupported type {dtype}; the kernel takes {tuple(_TYPES)}")
+    if (dtype == torch.bfloat16 and l % 16 == 0 and p % 16 == 0 and n % 16 == 0
+            and l <= MAX_CHUNK and p <= 128 and tc_smem_bytes(l, p, n) <= MAX_SMEM):
+        return "tensor_cores"
+    if l > MAX_CHUNK or p % 4 or n % 4:
+        raise ValueError(f"the kernel takes L <= {MAX_CHUNK} and P, N multiples of 4; "
+                         f"got L={l}, P={p}, N={n}")
+    if smem_bytes(l, p, n) > MAX_SMEM:
+        raise ValueError(f"a chunk of L={l}, P={p}, N={n} needs {smem_bytes(l, p, n)} "
+                         f"bytes of shared memory, above the card's {MAX_SMEM}")
+    return "cuda_cores"
+
+
 def _bind():
     fn = _build.load("ssd_intra_chunk").ssd_intra_chunk
-    # xc, dtc, cum, bc, cc, y, state; B, Nc, L, H, P, G, N; dtype; stream
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_int, ctypes.c_void_p]
+    # xc, dtc, cum, bc, cc, y, state; B, Nc, L, H, P, G, N; dtype; variant; stream
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -59,14 +90,9 @@ def ssd_intra_chunk_cuda(
         raise ValueError("xc, dtc, cum, bc and cc disagree on [B, Nc, L(, H)]")
     if g * rep != h:
         raise ValueError(f"H = {h} heads must be G = {g} groups x rep = {rep}")
-    if l > MAX_CHUNK or p % 4 or n % 4:
-        raise ValueError(f"the kernel takes L <= {MAX_CHUNK} and P, N multiples of 4; "
-                         f"got L={l}, P={p}, N={n}")
-    if smem_bytes(l, p, n) > MAX_SMEM:
-        raise ValueError(f"a chunk of L={l}, P={p}, N={n} needs {smem_bytes(l, p, n)} "
-                         f"bytes of shared memory, above the card's {MAX_SMEM}")
-    if xc.dtype not in _TYPES or bc.dtype != xc.dtype or cc.dtype != xc.dtype:
+    if bc.dtype != xc.dtype or cc.dtype != xc.dtype:
         raise TypeError(f"unsupported types: xc {xc.dtype}, bc {bc.dtype}, cc {cc.dtype}")
+    variant = ssd_variant(xc.dtype, l, p, n)
     if dtc.dtype != torch.float32 or cum.dtype != torch.float32:
         raise TypeError("dtc and cum must be float32")
     if any(t.device != xc.device for t in (dtc, cum, bc, cc)):
@@ -79,11 +105,13 @@ def ssd_intra_chunk_cuda(
     rc = _bind()(
         xc.data_ptr(), dtc.data_ptr(), cum.data_ptr(), bc.data_ptr(), cc.data_ptr(),
         y.data_ptr(), state.data_ptr(), b, nc, l, h, p, g, n, _TYPES[xc.dtype],
-        torch.cuda.current_stream(xc.device).cuda_stream,
+        VARIANTS[variant], torch.cuda.current_stream(xc.device).cuda_stream,
     )
-    _build.check(rc, "ssd_intra_chunk")
+    _build.check(rc, f"ssd_intra_chunk ({variant})")
     ssd_intra_chunk_cuda.launches += 1
+    ssd_intra_chunk_cuda.variant_launches[variant] += 1
     return y, state
 
 
 ssd_intra_chunk_cuda.launches = 0
+ssd_intra_chunk_cuda.variant_launches = dict.fromkeys(VARIANTS, 0)

@@ -164,6 +164,55 @@ def test_ssd_intra_chunk_kernel(dev, b, nc, l, h, p, g, n, dtype):
         assert _bf16_ulps_floored(y, y_r) <= 1.0
 
 
+# the tensor-core variants: D = 64 and 128, S not a multiple of the 128-row
+# query tile or the 64-key tile, a window inside one tile, qwen3's 40/8 GQA
+TC_FLASH_CASES = [
+    (2, 256, 4, 2, 64, None), (1, 256, 2, 2, 128, None), (2, 100, 4, 2, 64, None),
+    (1, 1000, 2, 1, 64, None), (1, 1000, 2, 2, 128, 37), (1, 300, 4, 4, 64, 5),
+    (1, 200, 40, 8, 128, None), (1, 130, 40, 8, 64, 70),
+]
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,win", TC_FLASH_CASES)
+def test_flash_attention_tensor_core_variant(dev, b, s, h, kv, d, win):
+    g = torch.Generator(device=dev).manual_seed(s + h + d + (win or 0))
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+               for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
+    assert fkernel.flash_variant(q.dtype, d) == "tensor_cores"
+    before = fkernel.flash_attention_cuda.variant_launches["tensor_cores"]
+    out = fkernel.flash_attention_cuda(q, k, v, window=win)
+    torch.cuda.synchronize()
+    assert fkernel.flash_attention_cuda.variant_launches["tensor_cores"] == before + 1
+    want = attention_ref(q.float(), k.float(), v.float(), win)
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    assert _bf16_ulps_floored(out, want) <= 1.0
+
+
+# the tensor-core variant: L = 128 with N = 64 and 128, chunks shorter than
+# 128, G > 1, P = 128
+TC_SSD_CASES = [(2, 3, 128, 4, 64, 1, 64), (1, 2, 128, 4, 64, 1, 128), (1, 3, 64, 4, 64, 1, 64),
+                (2, 2, 48, 6, 32, 3, 16), (1, 2, 128, 8, 32, 2, 32), (1, 1, 112, 4, 128, 2, 48)]
+
+
+@pytest.mark.parametrize("b,nc,l,h,p,g,n", TC_SSD_CASES)
+def test_ssd_intra_chunk_tensor_core_variant(dev, b, nc, l, h, p, g, n):
+    gen = torch.Generator(device=dev).manual_seed(b * 100 + l + n)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    xc = rnd(b, nc, l, h, p).to(torch.bfloat16)
+    dtc = torch.rand((b, nc, l, h), generator=gen, device=dev) * 0.2 + 0.01
+    cum = torch.cumsum(dtc * -torch.exp(rnd(h) * 0.2), dim=2)
+    bc, cc = rnd(b, nc, l, g, n).to(torch.bfloat16), rnd(b, nc, l, g, n).to(torch.bfloat16)
+    assert skernel.ssd_variant(xc.dtype, l, p, n) == "tensor_cores"
+    before = skernel.ssd_intra_chunk_cuda.variant_launches["tensor_cores"]
+    y, st = skernel.ssd_intra_chunk_cuda(xc, dtc, cum, bc, cc, h // g)
+    torch.cuda.synchronize()
+    assert skernel.ssd_intra_chunk_cuda.variant_launches["tensor_cores"] == before + 1
+    y_r, st_r = ssd_intra_chunk_ref(xc.float(), dtc, cum, bc.float(), cc.float(), h // g)
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    torch.testing.assert_close(st, st_r, rtol=0, atol=1e-5 * max(1.0, st_r.abs().max().item()))
+    assert _bf16_ulps_floored(y, y_r) <= 1.0
+
+
 def test_model_kernel_routes_launch_once_per_site(dev):
     """zamba2 at a small width on the card, in f32: one flash launch per
     shared-block site and one SSD launch per Mamba2 layer in a prefill,

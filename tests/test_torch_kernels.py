@@ -29,6 +29,7 @@ from repro_torch.kernels.pme_average.ops import pme_average
 from repro_torch.kernels.pme_average.ref import pme_average_ref
 from repro_torch.kernels.ssd_scan import kernel as skernel
 from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk
+from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
 
 from _torch_parity import to_np, to_t
 
@@ -261,3 +262,183 @@ def test_ssd_intra_chunk_wrapper_checks():
     assert skernel.smem_bytes(128, 64, 64) == 4 * (2 * 64 * 132 + 128 * 64 + 128 * 128 + 3 * 128)
     # a 128-wide state only fits unpadded
     assert skernel.smem_bytes(128, 64, 128) <= skernel.MAX_SMEM
+
+
+# ---------------------------------------------------------------------------
+# the kernels' two variants: dispatch by type and shape alone, and the
+# tensor-core variants' rounding rehearsed in plain PyTorch
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "tensor_cores"), (torch.bfloat16, 128, "tensor_cores"),
+    (torch.float32, 64, "cuda_cores"), (torch.float32, 128, "cuda_cores"),
+    (torch.bfloat16, 8, "cuda_cores"), (torch.bfloat16, 16, "cuda_cores"),
+    (torch.bfloat16, 32, "cuda_cores"), (torch.bfloat16, 256, "cuda_cores"),
+    (torch.float32, 8, "cuda_cores"),
+    (torch.bfloat16, 48, ValueError), (torch.float32, 512, ValueError),
+    (torch.float16, 64, TypeError),
+])
+def test_flash_variant_dispatch(dtype, d, want):
+    if isinstance(want, str):
+        assert fkernel.flash_variant(dtype, d) == want
+    else:
+        with pytest.raises(want):
+            fkernel.flash_variant(dtype, d)
+
+
+@pytest.mark.parametrize("dtype,l,p,n,want", [
+    (torch.bfloat16, 128, 64, 64, "tensor_cores"),    # zamba2-1.2b
+    (torch.bfloat16, 128, 64, 128, "tensor_cores"),   # mamba2-1.3b
+    (torch.bfloat16, 64, 32, 16, "tensor_cores"),     # a short chunk
+    (torch.bfloat16, 128, 128, 256, "tensor_cores"),
+    (torch.bfloat16, 37, 12, 20, "cuda_cores"), (torch.bfloat16, 128, 8, 64, "cuda_cores"),
+    (torch.bfloat16, 16, 64, 4, "cuda_cores"), (torch.bfloat16, 128, 144, 64, "cuda_cores"),
+    (torch.float32, 128, 64, 64, "cuda_cores"), (torch.float32, 128, 64, 128, "cuda_cores"),
+    (torch.bfloat16, 256, 64, 64, ValueError), (torch.float32, 128, 6, 64, ValueError),
+    (torch.bfloat16, 128, 64, 6, ValueError), (torch.float32, 128, 128, 128, ValueError),
+    (torch.float16, 128, 64, 64, TypeError),
+])
+def test_ssd_variant_dispatch(dtype, l, p, n, want):
+    if isinstance(want, str):
+        assert skernel.ssd_variant(dtype, l, p, n) == want
+    else:
+        with pytest.raises(want):
+            skernel.ssd_variant(dtype, l, p, n)
+
+
+def test_tensor_core_shared_memory_fits_the_blocks_per_sm():
+    """At path C's shapes the tensor-core blocks leave room for several
+    blocks an SM (228 KB each, 1 KB of it reserved per block)."""
+    sm = 233472
+    assert 2 * (fkernel.tc_smem_bytes(64) + 1024) <= sm
+    assert skernel.tc_smem_bytes(128, 64, 64) == 56832
+    assert 4 * (skernel.tc_smem_bytes(128, 64, 64) + 1024) <= sm
+    assert 2 * (skernel.tc_smem_bytes(128, 64, 128) + 1024) <= sm
+
+
+def _bf(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _split(x, parts):
+    """x as `parts` bf16 terms, leading first (the kernels' hi / mid / lo)."""
+    out = []
+    for _ in range(parts):
+        out.append(_bf(x))
+        x = x - out[-1]
+    return out
+
+
+def _bf16_ulps_floored(got, want):
+    """As chip_smoke.py: |got - want| in bf16 ulps of max(|want|, max|want| / 256)."""
+    w = want.float()
+    mag = torch.maximum(w.abs(), w.abs().max() / 256).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return ((got.float() - w).abs() / ulp).max().item()
+
+
+def _flash_tc_model(q, k, v, window, p_parts, sub=64):
+    """The tensor-core flash kernel's arithmetic in plain PyTorch: keys in
+    sub-tiles, a running max in unscaled scores, p = 2^(s c - m c), P split
+    into `p_parts` bf16 terms for P V (products exact, sums f32), output
+    rounded once to bf16.  q, k, v bf16 [B, S, H, D], H == KV."""
+    b, s, h, d = q.shape
+    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))  # [B, H, S, D]
+    c = d ** -0.5 * 1.4426950408889634
+    m = torch.full((b, h, s, 1), -1e30)
+    l = torch.zeros((b, h, s, 1))
+    acc = torch.zeros((b, h, s, d))
+    i = torch.arange(s)[:, None]
+    for k0 in range(0, s, sub):
+        sc = qf @ kf[:, :, k0:k0 + sub].transpose(-1, -2)
+        j = torch.arange(k0, min(s, k0 + sub))[None, :]
+        ok = (j <= i) & ((i - j) < window if window else True)
+        sc = torch.where(ok, sc, -torch.inf)
+        mn = torch.maximum(m, sc.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - mn) * c)
+        p = torch.exp2(sc * c - mn * c)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + sum(pp @ vf[:, :, k0:k0 + sub] for pp in _split(p, p_parts))
+        m = mn
+    return (acc / l.clamp(min=1e-30)).transpose(1, 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("window", [None, 40])
+def test_flash_tensor_core_rounding_model(window):
+    """P split into bf16 hi + lo keeps the kernel's output within one bf16
+    ulp (floored) of the f32 plain version at S = 512, D = 64; P rounded
+    to one bf16 would not (the reason for the second product)."""
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 512, 4, 64)).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    want = attention_ref(q.float(), k.float(), v.float(), window)
+    sub = 32 if window else 64
+    split = _flash_tc_model(q, k, v, window, 2, sub)
+    assert split.dtype == torch.bfloat16 and torch.isfinite(split).all()
+    assert _bf16_ulps_floored(split, want) <= 1.0
+    assert _bf16_ulps_floored(_flash_tc_model(q, k, v, window, 1, sub), want) > 2.0
+
+
+def _ssd_tc_model(xc, dtc, cum, bc, cc, rep, w_parts, state_parts):
+    """The tensor-core SSD kernel's arithmetic in plain PyTorch: C B^T from
+    bf16 operands in f32, W = that * exp(cum_i - cum_j) * dt_j for j <= i,
+    W split into `w_parts` bf16 terms for W x, x * dec into `state_parts`
+    for the state; y rounded once to x's type."""
+    l = xc.shape[2]
+    x = xc.float()
+    b_ = bc.float().repeat_interleave(rep, 3)
+    c_ = cc.float().repeat_interleave(rep, 3)
+    sc = torch.einsum("bclhn,bcmhn->bchlm", c_, b_)
+    cum_h = cum.permute(0, 1, 3, 2)  # [B, Nc, H, L]
+    causal = torch.tril(torch.ones((l, l), dtype=torch.bool))
+    seg = torch.where(causal, cum_h[..., :, None] - cum_h[..., None, :], 0.0)
+    w = torch.where(causal, sc * torch.exp(seg) * dtc.permute(0, 1, 3, 2)[..., None, :], 0.0)
+    y = sum(torch.einsum("bchlm,bcmhp->bclhp", wp, x) for wp in _split(w, w_parts))
+    dec = torch.exp(cum[:, :, -1:, :] - cum) * dtc
+    xd = x * dec[..., None]
+    st = sum(torch.einsum("bclhp,bclhn->bchpn", a, b_) for a in _split(xd, state_parts))
+    return y.to(xc.dtype), st
+
+
+@pytest.mark.parametrize("n", [64, 128])
+def test_ssd_tensor_core_rounding_model(n):
+    """W split into bf16 hi + lo and x * dec into hi + mid + lo keep the
+    kernel's y within one bf16 ulp (floored) and its state within
+    1e-5 x scale of the f32 plain version at L = 128, P = 64; W rounded to
+    one bf16 would not."""
+    b, nc, l, h, p, g = 1, 2, 128, 8, 64, 1
+    rng = np.random.default_rng(n)
+    rnd = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))  # noqa: E731
+    xc = rnd(b, nc, l, h, p).to(torch.bfloat16)
+    dtc = torch.from_numpy((rng.random((b, nc, l, h)) * 0.2 + 0.01).astype(np.float32))
+    cum = torch.cumsum(dtc * -torch.exp(rnd(h) * 0.2), dim=2)
+    bc, cc = rnd(b, nc, l, g, n).to(torch.bfloat16), rnd(b, nc, l, g, n).to(torch.bfloat16)
+    y_r, st_r = ssd_intra_chunk_ref(xc.float(), dtc, cum, bc.float(), cc.float(), h // g)
+    y, st = _ssd_tc_model(xc, dtc, cum, bc, cc, h // g, 2, 3)
+    assert _bf16_ulps_floored(y, y_r) <= 1.0
+    assert (st - st_r).abs().max().item() <= 1e-5 * max(1.0, st_r.abs().max().item())
+    y1, _ = _ssd_tc_model(xc, dtc, cum, bc, cc, h // g, 1, 3)
+    assert _bf16_ulps_floored(y1, y_r) > 2.0
+
+
+def test_build_target_hashes_included_headers(tmp_path):
+    """An edited header under csrc/ gives the kernel a new library name (so
+    it is rebuilt); an edit elsewhere does not."""
+    from repro_torch.kernels import _build
+
+    (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n#include "h.cuh"\nint f();\n')
+    (tmp_path / "h.cuh").write_text('#pragma once\n#include "g.cuh"\n')
+    (tmp_path / "g.cuh").write_text("// v1\n")
+    (tmp_path / "other.cuh").write_text("// v1\n")
+    first = _build._target("k", csrc=tmp_path)
+    assert first.name.startswith("k-") and first.suffix == ".so"
+    assert [f.name for f in _build._sources(tmp_path / "k.cu")] == ["k.cu", "h.cuh", "g.cuh"]
+    (tmp_path / "other.cuh").write_text("// v2\n")
+    assert _build._target("k", csrc=tmp_path) == first
+    (tmp_path / "g.cuh").write_text("// v2\n")
+    second = _build._target("k", csrc=tmp_path)
+    assert second != first
+    (tmp_path / "h.cuh").write_text('#pragma once\n#include "g.cuh"\n// edited\n')
+    assert _build._target("k", csrc=tmp_path) not in (first, second)
+    # the port's own kernels: the two tensor-core sources hash mma_bf16.cuh
+    for name in ("flash_attention", "ssd_intra_chunk"):
+        assert "mma_bf16.cuh" in [f.name for f in _build._sources(_build.CSRC / f"{name}.cu")]
