@@ -12,10 +12,12 @@ non-zero without the final result line:
      kernels from ``src/repro_torch/csrc`` (one nvcc per source, in
      parallel), with ptxas's registers, spills and shared memory of each
      kernel and the dynamic shared memory of the tensor-core variants;
-  2. each kernel against its plain PyTorch version on the card: gossip and
-     PME average on small odd shapes (isolated node, star hub, NaN-poisoned
-     padding, more receivers than one tile) and at the training paths'
-     largest leaf [4, 276,824,064]; flash attention on the JAX tests'
+  2. each kernel against its plain PyTorch version on the card: gossip
+     (f32 and bf16 variants) and PME average on small odd shapes (isolated
+     node, star hub, NaN-poisoned padding, more receivers than one tile)
+     and at the training paths' largest leaf [4, 276,824,064] (gossip: f32
+     for path A, bf16 for path D, each bit-equal to the f32 slots chain
+     rounded to its type); flash attention on the JAX tests'
      sweep (f32, bf16), on ragged, windowed, D = 128 and 40/8 GQA bf16
      shapes and at path C's [8, 2048, 32, 64] bf16; SSD intra-chunk on the
      JAX tests' shapes, on short-chunk and G > 1 bf16 shapes, at path C's
@@ -40,11 +42,21 @@ non-zero without the final result line:
      node's prefill through the kernels and through the plain route: in
      f32 within 1e-3 (relative logit error), in bf16 no further from the
      f32 logits than the plain route (within 1.1x);
-  7. the kernel table line, then the result line.
+  7. path D: the trainer CLI with each of the five baselines (dpsgd,
+     dfedsam, choco, beer, anq_nids) on path A's model and flags, 2 steps
+     each — finite losses, the bf16 gossip kernel launched 11 times a step
+     (22 for beer), no f32 launch, peak memory under 80 GB; `run_pame` with
+     exchange="compressed" and "compressed_q8", 2 steps each — finite
+     losses and the Eq.-(8) wire bits at 64 and 8 value bits;
+  8. one step of each baseline with injected draws through the kernel
+     route and through the plain contraction (f32 slots, rounded once), at
+     full width and 2 layers: every state tree within one floored bf16 ulp;
+  9. the kernel table line, then the result line.
 
 Exits non-zero with no result when no CUDA device is present, or when the
 port's sources are not beside this script.
 """
+import contextlib
 import gc
 import json
 import math
@@ -64,8 +76,15 @@ F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 BIG_N = 24 * 2048 * 5632  # the largest leaf of stablelm-1.6b (w_gate / w_up / w_down)
 M = 4
-MODEL_ARGS = ["--arch", "stablelm-1.6b", "--variant", "full", "--algo", "pame",
-              "--nodes", str(M), "--batch", "4", "--seq", "128"]
+
+
+def model_args(algo):
+    """The trainer CLI's flags of paths A and D: stablelm-1.6b at full width
+    and depth, 4 nodes, 4 x 128 tokens a node."""
+    return ["--arch", "stablelm-1.6b", "--variant", "full", "--algo", algo,
+            "--nodes", str(M), "--batch", "4", "--seq", "128"]
+
+
 # path C: zamba2-1.2b serving, 8 prompts of 2048 tokens, 32 generated
 SERVE = dict(prompt_len=2048, gen=32, batch=8, seed=0)
 FLASH_SITES, MAMBA_LAYERS = 7, 38  # zamba2-1.2b: shared-block sites, Mamba2 layers
@@ -128,16 +147,23 @@ def free():
     import torch
 
     gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 def check_gossip(dev):
+    """The gossip kernel's f32 and bf16 variants on odd shapes and at the
+    training paths' largest leaf.  f32: equal to the slots chain bit for
+    bit and to the plain version within 1e-6.  bf16: equal bit for bit to
+    the f32 slots chain on x.float() rounded once to bf16.  Returns the
+    largest-leaf row of each variant."""
     import torch
     from repro_torch.core import mixing
+    from repro_torch.core.mixing import make_mixer
     from repro_torch.core.topology import build_topology
     from repro_torch.kernels.gossip.ops import gather_terms_kernel
     from repro_torch.kernels.gossip.ref import gather_terms_ref
@@ -145,21 +171,34 @@ def check_gossip(dev):
     def case(name, nbrs, w, pad, xs, reps=0):
         terms = [(w, x) for x in xs]
         clean = torch.where(pad, torch.zeros_like(w), w) if pad is not None else w
+        dtype = xs[0].dtype
         got = gather_terms_kernel(nbrs, terms, pad=pad)
         plain = gather_terms_ref(nbrs, [(clean, x) for x in xs])
-        slots = mixing.gather_terms(nbrs, [(clean, x) for x in xs], impl="slots")
+        # the kernel's arithmetic: f32 slots chain, rounded once to x's type
+        slots = [o.to(dtype) for o in
+                 mixing.gather_terms(nbrs, [(clean, x.float()) for x in xs], impl="slots")]
         torch.cuda.synchronize()
-        err = max((g - p).abs().max().item() for g, p in zip(got, plain))
-        scale = max(1.0, max(p.abs().max().item() for p in plain))
+        err = max((g.float() - p.float()).abs().max().item() for g, p in zip(got, plain))
+        scale = max(1.0, max(p.float().abs().max().item() for p in plain))
         same = all(torch.equal(g, s) for g, s in zip(got, slots))
         finite = all(torch.isfinite(g).all().item() for g in got)
-        row = {"kernel": "gossip_gather", "case": name, "m": nbrs.shape[0],
-               "n": xs[0][0].numel(), "k": nbrs.shape[1], "terms": len(xs),
-               "max_abs_err": err, "tol": 1e-6 * scale, "equals_slots": same}
-        del slots
-        if not (err <= 1e-6 * scale and same and finite):
+        row = {"kernel": "gossip_gather", "variant": "bf16" if dtype == torch.bfloat16 else "f32",
+               "case": name, "m": nbrs.shape[0], "n": xs[0][0].numel(), "k": nbrs.shape[1],
+               "terms": len(xs), "equals_f32_slots_rounded": same, "finite": finite}
+        if dtype == torch.float32:
+            row.update(max_abs_err=err, tol=1e-6 * scale)
+            ok = err <= 1e-6 * scale
+        else:  # the plain version rounds its f32 matmul once too: within 1 ulp
+            row.update(max_abs_err=max((g.float() - s.float()).abs().max().item()
+                                       for g, s in zip(got, slots)),
+                       plain_bf16_ulps_floored=max(bf16_ulps_floored(g, p)
+                                                   for g, p in zip(got, plain)),
+                       tol="bit-equal to the f32 slots chain rounded to bf16")
+            ok = row["plain_bf16_ulps_floored"] <= 1.0
+        del slots, plain
+        if not (ok and same and finite):
             emit(**row)
-            fail(f"gossip kernel disagrees with its plain version ({name})")
+            fail(f"gossip kernel disagrees with its plain version ({name}, {row['variant']})")
         if reps:
             m, k = nbrs.shape
             n = xs[0][0].numel()
@@ -167,10 +206,11 @@ def check_gossip(dev):
             row["plain_ms"] = time_ms(lambda: gather_terms_ref(nbrs, terms, pad=pad), reps)
             row["library_ms"] = time_ms(
                 lambda: mixing.gather_terms(nbrs, terms, pad=pad, impl="segsum"), reps)
-            bytes_ = 2 * len(xs) * m * n * 4 + nbrs.numel() * 4 + w.numel() * 4
-            flops = 2 * len(xs) * m * k * n
-            row["bound_ms"] = max(bytes_ / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
-            row["bound_by"] = "bytes" if bytes_ / HBM_BYTES_PER_S >= flops / F32_FLOPS else "operations"
+            bytes_ = (2 * len(xs) * m * n * xs[0].element_size() + nbrs.numel() * 4
+                      + w.numel() * 4)
+            flops = 2 * len(xs) * m * k * n  # f32 multiply-adds on the CUDA cores
+            row["bound_ms"], row["bound_by"] = bound(bytes_, flops, F32_FLOPS)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
         emit(**row)
         return row
 
@@ -183,17 +223,23 @@ def check_gossip(dev):
         pad = (nbrs == torch.arange(m, device=dev)[:, None]) & ~is_self
         return nbrs, torch.where(pad, torch.full_like(w, float("nan")), w), pad
 
-    case("er-m7-n257", *from_topo("erdos_renyi", 7, p=0.5, seed=3), [rnd(7, 257), rnd(7, 257)])
-    case("star-hub-nan-pad", *from_topo("star", 9), [rnd(9, 1000)])
     iso_nbrs = torch.tensor([[1, 0], [0, 1], [0, 2], [3, 3]], device=dev)
     iso_w = torch.tensor([[0.5, 0.5], [0.5, 0.5], [1.0, 0.0], [1.0, float("nan")]], device=dev)
     iso_pad = torch.tensor([[0, 0], [0, 0], [0, 0], [0, 1]], dtype=torch.bool, device=dev)
-    x = rnd(4, 11)
-    case("isolated-node", iso_nbrs, iso_w, iso_pad, [x])
-    out = gather_terms_kernel(iso_nbrs, [(iso_w, x)], pad=iso_pad)[0]
-    if not torch.equal(out[3], x[3]):
-        fail("gossip kernel changed an isolated node's own row")
-    case("ring-m40", *from_topo("ring", 40), [rnd(40, 130)])
+    for dtype in (torch.float32, torch.bfloat16):
+        t = "" if dtype == torch.float32 else "-bf16"
+        cast = lambda *s: rnd(*s).to(dtype)  # noqa: E731
+        case("er-m7-n257" + t, *from_topo("erdos_renyi", 7, p=0.5, seed=3),
+             [cast(7, 257), cast(7, 257)])
+        case("star-hub-nan-pad" + t, *from_topo("star", 9), [cast(9, 1000)])
+        x = cast(4, 11)
+        case("isolated-node" + t, iso_nbrs, iso_w, iso_pad, [x])
+        out = gather_terms_kernel(iso_nbrs, [(iso_w, x)], pad=iso_pad)[0]
+        if not torch.equal(out[3], x[3]):
+            fail(f"gossip kernel changed an isolated node's own row ({dtype})")
+        case("ring-m40" + t, *from_topo("ring", 40), [cast(40, 130)])
+    case("er-m7-n2056-bf16", *from_topo("erdos_renyi", 7, p=0.5, seed=3),
+         [rnd(7, 2056).to(torch.bfloat16)])
 
     # the path's largest leaf: PME payload + count walks over path A's table
     topo = build_topology("erdos_renyi", M, p=0.5, seed=0)
@@ -207,7 +253,13 @@ def check_gossip(dev):
     row = case("path-a-largest-leaf", nbrs, sel.float(), ~valid, xs, reps=5)
     del xs
     free()
-    return row
+    # path D's largest leaf: one bf16 term over the baselines' sparse Mixer
+    mx = make_mixer(topo, "sparse", device=dev)
+    x = torch.randn((M, BIG_N), generator=g, device=dev).to(torch.bfloat16)
+    row_bf16 = case("path-d-largest-leaf-bf16", mx.pm.nbrs, mx.pm.w, mx.pm.pad, [x], reps=5)
+    del x
+    free()
+    return {"f32": row, "bf16": row_bf16}
 
 
 def check_pme(dev):
@@ -421,15 +473,18 @@ def path_a():
 
     steps = 3
     torch.cuda.reset_peak_memory_stats()
-    gossip_gather.launches = pme_average_cuda.launches = 0
-    out = train.main(MODEL_ARGS + ["--steps", str(steps), "--chunk", "1", "--device", "cuda"])
+    _reset_counts()
+    out = train.main(model_args("pame") + ["--steps", str(steps), "--chunk", "1",
+                                           "--device", "cuda"])
     launches = gossip_gather.launches
     row = {"phase": "path_a", "steps": out["steps"], "loss": out["loss"],
            "s_per_step": out["seconds"], "peak_bytes": torch.cuda.max_memory_allocated(),
-           "gossip_launches": launches, "pme_average_launches": pme_average_cuda.launches}
+           "gossip_launches": launches, "gossip_variant_launches": gossip_gather.variant_launches,
+           "pme_average_launches": pme_average_cuda.launches}
     emit(**row)
-    if launches != 11 * steps or not all(math.isfinite(x) for x in out["loss"]):
-        fail("path A: expected 11 gossip launches a step and finite losses")
+    if gossip_gather.variant_launches != {"f32": 11 * steps, "bf16": 0} \
+            or not all(math.isfinite(x) for x in out["loss"]):
+        fail("path A: expected 11 f32 gossip launches a step and finite losses")
     free()
     return launches
 
@@ -451,7 +506,7 @@ def path_b(dev):
     steps = 2
     topo, params0, grad_fn, make_batch = _task(dev)
     torch.cuda.reset_peak_memory_stats()
-    gossip_gather.launches = pme_average_cuda.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     state, hist = run_pame(1, params0, M, grad_fn, make_batch, topo, PaMEConfig(),
                            num_steps=steps, chunk_size=1, device=dev)
@@ -471,8 +526,8 @@ def path_b(dev):
 
 
 def parity(dev):
-    """One pame_step of each path with injected draws, through the kernels
-    and through the plain versions (REPRO_TORCH_GOSSIP_IMPL=slots)."""
+    """One pame_step of each of paths A and B with injected draws, through
+    the kernels and through the plain versions (REPRO_TORCH_GOSSIP_IMPL=slots)."""
     import torch
     from repro_torch.core import pame, pme
     from repro_torch.core.mixing import ENV_VAR
@@ -548,6 +603,258 @@ def parity(dev):
 
 
 # ---------------------------------------------------------------------------
+# path D: the five baselines (bf16 gossip kernel), PaME's compressed exchange
+# ---------------------------------------------------------------------------
+# bf16 gossip launches a step, from the code: one Mixer.mix (dpsgd,
+# dfedsam, choco), two Mixer.mix_lazy (beer) or one mix_nids_quantized
+# (anq_nids) per leaf, each one launch; stablelm-1.6b has 11 leaves
+BASELINES = {"dpsgd": 11, "dfedsam": 11, "choco": 11, "beer": 22, "anq_nids": 11}
+PEAK_LIMIT = 80e9
+# the parity phase's depth: full width, 2 layers, so that both routes'
+# states and the injected uniforms fit beside each other (BEER at full
+# depth holds 57.5 GB of state and would need 46 GB of uniforms)
+PARITY_LAYERS = 2
+PARITY_ULPS = 1.0
+
+
+def _reset_counts():
+    """Every kernel's launch counts to 0."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.gossip.kernel import gossip_gather
+    from repro_torch.kernels.pme_average.kernel import pme_average_cuda
+    from repro_torch.kernels.ssd_scan.kernel import ssd_intra_chunk_cuda
+
+    for fn in (gossip_gather, pme_average_cuda, flash_attention_cuda, ssd_intra_chunk_cuda):
+        fn.launches = 0
+        if hasattr(fn, "variant_launches"):
+            fn.variant_launches = dict.fromkeys(fn.variant_launches, 0)
+
+
+def path_d():
+    """The trainer CLI with each baseline, stablelm-1.6b at full width and
+    depth, 4 nodes, sparse mixing, 2 steps: finite losses, the bf16 gossip
+    launches of BASELINES a step (no f32 one) and a peak under 80 GB."""
+    import torch
+    from repro_torch.kernels.gossip.kernel import gossip_gather
+    from repro_torch.kernels.pme_average.kernel import pme_average_cuda
+    from repro_torch.launch import train
+
+    steps = 2
+    rows = {}
+    for algo, per_step in BASELINES.items():
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = train.main(model_args(algo) + ["--steps", str(steps), "--chunk", "1",
+                                             "--device", "cuda"])
+        launches = dict(gossip_gather.variant_launches)
+        rows[algo] = row = {
+            "steps": out["steps"], "loss": out["loss"], "s_per_step": out["seconds"],
+            "seconds": time.perf_counter() - t0, "peak_bytes": torch.cuda.max_memory_allocated(),
+            "gossip_launches": launches, "pme_average_launches": pme_average_cuda.launches,
+            "expected_bf16_launches": per_step * steps}
+        emit(phase="path_d", algo=algo, **row)
+        if launches != {"f32": 0, "bf16": per_step * steps}:
+            fail(f"path D ({algo}): expected {per_step} bf16 gossip launches a step, got {launches}")
+        if not all(math.isfinite(x) for x in out["loss"]) or out["steps"] != steps:
+            fail(f"path D ({algo}): losses not finite or steps missing")
+        if row["peak_bytes"] >= PEAK_LIMIT:
+            fail(f"path D ({algo}): peak {row['peak_bytes']} bytes is not under 80 GB")
+    free()
+    return rows
+
+
+def path_d_compressed(dev):
+    """`run_pame` with the compressed exchanges on path D's model, 2 steps
+    each: finite losses, no gossip or PME-average launch (the exchange is
+    two einsums a leaf), and the Eq.-(8) wire bits at 64 and 8 value bits,
+    realized (the messages of this run's communicating receivers) and
+    expected (the registry's formula, recomputed here)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import PaMEConfig, run_pame
+    from repro_torch.core.algorithms import PaMEHp, get_algorithm
+    from repro_torch.core.pame import make_topology_arrays
+    from repro_torch.core.pme import message_bits
+    from repro_torch.kernels.gossip.kernel import gossip_gather
+    from repro_torch.kernels.pme_average.kernel import pme_average_cuda
+    from repro_torch.tree import tree_leaves
+
+    steps = 2
+    topo, params0, grad_fn, make_batch = _task(dev)
+    n = sum(x.numel() for x in tree_leaves(params0))
+    rows = {}
+    for exchange, value_bits in (("compressed", 64), ("compressed_q8", 8)):
+        cfg = PaMEConfig(exchange=exchange)
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        state, hist = run_pame(1, params0, M, grad_fn, make_batch, topo, cfg,
+                               num_steps=steps, chunk_size=1, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        del state
+        ta = make_topology_arrays(topo, cfg, seed=0)  # run_pame's own arrays
+        t, kappa = ta.t.numpy(), ta.kappa.numpy()
+        bits = message_bits(max(1, int(round(cfg.p * n))), n, value_bits)
+        realized = [float(t[(k % kappa) == 0].sum()) * bits for k in range(steps)]
+        inv_kappa = float(np.mean([1.0 / k for k in range(cfg.kappa_lo, cfg.kappa_hi + 1)]))
+        formula = float(np.maximum(1, np.floor(cfg.nu * topo.degrees)).sum()) * inv_kappa * bits
+        expected = get_algorithm("pame").bind(
+            grad_fn, topo, PaMEHp(exchange=exchange), device=dev).wire_bits_for(params0)
+        rows[exchange] = row = {
+            "steps": hist["steps_run"], "loss": hist["loss"], "s_per_step": secs / steps,
+            "peak_bytes": torch.cuda.max_memory_allocated(), "value_bits": value_bits,
+            "bits_per_message": bits, "wire_bits_realized": realized,
+            "wire_bits_expected_per_step": expected, "wire_bits_formula": formula,
+            "gossip_launches": gossip_gather.launches,
+            "pme_average_launches": pme_average_cuda.launches}
+        emit(phase="path_d_compressed", exchange=exchange, **row)
+        if not all(math.isfinite(x) for x in hist["loss"]) or hist["steps_run"] != steps:
+            fail(f"compressed exchange ({exchange}): losses not finite or steps missing")
+        if expected != formula or realized[0] <= 0:
+            fail(f"compressed exchange ({exchange}): wire bits {expected} != Eq. (8) {formula}")
+        if gossip_gather.launches or pme_average_cuda.launches:
+            fail(f"compressed exchange ({exchange}): launched a kernel it does not run")
+    del params0
+    free()
+    if not rows["compressed_q8"]["wire_bits_expected_per_step"] < \
+            rows["compressed"]["wire_bits_expected_per_step"]:
+        fail("the int8 payloads do not cost fewer wire bits than the 64-bit ones")
+    return rows
+
+
+@contextlib.contextmanager
+def plain_contraction():
+    """Every padded gossip contraction of `repro_torch.core.mixing` through
+    its plain version, the arithmetic the kernel must equal: the slots chain
+    on f32 copies of the operands, rounded once to their type."""
+    import torch
+    from repro_torch.core import mixing
+
+    kernel_route = mixing.gather_terms
+
+    def plain(nbrs, terms, *, pad=None, impl=None):
+        clean = [(w if pad is None else torch.where(pad, torch.zeros_like(w), w), x.float())
+                 for w, x in terms]
+        outs = mixing._gather_terms_slots(nbrs, clean)
+        return tuple(o.to(x.dtype) for o, (_, x) in zip(outs, terms))
+
+    mixing.gather_terms = plain
+    try:
+        yield
+    finally:
+        mixing.gather_terms = kernel_route
+
+
+def path_d_parity(dev, cfg=None, batch=4, seq=128, tol=PARITY_ULPS):
+    """One step of each baseline with injected draws from the same state,
+    through the kernel route and through `plain_contraction`; every state
+    tree compared in floored bf16 ulps, within PARITY_ULPS.  Everything
+    else in the step is the same code on the same bf16 values, so a
+    kernel that equals its plain version gives 0 ulps.  The states are
+    the model's weights plus seeded noise for every field (surrogates near
+    the weights, trackers at gradient scale), so that every mixing and
+    every cancellation (mixed − x) sees real values.  stablelm-1.6b at full
+    width, PARITY_LAYERS layers, unless `cfg` says otherwise (the CPU
+    tests rehearse this phase on a tiny config)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import baselines as B
+    from repro_torch.core.compression import qsgd, rand_k
+    from repro_torch.core.mixing import make_mixer
+    from repro_torch.kernels.gossip.kernel import gossip_gather
+    from repro_torch.launch.train import make_lm_task
+    from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
+
+    if cfg is None:
+        cfg = get_config("stablelm-1.6b", "full").replace(n_layers=PARITY_LAYERS)
+    topo, params0, grad_fn, make_batch = make_lm_task(cfg, M, batch, seq, 0, "erdos_renyi", dev)
+    data = make_batch(0)
+    # impl="kernel": the CUDA kernel on the card, its f32 plain version on
+    # the CPU (where the default would be the bf16 slots chain)
+    mixer = make_mixer(topo, "sparse", impl="kernel", device=dev)
+    leaves0, treedef = tree_flatten(params0)
+    del params0
+    sizes = [x.numel() for x in leaves0]
+
+    def tree(seed, scale, around=1.0):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return tree_unflatten(treedef, [
+            (around * x.float().unsqueeze(0)
+             + scale * torch.randn((M,) + tuple(x.shape), generator=gen, device=dev)).to(x.dtype)
+            for x in leaves0])
+
+    def uniforms(seed, dtype=torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return [torch.rand((M, n), generator=gen, device=dev, dtype=dtype) for n in sizes]
+
+    lr, rho = 0.05, 0.01  # the CLI's defaults
+    runs = {
+        "dpsgd": (lambda: B.DPSGDState(tree(1, 0.01), 0, 3),
+                  lambda st: B.dpsgd_step(st, data, grad_fn, mixer, lr), None),
+        "dfedsam": (lambda: B.DFedSAMState(tree(1, 0.01), 0, 3),
+                    lambda st: B.dfedsam_step(st, data, grad_fn, mixer, lr, rho=rho), None),
+        "choco": (lambda: B.ChocoState(tree(1, 0.01), tree(2, 0.01), 0, 3),
+                  lambda st, d: B.choco_step(st, data, grad_fn, mixer, lr,
+                                             rand_k(0.3, rescale=False), 0.3, draws=d),
+                  lambda: {"q": uniforms(7)}),
+        "beer": (lambda: B.BeerState(tree(1, 0.01), tree(2, 0.01), tree(3, 1e-3, 0.0),
+                                     tree(4, 1e-3, 0.0), tree(5, 1e-3, 0.0), 0, 3),
+                 lambda st, d: B.beer_step(st, data, grad_fn, mixer, lr,
+                                           rand_k(0.2, rescale=False), 0.4, draws=d),
+                 lambda: {"h": uniforms(3), "z": uniforms(5)}),
+        "anq_nids": (lambda: B.NidsState(tree(1, 0.01), tree(2, 0.01, 2.0), tree(3, 0.01),
+                                         tree(4, 0.01, 2.0), 0, 3),
+                     lambda st, d: B.nids_step(st, data, grad_fn, mixer, lr, qsgd(16), draws=d),
+                     lambda: {"q": uniforms(11, torch.bfloat16)}),
+    }
+    results = {}
+    for name, (make, step, make_draws) in runs.items():
+        draws = make_draws() if make_draws else None
+        outs = {}
+        for route in ("kernel", "plain"):
+            state = make()
+            gossip_gather.variant_launches["bf16"] = 0
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with (plain_contraction() if route == "plain" else contextlib.nullcontext()):
+                new, metrics = step(state, draws) if draws is not None else step(state)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            outs[route] = {"state": new, "loss": float(metrics["loss_mean"]),
+                           "s": time.perf_counter() - t0,
+                           "launches": gossip_gather.variant_launches["bf16"]}
+            del state, new
+        fields = [f for f in outs["kernel"]["state"]._fields if f not in ("step", "key")]
+        ulps = {f: max(bf16_ulps_floored(a, b) for a, b in zip(
+                    tree_leaves(getattr(outs["kernel"]["state"], f)),
+                    tree_leaves(getattr(outs["plain"]["state"], f))))
+                for f in fields}
+        results[name] = row = {
+            "max_bf16_ulps_floored": max(ulps.values()), "per_field": ulps,
+            "loss_kernel": outs["kernel"]["loss"], "loss_plain": outs["plain"]["loss"],
+            "step_s_kernel": outs["kernel"]["s"], "step_s_plain": outs["plain"]["s"],
+            "bf16_launches_kernel_route": outs["kernel"]["launches"],
+            "bf16_launches_plain_route": outs["plain"]["launches"],
+            "tol_ulps": tol, "layers": cfg.n_layers}
+        emit(phase="parity_d", algo=name, **row)
+        del outs, draws
+        free()
+        if row["max_bf16_ulps_floored"] > tol:
+            fail(f"path D parity ({name}): kernel and plain routes differ by "
+                 f"{row['max_bf16_ulps_floored']} bf16 ulps (> {tol})")
+        if dev.type == "cuda" and (row["bf16_launches_kernel_route"] != BASELINES[name]
+                                   or row["bf16_launches_plain_route"]):
+            fail(f"path D parity ({name}): the kernel route did not run the bf16 kernel "
+                 f"{BASELINES[name]} times, or the plain route ran it")
+    return results
+
+
+# ---------------------------------------------------------------------------
 # path C: serving zamba2-1.2b (flash attention and SSD kernels)
 # ---------------------------------------------------------------------------
 def path_c(dev):
@@ -587,9 +894,7 @@ def path_c(dev):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    flash_attention_cuda.launches = ssd_intra_chunk_cuda.launches = 0
-    flash_attention_cuda.variant_launches = dict.fromkeys(flash_attention_cuda.variant_launches, 0)
-    ssd_intra_chunk_cuda.variant_launches = dict.fromkeys(ssd_intra_chunk_cuda.variant_launches, 0)
+    _reset_counts()
     tc = lambda fn: fn.variant_launches["tensor_cores"]  # noqa: E731
     rounds = {}
     for policy in ("local", "consensus"):
@@ -717,6 +1022,16 @@ def main():
     t = time.perf_counter()
     serve_launches = path_c(dev)
     emit(phase="path_c_total", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    baselines = path_d()
+    emit(phase="path_d_done", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    path_d_compressed(dev)
+    emit(phase="path_d_compressed_done", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    path_d_parity(dev)
+    emit(phase="parity_d_done", seconds=time.perf_counter() - t)
+    bf16_launches = sum(r["gossip_launches"]["bf16"] for r in baselines.values())
 
     def entry(name, source, replaces, launches, row):
         e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -728,9 +1043,19 @@ def main():
             e["variant"] = row["variant"]
         return e
 
+    def variant(launches, row):
+        return {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "case")} | {"launches": launches}
+
+    g32 = entry("gossip_gather", "src/repro_torch/csrc/gossip_gather.cu",
+                "src/repro/kernels/gossip/kernel.py:95", gossip_launches + bf16_launches,
+                gossip["f32"])
+    # top-level times are the f32 variant's (path A); each variant's own
+    # launches (path A: f32, path D: bf16) and times follow
+    g32["variants"] = {"f32": variant(gossip_launches, gossip["f32"]),
+                       "bf16": variant(bf16_launches, gossip["bf16"])}
     kernels = [
-        entry("gossip_gather", "src/repro_torch/csrc/gossip_gather.cu",
-              "src/repro/kernels/gossip/kernel.py:95", gossip_launches, gossip),
+        g32,
         entry("pme_average", "src/repro_torch/csrc/pme_average.cu",
               "src/repro/kernels/pme_average/kernel.py:46", pme_launches, pme_row),
         entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",

@@ -4,8 +4,10 @@ The JAX package `repro` stays the reference; this package imports `torch`
 and never `jax` or anything of `repro`.  Module names follow the JAX
 package's, so each module's counterpart is easy to find:
 
-  core/      topology, PME samplers and averages, gossip contraction,
-             the chunked engine, PaME (Algorithm 1) and the registry
+  core/      topology, PME samplers and averages, gossip contraction and
+             mixers, compression, the compressed exchange, the chunked
+             engine, PaME (Algorithm 1), the five baselines (D-PSGD,
+             DFedSAM, CHOCO-SGD, BEER, ANQ-NIDS) and the registry
   kernels/   hand-written CUDA kernels for the four Pallas kernels (PME
              average, gossip, flash attention, SSD intra-chunk), each
              beside its plain PyTorch version

@@ -1,6 +1,29 @@
-"""PaME core: topology, PME, gossip contraction, engine, Algorithm 1 and
-the registry (port of `repro.core`)."""
-from repro_torch.core import algorithms, engine, mixing, pme
+"""PaME core: topology, PME, gossip contraction and mixers, compression,
+the compressed exchange, engine, Algorithm 1, the five baselines and the
+registry (port of `repro.core`)."""
+from repro_torch.core import algorithms, baselines, compression, engine, gossip, mixing, pme
+from repro_torch.core.baselines import (
+    BeerState,
+    ChocoState,
+    DFedSAMState,
+    DPSGDState,
+    NidsState,
+    beer_init,
+    beer_step,
+    choco_init,
+    choco_step,
+    dfedsam_init,
+    dfedsam_step,
+    dpsgd_init,
+    dpsgd_step,
+    nids_init,
+    nids_step,
+    run_algorithm,
+    stack_params,
+)
+from repro_torch.core.compression import Compressor, identity, one_bit, qsgd, rand_k, top_k
+from repro_torch.core.gossip import compressed_pme_average_pytree, systematic_offsets
+from repro_torch.core.mixing import Mixer, PaddedMixing, as_mixer, make_mixer, mix_padded
 from repro_torch.core.pame import (
     PaMEConfig,
     PaMEState,
@@ -22,10 +45,19 @@ from repro_torch.core.pme import (
 from repro_torch.core.topology import Topology, build_topology
 
 __all__ = [
-    "algorithms", "engine", "mixing", "pme",
+    "algorithms", "baselines", "compression", "engine", "gossip", "mixing", "pme",
     "PaMEConfig", "PaMEState", "TopologyArrays", "make_pame_runner",
     "make_topology_arrays", "pame_init", "pame_step", "run_pame",
     "pme_average", "pme_average_pytree", "pme_average_pytree_padded",
     "sample_coordinate_masks", "sample_neighbor_selection",
     "sample_neighbor_selection_padded", "Topology", "build_topology",
+    "Mixer", "PaddedMixing", "make_mixer", "as_mixer", "mix_padded",
+    "Compressor", "identity", "rand_k", "top_k", "qsgd", "one_bit",
+    "compressed_pme_average_pytree", "systematic_offsets",
+    "DPSGDState", "dpsgd_init", "dpsgd_step",
+    "DFedSAMState", "dfedsam_init", "dfedsam_step",
+    "ChocoState", "choco_init", "choco_step",
+    "BeerState", "beer_init", "beer_step",
+    "NidsState", "nids_init", "nids_step",
+    "stack_params", "run_algorithm",
 ]

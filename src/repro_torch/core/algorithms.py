@@ -10,9 +10,12 @@ One contract for every registered algorithm:
     mixing mode, device) and returns a :class:`BoundAlgorithm` whose
     ``step`` the engine runs.
 
-This slice registers PaME only; the five baselines, their mixers, dynamic
-scenarios, faults, serving pacing and batched lanes come in later slices
-and raise until then.
+PaME and the five baselines of Figs. 8–10 (D-PSGD, DFedSAM, CHOCO-SGD,
+BEER, ANQ-NIDS) are registered; every bound baseline gossips through
+``make_mixer(topo, mixing)`` on the bound device (``mixing="sparse"`` by
+default, the gossip kernel on the card).  Dynamic scenarios, faults,
+serving pacing and batched lanes come in later slices and raise until
+then.
 """
 from __future__ import annotations
 
@@ -23,8 +26,11 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import baselines as B
 from repro_torch.core import engine
 from repro_torch.core import pame as pame_mod
+from repro_torch.core.compression import qsgd, rand_k
+from repro_torch.core.mixing import Mixer, make_mixer
 from repro_torch.core.pme import leaf_rates as pme_leaf_rates
 from repro_torch.core.pme import message_bits, tree_message_bits
 from repro_torch.core.topology import Topology
@@ -32,21 +38,58 @@ from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = [
     "Algorithm", "BoundAlgorithm", "AlgoContext",
-    "register", "get_algorithm", "list_algorithms", "PaMEHp",
+    "register", "get_algorithm", "list_algorithms",
+    "PaMEHp", "DPSGDHp", "DFedSAMHp", "ChocoHp", "BeerHp", "AnqNidsHp",
 ]
 
+# ---------------------------------------------------------------------------
+# Per-algorithm hyperparameters.  PaME reuses its paper-Table-II config.
+# ---------------------------------------------------------------------------
 PaMEHp = pame_mod.PaMEConfig
 
 
 @dataclasses.dataclass(frozen=True)
+class DPSGDHp:
+    lr: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class DFedSAMHp:
+    lr: float = 0.1
+    rho: float = 0.05       # SAM ascent radius
+    local_steps: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class ChocoHp:
+    lr: float = 0.05
+    gossip_gamma: float = 0.3
+    comp_frac: float = 0.3  # contractive rand-k keep fraction
+    value_bits: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class BeerHp:
+    lr: float = 0.05
+    gossip_gamma: float = 0.4
+    comp_frac: float = 0.2
+    value_bits: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class AnqNidsHp:
+    lr: float = 0.1
+    qsgd_levels: int = 16
+
+
+@dataclasses.dataclass(frozen=True)
 class AlgoContext:
-    """Everything a registered step needs beyond (state, batch).  `mixer`
-    stays None until the baselines' `Mixer` is ported."""
+    """Everything a registered step needs beyond (state, batch)."""
 
     grad_fn: Callable
     topo: Topology
     hps: object
-    mixer: object
+    mixer: Mixer
     extras: dict
 
 
@@ -69,6 +112,9 @@ class Algorithm:
     wire_bits_sizes: Optional[Callable] = None
     # optional (topo, hps, mixing, seed, device) -> dict merged into extras
     setup: Optional[Callable] = None
+    # optional (hps, n) -> bits per directed edge per step (the gossip
+    # baselines); dynamic scenarios will charge realized edges with it
+    edge_bits: Optional[Callable] = None
 
     def bind(
         self,
@@ -99,7 +145,8 @@ class Algorithm:
         extras = dict(self.setup(topo, hps, mixing, seed, dev)) if self.setup else {}
         if "hps" in extras:  # setup may rewrite hps (PaME's mixing field)
             hps = extras.pop("hps")
-        ctx = AlgoContext(grad_fn=grad_fn, topo=topo, hps=hps, mixer=None,
+        mixer = make_mixer(topo, mixing, device=dev)
+        ctx = AlgoContext(grad_fn=grad_fn, topo=topo, hps=hps, mixer=mixer,
                           extras=extras)
         return BoundAlgorithm(self, ctx, dev)
 
@@ -149,11 +196,7 @@ class BoundAlgorithm:
         return self.wire_bits(sum(sizes))
 
     def stack_params(self, params0, m: int):
-        return tree_map(
-            lambda x: x.to(self.device).unsqueeze(0)
-            .expand((m,) + tuple(x.shape)).contiguous(),
-            params0,
-        )
+        return B.stack_params(tree_map(lambda x: x.to(self.device), params0), m)
 
     def _batches(self, batch_fn):
         return lambda k: tree_map(lambda x: x.to(self.device), batch_fn(k))
@@ -242,8 +285,31 @@ def list_algorithms() -> Tuple[str, ...]:
 
 
 # ---------------------------------------------------------------------------
-# PaME wire accounting (Eq. (8))
+# Wire accounting helpers (Eq. (8) + per-algorithm message formats)
 # ---------------------------------------------------------------------------
+def _dense_edges_bits(topo: Topology, n: int, bits_per_msg: float) -> float:
+    """Every node sends one message to every neighbor each step."""
+    return float(topo.degrees.sum()) * bits_per_msg
+
+
+# bits per *directed* edge per step for the gossip baselines
+def _full_msg_bits(hps, n: int) -> float:
+    return float(message_bits(n, n))
+
+
+def _choco_edge_bits(hps, n: int) -> float:
+    return float(rand_k(hps.comp_frac, hps.value_bits, rescale=False).bits(n))
+
+
+def _beer_edge_bits(hps, n: int) -> float:
+    # two compressed streams per edge per step (x and gradient surrogates)
+    return 2.0 * _choco_edge_bits(hps, n)
+
+
+def _anq_edge_bits(hps, n: int) -> float:
+    return float(qsgd(hps.qsgd_levels).bits(n))
+
+
 def _pame_msgs_per_step(topo: Topology, hps: PaMEHp) -> float:
     """Expected sparse messages on the wire per step: receiver i pulls t_i
     messages in the 1/kappa_i fraction of steps it communicates."""
@@ -294,4 +360,69 @@ register(Algorithm(
     wire_bits=_pame_wire_bits,
     wire_bits_sizes=_pame_wire_bits_sizes,
     setup=_pame_setup,
+))
+
+
+register(Algorithm(
+    name="dpsgd",
+    hp_cls=DPSGDHp,
+    init=lambda key, stacked, ctx, batch0: B.dpsgd_init(key, stacked),
+    step=lambda state, batch, ctx: B.dpsgd_step(
+        state, batch, ctx.grad_fn, ctx.mixer, ctx.hps.lr),
+    wire_bits=lambda topo, hps, n: _dense_edges_bits(topo, n, _full_msg_bits(hps, n)),
+    edge_bits=_full_msg_bits,
+))
+
+register(Algorithm(
+    name="dfedsam",
+    hp_cls=DFedSAMHp,
+    init=lambda key, stacked, ctx, batch0: B.dfedsam_init(key, stacked),
+    step=lambda state, batch, ctx: B.dfedsam_step(
+        state, batch, ctx.grad_fn, ctx.mixer, ctx.hps.lr,
+        rho=ctx.hps.rho, local_steps=ctx.hps.local_steps),
+    wire_bits=lambda topo, hps, n: _dense_edges_bits(topo, n, _full_msg_bits(hps, n)),
+    edge_bits=_full_msg_bits,
+))
+
+
+def _choco_setup(topo, hps, mixing, seed, device):
+    return {"comp": rand_k(hps.comp_frac, hps.value_bits, rescale=False)}
+
+
+register(Algorithm(
+    name="choco",
+    hp_cls=ChocoHp,
+    init=lambda key, stacked, ctx, batch0: B.choco_init(key, stacked),
+    step=lambda state, batch, ctx: B.choco_step(
+        state, batch, ctx.grad_fn, ctx.mixer, ctx.hps.lr,
+        ctx.extras["comp"], ctx.hps.gossip_gamma),
+    wire_bits=lambda topo, hps, n: _dense_edges_bits(topo, n, _choco_edge_bits(hps, n)),
+    edge_bits=_choco_edge_bits,
+    setup=_choco_setup,
+))
+
+register(Algorithm(
+    name="beer",
+    hp_cls=BeerHp,
+    init=lambda key, stacked, ctx, batch0: B.beer_init(key, stacked, batch0, ctx.grad_fn),
+    step=lambda state, batch, ctx: B.beer_step(
+        state, batch, ctx.grad_fn, ctx.mixer, ctx.hps.lr,
+        ctx.extras["comp"], ctx.hps.gossip_gamma),
+    wire_bits=lambda topo, hps, n: _dense_edges_bits(topo, n, _beer_edge_bits(hps, n)),
+    edge_bits=_beer_edge_bits,
+    needs_batch0=True,
+    setup=_choco_setup,
+))
+
+register(Algorithm(
+    name="anq_nids",
+    hp_cls=AnqNidsHp,
+    init=lambda key, stacked, ctx, batch0: B.nids_init(
+        key, stacked, batch0, ctx.grad_fn, ctx.hps.lr),
+    step=lambda state, batch, ctx: B.nids_step(
+        state, batch, ctx.grad_fn, ctx.mixer, ctx.hps.lr, ctx.extras["q"]),
+    wire_bits=lambda topo, hps, n: _dense_edges_bits(topo, n, _anq_edge_bits(hps, n)),
+    edge_bits=_anq_edge_bits,
+    needs_batch0=True,
+    setup=lambda topo, hps, mixing, seed, device: {"q": qsgd(hps.qsgd_levels)},
 ))

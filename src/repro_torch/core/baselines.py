@@ -1,0 +1,452 @@
+"""Baseline DFL algorithms the paper compares against, Sec. V-D (port of
+`repro.core.baselines`):
+
+  * D-PSGD      (Lian et al., 2017)       — gossip + local SGD
+  * DFedSAM     (Shi et al., 2023)        — SAM local step + gossip
+  * CHOCO-SGD   (Koloskova et al., 2020)  — compressed gossip, error feedback
+  * BEER        (Zhao et al., 2022)       — compressed gradient tracking
+  * (AN)Q-NIDS  (Michelusi et al., 2022)  — NIDS with quantized messages
+
+All operate on node-stacked pytrees [m, ...] and a doubly-stochastic mixing
+matrix B (Assumption 1), given as `b`: a raw [m, m] tensor (plain einsum)
+or a `repro_torch.core.mixing.Mixer`, whose "sparse" and "dense" modes run
+through the gossip kernel on the card.
+
+The results are JAX's; where the work happens differs, so that a
+full-width model fits one card:
+
+  * *Local work node by node.*  Gradients are taken one node at a time (as
+    `repro_torch.core.pame.pame_step` does), so one node's activations and
+    gradient are alive at once; DFedSAM's ascent chain is local to a node.
+  * *Cross-node work leaf by leaf, in place.*  Mixing, compression and the
+    axpys run one leaf at a time and update the state's tensors in place,
+    so no transient exceeds a few leaves.  A step therefore CONSUMES its
+    input state, as JAX's scan donates its carry: the caller rebinds to
+    the returned state and never reads the old one again
+    (`repro_torch.core.engine` clones the state first when its stop rule
+    may need the pre-step state).
+  * *Distinct storage for every state field* (`stack_params` copies; the
+    zero buffers and BEER's g / prev_grad are separate tensors), so the
+    in-place updates of one field never reach another.
+
+Where the in-place order changes the order of additions, the step says so;
+those differ from JAX by rounding only.  Per-node keys come from
+`fold_in(key, i)` instead of JAX's `split(key, m)` (the LM and regression
+losses ignore them).  Every step takes ``draws=``, the per-leaf uniforms
+of each compression in JAX's leaf order (each leaf's [m, n] tensor, or its
+shape), drawn otherwise from `fold_in(fold_in(key, tag), leaf_index)`
+generators with JAX's tags (BEER 3 and 5, CHOCO 7, NIDS 11).
+``grad_shift`` (bounded staleness) belongs to the temporal slice and raises
+when not None.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core import engine
+from repro_torch.core.compression import Compressor
+from repro_torch.core.mixing import Mixer, as_mixer
+from repro_torch.core.pme import fold_in, make_generator
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+
+# grad_fn(params_i, batch_i, key_i) -> (loss_i, grads_i), key_i an int seed
+GradFn = Callable[[object, object, int], Tuple[torch.Tensor, object]]
+MixOp = Union[torch.Tensor, Mixer]
+
+__all__ = [
+    "DPSGDState", "dpsgd_init", "dpsgd_step",
+    "DFedSAMState", "dfedsam_init", "dfedsam_step",
+    "ChocoState", "choco_init", "choco_step",
+    "BeerState", "beer_init", "beer_step",
+    "NidsState", "nids_init", "nids_step",
+    "stack_params", "run_algorithm",
+]
+
+
+def stack_params(params0, m: int):
+    """m copies of a single-node pytree, each in storage of its own."""
+    return tree_map(lambda x: x.unsqueeze(0).repeat((m,) + (1,) * x.dim()), params0)
+
+
+def _zeros(tree):
+    return tree_map(torch.zeros_like, tree)
+
+
+def _no_shift(grad_shift) -> None:
+    if grad_shift is not None:
+        raise NotImplementedError(
+            "grad_shift (bounded staleness) not yet ported to repro_torch")
+
+
+def _node_grad(grad_fn: GradFn, leaves: Sequence[torch.Tensor], treedef, batch,
+               i: int, key: int):
+    """(loss, gradient leaves) of node i at the single-node `leaves`."""
+    p_i = tree_unflatten(treedef, [x.detach().requires_grad_(True) for x in leaves])
+    b_i = tree_map(lambda b: b[i], batch)
+    loss, g = grad_fn(p_i, b_i, key)
+    return loss.detach().float().reshape(()), [t.detach() for t in tree_leaves(g)]
+
+
+def _grads_inplace(grad_fn, leaves, treedef, batch, key, lr):
+    """x_i ← x_i − lr·grad f_i(x_i), node by node, in place on the stacked
+    `leaves` (node i's gradient reads only its own rows).  Returns the
+    per-node losses."""
+    losses = []
+    for i in range(leaves[0].shape[0]):
+        loss, g = _node_grad(grad_fn, [x[i] for x in leaves], treedef, batch, i,
+                             fold_in(key, i))
+        losses.append(loss)
+        with torch.no_grad():
+            for x, gi in zip(leaves, g):
+                x[i].add_(gi.to(x.dtype) * (-lr))
+        del g
+    return losses
+
+
+def _add_compressed_(comp: Compressor, key: int, idx: int, target: torch.Tensor,
+                     source: torch.Tensor, u=None) -> None:
+    """target += C(source − target), one node's message (row) at a time, in
+    place; leaf `idx`'s uniforms from `u` ([m, ...]) or drawn from
+    fold_in(key, idx)."""
+    m = target.shape[0]
+    t2, s2 = target.view(m, -1), source.reshape(m, -1)
+    gen = make_generator(fold_in(key, idx), target.device) if u is None else None
+    for r in range(m):
+        ur = None if u is None else u[r].reshape(1, -1)
+        t2[r].add_(comp.apply((s2[r] - t2[r])[None], u=ur, generator=gen)[0])
+
+
+def _compress_tree(comp: Compressor, key: int, tree, draws=None):
+    """C applied to every node's row of every leaf (JAX's `_compress_tree`):
+    leaf idx compressed with fold_in(key, idx), or with draws[idx]."""
+    leaves, treedef = tree_flatten(tree)
+    out = []
+    for idx, leaf in enumerate(leaves):
+        acc = torch.zeros_like(leaf)
+        _add_compressed_(comp, key, idx, acc, leaf, None if draws is None else draws[idx])
+        out.append(acc)
+    return tree_unflatten(treedef, out)
+
+
+def _draw(draws, name: str, idx: int):
+    return None if draws is None else draws[name][idx]
+
+
+def _mean(losses) -> torch.Tensor:
+    return torch.stack(losses).mean()
+
+
+# --------------------------------------------------------------------------
+# D-PSGD
+# --------------------------------------------------------------------------
+class DPSGDState(NamedTuple):
+    params: object
+    step: int
+    key: int
+
+
+def dpsgd_init(key: int, params_stacked) -> DPSGDState:
+    return DPSGDState(params_stacked, 0, int(key))
+
+
+def dpsgd_step(state: DPSGDState, batch, grad_fn: GradFn, b: MixOp, lr: float,
+               grad_shift=None, *, draws=None) -> Tuple[DPSGDState, dict]:
+    """x ← B x − lr·grad f(x): the mixed tree first (new tensors), then each
+    node's gradient at the old x, subtracted in place."""
+    _no_shift(grad_shift)
+    mx = as_mixer(b)
+    key = fold_in(state.key, state.step)
+    leaves, treedef = tree_flatten(state.params)
+    new = [mx.mix(x) for x in leaves]
+    losses = []
+    for i in range(leaves[0].shape[0]):
+        loss, g = _node_grad(grad_fn, [x[i] for x in leaves], treedef, batch, i,
+                             fold_in(key, i))
+        losses.append(loss)
+        with torch.no_grad():
+            for y, gi in zip(new, g):
+                y[i].add_(gi.to(y.dtype) * (-lr))
+    return (DPSGDState(tree_unflatten(treedef, new), state.step + 1, state.key),
+            {"loss_mean": _mean(losses)})
+
+
+# --------------------------------------------------------------------------
+# DFedSAM — sharpness-aware local step, then gossip
+# --------------------------------------------------------------------------
+class DFedSAMState(NamedTuple):
+    params: object
+    step: int
+    key: int
+
+
+def dfedsam_init(key: int, params_stacked) -> DFedSAMState:
+    return DFedSAMState(params_stacked, 0, int(key))
+
+
+def dfedsam_step(state: DFedSAMState, batch, grad_fn: GradFn, b: MixOp, lr: float,
+                 rho: float = 0.05, local_steps: int = 1, grad_shift=None, *,
+                 draws=None) -> Tuple[DFedSAMState, dict]:
+    """Per node, `local_steps` SAM steps (g1 at x, ascent to x + ρ·g1/‖g1‖,
+    x −= lr·g2 with g2 at the ascent point), in place; then x ← B x.
+    ‖g1‖ is summed over the leaves in the leaves' type, as in JAX."""
+    _no_shift(grad_shift)
+    mx = as_mixer(b)
+    key = fold_in(state.key, state.step)
+    leaves, treedef = tree_flatten(state.params)
+    losses = []
+    for i in range(leaves[0].shape[0]):
+        p = [x[i] for x in leaves]  # views: the local chain updates the state
+        for t in range(local_steps):
+            k_t = fold_in(key, t)
+            loss, g1 = _node_grad(grad_fn, p, treedef, batch, i, fold_in(k_t, i))
+            if t == 0:
+                losses.append(loss)
+            with torch.no_grad():
+                sq = sum(torch.sum(g ** 2) for g in g1)
+                scale = rho / torch.sqrt(sq + 1e-12)
+                adv = [x + g.to(x.dtype) * scale.to(x.dtype) for x, g in zip(p, g1)]
+            del g1
+            _, g2 = _node_grad(grad_fn, adv, treedef, batch, i, fold_in(fold_in(k_t, 1), i))
+            del adv
+            with torch.no_grad():
+                for x, g in zip(p, g2):
+                    x.add_(g.to(x.dtype) * (-lr))
+            del g2
+    new = [mx.mix(x) for x in leaves]
+    return (DFedSAMState(tree_unflatten(treedef, new), state.step + 1, state.key),
+            {"loss_mean": _mean(losses)})
+
+
+# --------------------------------------------------------------------------
+# CHOCO-SGD — compressed gossip with error feedback
+# --------------------------------------------------------------------------
+class ChocoState(NamedTuple):
+    params: object   # x_i
+    hats: object     # \hat x_i (public surrogates, consistent across nodes)
+    step: int
+    key: int
+
+
+def choco_init(key: int, params_stacked) -> ChocoState:
+    return ChocoState(params_stacked, _zeros(params_stacked), 0, int(key))
+
+
+def choco_step(state: ChocoState, batch, grad_fn: GradFn, b: MixOp, lr: float,
+               comp: Compressor, gossip_gamma: float = 0.5, grad_shift=None, *,
+               draws=None) -> Tuple[ChocoState, dict]:
+    """x^{t+1/2} = x − lr·g (node by node, in place); then per leaf
+    x̂ += C(x^{t+1/2} − x̂) and x = x^{t+1/2} + γ(B x̂ − x̂).
+    ``draws={"q": [u per leaf]}`` (JAX tag 7)."""
+    _no_shift(grad_shift)
+    mx = as_mixer(b)
+    key = fold_in(state.key, state.step)
+    leaves, treedef = tree_flatten(state.params)
+    hats = tree_leaves(state.hats)
+    losses = _grads_inplace(grad_fn, leaves, treedef, batch, key, lr)
+    k_q = fold_in(key, 7)
+    with torch.no_grad():
+        for idx, (x, h) in enumerate(zip(leaves, hats)):
+            _add_compressed_(comp, k_q, idx, h, x, _draw(draws, "q", idx))
+            corr = mx.mix(h)
+            x.add_(corr.sub_(h).mul_(gossip_gamma))
+            del corr
+    return (ChocoState(state.params, state.hats, state.step + 1, state.key),
+            {"loss_mean": _mean(losses)})
+
+
+# --------------------------------------------------------------------------
+# BEER — compressed gradient tracking (O(1/T) nonconvex rate)
+# --------------------------------------------------------------------------
+class BeerState(NamedTuple):
+    params: object  # x
+    h: object       # surrogate of x
+    g: object       # gradient tracker
+    z: object       # surrogate of g
+    prev_grad: object
+    step: int
+    key: int
+
+
+def _stacked_grads(grad_fn, params_stacked, batch, key):
+    """Every node's gradient at its own rows, stacked like the params."""
+    leaves, treedef = tree_flatten(params_stacked)
+    out = [torch.empty_like(x) for x in leaves]
+    for i in range(leaves[0].shape[0]):
+        _, g = _node_grad(grad_fn, [x[i] for x in leaves], treedef, batch, i,
+                          fold_in(key, i))
+        with torch.no_grad():
+            for o, gi in zip(out, g):
+                o[i].copy_(gi)
+    return tree_unflatten(treedef, out)
+
+
+def beer_init(key: int, params_stacked, batch0, grad_fn: GradFn) -> BeerState:
+    g0 = _stacked_grads(grad_fn, params_stacked, batch0, int(key))
+    return BeerState(params_stacked, _zeros(params_stacked), g0,
+                     _zeros(params_stacked), tree_map(torch.clone, g0), 0, int(key))
+
+
+def beer_step(state: BeerState, batch, grad_fn: GradFn, b: MixOp, lr: float,
+              comp: Compressor, gossip_gamma: float = 0.4, grad_shift=None, *,
+              draws=None) -> Tuple[BeerState, dict]:
+    """BEER in place, in an order that keeps the five trees and one node's
+    gradient alive:
+
+      1. per leaf: x += γ(B − I)h − lr·g, then h += C(x − h);
+      2. per leaf: g += γ(B − I)z − prev_grad;
+      3. per node i: gn_i at the new x_i, g_i += gn_i, prev_grad_i ← gn_i;
+      4. per leaf: z += C(g − z).
+
+    JAX sums g + γ(B − I)z + gn − prev_grad left to right; here prev_grad
+    is subtracted before gn is added, which changes the rounding only.
+    ``draws={"h": [...], "z": [...]}`` (JAX tags 3 and 5)."""
+    _no_shift(grad_shift)
+    mx = as_mixer(b)
+    key = fold_in(state.key, state.step)
+    xs, treedef = tree_flatten(state.params)
+    hs, gs, zs, ps = (tree_leaves(t) for t in (state.h, state.g, state.z, state.prev_grad))
+    k_h, k_z = fold_in(key, 3), fold_in(key, 5)
+    with torch.no_grad():
+        for idx, (x, h, g) in enumerate(zip(xs, hs, gs)):
+            mh = mx.mix_lazy(h)
+            x.add_(mh.mul_(gossip_gamma)).sub_(g * lr)
+            del mh
+            _add_compressed_(comp, k_h, idx, h, x, _draw(draws, "h", idx))
+        for z, g, gp in zip(zs, gs, ps):
+            mz = mx.mix_lazy(z)
+            g.add_(mz.mul_(gossip_gamma)).sub_(gp)
+            del mz
+    losses = []
+    for i in range(xs[0].shape[0]):
+        loss, gn = _node_grad(grad_fn, [x[i] for x in xs], treedef, batch, i, fold_in(key, i))
+        losses.append(loss)
+        with torch.no_grad():
+            for g, gp, gi in zip(gs, ps, gn):
+                g[i].add_(gi.to(g.dtype))
+                gp[i].copy_(gi)
+        del gn
+    with torch.no_grad():
+        for idx, (z, g) in enumerate(zip(zs, gs)):
+            _add_compressed_(comp, k_z, idx, z, g, _draw(draws, "z", idx))
+    return (BeerState(state.params, state.h, state.g, state.z, state.prev_grad,
+                      state.step + 1, state.key),
+            {"loss_mean": _mean(losses)})
+
+
+# --------------------------------------------------------------------------
+# (AN)Q-NIDS — NIDS with (adaptively) quantized messages
+# --------------------------------------------------------------------------
+class NidsState(NamedTuple):
+    params: object  # x^k
+    c: object       # running sum of the adapt steps z^s, s < k (memory)
+    hat_z: object   # public surrogate of z (quantized innovations)
+    hat_c: object   # public surrogate of c (receiver-side accumulation)
+    step: int
+    key: int
+
+
+def nids_init(key: int, params_stacked, batch0=None, grad_fn: Optional[GradFn] = None,
+              lr: Optional[float] = None) -> NidsState:
+    """All memory starts at zero (the drop-aware form needs no warm-up
+    gradient); ``batch0`` / ``grad_fn`` / ``lr`` are accepted and ignored,
+    as in JAX."""
+    del batch0, grad_fn, lr
+    return NidsState(params_stacked, _zeros(params_stacked), _zeros(params_stacked),
+                     _zeros(params_stacked), 0, int(key))
+
+
+def nids_step(state: NidsState, batch, grad_fn: GradFn, b: MixOp, lr: float,
+              comp: Optional[Compressor] = None, grad_shift=None, *,
+              draws=None) -> Tuple[NidsState, dict]:
+    r"""Drop-aware NIDS (exact-diffusion family), Ã = (I + B)/2:
+
+        z^k     = x^k − lr grad^k                       (adapt)
+        x^{k+1} = z^k + (Ã − I)(2 z^k + c^k)            (correct + combine)
+        c^{k+1} = c^k + z^k                             (memory)
+
+    With comp != None this is (AN)Q-NIDS: nodes transmit the quantized
+    innovation q = Q(z − ẑ), both ends update the public surrogates
+    (ẑ += q, ĉ += ẑ), and (Ã − I)v is taken with the lossy surrogates
+    off the diagonal and each node's exact v on it.  See
+    `repro.core.baselines.nids_step` for the derivation.  Here z is formed
+    in place in x node by node, then each leaf is corrected in place.
+    ``draws={"q": [...]}`` (JAX tag 11)."""
+    _no_shift(grad_shift)
+    mx = as_mixer(b)
+    key = fold_in(state.key, state.step)
+    xs, treedef = tree_flatten(state.params)
+    cs, hzs, hcs = (tree_leaves(t) for t in (state.c, state.hat_z, state.hat_c))
+    losses = _grads_inplace(grad_fn, xs, treedef, batch, key, lr)  # x holds z now
+    k_q = fold_in(key, 11)
+    with torch.no_grad():
+        for idx, (z, c, hz, hc) in enumerate(zip(xs, cs, hzs, hcs)):
+            v = 2.0 * z + c
+            if comp is not None:
+                _add_compressed_(comp, k_q, idx, hz, z, _draw(draws, "q", idx))
+                hat_v = 2.0 * hz + hc  # the new ẑ with the old ĉ
+                hc.add_(hz)
+                corr = mx.mix_nids_quantized(hat_v, v)
+                del hat_v
+                corr.sub_(v)
+            else:
+                corr = 0.5 * mx.mix_lazy(v)
+            del v
+            c.add_(z)
+            z.add_(corr)
+            del corr
+    return (NidsState(state.params, state.c, state.hat_z, state.hat_c,
+                      state.step + 1, state.key),
+            {"loss_mean": _mean(losses)})
+
+
+# --------------------------------------------------------------------------
+# Generic driver
+# --------------------------------------------------------------------------
+def run_algorithm(
+    step_fn: Callable,  # (state, batch) -> (state, metrics), closed over hps
+    state,
+    batch_fn: Callable[[int], object],
+    num_steps: int,
+    objective_fn: Optional[Callable] = None,
+    params_of=lambda s: s.params,
+    tol_std: float = 1e-3,
+    driver: str = "scan",
+    chunk_size: int = engine.DEFAULT_CHUNK_SIZE,
+    step_takes_index: bool = False,
+) -> Tuple[object, dict]:
+    """Race driver shared by every baseline.
+
+    driver="scan" runs `chunk_size` steps per host sync through
+    `repro_torch.core.engine`, with the std stop rule evaluated on the
+    device; driver="host" is the per-step loop.  `step_takes_index=True`
+    feeds the global step index as a third step argument on both.  The
+    temporal slice's auxiliary carry is not ported yet.
+    """
+    if driver == "scan":
+        state, metrics, info = engine.run_scan_loop(
+            step_fn, state, batch_fn, num_steps, objective_fn=objective_fn,
+            params_of=params_of, tol_std=tol_std, chunk_size=chunk_size,
+            step_takes_index=step_takes_index,
+        )
+        return state, engine.history_from(
+            metrics, info, {"loss": "loss_mean", "objective": "objective"})
+    if driver != "host":
+        raise ValueError(f"unknown driver {driver!r}")
+    history = {"loss": [], "objective": []}
+    f_window: list = []
+    for k in range(num_steps):
+        args = (state, batch_fn(k)) + ((k,) if step_takes_index else ())
+        state, metrics = step_fn(*args)
+        history["loss"].append(float(metrics["loss_mean"]))
+        if objective_fn is not None:
+            mean_params = tree_map(lambda x: x.mean(dim=0), params_of(state))
+            fval = float(objective_fn(mean_params))
+            history["objective"].append(fval)
+            f_window.append(fval)
+            if len(f_window) >= 3 and float(np.std(f_window[-3:])) < tol_std:
+                break
+    history["steps_run"] = history["steps_dispatched"] = len(history["loss"])
+    return state, history

@@ -15,6 +15,9 @@ keeps what made the scan cheap:
     leaves of the state (PaME's integer step counter) cannot be selected
     on the device; the engine records them per step and restores the
     triggering step's values after the chunk's sync.
+  * a step may update its input state in place (the baselines do, as
+    JAX's scan donates its carry); under the stop rule the engine hands
+    the step a clone, so the frozen state survives the steps after it.
 
 CUDA-graph capture of a chunk is later work.
 """
@@ -51,6 +54,10 @@ def _select(pred: torch.Tensor, on_true, on_false):
         lambda t, f: torch.where(pred, t, f) if isinstance(f, torch.Tensor) else f,
         on_true, on_false,
     )
+
+
+def _clone(state):
+    return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, state)
 
 
 def _host_leaves(state) -> list:
@@ -91,9 +98,7 @@ def make_scan_runner(
     def run(state, batch_fn: Callable[[int], object], num_steps: int, *,
             copy_state: bool = True, k_start: int = 0):
         if copy_state:
-            state = tree_map(
-                lambda x: x.clone() if isinstance(x, torch.Tensor) else x, state
-            )
+            state = _clone(state)
         done = win = None
         keys: list = []
         rows: list = []  # per step: metric tensors in `keys` order + stopped flag
@@ -104,8 +109,10 @@ def make_scan_runner(
             length = min(chunk_size, end - k0)
             chunk_rows = []
             for k in range(k0, k0 + length):
-                args = (state, batch_fn(k)) + ((k,) if step_takes_index else ())
+                step_state = state if objective_fn is None else _clone(state)
+                args = (step_state, batch_fn(k)) + ((k,) if step_takes_index else ())
                 new_state, metrics = step_fn(*args)
+                del step_state
                 ys = dict(metrics)
                 if objective_fn is not None:
                     mean_params = tree_map(lambda x: x.mean(dim=0), params_of(new_state))

@@ -1,7 +1,10 @@
-"""Gossip neighbour contraction in padded form (port of `repro.core.mixing`).
+"""Gossip mixing operators in dense and padded form (port of
+`repro.core.mixing`).
 
-Every padded gossip path — here, PaME's sparse partial exchange
-(`repro_torch.core.pme.pme_average_pytree_padded`) — routes through one
+Every baseline applies the doubly-stochastic matrix B of Assumption 1 to
+node-stacked pytrees, out_i = sum_j B_ji x_j, through a `Mixer`; the
+padded modes and PaME's sparse partial exchange
+(`repro_torch.core.pme.pme_average_pytree_padded`) route through one
 core, `gather_terms`: for each (w, x) term, out_i = sum_slot w[i, slot] ·
 x[nbrs[i, slot]], all terms riding one walk of the [m, k] neighbour table.
 Three interchangeable implementations:
@@ -26,20 +29,33 @@ the yardstick the chip smoke times.  The process-wide override is the
 port's own variable, ``REPRO_TORCH_GOSSIP_IMPL`` (not the JAX package's
 ``REPRO_GOSSIP_IMPL``, which CI jobs export for whole runs).
 
-`Mixer` and `make_mixer` arrive with the baselines.
+Three `Mixer` modes, as in JAX:
+
+  * "sparse" — padded gather over N_i ∪ {i} (O(m·deg·n)); the registry's
+    default.  On CUDA tensors it runs through the gossip kernel, in the
+    leaf's type (f32 or bf16).
+  * "dense"  — the same padded gather over the full [m, m] connectivity
+    (non-edges weigh exactly 0.0), bit-identical to "sparse" under
+    impl="slots" and impl="kernel".
+  * "matrix" — the plain `torch.einsum("ji,j...->i...")` of B, what a raw
+    [m, m] tensor becomes through `as_mixer`.
+
+`ring_gather` and `mix_replicated` (bounded staleness, message faults)
+belong to the temporal and fault slice and are not ported yet.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.tree import tree_map
 
 __all__ = [
-    "PaddedMixing", "mix_padded", "gather_terms", "default_impl", "env_impl",
-    "IMPLS", "ENV_VAR",
+    "PaddedMixing", "Mixer", "mix_padded", "make_mixer", "as_mixer",
+    "gather_terms", "default_impl", "env_impl", "IMPLS", "ENV_VAR",
 ]
 
 # The closed set of contraction implementations; every entry point that
@@ -81,6 +97,18 @@ class PaddedMixing(NamedTuple):
     w: torch.Tensor        # [m, k] float32
     is_self: torch.Tensor  # [m, k] bool
     pad: Optional[torch.Tensor] = None
+
+    @property
+    def m(self) -> int:
+        return self.nbrs.shape[0]
+
+    @property
+    def self_weight(self) -> torch.Tensor:
+        """[m] — the diagonal B_ii, recovered from the self slot."""
+        return torch.where(self.is_self, self.w, torch.zeros_like(self.w)).sum(dim=1)
+
+    def with_weights(self, w: torch.Tensor) -> "PaddedMixing":
+        return PaddedMixing(self.nbrs, w, self.is_self, self.pad)
 
 
 def _bcast(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -146,3 +174,112 @@ def mix_padded(pm: PaddedMixing, tree, impl: Optional[str] = None):
         lambda x: gather_terms(pm.nbrs, [(pm.w, x)], pad=pm.pad, impl=impl)[0],
         tree,
     )
+
+
+def _dense_padded(bmat: torch.Tensor) -> PaddedMixing:
+    """Full-connectivity padded form: every sender is a slot (ascending)."""
+    m = bmat.shape[0]
+    nbrs = torch.arange(m, dtype=torch.int32, device=bmat.device)[None, :].repeat(m, 1)
+    w = bmat.T.to(torch.float32).contiguous()  # w[i, j] = B[j, i]
+    is_self = torch.eye(m, dtype=torch.bool, device=bmat.device)
+    return PaddedMixing(nbrs, w, is_self)
+
+
+def _einsum(mat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """out_i = sum_j mat_ji x_j in x's type."""
+    return torch.einsum("ji,j...->i...", mat.to(x.dtype), x)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mixer:
+    """Gossip operator with interchangeable dense / sparse implementations.
+
+    `b` is the dense [m, m] matrix (reference and wire accounting), `pm` the
+    padded form the "dense" / "sparse" modes gather over, and `impl` the
+    neighbour contraction ("slots" | "segsum" | "kernel" | None =
+    `default_impl` for the tensors' device).  Every method takes a pytree
+    of [m, ...] leaves, or one leaf, and returns fresh tensors.
+    """
+
+    mode: str                        # "matrix" | "dense" | "sparse"
+    b: Optional[torch.Tensor]        # [m, m]
+    pm: Optional[PaddedMixing] = None
+    impl: Optional[str] = None
+
+    @property
+    def m(self) -> int:
+        return self.pm.m if self.b is None else self.b.shape[0]
+
+    def _eye(self) -> torch.Tensor:
+        return torch.eye(self.m, dtype=self.b.dtype, device=self.b.device)
+
+    def mix(self, tree):
+        """out_i = sum_j B_ji x_j."""
+        if self.mode == "matrix":
+            return tree_map(lambda x: _einsum(self.b, x), tree)
+        return mix_padded(self.pm, tree, impl=self.impl)
+
+    def mix_lazy(self, tree):
+        """(B − I) x — the gossip increment used by BEER."""
+        if self.mode == "matrix":
+            w = self.b - self._eye()
+            return tree_map(lambda x: _einsum(w, x), tree)
+        return tree_map(lambda mx, x: mx - x, mix_padded(self.pm, tree, impl=self.impl), tree)
+
+    def mix_half(self, tree):
+        """((I + B)/2) x — the NIDS averaging operator Ã."""
+        if self.mode == "matrix":
+            a_tilde = 0.5 * (self._eye() + self.b)
+            return tree_map(lambda x: _einsum(a_tilde, x), tree)
+        return tree_map(lambda mx, x: (0.5 * (mx + x)).to(x.dtype),
+                        mix_padded(self.pm, tree, impl=self.impl), tree)
+
+    def mix_nids_quantized(self, hats, u):
+        """off(Ã)·hats + diag(Ã)·u, Ã = (I+B)/2 — quantized NIDS mixing,
+        where each node keeps its own exact copy u_i and only off-diagonal
+        traffic moves through the lossy surrogates."""
+        if self.mode == "matrix":
+            a_tilde = 0.5 * (self._eye() + self.b)
+            diag = torch.diagonal(a_tilde)
+            off = a_tilde - torch.diag(diag)
+            return tree_map(lambda uh, ue: _einsum(off, uh) + ue * _bcast(diag, ue), hats, u)
+        sw = self.pm.self_weight  # B_ii
+        half_diag = 0.5 * (1.0 + sw)
+
+        def one(mx, h, ue):
+            return (0.5 * (mx - _bcast(sw, h) * h) + _bcast(half_diag, ue) * ue).to(ue.dtype)
+
+        return tree_map(one, mix_padded(self.pm, hats, impl=self.impl), hats, u)
+
+
+def make_mixer(topo, mode: str = "sparse", impl: Optional[str] = None,
+               device=None) -> Mixer:
+    """Build a Mixer from a `repro_torch.core.topology.Topology` on `device`
+    (default CPU).
+
+    mode="sparse" gathers over N_i ∪ {i}; mode="dense" runs the same gather
+    over full connectivity; mode="matrix" is the plain einsum.  `impl`
+    picks the neighbour contraction (None = `default_impl` per call).
+    """
+    if impl is not None:
+        _check_impl(impl)
+    b = torch.as_tensor(topo.mixing, dtype=torch.float32, device=device)
+    if mode == "matrix":
+        return Mixer("matrix", b)
+    if mode == "dense":
+        return Mixer("dense", b, _dense_padded(b), impl)
+    if mode != "sparse":
+        raise ValueError(f"unknown mixing mode {mode!r}")
+    nbrs, w, is_self = (torch.as_tensor(v, device=device) for v in topo.mixing_padded())
+    nbrs = nbrs.to(torch.int32)
+    # padding slots repeat the row's own id without being the self slot
+    pad = (nbrs == torch.arange(nbrs.shape[0], device=nbrs.device)[:, None]) & ~is_self
+    return Mixer("sparse", b, PaddedMixing(nbrs, w.to(torch.float32), is_self, pad), impl)
+
+
+def as_mixer(b: Union[Mixer, torch.Tensor]) -> Mixer:
+    """Normalize a step-function operand: a raw [m, m] tensor keeps the
+    plain einsum semantics; Mixer instances pass through."""
+    if isinstance(b, Mixer):
+        return b
+    return Mixer("matrix", b)

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import engine, pme
+from repro_torch.core import engine, gossip, pme
 from repro_torch.core.topology import Topology
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
@@ -137,11 +137,14 @@ def pame_step(
     self_params=None,
     delivered=None,
     *,
-    draws: Optional[dict] = None,  # {"sel" | "a": selection, "masks": [...]}
+    draws: Optional[dict] = None,  # {"sel" | "a": selection, "masks" | "offsets": [...]}
 ) -> Tuple[PaMEState, dict]:
     """One step of Algorithm 1.  `draws` replaces the step's own sampling:
-    ``sel`` ([m, d] bool, mixing="sparse") or ``a`` ([m, m], dense), and
-    ``masks``, one per leaf in JAX leaf order."""
+    ``sel`` ([m, d] bool, dense exchange with mixing="sparse") or ``a``
+    ([m, m]), and ``masks`` (dense exchange) or ``offsets`` (compressed
+    exchange, `repro_torch.core.gossip`), one per leaf in JAX leaf order.
+    The compressed exchanges use the [m, m] selection whatever `mixing`
+    says, as in JAX."""
     if param_shardings is not None:
         _not_ported("param_shardings")
     if realization is not None:
@@ -150,8 +153,8 @@ def pame_step(
         _not_ported("self_params (message-only delay)")
     if delivered is not None:
         _not_ported("delivered (message-level faults)")
-    if cfg.exchange != "dense":
-        _not_ported(f"exchange={cfg.exchange!r}")
+    if cfg.exchange not in ("dense", "compressed", "compressed_q8"):
+        raise ValueError(f"unknown exchange {cfg.exchange!r}")
     m = topo.nbrs.shape[0]
     device = topo.nbrs.device
     k_sel, k_mask, k_data = (
@@ -166,7 +169,7 @@ def pame_step(
         rate = cfg.p
 
     comm_mask = (state.step % topo.kappa) == 0  # k in K_i
-    if cfg.mixing == "sparse":
+    if cfg.exchange == "dense" and cfg.mixing == "sparse":
         # padded neighbour exchange: the [m, m] selection matrix is never built
         sel = draws.get("sel")
         if sel is None:
@@ -185,10 +188,17 @@ def pame_step(
                 pme.make_generator(k_sel, device), topo.nbrs, topo.valid,
                 topo.t, comm_mask,
             )
-        v_bar = pme.pme_average_pytree(
-            k_mask, state.params, a.to(device), rate, mode=cfg.mask_mode,
-            masks=masks,
-        )
+        if cfg.exchange == "dense":
+            v_bar = pme.pme_average_pytree(
+                k_mask, state.params, a.to(device), rate, mode=cfg.mask_mode,
+                masks=masks,
+            )
+        else:
+            v_bar = gossip.compressed_pme_average_pytree(
+                k_mask, state.params, a.to(device), cfg.p,
+                quantize_bits=8 if cfg.exchange == "compressed_q8" else 0,
+                offsets=draws.get("offsets"),
+            )
 
     # Per-node gradients at v_bar, one node at a time (not a vmap): at full
     # width this keeps a single node's activations alive.  v_bar is a fresh

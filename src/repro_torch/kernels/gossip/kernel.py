@@ -3,7 +3,10 @@
 Replaces ``src/repro/kernels/gossip/kernel.py::gossip_gather_pallas``; see
 the source for the design and what bounds it.  `gossip_gather` takes CUDA
 tensors only, checks them, allocates the outputs and launches on the
-current stream.  ``gossip_gather.launches`` counts its launches.
+current stream the source's variant for the operands' type (`VARIANTS`:
+float32 or bfloat16, one type for all terms of a launch).
+``gossip_gather.launches`` counts its launches,
+``gossip_gather.variant_launches`` the same launches by variant.
 """
 from __future__ import annotations
 
@@ -15,6 +18,8 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_TERMS = 8
+# operand type -> (variant name, the C entry point's dtype code)
+VARIANTS = {torch.float32: ("f32", 0), torch.bfloat16: ("bf16", 1)}
 
 
 def _bind():
@@ -24,7 +29,7 @@ def _bind():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
         ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -33,10 +38,11 @@ def _bind():
 def gossip_gather(
     nbrs: torch.Tensor,              # [m, k] int32
     ws: torch.Tensor,                # [G, m, k] float32, padding already 0.0
-    xs: Sequence[torch.Tensor],      # T sender stacks, each [m, n] float32
+    xs: Sequence[torch.Tensor],      # T sender stacks, each [m, n], one type
     term_groups: Tuple[int, ...],    # term t contracts ws[term_groups[t]]
 ) -> Tuple[torch.Tensor, ...]:
-    """out_t[i, l] = sum_slot ws[g_t][i, slot] * xs[t][nbrs[i, slot], l]."""
+    """out_t[i, l] = sum_slot ws[g_t][i, slot] * xs[t][nbrs[i, slot], l],
+    summed in f32 and stored in the operands' type (float32 or bfloat16)."""
     m, k = nbrs.shape
     g = ws.shape[0]
     if not nbrs.is_cuda:
@@ -51,9 +57,15 @@ def gossip_gather(
     if (1 + g) * k * 4 > 48 * 1024:
         raise ValueError(f"neighbour table too wide for the kernel: k={k}")
     n = xs[0].shape[1]
+    dtype = xs[0].dtype
+    if dtype not in VARIANTS:
+        raise TypeError(f"unsupported operand type {dtype}; the kernel takes "
+                        f"{', '.join(map(str, VARIANTS))}")
     for x in xs:
-        if x.dtype != torch.float32 or x.shape != (m, n) or not x.is_contiguous():
-            raise ValueError("every operand must be a contiguous float32 [m, n]")
+        if x.dtype != dtype:
+            raise TypeError(f"all terms of a launch share one type: {dtype} and {x.dtype}")
+        if x.shape != (m, n) or not x.is_contiguous():
+            raise ValueError("every operand must be a contiguous [m, n]")
         if x.device != nbrs.device:
             raise ValueError("operands and neighbour table on different devices")
     nbrs, ws = nbrs.contiguous(), ws.contiguous()
@@ -61,17 +73,20 @@ def gossip_gather(
     if n == 0:
         return outs
     fn = _bind()
+    variant, code = VARIANTS[dtype]
     t = len(xs)
     rc = fn(
         nbrs.data_ptr(), ws.data_ptr(), g,
         (ctypes.c_void_p * t)(*[x.data_ptr() for x in xs]),
         (ctypes.c_void_p * t)(*[o.data_ptr() for o in outs]),
-        (ctypes.c_int * t)(*term_groups), t, m, k, n,
+        (ctypes.c_int * t)(*term_groups), t, m, k, n, code,
         torch.cuda.current_stream(nbrs.device).cuda_stream,
     )
-    _build.check(rc, "gossip_gather")
+    _build.check(rc, f"gossip_gather ({variant})")
     gossip_gather.launches += 1
+    gossip_gather.variant_launches[variant] += 1
     return outs
 
 
 gossip_gather.launches = 0
+gossip_gather.variant_launches = {name: 0 for name, _ in VARIANTS.values()}

@@ -9,7 +9,9 @@ Keeps the contract of ``src/repro/kernels/gossip/ops.py``:
     (PME's payload and count walks share one selection table) are found by
     object identity and share one table in the launch;
   * leaf reshaping: [m, ...] operands are flattened to [m, n] and terms are
-    bucketed by trailing size, one launch per distinct n.
+    bucketed by trailing size and type, one launch per distinct (n, type).
+    The kernel takes float32 and bfloat16 operands (f32 sums, output in
+    the operands' type); any other type on the card raises.
 
 The device of the tensors decides: CPU tensors take the plain version
 (`ref.gather_terms_ref`), CUDA tensors launch the kernel or raise.  There
@@ -48,17 +50,17 @@ def gather_terms_kernel(
             )
         return masked[id(w)]
 
-    buckets: dict = {}  # n_flat -> (tables, index by id, entries)
+    buckets: dict = {}  # (n_flat, type) -> (tables, index by id, entries)
     for t, (w, x) in enumerate(terms):
         n_flat = math.prod(x.shape[1:])
-        tables, by_id, entries = buckets.setdefault(n_flat, ([], {}, []))
+        tables, by_id, entries = buckets.setdefault((n_flat, x.dtype), ([], {}, []))
         if id(w) not in by_id:
             by_id[id(w)] = len(tables)
             tables.append(mask_w(w))
         entries.append((t, by_id[id(w)], x))
 
     outs: list = [None] * len(terms)
-    for n_flat, (tables, _, entries) in buckets.items():
+    for (n_flat, _), (tables, _, entries) in buckets.items():
         xs = [x.reshape(m, n_flat).contiguous() for _, _, x in entries]
         res = gossip_gather(
             nbrs32, torch.stack(tables), xs, tuple(g for _, g, _ in entries)

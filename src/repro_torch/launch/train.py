@@ -5,9 +5,11 @@
 
 Same flags and log lines as the JAX CLI, plus ``--device {cuda,cpu}``
 (default ``cuda``; without a card the run raises instead of falling back).
-PaME on the static network with one seed is ported: every dynamic-network
+Every registered algorithm runs (``--algo pame``, ``dpsgd``, ``dfedsam``,
+``choco``, ``beer``, ``anq_nids``; ``--lr`` and ``--rho`` reach the
+baselines) on the static network with one seed: every dynamic-network
 scenario, fault, temporal, checkpoint and multi-seed flag raises "not yet
-ported", as do the baselines (not in the registry yet).  Steps run
+ported".  Steps run
 through `repro_torch.core.engine` in ``--chunk``-step chunks with one host
 sync per chunk; gossip goes through the sparse neighbour exchange by
 default (``--mixing dense`` for the selection-matrix form), and per-step
@@ -24,7 +26,16 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.core import engine
-from repro_torch.core.algorithms import PaMEHp, get_algorithm, list_algorithms
+from repro_torch.core.algorithms import (
+    AnqNidsHp,
+    BeerHp,
+    ChocoHp,
+    DFedSAMHp,
+    DPSGDHp,
+    PaMEHp,
+    get_algorithm,
+    list_algorithms,
+)
 from repro_torch.core.topology import build_topology
 from repro_torch.data.synthetic import SyntheticTokens
 from repro_torch.models.model import init_params, train_loss
@@ -40,17 +51,23 @@ _NOT_PORTED = (
 
 
 def _hps_from_args(name: str, args):
-    if name != "pame":
-        raise NotImplementedError(f"--algo {name} not yet ported to repro_torch")
-    p_leaf = None
-    if getattr(args, "p_leaf", None):
-        p_leaf = tuple(float(x) for x in args.p_leaf.split(","))
-    return PaMEHp(
-        nu=args.nu, p=args.p, gamma=args.gamma, sigma0=args.sigma0,
-        kappa_lo=args.kappa_lo, kappa_hi=args.kappa_hi,
-        mask_mode="bernoulli",
-        partition=getattr(args, "partition", "flat"), p_leaf=p_leaf,
-    )
+    if name == "pame":
+        p_leaf = None
+        if getattr(args, "p_leaf", None):
+            p_leaf = tuple(float(x) for x in args.p_leaf.split(","))
+        return PaMEHp(
+            nu=args.nu, p=args.p, gamma=args.gamma, sigma0=args.sigma0,
+            kappa_lo=args.kappa_lo, kappa_hi=args.kappa_hi,
+            mask_mode="bernoulli",
+            partition=getattr(args, "partition", "flat"), p_leaf=p_leaf,
+        )
+    return {
+        "dpsgd": lambda: DPSGDHp(lr=args.lr),
+        "dfedsam": lambda: DFedSAMHp(lr=args.lr, rho=args.rho),
+        "choco": lambda: ChocoHp(lr=args.lr),
+        "beer": lambda: BeerHp(lr=args.lr),
+        "anq_nids": lambda: AnqNidsHp(lr=args.lr),
+    }[name]()
 
 
 def batch_stream_rng(seed: int, step: int) -> np.random.Generator:
@@ -105,7 +122,8 @@ def build_everything(args):
     bound = alg.bind(grad_fn, topo, hps, mixing=args.mixing, seed=args.seed,
                      device=device)
     stacked = bound.stack_params(params0, m)
-    state = bound.init(args.seed + 1, stacked, None)
+    batch0 = make_batch(0) if alg.needs_batch0 else None
+    state = bound.init(args.seed + 1, stacked, batch0)
     n_params = sum(int(np.prod(tuple(x.shape))) for x in tree_leaves(params0))
     return cfg, bound, state, make_batch, n_params, params0
 
@@ -205,9 +223,13 @@ def main(argv=None) -> dict:
         if (k // log_every) != (k0 // log_every) or k >= args.steps:
             loss = float(np.mean(metrics["loss_mean"]))
             last = lambda key: float(metrics[key][-1])
-            extra = (f" consensus={last('consensus'):.3e}"
-                     f" comm_nodes={last('comm_nodes'):.0f}"
-                     f" sigma={last('sigma_mean'):.2f}")
+            extra = ""
+            if "consensus" in metrics:
+                extra += f" consensus={last('consensus'):.3e}"
+            if "comm_nodes" in metrics:
+                extra += f" comm_nodes={last('comm_nodes'):.0f}"
+            if "sigma_mean" in metrics:
+                extra += f" sigma={last('sigma_mean'):.2f}"
             print(
                 f"[train] step={k} loss={loss:.4f}{extra}"
                 f" wire_gbits={cum_bits/1e9:.4f}"

@@ -5,7 +5,9 @@
 rates and Eq.-(8) sizes are all indexed by the JAX order, so the port
 flattens its nested dicts / lists / tuples here and nowhere else: dict keys
 sorted, lists and tuples (named tuples included) by index, anything else a
-leaf.
+leaf.  The recursion is module-level, not a self-referencing closure: a
+closure cycle would keep every flattened leaf alive until Python's cyclic
+collector ran, which at full width is gigabytes of device memory.
 """
 from __future__ import annotations
 
@@ -26,35 +28,34 @@ def _children(node) -> Tuple[Optional[tuple], Optional[list]]:
     return None, None
 
 
+def _walk(node, leaves: List[Any]):
+    kind, kids = _children(node)
+    if kind is None:
+        leaves.append(node)
+        return None
+    return (kind, [_walk(c, leaves) for c in kids])
+
+
 def tree_flatten(tree) -> Tuple[List[Any], Any]:
     """Leaves in JAX order, plus a treedef for `tree_unflatten`."""
     leaves: List[Any] = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(node):
-        kind, kids = _children(node)
-        if kind is None:
-            leaves.append(node)
-            return None
-        return (kind, [walk(c) for c in kids])
 
-    return leaves, walk(tree)
+def _build(d, it):
+    if d is None:
+        return next(it)
+    (kind, meta), kids = d
+    vals = [_build(k, it) for k in kids]
+    if kind == "dict":
+        return dict(zip(meta, vals))
+    if kind == "namedtuple":
+        return meta(*vals)
+    return list(vals) if kind == "list" else tuple(vals)
 
 
 def tree_unflatten(treedef, leaves) -> Any:
-    it = iter(leaves)
-
-    def build(d):
-        if d is None:
-            return next(it)
-        (kind, meta), kids = d
-        vals = [build(k) for k in kids]
-        if kind == "dict":
-            return dict(zip(meta, vals))
-        if kind == "namedtuple":
-            return meta(*vals)
-        return list(vals) if kind == "list" else tuple(vals)
-
-    return build(treedef)
+    return _build(treedef, iter(leaves))
 
 
 def tree_leaves(tree) -> List[Any]:

@@ -84,6 +84,57 @@ def test_gossip_kernel_equals_slots(dev, m, n, kind):
         torch.testing.assert_close(o, r, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("m,n,kind", [(7, 257, "erdos_renyi"), (9, 1000, "star"),
+                                      (40, 130, "ring"), (4, 4096, "erdos_renyi"),
+                                      (4, 8 * 1000 + 3, "erdos_renyi")])
+def test_gossip_kernel_bf16_equals_f32_slots_rounded(dev, m, n, kind):
+    """bf16 operands: f32 sums in slot order, rounded once — the f32 slots
+    chain on x.float() rounded to bf16, bit for bit (n % 8 != 0 takes the
+    scalar instance)."""
+    topo = build_topology(kind, m, **({"p": 0.5, "seed": 1} if kind == "erdos_renyi" else {}))
+    nbrs, w, is_self = (torch.as_tensor(x, device=dev) for x in topo.mixing_padded())
+    pad = (nbrs == torch.arange(m, device=dev)[:, None]) & ~is_self
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
+    poisoned = torch.where(pad, torch.full_like(w, float("nan")), w)
+    before = dict(gkernel.gossip_gather.variant_launches)
+    got = gather_terms_kernel(nbrs, [(poisoned, x)], pad=pad)[0]
+    torch.cuda.synchronize()
+    assert gkernel.gossip_gather.variant_launches["bf16"] == before["bf16"] + 1
+    assert gkernel.gossip_gather.variant_launches["f32"] == before["f32"]
+    want = mixing.gather_terms(nbrs, [(w, x.float())], impl="slots")[0].to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_gossip_kernel_refuses_other_types(dev):
+    nbrs = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    ws = torch.ones((1, 2, 1), device=dev)
+    with pytest.raises(TypeError, match="unsupported operand type"):
+        gkernel.gossip_gather(nbrs, ws, [torch.zeros((2, 4), dtype=torch.float16, device=dev)], (0,))
+    with pytest.raises(TypeError, match="one type"):
+        gkernel.gossip_gather(nbrs, ws, [torch.zeros((2, 4), device=dev),
+                                         torch.zeros((2, 4), dtype=torch.bfloat16, device=dev)],
+                              (0, 0))
+
+
+def test_baseline_mixer_runs_bf16_kernel(dev, monkeypatch):
+    """A bound baseline's sparse Mixer on a bf16 tree: one bf16 launch per
+    leaf, equal to the f32 slots chain rounded once."""
+    monkeypatch.delenv(mixing.ENV_VAR, raising=False)
+    mx = mixing.make_mixer(build_topology("erdos_renyi", 4, p=0.5, seed=0), "sparse", device=dev)
+    tree = {"a": torch.randn((4, 64, 33), device=dev).to(torch.bfloat16),
+            "b": torch.randn((4, 5), device=dev).to(torch.bfloat16)}
+    before = gkernel.gossip_gather.variant_launches["bf16"]
+    out = mx.mix(tree)
+    torch.cuda.synchronize()
+    assert gkernel.gossip_gather.variant_launches["bf16"] == before + 2
+    for key, x in tree.items():
+        want = mixing.gather_terms(mx.pm.nbrs, [(mx.pm.w, x.float())], pad=mx.pm.pad,
+                                   impl="slots")[0].to(torch.bfloat16)
+        torch.testing.assert_close(out[key], want, rtol=0, atol=0)
+
+
 def test_pme_route_uses_kernel_on_cuda(dev, monkeypatch):
     monkeypatch.delenv(mixing.ENV_VAR, raising=False)
     m = 4

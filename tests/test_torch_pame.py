@@ -149,9 +149,9 @@ def test_registry_bind_and_wire_bits_match_jax():
         tparams = {"a": torch.zeros(3, 4), "b": torch.zeros(7)}
         assert bt.wire_bits_for(tparams) == bj.wire_bits_for(params)
         assert bt.wire_bits(N) == bj.wire_bits(N)
-    assert talg.list_algorithms() == ("pame",)
+    assert talg.list_algorithms() == ("pame", "dpsgd", "dfedsam", "choco", "beer", "anq_nids")
     with pytest.raises(ValueError):
-        talg.get_algorithm("dpsgd")
+        talg.get_algorithm("nope")
     with pytest.raises(NotImplementedError):
         talg.get_algorithm("pame").bind(t_grad, topo_t, device="cpu", scenario=object())
     # the registry's scan run agrees with the host run
@@ -169,7 +169,7 @@ def test_not_ported_options_raise():
     ta = tpame.make_topology_arrays(tbuild("ring", 4), cfg, device="cpu")
     st = tpame.pame_init(0, torch.zeros(4, 3), 4, cfg)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tpame.pame_step(st, None, t_grad, ta, cfg)
+        tpame.pame_step(st, None, t_grad, ta, cfg, self_params=st.params)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tpame.pame_step(st, None, t_grad, ta, tpame.PaMEConfig(), realization=object())
     with pytest.raises(ValueError, match="p_leaf"):

@@ -84,6 +84,30 @@ def test_cli_runs_on_cpu(capsys):
     assert "[train] done" in log
 
 
+@pytest.mark.parametrize("algo", ["dpsgd", "dfedsam", "choco", "beer", "anq_nids"])
+def test_cli_runs_each_baseline_on_cpu(algo, capsys):
+    """--algo for every baseline, with --lr / --rho reaching its hps.  Torch
+    runs on one intra-op thread here: the smoke model's ops are tiny, and
+    beside other test workers more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = ttrain.main(["--arch", "stablelm-1.6b", "--variant", "smoke", "--nodes", "4",
+                           "--batch", "1", "--seq", "8", "--steps", "2", "--chunk", "1",
+                           "--lr", "0.02", "--rho", "0.02", "--device", "cpu", "--algo", algo])
+    finally:
+        torch.set_num_threads(n)
+    assert out["steps"] == 2 and len(out["loss"]) == 2
+    assert np.isfinite(out["loss"]).all()
+    log = capsys.readouterr().out
+    assert f"[train] algo={algo} mixing=sparse" in log and "[train] step=2 loss=" in log
+    assert "consensus=" not in log  # PaME's metrics only
+    args = ttrain.make_parser().parse_args(["--arch", "x", "--algo", algo, "--lr", "0.02",
+                                            "--rho", "0.03"])
+    hps = ttrain._hps_from_args(algo, args)
+    assert hps.lr == 0.02 and getattr(hps, "rho", 0.03) == 0.03
+
+
 def test_cli_unported_flags_raise():
     base = ["--arch", "stablelm-1.6b", "--device", "cpu"]
     for extra in (["--scenario", "churn"], ["--seeds", "2"], ["--loss-rate", "0.1"],
