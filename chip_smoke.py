@@ -16,8 +16,9 @@ non-zero without the final result line:
      (f32 and bf16 variants) and PME average on small odd shapes (isolated
      node, star hub, NaN-poisoned padding, more receivers than one tile)
      and at the training paths' largest leaf [4, 276,824,064] (gossip: f32
-     for path A, bf16 for path D, each bit-equal to the f32 slots chain
-     rounded to its type); flash attention on the JAX tests'
+     for path A, bf16 for path D and for E5's replica mix over 16 sender
+     rows, each bit-equal to the f32 slots chain rounded to its type);
+     flash attention on the JAX tests'
      sweep (f32, bf16), on ragged, windowed, D = 128 and 40/8 GQA bf16
      shapes and at path C's [8, 2048, 32, 64] bf16; SSD intra-chunk on the
      JAX tests' shapes, on short-chunk and G > 1 bf16 shapes, at path C's
@@ -31,8 +32,9 @@ non-zero without the final result line:
   4. path B: ``run_pame`` on the same model with ``PaMEConfig()``
      defaults (exact masks, dense exchange), 2 steps — the PME-average
      kernel must launch 10 times a step;
-  5. one ``pame_step`` of each path with injected draws, through the
-     kernels and through the plain versions: new params within one bf16 ulp;
+  5. one ``pame_step`` of each path with injected draws at full width and
+     2 layers, through the kernels and through the plain versions: new
+     params within one bf16 ulp;
   6. path C: ``ServeLoop`` on zamba2-1.2b at full width and depth (38
      layers) with both kernel flags, 4 node models, 8 prompts of 2048
      tokens, 32 generated, one round serving local models and one the
@@ -43,15 +45,32 @@ non-zero without the final result line:
      f32 within 1e-3 (relative logit error), in bf16 no further from the
      f32 logits than the plain route (within 1.1x);
   7. path D: the trainer CLI with each of the five baselines (dpsgd,
-     dfedsam, choco, beer, anq_nids) on path A's model and flags, 2 steps
-     each — finite losses, the bf16 gossip kernel launched 11 times a step
-     (22 for beer), no f32 launch, peak memory under 80 GB; `run_pame` with
-     exchange="compressed" and "compressed_q8", 2 steps each — finite
-     losses and the Eq.-(8) wire bits at 64 and 8 value bits;
+     dfedsam, choco, beer, anq_nids) on path A's model and flags at 12
+     layers (full width), 2 steps each — finite losses, the bf16 gossip
+     kernel launched 11 times a step (22 for beer), no f32 launch, peak
+     memory under 80 GB; `run_pame` with exchange="compressed" and
+     "compressed_q8" at 12 layers, 2 steps each — finite losses and the
+     Eq.-(8) wire bits at 64 and 8 value bits;
   8. one step of each baseline with injected draws through the kernel
      route and through the plain contraction (f32 slots, rounded once), at
      full width and 2 layers: every state tree within one floored bf16 ulp;
-  9. the kernel table line, then the result line.
+  9. path E: dynamic networks on path A's model through the trainer CLI,
+     3 steps each — E1 PaME under the harsh i.i.d. scenario (f32 gossip,
+     11 a step), E3 D-PSGD under Markov bursts and sessions with bounded
+     staleness 2 (bf16 gossip, 11), E4 PaME under message loss, crashes and
+     delayed delivery (f32, 11), E5 CHOCO with per-receiver replicas under
+     loss and lossy-link bursts (bf16, 11), E6 BEER (22) and ANQ-NIDS (11)
+     with replicas under loss at 8 layers (full width: their replica trees
+     do not fit at full depth) — then E2, `Algorithm.bind` with PaME's
+     dense exact exchange under churn (PME average, 10 a step): finite
+     losses, launch counts, realized metrics, peaks under 80 GB;
+ 10. one dynamic, one temporal and one fault step of D-PSGD and of PaME,
+     and one fault step of rep-CHOCO, rep-BEER and rep-ANQ-NIDS, at full
+     width and 2 layers with injected network and compression uniforms,
+     through the kernels and through the plain contraction: 0 bf16 ulps,
+     f32 leaves bit-equal, ring snapshots and replicas included, the
+     launches of each step counted;
+ 11. the kernel table line, then the result line.
 
 Exits non-zero with no result when no CUDA device is present, or when the
 port's sources are not beside this script.
@@ -76,6 +95,16 @@ F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 BIG_N = 24 * 2048 * 5632  # the largest leaf of stablelm-1.6b (w_gate / w_up / w_down)
 M = 4
+# elements (columns) at a time in the comparisons and the plain contraction:
+# a full-width replica leaf is then never copied whole into f32
+CHUNK = 1 << 26
+# the parity phases' depth: full width, 2 layers, so that both routes'
+# states and the injected uniforms fit beside each other (BEER at full
+# depth holds 57.5 GB of state and would need 46 GB of uniforms)
+PARITY_LAYERS = 2
+# path D's depth (full width): cut from 24 so that the script, path E
+# included, stays within the time paths A-D took before path E
+PATH_D_LAYERS = 12
 
 
 def model_args(algo):
@@ -127,13 +156,17 @@ def bf16_ulps(got, want):
 def bf16_ulps_floored(got, want):
     """max |got - want| in bf16 ulps of max(|want|, max|want| / 256): below
     1/256 of the output's scale, f32 sums taken in another order differ by
-    more than an ulp of the tiny value itself."""
+    more than an ulp of the tiny value itself.  CHUNK elements at a time."""
     import torch
 
-    w = want.float()
-    mag = torch.maximum(w.abs(), w.abs().max() / 256).clamp(min=2.0 ** -126)
-    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-    return ((got.float() - w).abs() / ulp).max().item()
+    floor = want.abs().max().float() / 256
+    worst = 0.0
+    for g, w in zip(got.reshape(-1).split(CHUNK), want.reshape(-1).split(CHUNK)):
+        w = w.float()
+        ulp = torch.exp2(torch.floor(torch.log2(
+            torch.maximum(w.abs(), floor).clamp(min=2.0 ** -126))) - 7)
+        worst = max(worst, ((g.float() - w).abs() / ulp).max().item())
+    return worst
 
 
 def bound(bytes_, flops, peak=BF16_FLOPS):
@@ -183,8 +216,9 @@ def check_gossip(dev):
         same = all(torch.equal(g, s) for g, s in zip(got, slots))
         finite = all(torch.isfinite(g).all().item() for g in got)
         row = {"kernel": "gossip_gather", "variant": "bf16" if dtype == torch.bfloat16 else "f32",
-               "case": name, "m": nbrs.shape[0], "n": xs[0][0].numel(), "k": nbrs.shape[1],
-               "terms": len(xs), "equals_f32_slots_rounded": same, "finite": finite}
+               "case": name, "m": nbrs.shape[0], "senders": xs[0].shape[0],
+               "n": xs[0][0].numel(), "k": nbrs.shape[1], "terms": len(xs),
+               "equals_f32_slots_rounded": same, "finite": finite}
         if dtype == torch.float32:
             row.update(max_abs_err=err, tol=1e-6 * scale)
             ok = err <= 1e-6 * scale
@@ -206,8 +240,8 @@ def check_gossip(dev):
             row["plain_ms"] = time_ms(lambda: gather_terms_ref(nbrs, terms, pad=pad), reps)
             row["library_ms"] = time_ms(
                 lambda: mixing.gather_terms(nbrs, terms, pad=pad, impl="segsum"), reps)
-            bytes_ = (2 * len(xs) * m * n * xs[0].element_size() + nbrs.numel() * 4
-                      + w.numel() * 4)
+            bytes_ = (len(xs) * (xs[0].shape[0] + m) * n * xs[0].element_size()
+                      + nbrs.numel() * 4 + w.numel() * 4)
             flops = 2 * len(xs) * m * k * n  # f32 multiply-adds on the CUDA cores
             row["bound_ms"], row["bound_by"] = bound(bytes_, flops, F32_FLOPS)
             row["bound_share"] = row["bound_ms"] / row["ms"]
@@ -259,7 +293,19 @@ def check_gossip(dev):
     row_bf16 = case("path-d-largest-leaf-bf16", mx.pm.nbrs, mx.pm.w, mx.pm.pad, [x], reps=5)
     del x
     free()
-    return {"f32": row, "bf16": row_bf16}
+    # path E5's largest leaf: rep-CHOCO's replica mix, a held leaf [4, d + 1,
+    # n] read in place as 16 sender rows, as `mixing.mix_replicated` hands
+    # it to the kernel; row-stochastic weights with one lost link (weight 0)
+    d = int(valid.shape[1])
+    held = torch.randn((M, d + 1, BIG_N), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.rand((M, d + 1), generator=g, device=dev)
+    w[0, 0] = 0.0
+    w /= w.sum(dim=1, keepdim=True)
+    row_rep = case("path-e5-replica-mix-largest-leaf-bf16", mixing.replica_table(M, d, dev), w,
+                   None, [held.view(M * (d + 1), BIG_N)], reps=3)
+    del held
+    free()
+    return {"f32": row, "bf16": row_bf16, "bf16_replicas": row_rep}
 
 
 def check_pme(dev):
@@ -489,11 +535,14 @@ def path_a():
     return launches
 
 
-def _task(dev):
+def _task(dev, layers=None):
+    """Path A's model, graph and batch; `layers` cuts the depth."""
     from repro_torch.configs import get_config
     from repro_torch.launch.train import make_lm_task
 
     cfg = get_config("stablelm-1.6b", "full")
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
     return make_lm_task(cfg, M, 4, 128, 0, "erdos_renyi", dev)
 
 
@@ -527,13 +576,14 @@ def path_b(dev):
 
 def parity(dev):
     """One pame_step of each of paths A and B with injected draws, through
-    the kernels and through the plain versions (REPRO_TORCH_GOSSIP_IMPL=slots)."""
+    the kernels and through the plain versions (REPRO_TORCH_GOSSIP_IMPL=slots),
+    at full width and PARITY_LAYERS layers (the script's time budget)."""
     import torch
     from repro_torch.core import pame, pme
     from repro_torch.core.mixing import ENV_VAR
     from repro_torch.tree import tree_flatten, tree_unflatten
 
-    topo, params0, grad_fn, make_batch = _task(dev)
+    topo, params0, grad_fn, make_batch = _task(dev, PARITY_LAYERS)
     g = torch.Generator(device=dev).manual_seed(7)
     leaves, treedef = tree_flatten(params0)
     # distinct node models, so the exchange averages different values
@@ -593,7 +643,8 @@ def parity(dev):
         del v_bar
         results[name] = {"max_bf16_ulps": ulps, "loss_kernel": outs["kernel_loss"],
                          "loss_plain": outs["slots_loss"], "step_s_kernel": outs["kernel_step_s"],
-                         "step_s_plain": outs["slots_step_s"], "exchange_s_kernel": exchange_s}
+                         "step_s_plain": outs["slots_step_s"], "exchange_s_kernel": exchange_s,
+                         "layers": PARITY_LAYERS}
         emit(phase="parity", path=name, **results[name])
         del draws, state, outs
         free()
@@ -610,10 +661,6 @@ def parity(dev):
 # (anq_nids) per leaf, each one launch; stablelm-1.6b has 11 leaves
 BASELINES = {"dpsgd": 11, "dfedsam": 11, "choco": 11, "beer": 22, "anq_nids": 11}
 PEAK_LIMIT = 80e9
-# the parity phase's depth: full width, 2 layers, so that both routes'
-# states and the injected uniforms fit beside each other (BEER at full
-# depth holds 57.5 GB of state and would need 46 GB of uniforms)
-PARITY_LAYERS = 2
 PARITY_ULPS = 1.0
 
 
@@ -632,8 +679,9 @@ def _reset_counts():
 
 def path_d():
     """The trainer CLI with each baseline, stablelm-1.6b at full width and
-    depth, 4 nodes, sparse mixing, 2 steps: finite losses, the bf16 gossip
-    launches of BASELINES a step (no f32 one) and a peak under 80 GB."""
+    PATH_D_LAYERS layers, 4 nodes, sparse mixing, 2 steps: finite losses,
+    the bf16 gossip launches of BASELINES a step (no f32 one) and a peak
+    under 80 GB."""
     import torch
     from repro_torch.kernels.gossip.kernel import gossip_gather
     from repro_torch.kernels.pme_average.kernel import pme_average_cuda
@@ -646,14 +694,14 @@ def path_d():
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
         t0 = time.perf_counter()
-        out = train.main(model_args(algo) + ["--steps", str(steps), "--chunk", "1",
-                                             "--device", "cuda"])
+        out = train.main(model_args(algo) + ["--layers", str(PATH_D_LAYERS), "--steps",
+                                             str(steps), "--chunk", "1", "--device", "cuda"])
         launches = dict(gossip_gather.variant_launches)
         rows[algo] = row = {
             "steps": out["steps"], "loss": out["loss"], "s_per_step": out["seconds"],
             "seconds": time.perf_counter() - t0, "peak_bytes": torch.cuda.max_memory_allocated(),
             "gossip_launches": launches, "pme_average_launches": pme_average_cuda.launches,
-            "expected_bf16_launches": per_step * steps}
+            "expected_bf16_launches": per_step * steps, "layers": PATH_D_LAYERS}
         emit(phase="path_d", algo=algo, **row)
         if launches != {"f32": 0, "bf16": per_step * steps}:
             fail(f"path D ({algo}): expected {per_step} bf16 gossip launches a step, got {launches}")
@@ -666,9 +714,10 @@ def path_d():
 
 
 def path_d_compressed(dev):
-    """`run_pame` with the compressed exchanges on path D's model, 2 steps
-    each: finite losses, no gossip or PME-average launch (the exchange is
-    two einsums a leaf), and the Eq.-(8) wire bits at 64 and 8 value bits,
+    """`run_pame` with the compressed exchanges on path D's model (full
+    width, PATH_D_LAYERS layers), 2 steps each: finite losses, no gossip or
+    PME-average launch (the exchange is two einsums a leaf), and the
+    Eq.-(8) wire bits at 64 and 8 value bits,
     realized (the messages of this run's communicating receivers) and
     expected (the registry's formula, recomputed here)."""
     import numpy as np
@@ -682,7 +731,7 @@ def path_d_compressed(dev):
     from repro_torch.tree import tree_leaves
 
     steps = 2
-    topo, params0, grad_fn, make_batch = _task(dev)
+    topo, params0, grad_fn, make_batch = _task(dev, PATH_D_LAYERS)
     n = sum(x.numel() for x in tree_leaves(params0))
     rows = {}
     for exchange, value_bits in (("compressed", 64), ("compressed_q8", 8)):
@@ -706,6 +755,7 @@ def path_d_compressed(dev):
             grad_fn, topo, PaMEHp(exchange=exchange), device=dev).wire_bits_for(params0)
         rows[exchange] = row = {
             "steps": hist["steps_run"], "loss": hist["loss"], "s_per_step": secs / steps,
+            "layers": PATH_D_LAYERS,
             "peak_bytes": torch.cuda.max_memory_allocated(), "value_bits": value_bits,
             "bits_per_message": bits, "wire_bits_realized": realized,
             "wire_bits_expected_per_step": expected, "wire_bits_formula": formula,
@@ -730,17 +780,25 @@ def path_d_compressed(dev):
 def plain_contraction():
     """Every padded gossip contraction of `repro_torch.core.mixing` through
     its plain version, the arithmetic the kernel must equal: the slots chain
-    on f32 copies of the operands, rounded once to their type."""
+    on f32 copies of the operands, rounded once to their type.  Each output
+    element reads its own column only, so the chain runs CHUNK columns at a
+    time."""
     import torch
     from repro_torch.core import mixing
 
     kernel_route = mixing.gather_terms
 
     def plain(nbrs, terms, *, pad=None, impl=None):
-        clean = [(w if pad is None else torch.where(pad, torch.zeros_like(w), w), x.float())
-                 for w, x in terms]
-        outs = mixing._gather_terms_slots(nbrs, clean)
-        return tuple(o.to(x.dtype) for o, (_, x) in zip(outs, terms))
+        outs = []
+        for w, x in terms:
+            w = w if pad is None else torch.where(pad, torch.zeros_like(w), w)
+            x2 = x.reshape(x.shape[0], -1)
+            out = torch.empty((nbrs.shape[0], x2.shape[1]), dtype=x.dtype, device=x.device)
+            for c in range(0, x2.shape[1], CHUNK):
+                out[:, c:c + CHUNK] = mixing._gather_terms_slots(
+                    nbrs, [(w, x2[:, c:c + CHUNK].float())])[0]
+            outs.append(out.view((nbrs.shape[0],) + tuple(x.shape[1:])))
+        return tuple(outs)
 
     mixing.gather_terms = plain
     try:
@@ -851,6 +909,309 @@ def path_d_parity(dev, cfg=None, batch=4, seq=128, tol=PARITY_ULPS):
                                    or row["bf16_launches_plain_route"]):
             fail(f"path D parity ({name}): the kernel route did not run the bf16 kernel "
                  f"{BASELINES[name]} times, or the plain route ran it")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# path E: dynamic networks (scenarios, Markov dynamics with staleness, faults)
+# ---------------------------------------------------------------------------
+# the depth at which the replicated fault variants of BEER and ANQ-NIDS fit
+# one card at full width: 8 layers make a copy 1.23 GB, so BEER's 5 trees and
+# 2 replica trees (44 copies) hold 54 GB and ANQ-NIDS's 4 + 2 (40) 49 GB
+REP_LAYERS = 8
+# (run, algo, flags, gossip launches a step by variant); every run through
+# the trainer CLI on path A's model, graph and batch, 3 steps of one
+PATH_E = (
+    ("E1", "pame", ["--scenario", "harsh"], {"f32": 11, "bf16": 0}),
+    # --straggler 0.5 gives the temporal scenario stragglers, so that the
+    # staleness ring is read as well as written
+    ("E3", "dpsgd", ["--scenario", "flaky_links", "--burst", "0.1,0.5", "--session",
+                     "0.05,0.5", "--staleness", "2", "--straggler", "0.5"],
+     {"f32": 0, "bf16": 11}),
+    ("E4", "pame", ["--loss-rate", "0.1", "--crash", "0.02,0.25", "--msg-delay", "0.2,2"],
+     {"f32": 11, "bf16": 0}),
+    ("E5", "choco", ["--loss-rate", "0.1", "--loss-burst", "0.05,0.3"], {"f32": 0, "bf16": 11}),
+    ("E6", "beer", ["--loss-rate", "0.1", "--layers", str(REP_LAYERS)], {"f32": 0, "bf16": 22}),
+    ("E6", "anq_nids", ["--loss-rate", "0.1", "--layers", str(REP_LAYERS)],
+     {"f32": 0, "bf16": 11}),
+)
+E_STEPS = 3
+E_METRICS = ("wire_bits", "comm_nodes", "alive_nodes", "stale_nodes", "dropped_msgs",
+             "col_defect", "crashed_nodes", "surrogate_desync")
+
+
+def path_e():
+    """The trainer CLI under each dynamic network of PATH_E, 3 steps of one:
+    finite losses, the gossip launches of PATH_E a step, peak under 80 GB;
+    then E2, `Algorithm.bind(..., scenario=churn)` with PaME's dense exact
+    exchange (`PaMEHp()`, the CLI's PaME draws Bernoulli masks, which the
+    PME-average kernel does not serve): 10 PME-average launches a step."""
+    import torch
+    from repro_torch.kernels.gossip.kernel import gossip_gather
+    from repro_torch.kernels.pme_average.kernel import pme_average_cuda
+    from repro_torch.launch import train
+
+    rows = {}
+    launches = {"f32": 0, "bf16": 0, "pme_average": 0}
+    for run, algo, flags, per_step in PATH_E:
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = train.main(model_args(algo) + flags + ["--steps", str(E_STEPS), "--chunk", "1",
+                                                     "--device", "cuda"])
+        got = dict(gossip_gather.variant_launches)
+        row = {"run": run, "algo": algo, "flags": flags, "steps": out["steps"],
+               "loss": out["loss"], "s_per_step": out["seconds"],
+               "seconds": time.perf_counter() - t0,
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "gossip_launches": got, "pme_average_launches": pme_average_cuda.launches,
+               "expected_gossip_launches": {k: v * E_STEPS for k, v in per_step.items()},
+               "staleness_hist": out["staleness_hist"]}
+        row.update({k: out["metrics"][k] for k in E_METRICS if k in out["metrics"]})
+        rows[f"{run}-{algo}"] = row
+        emit(phase="path_e", **row)
+        for v in ("f32", "bf16"):
+            launches[v] += got[v]
+        if got != row["expected_gossip_launches"] or pme_average_cuda.launches:
+            fail(f"path E ({run}, {algo}): expected gossip launches "
+                 f"{row['expected_gossip_launches']}, got {got} (and "
+                 f"{pme_average_cuda.launches} PME-average launches)")
+        if not all(math.isfinite(x) for x in out["loss"]) or out["steps"] != E_STEPS:
+            fail(f"path E ({run}, {algo}): losses not finite or steps missing")
+        if row["peak_bytes"] >= PEAK_LIMIT:
+            fail(f"path E ({run}, {algo}): peak {row['peak_bytes']} bytes is not under 80 GB")
+    rows["E2-pame"] = row = path_e2()
+    launches["pme_average"] = row["pme_average_launches"]
+    free()
+    return rows, launches
+
+
+def path_e2():
+    import torch
+    from repro_torch.core.algorithms import PaMEHp, get_algorithm
+    from repro_torch.core.scenarios import get_scenario
+    from repro_torch.kernels.gossip.kernel import gossip_gather
+    from repro_torch.kernels.pme_average.kernel import pme_average_cuda
+
+    dev = torch.device("cuda")
+    free()
+    topo, params0, grad_fn, make_batch = _task(dev)
+    bound = get_algorithm("pame").bind(grad_fn, topo, PaMEHp(), mixing="dense",
+                                       scenario=get_scenario("churn"), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    state, hist = bound.make_runner(chunk_size=1)(1, params0, M, make_batch, E_STEPS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    row = {"run": "E2", "algo": "pame", "flags": ["mixing=dense", "scenario=churn", "PaMEHp()"],
+           "steps": hist["steps_run"], "loss": hist["loss"], "s_per_step": secs / E_STEPS,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "pme_average_launches": pme_average_cuda.launches,
+           "gossip_launches": dict(gossip_gather.variant_launches),
+           "expected_pme_average_launches": 10 * E_STEPS}
+    row.update({k: hist[k] for k in E_METRICS if k in hist})
+    emit(phase="path_e", **row)
+    del state, params0
+    if pme_average_cuda.launches != 10 * E_STEPS or gossip_gather.launches:
+        fail(f"path E (E2): expected {10 * E_STEPS} PME-average launches and no gossip "
+             f"launch, got {pme_average_cuda.launches} and {gossip_gather.launches}")
+    if not all(math.isfinite(x) for x in hist["loss"]) or hist["steps_run"] != E_STEPS:
+        fail("path E (E2): losses not finite or steps missing")
+    if row["peak_bytes"] >= PEAK_LIMIT:
+        fail(f"path E (E2): peak {row['peak_bytes']} bytes is not under 80 GB")
+    return row
+
+
+@contextlib.contextmanager
+def plain_routes():
+    """`plain_contraction` for every `Mixer`, and the f32 slots chain for
+    PaME's padded exchange (REPRO_TORCH_GOSSIP_IMPL=slots), which the f32
+    kernel variant equals bit for bit."""
+    from repro_torch.core.mixing import ENV_VAR
+
+    before = os.environ.get(ENV_VAR)
+    os.environ[ENV_VAR] = "slots"
+    try:
+        with plain_contraction():
+            yield
+    finally:
+        if before is None:
+            os.environ.pop(ENV_VAR, None)
+        else:
+            os.environ[ENV_VAR] = before
+
+
+# parity phase E's steps: (algo, networks, gossip variant, launches a step)
+PARITY_E = (
+    ("dpsgd", ("dynamic", "temporal", "fault"), "bf16", 11),
+    ("pame", ("dynamic", "temporal", "fault"), "f32", 11),
+    # the replicated fault steps of E5 and E6, under E5's message loss
+    ("choco", ("loss",), "bf16", BASELINES["choco"]),
+    ("beer", ("loss",), "bf16", BASELINES["beer"]),
+    ("anq_nids", ("loss",), "bf16", BASELINES["anq_nids"]),
+)
+# the replicated steps' state fields seeded as (around, scale): around x
+# the weights plus scale x noise, so that every replica mix and repair sees
+# real, desynced values (BEER's trackers start from the batch's gradients)
+REP_SEEDS = {
+    "choco": {"held": (1.0, 0.01)},
+    "beer": {"h_held": (1.0, 0.01), "z_held": (0.0, 1e-3)},
+    "anq_nids": {"c": (2.0, 0.01), "hat_z": (1.0, 0.01), "hat_c": (2.0, 0.01),
+                 "z_reps": (1.0, 0.01), "c_reps": (2.0, 0.01)},
+}
+
+
+def path_e_parity(dev, cfg=None, batch=4, seq=128):
+    """One `_dynamic_step`, one `_temporal_step` and one `_fault_step` of
+    D-PSGD and of PaME, and one `_fault_step` of rep-CHOCO, rep-BEER and
+    rep-ANQ-NIDS under E5's message loss, through `Algorithm.bind`, with
+    the same injected network and compression uniforms, through the kernel
+    route and through `plain_routes`, from the same seeded state and carry
+    (the ring's snapshots noisy copies of the weights, so that a delayed
+    node sends other values; the replicas noisy copies of the surrogates, and
+    node 1's links pending, so that a delivered message repairs them).
+    Both routes run the same code but the contraction, so the kernel must
+    give 0 ulps: the bf16 gossip variant (D-PSGD and the replica mixes)
+    equals the f32 slots chain rounded once, the f32 variant (PaME) the
+    f32 slots chain; every state leaf and ring snapshot compared in
+    floored bf16 ulps, f32 leaves bit for bit.  stablelm-1.6b at full
+    width, PARITY_LAYERS layers, unless `cfg` says otherwise (the CPU
+    tests rehearse this phase on a tiny config)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import faults, scenarios, temporal
+    from repro_torch.core.algorithms import PaMEHp, get_algorithm
+    from repro_torch.kernels.gossip.kernel import gossip_gather
+    from repro_torch.launch.train import make_lm_task
+    from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
+
+    if cfg is None:
+        cfg = get_config("stablelm-1.6b", "full").replace(n_layers=PARITY_LAYERS)
+    topo, params0, grad_fn, make_batch = make_lm_task(cfg, M, batch, seq, 0, "erdos_renyi", dev)
+    data = make_batch(0)
+    leaves0, treedef = tree_flatten(params0)
+    del params0
+    sizes = [x.numel() for x in leaves0]
+    d = topo.max_degree
+    k = 3  # the global step index of the parity step (ring slot k mod D)
+
+    def tree(seed, scale=0.01):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return tree_unflatten(treedef, [
+            (x.float().unsqueeze(0) + scale * torch.randn((M,) + tuple(x.shape), generator=gen,
+                                                          device=dev)).to(x.dtype)
+            for x in leaves0])
+
+    def seed_field(leaves, seed, around, scale):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        for x, w in zip(leaves, leaves0):
+            for row in x:  # a node at a time: no f32 copy of a replica leaf
+                row.copy_(torch.randn(row.shape, generator=gen, device=dev).mul_(scale)
+                          .add_(w.float() * around))
+
+    def uniforms():
+        # node 1 straggles (delayed on the temporal path), node 2 is late
+        # on the fault path, one link direction drops; the rest is seeded
+        g = torch.Generator().manual_seed(5)
+        edge = torch.rand((M, d), generator=g)
+        strag = torch.rand(M, generator=g).clamp(min=0.6)
+        strag[1] = 0.0
+        delay = torch.rand(M, generator=g).clamp(min=0.6)
+        delay[2] = 0.0
+        loss = torch.rand((M, d), generator=g).clamp(min=0.3)
+        loss[0, 0] = 0.0
+        net = {"edge": edge, "node": torch.ones(M), "strag": strag}
+        return {"scenario": net, "temporal": dict(net),
+                "faults": {"loss": loss, "burst": torch.ones((M, d)), "crash": torch.ones(M),
+                           "delay": delay}}
+
+    def compression(algo):
+        # the baselines' compression uniforms, one [M, n] row per leaf
+        gen = torch.Generator(device=dev).manual_seed(11)
+        rows = lambda dtype=torch.float32: [  # noqa: E731
+            torch.rand((M, n), generator=gen, device=dev, dtype=dtype) for n in sizes]
+        return {"choco": lambda: {"q": rows()}, "beer": lambda: {"h": rows(), "z": rows()},
+                "anq_nids": lambda: {"q": rows(torch.bfloat16)}}.get(algo, lambda: None)()
+
+    networks = {
+        "dynamic": dict(scenario=scenarios.Scenario(name="e", edge_drop=0.2, straggler=0.3)),
+        "temporal": dict(scenario=temporal.TemporalScenario(
+            name="e", burst_down=0.2, burst_up=0.5, straggler=0.3, staleness=2)),
+        "fault": dict(faults=faults.FaultModel(name="e", loss=0.1, delay=0.3, max_delay=2)),
+        "loss": dict(faults=faults.FaultModel(name="e", loss=0.1, burst_down=0.05,
+                                              burst_up=0.3)),
+    }
+    hps = {"pame": PaMEHp(nu=0.5, p=0.2, gamma=1.001, sigma0=20.0, mask_mode="bernoulli")}
+    results = {}
+    for algo, nets, variant, per_step in PARITY_E:
+        spec = get_algorithm(algo)
+        for net in nets:
+            bound = spec.bind(grad_fn, topo, hps.get(algo) or spec.hp_cls(lr=0.05), device=dev,
+                              **networks[net])
+            outs = {}
+            for route in ("kernel", "plain"):
+                draws = uniforms()  # the same seeded draws for both routes
+                draws["algo"] = compression(algo)
+                state = bound.init(3, tree(1), data if spec.needs_batch0 else None)
+                if algo in REP_SEEDS:
+                    for i, (field, (around, scale)) in enumerate(REP_SEEDS[algo].items()):
+                        seed_field(tree_leaves(getattr(state, field)), 20 + i, around, scale)
+                    pending = bound.scen_arrays.valid.cpu().clone()
+                    pending[torch.arange(M) != 1] = False
+                    state = state._replace(pending=pending)
+                aux = None
+                if bound.carries_aux:
+                    aux = bound.aux_init(state)
+                    if aux.ring is not None:
+                        for r in tree_leaves(aux.ring):  # older snapshots: other values
+                            r.copy_(r.float().add_(0.01 * torch.randn(
+                                r.shape, generator=torch.Generator(device=dev).manual_seed(9),
+                                device=dev)).to(r.dtype))
+                _reset_counts()
+                with (plain_routes() if route == "plain" else contextlib.nullcontext()):
+                    res = bound.step(state, data, k, aux, draws=draws)
+                new, metrics = res[0], res[1]
+                new_aux = res[2] if len(res) == 3 else None
+                outs[route] = {
+                    "leaves": tree_leaves((new, None if new_aux is None else new_aux.ring)),
+                    "loss": float(metrics["loss_mean"]),
+                    "stale_nodes": int(metrics.get("stale_nodes", 0)),
+                    "repair_bits": float(metrics.get("repair_bits", 0.0)),
+                    "launches": dict(gossip_gather.variant_launches)}
+                del state, aux, new, new_aux, res, draws
+                free()
+            ulps, f32_equal = 0.0, True
+            for a, b in zip(outs["kernel"]["leaves"], outs["plain"]["leaves"]):
+                if not isinstance(a, torch.Tensor) or not a.is_floating_point():
+                    continue
+                if a.dtype == torch.float32:
+                    f32_equal = f32_equal and torch.equal(a, b)
+                else:
+                    ulps = max(ulps, bf16_ulps_floored(a, b))
+            results[f"{algo}-{net}"] = row = {
+                "max_bf16_ulps_floored": ulps, "f32_bit_equal": f32_equal,
+                "loss_kernel": outs["kernel"]["loss"], "loss_plain": outs["plain"]["loss"],
+                "stale_nodes": outs["kernel"]["stale_nodes"],
+                "repair_bits": outs["kernel"]["repair_bits"],
+                "launches_kernel_route": outs["kernel"]["launches"],
+                "launches_plain_route": outs["plain"]["launches"],
+                "expected_launches": {variant: per_step}, "layers": cfg.n_layers}
+            emit(phase="parity_e", algo=algo, network=net, **row)
+            del outs
+            free()
+            if ulps != 0.0 or not f32_equal:
+                fail(f"path E parity ({algo}, {net}): kernel and plain routes differ "
+                     f"({ulps} bf16 ulps, f32 bit-equal: {f32_equal})")
+            if dev.type == "cuda" and (row["launches_kernel_route"][variant] != per_step
+                                       or sum(row["launches_plain_route"].values())):
+                fail(f"path E parity ({algo}, {net}): the kernel route did not launch the "
+                     f"{variant} gossip kernel {per_step} times, or the plain route launched it")
+            if net in ("temporal", "fault") and row["stale_nodes"] != 1:
+                fail(f"path E parity ({algo}, {net}): expected one delayed node")
+            if algo in REP_SEEDS and not row["repair_bits"] > 0:
+                fail(f"path E parity ({algo}, {net}): no pending replica was repaired")
     return results
 
 
@@ -1031,7 +1392,17 @@ def main():
     t = time.perf_counter()
     path_d_parity(dev)
     emit(phase="parity_d_done", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    e_rows, e_launches = path_e()
+    emit(phase="path_e_done", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    path_e_parity(dev)
+    emit(phase="parity_e_done", seconds=time.perf_counter() - t)
     bf16_launches = sum(r["gossip_launches"]["bf16"] for r in baselines.values())
+    # each path's launches, read just after the path ran with the counts at 0
+    f32_launches = gossip_launches + e_launches["f32"]
+    bf16_launches += e_launches["bf16"]
+    pme_launches += e_launches["pme_average"]
 
     def entry(name, source, replaces, launches, row):
         e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1048,12 +1419,17 @@ def main():
                                     "library_ms", "case")} | {"launches": launches}
 
     g32 = entry("gossip_gather", "src/repro_torch/csrc/gossip_gather.cu",
-                "src/repro/kernels/gossip/kernel.py:95", gossip_launches + bf16_launches,
+                "src/repro/kernels/gossip/kernel.py:95", f32_launches + bf16_launches,
                 gossip["f32"])
     # top-level times are the f32 variant's (path A); each variant's own
-    # launches (path A: f32, path D: bf16) and times follow
-    g32["variants"] = {"f32": variant(gossip_launches, gossip["f32"]),
+    # launches (f32: paths A, E1, E4; bf16: paths D, E3, E5, E6) and times
+    g32["variants"] = {"f32": variant(f32_launches, gossip["f32"]),
                        "bf16": variant(bf16_launches, gossip["bf16"])}
+    # the replica mixes of E5 and E6 (among the bf16 launches), timed at
+    # E5's largest held leaf: 16 sender rows into 4 receivers
+    rep_launches = sum(r["gossip_launches"]["bf16"] for k, r in e_rows.items()
+                       if k.split("-")[0] in ("E5", "E6"))
+    g32["variants"]["bf16_replicas"] = variant(rep_launches, gossip["bf16_replicas"])
     kernels = [
         g32,
         entry("pme_average", "src/repro_torch/csrc/pme_average.cu",

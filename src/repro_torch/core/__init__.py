@@ -1,7 +1,19 @@
 """PaME core: topology, PME, gossip contraction and mixers, compression,
-the compressed exchange, engine, Algorithm 1, the five baselines and the
-registry (port of `repro.core`)."""
-from repro_torch.core import algorithms, baselines, compression, engine, gossip, mixing, pme
+the compressed exchange, engine, Algorithm 1, the five baselines, the
+registry and dynamic networks — i.i.d. scenarios, Markov dynamics with
+bounded staleness, message-level faults (port of `repro.core`)."""
+from repro_torch.core import (
+    algorithms,
+    baselines,
+    compression,
+    engine,
+    faults,
+    gossip,
+    mixing,
+    pme,
+    scenarios,
+    temporal,
+)
 from repro_torch.core.baselines import (
     BeerState,
     ChocoState,
@@ -42,10 +54,23 @@ from repro_torch.core.pme import (
     sample_neighbor_selection,
     sample_neighbor_selection_padded,
 )
+from repro_torch.core.scenarios import (
+    Scenario,
+    get_scenario,
+    list_scenarios,
+    make_scenario_arrays,
+    realize,
+)
+from repro_torch.core.temporal import (
+    TemporalScenario,
+    get_temporal_scenario,
+    list_temporal_scenarios,
+)
 from repro_torch.core.topology import Topology, build_topology
 
 __all__ = [
-    "algorithms", "baselines", "compression", "engine", "gossip", "mixing", "pme",
+    "algorithms", "baselines", "compression", "engine", "faults", "gossip", "mixing",
+    "pme", "scenarios", "temporal",
     "PaMEConfig", "PaMEState", "TopologyArrays", "make_pame_runner",
     "make_topology_arrays", "pame_init", "pame_step", "run_pame",
     "pme_average", "pme_average_pytree", "pme_average_pytree_padded",
@@ -60,4 +85,6 @@ __all__ = [
     "BeerState", "beer_init", "beer_step",
     "NidsState", "nids_init", "nids_step",
     "stack_params", "run_algorithm",
+    "Scenario", "get_scenario", "list_scenarios", "make_scenario_arrays", "realize",
+    "TemporalScenario", "get_temporal_scenario", "list_temporal_scenarios",
 ]

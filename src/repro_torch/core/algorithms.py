@@ -13,14 +13,17 @@ One contract for every registered algorithm:
 PaME and the five baselines of Figs. 8–10 (D-PSGD, DFedSAM, CHOCO-SGD,
 BEER, ANQ-NIDS) are registered; every bound baseline gossips through
 ``make_mixer(topo, mixing)`` on the bound device (``mixing="sparse"`` by
-default, the gossip kernel on the card).  Dynamic scenarios, faults,
-serving pacing and batched lanes come in later slices and raise until
-then.
+default, the gossip kernel on the card).  `Algorithm.bind` takes dynamic
+networks as JAX's does: an i.i.d. `core.scenarios.Scenario`, a Markov
+`core.temporal.TemporalScenario` with bounded staleness, or a
+`core.faults.FaultModel` with per-receiver surrogate replicas for CHOCO,
+BEER and ANQ-NIDS.  Serving pacing and batched lanes come in later
+slices and raise until then.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -28,13 +31,18 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import baselines as B
 from repro_torch.core import engine
+from repro_torch.core import faults as flt_mod
 from repro_torch.core import pame as pame_mod
+from repro_torch.core import scenarios as scen_mod
+from repro_torch.core import temporal as temp_mod
 from repro_torch.core.compression import qsgd, rand_k
 from repro_torch.core.mixing import Mixer, make_mixer
 from repro_torch.core.pme import leaf_rates as pme_leaf_rates
 from repro_torch.core.pme import message_bits, tree_message_bits
 from repro_torch.core.topology import Topology
 from repro_torch.tree import tree_leaves, tree_map
+
+AnyScenario = Union[scen_mod.Scenario, temp_mod.TemporalScenario]
 
 __all__ = [
     "Algorithm", "BoundAlgorithm", "AlgoContext",
@@ -97,9 +105,8 @@ class AlgoContext:
 class Algorithm:
     """A registered DFL algorithm: ``init(key, params_stacked, ctx, batch0)``,
     ``step(state, batch, ctx) -> (state, metrics)`` with a ``loss_mean``
-    metric, ``wire_bits(topo, hps, n)`` expected bits per step.  The JAX
-    registry's fields for scenarios, faults and batched sweeps arrive with
-    the code that reads them."""
+    metric, ``wire_bits(topo, hps, n)`` expected bits per step.  The fields
+    for batched sweeps arrive with the code that reads them."""
 
     name: str
     hp_cls: type
@@ -112,9 +119,18 @@ class Algorithm:
     wire_bits_sizes: Optional[Callable] = None
     # optional (topo, hps, mixing, seed, device) -> dict merged into extras
     setup: Optional[Callable] = None
-    # optional (hps, n) -> bits per directed edge per step (the gossip
-    # baselines); dynamic scenarios will charge realized edges with it
+    # optional (hps, n) -> bits per realized *directed* edge per step: the
+    # dynamic-network paths charge only surviving links with it
     edge_bits: Optional[Callable] = None
+    # optional (hps) -> bool: the step consumes the delayed-delivery extras
+    # itself (``fresh_params`` self-view, ``delivered`` masks) instead of
+    # the wrapper's innovation re-add (PaME's memoryless dense exchange)
+    handles_delay: Optional[Callable] = None
+    # optional replicated variants for fault-injected binds:
+    # ``rep_init(key, stacked, ctx, batch0, arrays)`` and
+    # ``rep_step(state, batch, ctx)`` reading ``ctx.extras["fault"]``
+    rep_init: Optional[Callable] = None
+    rep_step: Optional[Callable] = None
 
     def bind(
         self,
@@ -124,18 +140,34 @@ class Algorithm:
         *,
         mixing: str = "sparse",
         seed: int = 0,
-        scenario=None,
-        faults=None,
+        scenario: Optional[AnyScenario] = None,
+        faults: Optional[flt_mod.FaultModel] = None,
         pacing=None,
         device=None,
     ) -> "BoundAlgorithm":
         """Close the spec over (grad_fn, topology, hps, mixing) on `device`
-        (default ``cuda``).  Only the static network is ported: a dynamic
-        scenario, a fault model or serving pacing that is not static
-        raises."""
-        for what, obj in (("scenario", scenario), ("faults", faults), ("pacing", pacing)):
-            if obj is not None and not getattr(obj, "is_static", False):
-                raise NotImplementedError(f"{what}= not yet ported to repro_torch")
+        (default ``cuda``).
+
+        ``scenario=None`` or a static scenario binds the fixed-topology
+        program, bit for bit.  A dynamic `Scenario` realizes each step's
+        doubly stochastic matrix (``step(state, batch, k)``); a
+        `TemporalScenario` also threads the Markov state and the staleness
+        ring (``step(state, batch, k, aux) -> (state, metrics, aux)``,
+        `aux_init`).  A non-static `FaultModel` layers message-level
+        faults over the (possibly static) base scenario, with the temporal
+        signature; a zero-rate one binds the fault-free program.  Serving
+        pacing is not ported and raises unless static.
+        """
+        if pacing is not None and not getattr(pacing, "is_static", False):
+            raise NotImplementedError("pacing= not yet ported to repro_torch")
+        for what, obj, kinds in (("scenario", scenario, (scen_mod.Scenario,
+                                                         temp_mod.TemporalScenario)),
+                                 ("faults", faults, (flt_mod.FaultModel,))):
+            if obj is not None and not isinstance(obj, kinds):
+                raise NotImplementedError(
+                    f"{what}={type(obj).__name__} is not a repro_torch "
+                    f"{' / '.join(k.__name__ for k in kinds)}"
+                )
         hps = self.hp_cls() if hps is None else hps
         if not isinstance(hps, self.hp_cls):
             raise TypeError(
@@ -148,20 +180,68 @@ class Algorithm:
         mixer = make_mixer(topo, mixing, device=dev)
         ctx = AlgoContext(grad_fn=grad_fn, topo=topo, hps=hps, mixer=mixer,
                           extras=extras)
+        if faults is not None and faults.is_static:
+            faults = None  # zero-rate model == the fault-free program
+        if faults is not None:
+            if isinstance(scenario, temp_mod.TemporalScenario):
+                raise NotImplementedError(
+                    "faults cannot stack on a TemporalScenario: fold the "
+                    "staleness into FaultModel(delay=..., max_delay=...) "
+                    "and the link/node dynamics into a base Scenario"
+                )
+            base = scenario if scenario is not None else scen_mod.Scenario(name="static")
+            return BoundAlgorithm(self, ctx, dev, scenario=base,
+                                  scen_arrays=scen_mod.make_scenario_arrays(topo, base),
+                                  mixing_mode=mixing, faults=faults)
+        if scenario is not None and not scenario.is_static:
+            return BoundAlgorithm(self, ctx, dev, scenario=scenario,
+                                  scen_arrays=scen_mod.make_scenario_arrays(topo, scenario),
+                                  mixing_mode=mixing)
         return BoundAlgorithm(self, ctx, dev)
 
     def bind_batched(self, *args, **kwargs):
         raise NotImplementedError("bind_batched (lanes) not yet ported to repro_torch")
 
 
-class BoundAlgorithm:
-    """An Algorithm closed over (grad_fn, topology, hps): ``step(state,
-    batch)`` is a plain closure the engine runs."""
+def _n_coords(params) -> int:
+    return sum(int(np.prod(tuple(x.shape[1:]))) for x in tree_leaves(params))
 
-    def __init__(self, spec: Algorithm, ctx: AlgoContext, device: torch.device):
+
+class BoundAlgorithm:
+    """An Algorithm closed over (grad_fn, topology, hps, mixer).
+
+    Without a dynamic scenario, ``step(state, batch)`` is a plain closure
+    the engine runs.  A dynamic `Scenario` makes it ``step(state, batch,
+    k)``; a `TemporalScenario` or a `FaultModel` ``step(state, batch, k,
+    aux) -> (state, metrics, aux)`` with the carry of `aux_init`.  Every
+    form takes ``draws=`` (keys "scenario", "temporal", "faults": the
+    uniforms of `scenarios.sample_masks`, `temporal.advance` and
+    `faults.advance_faults`; "algo": the algorithm step's own draws),
+    which is how the parity tests feed it the JAX package's.
+
+    The realizations are built on the host (`core.scenarios`), so the
+    wrappers know which nodes are dropped or delayed without reading the
+    card: they copy a dropped node's rows aside before the step and put
+    them back after it, and substitute a delayed node's ring snapshot into
+    its rows of the parameter stack in place (the step consumes that
+    stack, as JAX's scan consumes its carry), keeping the fresh rows in
+    the ring's slot k mod D, which they overwrite first.
+    """
+
+    def __init__(self, spec: Algorithm, ctx: AlgoContext, device: torch.device,
+                 scenario: Optional[AnyScenario] = None,
+                 scen_arrays: Optional[scen_mod.ScenarioArrays] = None,
+                 mixing_mode: str = "sparse",
+                 faults: Optional[flt_mod.FaultModel] = None):
         self.spec = spec
         self.ctx = ctx
         self.device = device
+        self.scenario = scenario
+        self.scen_arrays = scen_arrays
+        self._arrays_dev = None if scen_arrays is None else scen_arrays.to(device)
+        self._mixing_mode = mixing_mode
+        self.faults = faults
+        self.fault_key = None if faults is None else int(faults.seed)
 
     @property
     def name(self) -> str:
@@ -172,17 +252,235 @@ class BoundAlgorithm:
         return self.ctx.hps
 
     @property
+    def dynamic(self) -> bool:
+        """True when a non-static scenario or a fault model is bound (the
+        step takes k)."""
+        return self.scenario is not None
+
+    @property
+    def temporal(self) -> bool:
+        return isinstance(self.scenario, temp_mod.TemporalScenario)
+
+    @property
+    def faulty(self) -> bool:
+        return self.faults is not None
+
+    @property
+    def carries_aux(self) -> bool:
+        return self.temporal or self.faulty
+
+    @property
     def params_of(self) -> Callable:
         return self.spec.params_of
 
     def init(self, key: int, params_stacked, batch0=None):
         if self.spec.needs_batch0 and batch0 is None:
             raise ValueError(f"{self.name} needs batch0 at init")
+        if self.faulty and self.spec.rep_init is not None:
+            return self.spec.rep_init(key, params_stacked, self.ctx, batch0, self.scen_arrays)
         return self.spec.init(key, params_stacked, self.ctx, batch0)
 
-    def step(self, state, batch):
-        return self.spec.step(state, batch, self.ctx)
+    def aux_init(self, state, *, u: Optional[dict] = None):
+        """The initial carry: a `FaultCarry` for a fault bind, a
+        `TemporalCarry` (stationary Markov draws, the staleness ring seeded
+        with the state's parameters) for a temporal one.  ``u`` injects the
+        stationary draws."""
+        if self.faulty:
+            return flt_mod.fault_carry_init(self.faults, self.scen_arrays,
+                                            self.spec.params_of(state), self.fault_key, u=u)
+        if not self.temporal:
+            raise TypeError(f"{self.name} is not bound to a TemporalScenario")
+        return temp_mod.temporal_carry_init(self.scenario, self.scen_arrays,
+                                            self.spec.params_of(state), u=u)
 
+    def _ctx(self, mixer: Optional[Mixer] = None, extras: Optional[dict] = None,
+             draws: Optional[dict] = None) -> AlgoContext:
+        ex = dict(self.ctx.extras if extras is None else extras)
+        if draws and draws.get("algo") is not None:
+            ex["draws"] = draws["algo"]
+        return dataclasses.replace(self.ctx, mixer=self.ctx.mixer if mixer is None else mixer,
+                                   extras=ex)
+
+    def step(self, state, batch, k: Optional[int] = None, aux=None, *,
+             draws: Optional[dict] = None):
+        draws = draws or {}
+        if not self.dynamic:
+            return self.spec.step(state, batch, self._ctx(draws=draws))
+        if k is None:
+            raise TypeError(
+                f"{self.name} is bound to scenario {self.scenario.name!r}: "
+                "step(state, batch, k) needs the global step index"
+            )
+        if self.carries_aux and aux is None:
+            what = "FaultCarry" if self.faulty else "TemporalCarry"
+            raise TypeError(f"{self.name}: step(state, batch, k, aux) needs the {what} "
+                            "(see aux_init)")
+        if self.faulty:
+            return self._fault_step(state, batch, int(k), aux, draws)
+        if self.temporal:
+            return self._temporal_step(state, batch, int(k), aux, draws)
+        return self._dynamic_step(state, batch, int(k), draws)
+
+    # -- the wrappers' pieces ---------------------------------------------
+    def _mixer(self, r: scen_mod.Realization) -> Mixer:
+        return scen_mod.scenario_mixer(self._arrays_dev, r, self._mixing_mode,
+                                       impl=self.ctx.mixer.impl)
+
+    def _realized_metrics(self, r: scen_mod.Realization, state, metrics: dict) -> dict:
+        """Algorithms without their own per-message metric are charged
+        edge_bits on every realized directed edge."""
+        if "wire_bits" not in metrics:
+            eb = (self.spec.edge_bits(self.ctx.hps, _n_coords(self.spec.params_of(state)))
+                  if self.spec.edge_bits else 0.0)
+            metrics["wire_bits"] = r.directed_edges.to(torch.float32) * float(eb)
+        metrics["alive_nodes"] = r.alive.sum().to(torch.int32)
+        return metrics
+
+    def _partition_metrics(self, k: int, new_state, metrics: dict) -> dict:
+        """Within-component consensus and the between-component mean gap
+        while the scenario schedules partition windows (nothing otherwise);
+        accumulated leaf by leaf."""
+        if not getattr(self.scenario, "partitions", ()):
+            return metrics
+        comp = scen_mod.active_components(self.scen_arrays, k)
+        cc, gap = scen_mod.component_stats(
+            comp, tree_leaves(self.spec.params_of(new_state)), self.scenario.max_parts)
+        metrics["comp_consensus"] = cc
+        metrics["comp_mean_gap"] = gap
+        return metrics
+
+    def _handles_delay(self) -> bool:
+        return self.spec.handles_delay is not None and self.spec.handles_delay(self.ctx.hps)
+
+    def _substitute_delayed(self, state, ring, k: int, delayed: torch.Tensor,
+                            tau: torch.Tensor, d_max: int, need_shift: bool):
+        """JAX's ``eff = ring_gather(ring, fresh, (k − τ) mod D, delayed)``
+        and ``ring_push(ring, fresh, k)``, moving only what differs: per
+        leaf, each delayed node's snapshot row is read (copied first when
+        it sits in slot k mod D, τ = D), the fresh stack is pushed into
+        slot k mod D, and the delayed rows of the parameter stack are
+        overwritten with their snapshots in place.  Returns (fresh, the
+        slot-k-mod-D views of the fresh parameters; shift, a `GradShift`
+        of fresh − delayed rows for the delayed nodes, when asked)."""
+        push = k % d_max
+        nodes = [int(i) for i in torch.nonzero(delayed.cpu()).flatten()]
+        slots = {i: (k - int(tau[i])) % d_max for i in nodes}
+        rows: dict = {i: [] for i in nodes}
+        params = self.spec.params_of(state)
+        with torch.no_grad():
+            for x, r in zip(tree_leaves(params), tree_leaves(ring)):
+                eff = {i: (r[slots[i], i].clone() if slots[i] == push else r[slots[i], i])
+                       for i in nodes}
+                if need_shift:
+                    for i in nodes:
+                        rows[i].append(x[i] - eff[i])
+                r[push].copy_(x)
+                for i in nodes:
+                    x[i].copy_(eff[i])
+                del eff
+        fresh = tree_map(lambda r: r[push], ring)
+        return fresh, (B.GradShift(rows) if need_shift and nodes else None)
+
+    def _readd(self, new_state, shift: Optional["B.GradShift"]):
+        """Each delayed node re-adds its private innovation (fresh −
+        delayed) to its own row: p + (f − e), in place."""
+        if shift is None:
+            return new_state
+        leaves = tree_leaves(self.spec.params_of(new_state))
+        with torch.no_grad():
+            for i, rows in shift.rows.items():
+                for p, d in zip(leaves, rows):
+                    p[i].add_(d.to(p.dtype))
+        return new_state
+
+    def _run_step(self, step_fn, state, batch, ctx_t, r, delayed, tau, d_max, ring, k):
+        """The shared body of the temporal and fault steps: rows of dropped
+        nodes aside, delayed rows substituted, the step, innovations
+        re-added, dropped rows back."""
+        frozen = scen_mod.dropped_rows(r.alive, state)
+        shift = None
+        if d_max > 0:
+            hd = self._handles_delay()
+            fresh, shift = self._substitute_delayed(state, ring, k, delayed, tau, d_max,
+                                                    need_shift=not hd)
+            if hd:
+                ctx_t.extras["fresh_params"] = fresh
+            elif shift is not None:
+                ctx_t.extras["grad_shift"] = shift
+        new_state, metrics = step_fn(state, batch, ctx_t)
+        new_state = self._readd(new_state, shift)
+        return scen_mod.restore_rows(frozen, new_state), metrics
+
+    # -- the three step wrappers ------------------------------------------
+    def _dynamic_step(self, state, batch, k: int, draws: dict):
+        """One step under the bound i.i.d. scenario: step k's realization,
+        its mixer in the context, dropped nodes' state restored, realized
+        edges charged on the wire."""
+        r = scen_mod.realize(self.scenario, self.scen_arrays, k, u=draws.get("scenario"))
+        ctx_t = self._ctx(self._mixer(r), {**self.ctx.extras, "realization": r}, draws)
+        frozen = scen_mod.dropped_rows(r.alive, state)
+        new_state, metrics = self.spec.step(state, batch, ctx_t)
+        new_state = scen_mod.restore_rows(frozen, new_state)
+        metrics = self._realized_metrics(r, state, metrics)
+        return new_state, self._partition_metrics(k, new_state, metrics)
+
+    def _temporal_step(self, state, batch, k: int, aux: temp_mod.TemporalCarry,
+                       draws: dict):
+        """One step under the bound TemporalScenario: advance the chains,
+        realize the step with delayed stragglers participating through
+        their ring snapshots (message-only delay: their gradients are taken
+        at the fresh point through ``grad_shift``, and each re-adds its
+        innovation afterwards; PaME's dense exchange takes the fresh view
+        as ``fresh_params`` instead), then restore dropped nodes."""
+        new_ts, r, delayed, tau = temp_mod.advance(self.scenario, self.scen_arrays, aux.ts,
+                                                   k, u=draws.get("temporal"))
+        ctx_t = self._ctx(self._mixer(r), {**self.ctx.extras, "realization": r}, draws)
+        d_max = self.scenario.staleness
+        new_state, metrics = self._run_step(self.spec.step, state, batch, ctx_t, r, delayed,
+                                            tau, d_max, aux.ring, k)
+        if d_max > 0:
+            grid = torch.arange(d_max + 1, dtype=torch.int32)
+            metrics["stale_hist"] = ((tau[:, None] == grid[None, :])
+                                     & r.participating[:, None]).sum(dim=0).to(torch.float32)
+            metrics["stale_nodes"] = delayed.sum().to(torch.int32)
+        metrics = self._realized_metrics(r, state, metrics)
+        return new_state, metrics, temp_mod.TemporalCarry(new_ts, aux.ring)
+
+    def _fault_step(self, state, batch, k: int, aux: flt_mod.FaultCarry, draws: dict):
+        """One step under the bound FaultModel: the base scenario's masks,
+        the fault transition and per-direction losses, per-receiver
+        renormalized weights for direct parameter mixing, the replicated
+        step (``rep_step``) where the algorithm has one, PaME's delivery
+        masks, delayed delivery through the ring as on the temporal path,
+        and crashed nodes frozen."""
+        fm = self.faults
+        edge_up, alive, straggler = scen_mod.sample_masks(
+            self.scenario, self.scen_arrays, k, u=draws.get("scenario"))
+        new_fs, fr = flt_mod.advance_faults(fm, self.scen_arrays, aux.fs, self.fault_key, k,
+                                            edge_up, alive, straggler, u=draws.get("faults"))
+        r = fr.base
+        use_rep = self.spec.rep_step is not None
+        extras = {**self.ctx.extras, "realization": r, "fault": fr,
+                  "fault_arrays": self.scen_arrays, "delivered": fr.recv_ok,
+                  "repair": fm.repair}
+        if use_rep:
+            extras["innov_bits"] = float(self.spec.edge_bits(
+                self.ctx.hps, _n_coords(self.spec.params_of(state))))
+        ctx_t = self._ctx(self._mixer(r._replace(weights=fr.weights)), extras, draws)
+        new_state, metrics = self._run_step(
+            self.spec.rep_step if use_rep else self.spec.step, state, batch, ctx_t, r,
+            fr.delayed, fr.tau, fm.max_delay, aux.ring, k)
+        if fm.max_delay > 0:
+            metrics["stale_nodes"] = fr.delayed.sum().to(torch.int32)
+        metrics = self._realized_metrics(r, state, metrics)
+        metrics = self._partition_metrics(k, new_state, metrics)
+        metrics["col_defect"] = fr.col_defect
+        metrics["mean_drift"] = new_fs.drift
+        metrics["dropped_msgs"] = fr.dropped.to(torch.float32)
+        metrics["crashed_nodes"] = new_fs.crashed.sum().to(torch.int32)
+        return new_state, metrics, flt_mod.FaultCarry(new_fs, aux.ring)
+
+    # -- accounting and drivers -------------------------------------------
     def wire_bits(self, n: int) -> float:
         """Expected bits on the wire per step, summed over the network."""
         return float(self.spec.wire_bits(self.ctx.topo, self.ctx.hps, n))
@@ -201,23 +499,32 @@ class BoundAlgorithm:
     def _batches(self, batch_fn):
         return lambda k: tree_map(lambda x: x.to(self.device), batch_fn(k))
 
+    def _start(self, key, params0, m, batch_fn):
+        batch0 = batch_fn(0) if self.spec.needs_batch0 else None
+        state = self.init(key, self.stack_params(params0, m), batch0)
+        return state, (self.aux_init(state) if self.carries_aux else None)
+
     def make_runner(self, *, objective_fn=None, tol_std: float = 1e-3,
                     chunk_size: int = engine.DEFAULT_CHUNK_SIZE) -> Callable:
         """Persistent chunked runner: ``run(key, params0, m, batch_fn,
         num_steps) -> (state, history)``."""
         runner = engine.make_scan_runner(
             self.step, objective_fn=objective_fn, params_of=self.spec.params_of,
-            tol_std=tol_std, chunk_size=chunk_size,
+            tol_std=tol_std, chunk_size=chunk_size, step_takes_index=self.dynamic,
+            carries_aux=self.carries_aux,
         )
 
         def run(key, params0, m, batch_fn, num_steps):
             batch_fn = self._batches(batch_fn)
-            batch0 = batch_fn(0) if self.spec.needs_batch0 else None
-            state = self.init(key, self.stack_params(params0, m), batch0)
-            state, metrics, info = runner(state, batch_fn, num_steps, copy_state=False)
-            history = {k: [float(v) for v in vals] for k, vals in metrics.items()}
+            state, aux = self._start(key, params0, m, batch_fn)
+            state, metrics, info = runner(state, batch_fn, num_steps, copy_state=False,
+                                          aux=aux)
+            history = {k: [float(v) for v in vals] for k, vals in metrics.items()
+                       if k != "stale_hist"}
+            if "stale_hist" in metrics:
+                history["staleness_hist"] = engine.staleness_hist(metrics["stale_hist"])
             history["loss"] = history.pop("loss_mean", [])
-            history.update(info)
+            history.update({k: v for k, v in info.items() if k != "aux"})
             self._account_wire(history, params0)
             return state, history
 
@@ -228,35 +535,24 @@ class BoundAlgorithm:
             chunk_size: int = engine.DEFAULT_CHUNK_SIZE):
         """One-shot driver (scan or host), with wire accounting."""
         batch_fn = self._batches(batch_fn)
-        batch0 = batch_fn(0) if self.spec.needs_batch0 else None
-        state = self.init(key, self.stack_params(params0, m), batch0)
-        if driver == "scan":
-            state, metrics, info = engine.run_scan_loop(
-                self.step, state, batch_fn, num_steps, objective_fn=objective_fn,
-                params_of=self.spec.params_of, tol_std=tol_std, chunk_size=chunk_size,
-            )
-            history = engine.history_from(
-                metrics, info, {"loss": "loss_mean", "objective": "objective"}
-            )
-        elif driver == "host":
-            history = {"loss": [], "objective": []}
-            f_window: list = []
-            for k in range(num_steps):
-                state, metrics = self.step(state, batch_fn(k))
-                history["loss"].append(float(metrics["loss_mean"]))
-                if objective_fn is not None:
-                    mean = tree_map(lambda x: x.mean(dim=0), self.spec.params_of(state))
-                    f_window.append(float(objective_fn(mean)))
-                    history["objective"].append(f_window[-1])
-                    if len(f_window) >= 3 and float(np.std(f_window[-3:])) < tol_std:
-                        break
-            history["steps_run"] = history["steps_dispatched"] = len(history["loss"])
-        else:
-            raise ValueError(f"unknown driver {driver!r}")
+        state, aux = self._start(key, params0, m, batch_fn)
+        state, history = B.run_algorithm(
+            self.step, state, batch_fn, num_steps, objective_fn=objective_fn,
+            params_of=self.spec.params_of, tol_std=tol_std, driver=driver,
+            chunk_size=chunk_size, step_takes_index=self.dynamic,
+            carries_aux=self.carries_aux, aux=aux,
+        )
         self._account_wire(history, params0)
         return state, history
 
     def _account_wire(self, history: dict, params0) -> None:
+        per_step = history.get("wire_bits")
+        if per_step:
+            # dynamic network: only realized (surviving) edges were charged
+            history["wire_bits_total"] = float(np.sum(per_step))
+            history["wire_bits_per_step"] = history["wire_bits_total"] / max(len(per_step), 1)
+            return
+        history.pop("wire_bits", None)  # static runs keep the legacy schema
         history["wire_bits_per_step"] = self.wire_bits_for(params0)
         history["wire_bits_total"] = history["wire_bits_per_step"] * history["steps_run"]
 
@@ -356,10 +652,16 @@ register(Algorithm(
     init=lambda key, stacked, ctx, batch0: pame_mod.pame_init(
         key, stacked, ctx.topo.m, ctx.hps),
     step=lambda state, batch, ctx: pame_mod.pame_step(
-        state, batch, ctx.grad_fn, ctx.extras["topo_arrays"], ctx.hps),
+        state, batch, ctx.grad_fn, ctx.extras["topo_arrays"], ctx.hps,
+        realization=ctx.extras.get("realization"),
+        self_params=ctx.extras.get("fresh_params"),
+        delivered=ctx.extras.get("delivered"), draws=ctx.extras.get("draws")),
     wire_bits=_pame_wire_bits,
     wire_bits_sizes=_pame_wire_bits_sizes,
     setup=_pame_setup,
+    # the dense exchange takes message-only delay natively: senders
+    # transmit the ring-delayed stack, the λ = 0 fill reads the fresh view
+    handles_delay=lambda hps: hps.exchange == "dense",
 ))
 
 
@@ -368,7 +670,8 @@ register(Algorithm(
     hp_cls=DPSGDHp,
     init=lambda key, stacked, ctx, batch0: B.dpsgd_init(key, stacked),
     step=lambda state, batch, ctx: B.dpsgd_step(
-        state, batch, ctx.grad_fn, ctx.mixer, ctx.hps.lr),
+        state, batch, ctx.grad_fn, ctx.mixer, ctx.hps.lr,
+        grad_shift=ctx.extras.get("grad_shift"), draws=ctx.extras.get("draws")),
     wire_bits=lambda topo, hps, n: _dense_edges_bits(topo, n, _full_msg_bits(hps, n)),
     edge_bits=_full_msg_bits,
 ))
@@ -379,7 +682,8 @@ register(Algorithm(
     init=lambda key, stacked, ctx, batch0: B.dfedsam_init(key, stacked),
     step=lambda state, batch, ctx: B.dfedsam_step(
         state, batch, ctx.grad_fn, ctx.mixer, ctx.hps.lr,
-        rho=ctx.hps.rho, local_steps=ctx.hps.local_steps),
+        rho=ctx.hps.rho, local_steps=ctx.hps.local_steps,
+        grad_shift=ctx.extras.get("grad_shift"), draws=ctx.extras.get("draws")),
     wire_bits=lambda topo, hps, n: _dense_edges_bits(topo, n, _full_msg_bits(hps, n)),
     edge_bits=_full_msg_bits,
 ))
@@ -389,16 +693,29 @@ def _choco_setup(topo, hps, mixing, seed, device):
     return {"comp": rand_k(hps.comp_frac, hps.value_bits, rescale=False)}
 
 
+def _fault_args(ctx) -> tuple:
+    """(realization, arrays, innovation bits, repair) of a fault step."""
+    ex = ctx.extras
+    return ex["fault"], ex["fault_arrays"], ex["innov_bits"], ex["repair"]
+
+
 register(Algorithm(
     name="choco",
     hp_cls=ChocoHp,
     init=lambda key, stacked, ctx, batch0: B.choco_init(key, stacked),
     step=lambda state, batch, ctx: B.choco_step(
         state, batch, ctx.grad_fn, ctx.mixer, ctx.hps.lr,
-        ctx.extras["comp"], ctx.hps.gossip_gamma),
+        ctx.extras["comp"], ctx.hps.gossip_gamma,
+        grad_shift=ctx.extras.get("grad_shift"), draws=ctx.extras.get("draws")),
     wire_bits=lambda topo, hps, n: _dense_edges_bits(topo, n, _choco_edge_bits(hps, n)),
     edge_bits=_choco_edge_bits,
     setup=_choco_setup,
+    rep_init=lambda key, stacked, ctx, batch0, arrays: flt_mod.rep_choco_init(
+        key, stacked, arrays),
+    rep_step=lambda state, batch, ctx: flt_mod.rep_choco_step(
+        state, batch, ctx.grad_fn, ctx.hps.lr, ctx.extras["comp"], ctx.hps.gossip_gamma,
+        *_fault_args(ctx), grad_shift=ctx.extras.get("grad_shift"),
+        draws=ctx.extras.get("draws")),
 ))
 
 register(Algorithm(
@@ -407,11 +724,18 @@ register(Algorithm(
     init=lambda key, stacked, ctx, batch0: B.beer_init(key, stacked, batch0, ctx.grad_fn),
     step=lambda state, batch, ctx: B.beer_step(
         state, batch, ctx.grad_fn, ctx.mixer, ctx.hps.lr,
-        ctx.extras["comp"], ctx.hps.gossip_gamma),
+        ctx.extras["comp"], ctx.hps.gossip_gamma,
+        grad_shift=ctx.extras.get("grad_shift"), draws=ctx.extras.get("draws")),
     wire_bits=lambda topo, hps, n: _dense_edges_bits(topo, n, _beer_edge_bits(hps, n)),
     edge_bits=_beer_edge_bits,
     needs_batch0=True,
     setup=_choco_setup,
+    rep_init=lambda key, stacked, ctx, batch0, arrays: flt_mod.rep_beer_init(
+        key, stacked, batch0, ctx.grad_fn, arrays),
+    rep_step=lambda state, batch, ctx: flt_mod.rep_beer_step(
+        state, batch, ctx.grad_fn, ctx.hps.lr, ctx.extras["comp"], ctx.hps.gossip_gamma,
+        *_fault_args(ctx), grad_shift=ctx.extras.get("grad_shift"),
+        draws=ctx.extras.get("draws")),
 ))
 
 register(Algorithm(
@@ -420,9 +744,15 @@ register(Algorithm(
     init=lambda key, stacked, ctx, batch0: B.nids_init(
         key, stacked, batch0, ctx.grad_fn, ctx.hps.lr),
     step=lambda state, batch, ctx: B.nids_step(
-        state, batch, ctx.grad_fn, ctx.mixer, ctx.hps.lr, ctx.extras["q"]),
+        state, batch, ctx.grad_fn, ctx.mixer, ctx.hps.lr, ctx.extras["q"],
+        grad_shift=ctx.extras.get("grad_shift"), draws=ctx.extras.get("draws")),
     wire_bits=lambda topo, hps, n: _dense_edges_bits(topo, n, _anq_edge_bits(hps, n)),
     edge_bits=_anq_edge_bits,
     needs_batch0=True,
     setup=lambda topo, hps, mixing, seed, device: {"q": qsgd(hps.qsgd_levels)},
+    rep_init=lambda key, stacked, ctx, batch0, arrays: flt_mod.rep_nids_init(
+        key, stacked, arrays),
+    rep_step=lambda state, batch, ctx: flt_mod.rep_nids_step(
+        state, batch, ctx.grad_fn, ctx.hps.lr, ctx.extras["q"], *_fault_args(ctx),
+        grad_shift=ctx.extras.get("grad_shift"), draws=ctx.extras.get("draws")),
 ))

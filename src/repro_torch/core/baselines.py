@@ -36,8 +36,12 @@ losses ignore them).  Every step takes ``draws=``, the per-leaf uniforms
 of each compression in JAX's leaf order (each leaf's [m, n] tensor, or its
 shape), drawn otherwise from `fold_in(fold_in(key, tag), leaf_index)`
 generators with JAX's tags (BEER 3 and 5, CHOCO 7, NIDS 11).
-``grad_shift`` (bounded staleness) belongs to the temporal slice and raises
-when not None.
+``grad_shift`` (bounded staleness: `core.algorithms`' temporal and fault
+steps) moves each delayed node's gradient point from its delayed
+parameters e_i back to e_i + (f_i − e_i), the fresh point in JAX's
+rounding, node by node: a `GradShift` holds the rows of the delayed nodes
+only (a punctual node's shift is zero and is not stored), and a tree of
+[m, ...] leaves, JAX's form, is taken too.
 """
 from __future__ import annotations
 
@@ -62,7 +66,7 @@ __all__ = [
     "ChocoState", "choco_init", "choco_step",
     "BeerState", "beer_init", "beer_step",
     "NidsState", "nids_init", "nids_step",
-    "stack_params", "run_algorithm",
+    "stack_params", "run_algorithm", "GradShift",
 ]
 
 
@@ -75,10 +79,38 @@ def _zeros(tree):
     return tree_map(torch.zeros_like, tree)
 
 
-def _no_shift(grad_shift) -> None:
-    if grad_shift is not None:
-        raise NotImplementedError(
-            "grad_shift (bounded staleness) not yet ported to repro_torch")
+class GradShift:
+    """Per-node gradient-point shifts, JAX's ``grad_shift`` tree (fresh −
+    delayed parameters) kept as the rows of the nodes it moves:
+    ``rows[i]`` is node i's list of leaf rows in JAX leaf order; a node
+    without an entry is punctual (zero shift)."""
+
+    def __init__(self, rows: dict):
+        self.rows = rows
+
+
+def _as_shift(grad_shift, n_leaves: int) -> Optional[GradShift]:
+    """None, a `GradShift`, or a tree of [m, ...] leaves (every node's
+    rows), checked against the parameters' leaf count."""
+    if grad_shift is None:
+        return None
+    if not isinstance(grad_shift, GradShift):
+        leaves = tree_leaves(grad_shift)
+        grad_shift = GradShift({i: [x[i] for x in leaves] for i in range(leaves[0].shape[0])})
+    for i, rows in grad_shift.rows.items():
+        if len(rows) != n_leaves:
+            raise ValueError(f"grad_shift has {len(rows)} leaves for node {i}; "
+                             f"the parameters have {n_leaves}")
+    return grad_shift
+
+
+def _point(rows: Sequence[torch.Tensor], shift: Optional[GradShift], i: int):
+    """Node i's gradient point: its rows, plus its shift when it has one
+    (JAX's ``_shifted``: x + (f − e) in the leaves' type)."""
+    if shift is None or i not in shift.rows:
+        return list(rows)
+    with torch.no_grad():
+        return [x + s.to(x.dtype) for x, s in zip(rows, shift.rows[i])]
 
 
 def _node_grad(grad_fn: GradFn, leaves: Sequence[torch.Tensor], treedef, batch,
@@ -90,14 +122,14 @@ def _node_grad(grad_fn: GradFn, leaves: Sequence[torch.Tensor], treedef, batch,
     return loss.detach().float().reshape(()), [t.detach() for t in tree_leaves(g)]
 
 
-def _grads_inplace(grad_fn, leaves, treedef, batch, key, lr):
-    """x_i ← x_i − lr·grad f_i(x_i), node by node, in place on the stacked
-    `leaves` (node i's gradient reads only its own rows).  Returns the
-    per-node losses."""
+def _grads_inplace(grad_fn, leaves, treedef, batch, key, lr, shift=None):
+    """x_i ← x_i − lr·grad f_i(x_i + shift_i), node by node, in place on the
+    stacked `leaves` (node i's gradient reads only its own rows).  Returns
+    the per-node losses."""
     losses = []
     for i in range(leaves[0].shape[0]):
-        loss, g = _node_grad(grad_fn, [x[i] for x in leaves], treedef, batch, i,
-                             fold_in(key, i))
+        loss, g = _node_grad(grad_fn, _point([x[i] for x in leaves], shift, i), treedef,
+                             batch, i, fold_in(key, i))
         losses.append(loss)
         with torch.no_grad():
             for x, gi in zip(leaves, g):
@@ -117,6 +149,21 @@ def _add_compressed_(comp: Compressor, key: int, idx: int, target: torch.Tensor,
     for r in range(m):
         ur = None if u is None else u[r].reshape(1, -1)
         t2[r].add_(comp.apply((s2[r] - t2[r])[None], u=ur, generator=gen)[0])
+
+
+def _compressed_diff(comp: Compressor, key: int, idx: int, source: torch.Tensor,
+                     target: torch.Tensor, u=None) -> torch.Tensor:
+    """C(source − target) as a new tensor, one node's message (row) at a
+    time, with leaf `idx`'s uniforms drawn as `_add_compressed_` draws
+    them (the replicated fault steps need the innovation itself)."""
+    m = target.shape[0]
+    s2, t2 = source.reshape(m, -1), target.reshape(m, -1)
+    out = torch.empty_like(t2)
+    gen = make_generator(fold_in(key, idx), target.device) if u is None else None
+    for r in range(m):
+        ur = None if u is None else u[r].reshape(1, -1)
+        out[r] = comp.apply((s2[r] - t2[r])[None], u=ur, generator=gen)[0]
+    return out.view(target.shape)
 
 
 def _compress_tree(comp: Compressor, key: int, tree, draws=None):
@@ -155,16 +202,17 @@ def dpsgd_init(key: int, params_stacked) -> DPSGDState:
 def dpsgd_step(state: DPSGDState, batch, grad_fn: GradFn, b: MixOp, lr: float,
                grad_shift=None, *, draws=None) -> Tuple[DPSGDState, dict]:
     """x ← B x − lr·grad f(x): the mixed tree first (new tensors), then each
-    node's gradient at the old x, subtracted in place."""
-    _no_shift(grad_shift)
+    node's gradient at the old x (shifted by `grad_shift`), subtracted in
+    place."""
     mx = as_mixer(b)
     key = fold_in(state.key, state.step)
     leaves, treedef = tree_flatten(state.params)
+    shift = _as_shift(grad_shift, len(leaves))
     new = [mx.mix(x) for x in leaves]
     losses = []
     for i in range(leaves[0].shape[0]):
-        loss, g = _node_grad(grad_fn, [x[i] for x in leaves], treedef, batch, i,
-                             fold_in(key, i))
+        loss, g = _node_grad(grad_fn, _point([x[i] for x in leaves], shift, i), treedef,
+                             batch, i, fold_in(key, i))
         losses.append(loss)
         with torch.no_grad():
             for y, gi in zip(new, g):
@@ -191,24 +239,27 @@ def dfedsam_step(state: DFedSAMState, batch, grad_fn: GradFn, b: MixOp, lr: floa
                  draws=None) -> Tuple[DFedSAMState, dict]:
     """Per node, `local_steps` SAM steps (g1 at x, ascent to x + ρ·g1/‖g1‖,
     x −= lr·g2 with g2 at the ascent point), in place; then x ← B x.
-    ‖g1‖ is summed over the leaves in the leaves' type, as in JAX."""
-    _no_shift(grad_shift)
+    ‖g1‖ is summed over the leaves in the leaves' type, as in JAX.  A
+    `grad_shift` is constant through the chain: g1 is taken at x + shift
+    and the ascent starts there, as in JAX."""
     mx = as_mixer(b)
     key = fold_in(state.key, state.step)
     leaves, treedef = tree_flatten(state.params)
+    shift = _as_shift(grad_shift, len(leaves))
     losses = []
     for i in range(leaves[0].shape[0]):
         p = [x[i] for x in leaves]  # views: the local chain updates the state
         for t in range(local_steps):
             k_t = fold_in(key, t)
-            loss, g1 = _node_grad(grad_fn, p, treedef, batch, i, fold_in(k_t, i))
+            gp = _point(p, shift, i)
+            loss, g1 = _node_grad(grad_fn, gp, treedef, batch, i, fold_in(k_t, i))
             if t == 0:
                 losses.append(loss)
             with torch.no_grad():
                 sq = sum(torch.sum(g ** 2) for g in g1)
                 scale = rho / torch.sqrt(sq + 1e-12)
-                adv = [x + g.to(x.dtype) * scale.to(x.dtype) for x, g in zip(p, g1)]
-            del g1
+                adv = [x + g.to(x.dtype) * scale.to(x.dtype) for x, g in zip(gp, g1)]
+            del g1, gp
             _, g2 = _node_grad(grad_fn, adv, treedef, batch, i, fold_in(fold_in(k_t, 1), i))
             del adv
             with torch.no_grad():
@@ -240,12 +291,12 @@ def choco_step(state: ChocoState, batch, grad_fn: GradFn, b: MixOp, lr: float,
     """x^{t+1/2} = x − lr·g (node by node, in place); then per leaf
     x̂ += C(x^{t+1/2} − x̂) and x = x^{t+1/2} + γ(B x̂ − x̂).
     ``draws={"q": [u per leaf]}`` (JAX tag 7)."""
-    _no_shift(grad_shift)
     mx = as_mixer(b)
     key = fold_in(state.key, state.step)
     leaves, treedef = tree_flatten(state.params)
     hats = tree_leaves(state.hats)
-    losses = _grads_inplace(grad_fn, leaves, treedef, batch, key, lr)
+    losses = _grads_inplace(grad_fn, leaves, treedef, batch, key, lr,
+                            _as_shift(grad_shift, len(leaves)))
     k_q = fold_in(key, 7)
     with torch.no_grad():
         for idx, (x, h) in enumerate(zip(leaves, hats)):
@@ -303,10 +354,10 @@ def beer_step(state: BeerState, batch, grad_fn: GradFn, b: MixOp, lr: float,
     JAX sums g + γ(B − I)z + gn − prev_grad left to right; here prev_grad
     is subtracted before gn is added, which changes the rounding only.
     ``draws={"h": [...], "z": [...]}`` (JAX tags 3 and 5)."""
-    _no_shift(grad_shift)
     mx = as_mixer(b)
     key = fold_in(state.key, state.step)
     xs, treedef = tree_flatten(state.params)
+    shift = _as_shift(grad_shift, len(xs))
     hs, gs, zs, ps = (tree_leaves(t) for t in (state.h, state.g, state.z, state.prev_grad))
     k_h, k_z = fold_in(key, 3), fold_in(key, 5)
     with torch.no_grad():
@@ -321,7 +372,8 @@ def beer_step(state: BeerState, batch, grad_fn: GradFn, b: MixOp, lr: float,
             del mz
     losses = []
     for i in range(xs[0].shape[0]):
-        loss, gn = _node_grad(grad_fn, [x[i] for x in xs], treedef, batch, i, fold_in(key, i))
+        loss, gn = _node_grad(grad_fn, _point([x[i] for x in xs], shift, i), treedef, batch,
+                              i, fold_in(key, i))
         losses.append(loss)
         with torch.no_grad():
             for g, gp, gi in zip(gs, ps, gn):
@@ -374,12 +426,12 @@ def nids_step(state: NidsState, batch, grad_fn: GradFn, b: MixOp, lr: float,
     `repro.core.baselines.nids_step` for the derivation.  Here z is formed
     in place in x node by node, then each leaf is corrected in place.
     ``draws={"q": [...]}`` (JAX tag 11)."""
-    _no_shift(grad_shift)
     mx = as_mixer(b)
     key = fold_in(state.key, state.step)
     xs, treedef = tree_flatten(state.params)
     cs, hzs, hcs = (tree_leaves(t) for t in (state.c, state.hat_z, state.hat_c))
-    losses = _grads_inplace(grad_fn, xs, treedef, batch, key, lr)  # x holds z now
+    losses = _grads_inplace(grad_fn, xs, treedef, batch, key, lr,
+                            _as_shift(grad_shift, len(xs)))  # x holds z now
     k_q = fold_in(key, 11)
     with torch.no_grad():
         for idx, (z, c, hz, hc) in enumerate(zip(xs, cs, hzs, hcs)):
@@ -405,8 +457,18 @@ def nids_step(state: NidsState, batch, grad_fn: GradFn, b: MixOp, lr: float,
 # --------------------------------------------------------------------------
 # Generic driver
 # --------------------------------------------------------------------------
+# the dynamic-network metrics run_algorithm's history keeps per step (JAX's
+# list minus the serving-pacing ones, which are not ported)
+_OPTIONAL_METRICS = (
+    "wire_bits", "alive_nodes", "stale_nodes",
+    "col_defect", "mean_drift", "dropped_msgs", "crashed_nodes",
+    "repair_bits", "surrogate_desync",
+    "comp_consensus", "comp_mean_gap",
+)
+
+
 def run_algorithm(
-    step_fn: Callable,  # (state, batch) -> (state, metrics), closed over hps
+    step_fn: Callable,  # (state, batch[, k][, aux]) -> (state, metrics[, aux])
     state,
     batch_fn: Callable[[int], object],
     num_steps: int,
@@ -416,31 +478,48 @@ def run_algorithm(
     driver: str = "scan",
     chunk_size: int = engine.DEFAULT_CHUNK_SIZE,
     step_takes_index: bool = False,
+    carries_aux: bool = False,
+    aux=None,
 ) -> Tuple[object, dict]:
     """Race driver shared by every baseline.
 
     driver="scan" runs `chunk_size` steps per host sync through
     `repro_torch.core.engine`, with the std stop rule evaluated on the
     device; driver="host" is the per-step loop.  `step_takes_index=True`
-    feeds the global step index as a third step argument on both.  The
-    temporal slice's auxiliary carry is not ported yet.
+    feeds the global step index as a third step argument on both;
+    `carries_aux=True` threads `aux` (the temporal or fault carry) as the
+    last argument and takes it back as the step's third result.  Per-step
+    ``stale_hist`` rows become the run's ``staleness_hist``, and the
+    dynamic-network metrics of `_OPTIONAL_METRICS` a step emits are kept
+    per step under their names (JAX's history schema).
     """
     if driver == "scan":
         state, metrics, info = engine.run_scan_loop(
             step_fn, state, batch_fn, num_steps, objective_fn=objective_fn,
             params_of=params_of, tol_std=tol_std, chunk_size=chunk_size,
-            step_takes_index=step_takes_index,
+            step_takes_index=step_takes_index, carries_aux=carries_aux, aux=aux,
         )
-        return state, engine.history_from(
+        history = engine.history_from(
             metrics, info, {"loss": "loss_mean", "objective": "objective"})
+        _extra_metrics(history, metrics)
+        return state, history
     if driver != "host":
         raise ValueError(f"unknown driver {driver!r}")
+    if carries_aux and aux is None:
+        raise ValueError("carries_aux needs aux=aux0")
     history = {"loss": [], "objective": []}
+    rows: dict = {}
     f_window: list = []
     for k in range(num_steps):
         args = (state, batch_fn(k)) + ((k,) if step_takes_index else ())
-        state, metrics = step_fn(*args)
+        if carries_aux:
+            state, metrics, aux = step_fn(*args, aux)
+        else:
+            state, metrics = step_fn(*args)
         history["loss"].append(float(metrics["loss_mean"]))
+        for key, val in metrics.items():
+            if key in _OPTIONAL_METRICS or key == "stale_hist":
+                rows.setdefault(key, []).append(torch.as_tensor(val).detach().cpu().numpy())
         if objective_fn is not None:
             mean_params = tree_map(lambda x: x.mean(dim=0), params_of(state))
             fval = float(objective_fn(mean_params))
@@ -449,4 +528,15 @@ def run_algorithm(
             if len(f_window) >= 3 and float(np.std(f_window[-3:])) < tol_std:
                 break
     history["steps_run"] = history["steps_dispatched"] = len(history["loss"])
+    _extra_metrics(history, {key: np.stack(v) for key, v in rows.items()})
     return state, history
+
+
+def _extra_metrics(history: dict, metrics: dict) -> None:
+    """The `_OPTIONAL_METRICS` a run emitted into `history`, per step, and
+    its ``stale_hist`` rows summed into ``staleness_hist``."""
+    for key, vals in metrics.items():
+        if key == "stale_hist":
+            history["staleness_hist"] = engine.staleness_hist(vals)
+        elif key in _OPTIONAL_METRICS:
+            history[key] = [float(v) for v in vals]

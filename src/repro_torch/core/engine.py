@@ -5,20 +5,28 @@ JAX runs `chunk_size` steps per dispatch inside one `lax.scan`.  The port
 runs the same chunk as an eager Python loop over the step function and
 keeps what made the scan cheap:
 
-  * per-step metrics stay on the device, and the host reads a whole chunk
-    back with ONE transfer at the chunk boundary (the only sync per chunk);
+  * per-step metrics stay where the step made them, and the host reads a
+    whole chunk of device metrics back with ONE transfer at the chunk
+    boundary (the only sync per chunk); metrics a step computes on the
+    host (the dynamic-network realizations' counts) never touch the card;
   * the paper's std stop rule (stop when std{f(w^{k-2}), f(w^{k-1}),
     f(w^k)} < tol) is evaluated on the device on a rolling 3-value window;
     once it fires, every later step of the chunk is a no-op through a
     per-tensor `torch.where` select, so the returned state is exactly the
-    triggering step's although the chunk ran to its length.  Host-side
-    leaves of the state (PaME's integer step counter) cannot be selected
-    on the device; the engine records them per step and restores the
-    triggering step's values after the chunk's sync.
+    triggering step's although the chunk ran to its length.  Leaves of the
+    state (or of the auxiliary carry) that cannot be selected on the
+    device — Python numbers such as PaME's step counter, and host tensors
+    such as the Markov chains' state on a CUDA run — are recorded per step
+    and the triggering step's values restored after the chunk's sync;
   * a step may update its input state in place (the baselines do, as
     JAX's scan donates its carry); under the stop rule the engine hands
-    the step a clone, so the frozen state survives the steps after it.
+    the step a clone, so the frozen state survives the steps after it;
+  * ``carries_aux=True`` threads an auxiliary carry (the temporal or
+    fault Markov state and the staleness ring) through the steps, frozen
+    by the same select.
 
+A metric may be a scalar or a vector (the temporal path's per-step
+``stale_hist``); each comes back as a host array with one row per step.
 CUDA-graph capture of a chunk is later work.
 """
 from __future__ import annotations
@@ -30,7 +38,8 @@ import torch
 
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
-__all__ = ["make_scan_runner", "run_scan_loop", "history_from", "DEFAULT_CHUNK_SIZE"]
+__all__ = ["make_scan_runner", "run_scan_loop", "history_from", "staleness_hist",
+           "DEFAULT_CHUNK_SIZE"]
 
 DEFAULT_CHUNK_SIZE = 32
 
@@ -47,11 +56,23 @@ def history_from(metrics: dict, info: dict, keys: dict) -> dict:
     return history
 
 
+def staleness_hist(rows) -> list:
+    """Per-step ``stale_hist`` rows ([steps, D+1]) summed into the run's
+    staleness histogram, the schema every driver logs."""
+    return [float(v) for v in np.sum(np.asarray(rows), axis=0)]
+
+
+def _on(x, device) -> bool:
+    """A leaf the device-side select handles: a tensor on `device`."""
+    return isinstance(x, torch.Tensor) and x.device == device
+
+
 def _select(pred: torch.Tensor, on_true, on_false):
-    """Per-tensor `where(pred, on_true, on_false)`; other leaves keep
-    on_false's value (the engine restores them after the chunk)."""
+    """Per-tensor `where(pred, on_true, on_false)` for leaves on pred's
+    device; other leaves keep on_false's value (the engine restores them
+    after the chunk)."""
     return tree_map(
-        lambda t, f: torch.where(pred, t, f) if isinstance(f, torch.Tensor) else f,
+        lambda t, f: torch.where(pred, t, f) if _on(f, pred.device) else f,
         on_true, on_false,
     )
 
@@ -60,108 +81,141 @@ def _clone(state):
     return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, state)
 
 
-def _host_leaves(state) -> list:
-    return [x for x in tree_flatten(state)[0] if not isinstance(x, torch.Tensor)]
+def _host_leaves(tree, device) -> list:
+    return [x for x in tree_flatten(tree)[0] if not _on(x, device)]
 
 
-def _with_host_leaves(state, host: list):
-    leaves, treedef = tree_flatten(state)
+def _with_host_leaves(tree, host: list, device):
+    leaves, treedef = tree_flatten(tree)
     it = iter(host)
-    return tree_unflatten(
-        treedef, [x if isinstance(x, torch.Tensor) else next(it) for x in leaves]
-    )
+    return tree_unflatten(treedef, [x if _on(x, device) else next(it) for x in leaves])
+
+
+def _table(chunk: list, keys: list, device) -> dict:
+    """A chunk's per-step metrics as host arrays, one row per step: the
+    metrics on `device` stacked and read back in one transfer, the others
+    stacked where they are."""
+    out = {}
+    for on_dev in (True, False):
+        ks = [key for key in keys if _on(chunk[0][key], device) == on_dev]
+        if not ks:
+            continue
+        rows = torch.stack([
+            torch.cat([torch.as_tensor(ys[key]).reshape(-1).to(torch.float32) for key in ks])
+            for ys in chunk
+        ])
+        block = rows.cpu().numpy()
+        col = 0
+        for key in ks:
+            width = torch.as_tensor(chunk[0][key]).numel()
+            val = block[:, col:col + width]
+            out[key] = val if torch.as_tensor(chunk[0][key]).dim() else val[:, 0]
+            col += width
+    return out
 
 
 def make_scan_runner(
-    step_fn: Callable,  # (state, batch[, k]) -> (state, metrics dict of 0-d tensors)
+    step_fn: Callable,  # (state, batch[, k][, aux]) -> (state, metrics[, aux])
     *,
     objective_fn: Optional[Callable] = None,
     params_of: Callable = lambda s: s.params,
     tol_std: float = 1e-3,
     chunk_size: int = DEFAULT_CHUNK_SIZE,
     step_takes_index: bool = False,
+    carries_aux: bool = False,
 ) -> Callable[..., Tuple[object, dict, dict]]:
     """Build a reusable chunked driver.
 
     Returns ``run(state, batch_fn, num_steps, *, copy_state=True,
-    k_start=0) -> (state, metrics, info)``: ``metrics`` maps each metric
-    key (plus ``"objective"`` when `objective_fn` is given) to a host
-    array of length ``info["steps_run"]``; ``info["steps_dispatched"]``
-    counts the steps executed (chunk-rounded past an early stop).
-    ``step_takes_index=True`` passes the global step index as a third step
-    argument; ``k_start`` offsets it for callers that drive chunks one by
-    one (the training CLI).  ``copy_state=True`` clones the caller's
-    tensors first, so a step that updates its input in place cannot touch
-    them; callers that rebind to the returned state pass False.
+    k_start=0, aux=None) -> (state, metrics, info)``: ``metrics`` maps each
+    metric key (plus ``"objective"`` when `objective_fn` is given) to a
+    host array with one row per step, ``info["steps_run"]`` rows;
+    ``info["steps_dispatched"]`` counts the steps executed (chunk-rounded
+    past an early stop).  ``step_takes_index=True`` passes the global step
+    index as a third step argument; ``k_start`` offsets it for callers
+    that drive chunks one by one (the training CLI).  ``carries_aux=True``
+    calls ``step_fn(state, batch, [k,] aux)``, which returns ``(state,
+    metrics, aux)``; ``run(..., aux=aux0)`` seeds the carry and the last
+    one comes back in ``info["aux"]``.  ``copy_state=True`` clones the
+    caller's state (and carry) first, so a step that updates its input in
+    place cannot touch them; callers that rebind to the returned values
+    pass False.
     """
 
     def run(state, batch_fn: Callable[[int], object], num_steps: int, *,
-            copy_state: bool = True, k_start: int = 0):
+            copy_state: bool = True, k_start: int = 0, aux=None):
+        if carries_aux and aux is None:
+            raise ValueError("carries_aux runner needs run(..., aux=aux0)")
         if copy_state:
-            state = _clone(state)
-        done = win = None
+            state, aux = _clone(state), _clone(aux)
+        done = win = dev = None
         keys: list = []
-        rows: list = []  # per step: metric tensors in `keys` order + stopped flag
+        blocks: list = []  # per chunk: {key: [steps, ...] host array}
         host_per_step: list = []
         k0, end = k_start, k_start + num_steps
         stopped_at = None
         while k0 < end:
             length = min(chunk_size, end - k0)
-            chunk_rows = []
+            chunk: list = []
             for k in range(k0, k0 + length):
-                step_state = state if objective_fn is None else _clone(state)
+                if objective_fn is None:
+                    step_state, step_aux = state, aux
+                else:
+                    step_state, step_aux = _clone(state), _clone(aux)
                 args = (step_state, batch_fn(k)) + ((k,) if step_takes_index else ())
-                new_state, metrics = step_fn(*args)
-                del step_state
+                if carries_aux:
+                    new_state, metrics, new_aux = step_fn(*args, step_aux)
+                else:
+                    new_state, metrics = step_fn(*args)
+                    new_aux = aux
+                del step_state, step_aux
                 ys = dict(metrics)
+                if dev is None:
+                    dev = torch.as_tensor(ys["loss_mean"]).device
                 if objective_fn is not None:
                     mean_params = tree_map(lambda x: x.mean(dim=0), params_of(new_state))
                     obj = torch.as_tensor(objective_fn(mean_params)).float().reshape(())
+                    dev = obj.device
                     if done is None:
-                        done = torch.zeros((), dtype=torch.bool, device=obj.device)
-                        win = torch.zeros(3, dtype=torch.float32, device=obj.device)
+                        done = torch.zeros((), dtype=torch.bool, device=dev)
+                        win = torch.zeros(3, dtype=torch.float32, device=dev)
                     new_win = torch.cat([win[1:], obj[None]])
                     # the rule needs three values of *this* run in the window
                     trigger = (torch.std(new_win, correction=0) < tol_std) & (k - k_start >= 2)
                     # a step after the rule fired is a no-op: keep the frozen
                     # state so the returned state is the triggering step's
-                    state = _select(done, state, new_state)
+                    state, aux = _select(done, (state, aux), (new_state, new_aux))
                     win = torch.where(done, win, new_win)
                     done = done | trigger
                     ys["objective"] = obj
                     ys["_stopped"] = done
                 else:
-                    state = new_state
+                    state, aux = new_state, new_aux
                 if not keys:
                     keys = list(ys)
-                    dev = torch.as_tensor(ys[keys[0]]).device
-                chunk_rows.append(torch.stack([
-                    torch.as_tensor(ys[key], dtype=torch.float32, device=dev).reshape(())
-                    for key in keys
-                ]))
-                host_per_step.append(_host_leaves(state))
+                chunk.append(ys)
+                host_per_step.append(_host_leaves((state, aux), dev))
             # one transfer per chunk boundary: the only mid-run readback
-            block = torch.stack(chunk_rows).cpu().numpy()
-            rows.append(block)
+            block = _table(chunk, keys, dev)
+            blocks.append(block)
             k0 += length
-            if objective_fn is not None and block[-1, keys.index("_stopped")]:
+            if objective_fn is not None and block["_stopped"][-1]:
                 stopped_at = len(host_per_step) - length + int(
-                    np.argmax(block[:, keys.index("_stopped")] > 0))
+                    np.argmax(block["_stopped"] > 0))
                 break
-        if not rows:
-            return state, {}, {"steps_run": 0, "steps_dispatched": 0}
-        table = np.concatenate(rows)
-        host = {key: table[:, c] for c, key in enumerate(keys)}
+        if not blocks:
+            return state, {}, {"steps_run": 0, "steps_dispatched": 0, "aux": aux}
+        host = {key: np.concatenate([b[key] for b in blocks]) for key in keys}
         stopped = host.pop("_stopped", None)
         if stopped_at is not None:
-            state = _with_host_leaves(state, host_per_step[stopped_at])
+            state, aux = _with_host_leaves((state, aux), host_per_step[stopped_at], dev)
         steps_run = (
             int(np.argmax(stopped > 0)) + 1
-            if stopped is not None and stopped.any() else len(table)
+            if stopped is not None and stopped.any() else len(host[keys[0]])
         )
         metrics = {key: val[:steps_run] for key, val in host.items()}
         return state, metrics, {
-            "steps_run": steps_run, "steps_dispatched": k0 - k_start,
+            "steps_run": steps_run, "steps_dispatched": k0 - k_start, "aux": aux,
         }
 
     return run
@@ -178,10 +232,13 @@ def run_scan_loop(
     tol_std: float = 1e-3,
     chunk_size: int = DEFAULT_CHUNK_SIZE,
     step_takes_index: bool = False,
+    carries_aux: bool = False,
+    aux=None,
 ):
     """One-shot convenience wrapper over `make_scan_runner`."""
     runner = make_scan_runner(
         step_fn, objective_fn=objective_fn, params_of=params_of,
         tol_std=tol_std, chunk_size=chunk_size, step_takes_index=step_takes_index,
+        carries_aux=carries_aux,
     )
-    return runner(state, batch_fn, num_steps)
+    return runner(state, batch_fn, num_steps, aux=aux)

@@ -40,8 +40,18 @@ Three `Mixer` modes, as in JAX:
   * "matrix" — the plain `torch.einsum("ji,j...->i...")` of B, what a raw
     [m, m] tensor becomes through `as_mixer`.
 
-`ring_gather` and `mix_replicated` (bounded staleness, message faults)
-belong to the temporal and fault slice and are not ported yet.
+Two helpers serve the temporal and fault paths:
+
+  * `ring_gather` — each node's value from the staleness ring where it is
+    delayed, its fresh value elsewhere (JAX's form: a new tree; the
+    registry's bound steps move only the delayed rows instead, see
+    `core.algorithms`);
+  * `mix_replicated` — each receiver mixes the copies it holds of its
+    neighbours' surrogates, out_i = Σ_s w_off[i, s]·held[i, s] +
+    self_w[i]·held[i, d].  A held leaf [m, d + 1, ...] is receiver i's d
+    replicas and then its own value, the layout the fault steps keep as
+    their state; viewed as m·(d + 1) sender rows it is contracted by
+    `gather_terms` over `replica_table`: the gossip kernel on the card.
 """
 from __future__ import annotations
 
@@ -56,6 +66,7 @@ from repro_torch.tree import tree_map
 __all__ = [
     "PaddedMixing", "Mixer", "mix_padded", "make_mixer", "as_mixer",
     "gather_terms", "default_impl", "env_impl", "IMPLS", "ENV_VAR",
+    "ring_gather", "mix_replicated", "replica_table",
 ]
 
 # The closed set of contraction implementations; every entry point that
@@ -150,14 +161,15 @@ def _gather_terms_segsum(nbrs, terms, pad):
 
 def gather_terms(
     nbrs: torch.Tensor,                                   # [m, k] padded table
-    terms: Sequence[Tuple[torch.Tensor, torch.Tensor]],   # ([m, k] w, [m, ...] x)
+    terms: Sequence[Tuple[torch.Tensor, torch.Tensor]],   # ([m, k] w, [M, ...] x)
     *,
     pad: Optional[torch.Tensor] = None,                   # [m, k] padding slots
     impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """One-pass neighbour contraction shared by every padded gossip path:
-    for each (w, x) term, out_i = sum_slot w[i, slot] · x[nbrs[i, slot]].
-    `impl=None` resolves through `default_impl` for the tensors' device."""
+    for each (w, x) term, out_i = sum_slot w[i, slot] · x[nbrs[i, slot]],
+    [m, ...] out of the M >= m sender rows of x.  `impl=None` resolves
+    through `default_impl` for the tensors' device."""
     impl = default_impl(nbrs.device) if impl is None else _check_impl(impl)
     if impl == "slots":
         return _gather_terms_slots(nbrs, terms)
@@ -174,6 +186,45 @@ def mix_padded(pm: PaddedMixing, tree, impl: Optional[str] = None):
         lambda x: gather_terms(pm.nbrs, [(pm.w, x)], pad=pm.pad, impl=impl)[0],
         tree,
     )
+
+
+def ring_gather(ring, fresh, slot: torch.Tensor, use_ring: torch.Tensor):
+    """Per-sender delayed gather: node j's value is ``ring[slot[j], j]``
+    where ``use_ring[j]``, else ``fresh[j]`` (ring leaves [D, m, ...],
+    fresh leaves [m, ...]); a new tree."""
+    m = slot.shape[0]
+
+    def one(r, f):
+        node = torch.arange(m, device=r.device)
+        keep = use_ring.to(f.device).reshape((m,) + (1,) * (f.dim() - 1))
+        return torch.where(keep, r[slot.to(r.device).long(), node], f)
+
+    return tree_map(one, ring, fresh)
+
+
+def replica_table(m: int, d: int, device=None) -> torch.Tensor:
+    """[m, d + 1] table into the m·(d + 1) sender rows of a held leaf:
+    receiver i's d replicas, then its own value (rows i·(d + 1) + s)."""
+    return torch.arange(m * (d + 1), device=device).view(m, d + 1).to(torch.int32)
+
+
+def mix_replicated(w_off: torch.Tensor, self_w: torch.Tensor, held,
+                   impl: Optional[str] = None):
+    """out_i = Σ_s w_off[i, s]·held[i, s] + self_w[i]·held[i, d] for every
+    held leaf [m, d + 1, ...] (receiver i's replicas, then its own value):
+    each receiver mixes the copies it holds, with no cross-node gather.
+    The slots are summed in order, replicas first, through `gather_terms`
+    (`impl` as there); padding replicas weigh exactly 0.  A leaf must be
+    contiguous: it is read in place as m·(d + 1) sender rows."""
+
+    def one(h):
+        m, d1 = h.shape[:2]
+        w = torch.cat([w_off.reshape(m, d1 - 1), self_w.reshape(m, 1)], dim=1).to(
+            h.device, torch.float32)
+        rows = h.view((m * d1,) + tuple(h.shape[2:]))
+        return gather_terms(replica_table(m, d1 - 1, h.device), [(w, rows)], impl=impl)[0]
+
+    return tree_map(one, held)
 
 
 def _dense_padded(bmat: torch.Tensor) -> PaddedMixing:

@@ -144,15 +144,20 @@ def pame_step(
     ([m, m]), and ``masks`` (dense exchange) or ``offsets`` (compressed
     exchange, `repro_torch.core.gossip`), one per leaf in JAX leaf order.
     The compressed exchanges use the [m, m] selection whatever `mixing`
-    says, as in JAX."""
+    says, as in JAX.
+
+    Dynamic networks, as in JAX: `realization` (`core.scenarios`) keeps
+    offline and straggling receivers out of the exchange and restricts
+    selection to the realized edges, and the step reports its realized
+    Eq.-(8) ``wire_bits``; `self_params` is each node's fresh view for the
+    λ = 0 fill while `state.params` carries the delayed stack the wire
+    transports (it keeps the dense exact exchange on the plain average, as
+    JAX's kernel route takes its fill from W); `delivered` ([m, d] bool,
+    padded selection only) lets only delivered messages into the average
+    while every selected one is charged.  An injected ``sel`` / ``a`` must
+    already be the realized selection."""
     if param_shardings is not None:
         _not_ported("param_shardings")
-    if realization is not None:
-        _not_ported("dynamic-network realization")
-    if self_params is not None:
-        _not_ported("self_params (message-only delay)")
-    if delivered is not None:
-        _not_ported("delivered (message-level faults)")
     if cfg.exchange not in ("dense", "compressed", "compressed_q8"):
         raise ValueError(f"unknown exchange {cfg.exchange!r}")
     m = topo.nbrs.shape[0]
@@ -169,33 +174,56 @@ def pame_step(
         rate = cfg.p
 
     comm_mask = (state.step % topo.kappa) == 0  # k in K_i
+    survivors = None
+    if realization is not None:
+        # offline / straggling receivers skip the exchange; senders are
+        # filtered through the realized edge set
+        comm_mask = comm_mask & realization.participating.to(device)
+        survivors = realization.edge_alive.to(device)
     if cfg.exchange == "dense" and cfg.mixing == "sparse":
         # padded neighbour exchange: the [m, m] selection matrix is never built
         sel = draws.get("sel")
         if sel is None:
             sel = pme.sample_neighbor_selection_padded(
                 pme.make_generator(k_sel, device), topo.nbrs, topo.valid,
-                topo.t, comm_mask,
+                topo.t, comm_mask, survivors=survivors,
             )
+        sel = sel.to(device)
+        n_messages = sel.sum()
+        if delivered is not None:
+            sel = sel & delivered.to(device)
         v_bar = pme.pme_average_pytree_padded(
-            k_mask, state.params, topo.nbrs, sel.to(device), rate,
-            mode=cfg.mask_mode, pad=~topo.valid, masks=masks,
+            k_mask, state.params, topo.nbrs, sel, rate,
+            mode=cfg.mask_mode, pad=~topo.valid, self_params=self_params, masks=masks,
         )
     else:
+        if delivered is not None:
+            raise NotImplementedError(
+                "message-level delivery masks need mixing='sparse' (padded "
+                "selection); the dense selection matrix has no per-slot "
+                "delivery channel"
+            )
         a = draws.get("a")
         if a is None:
             a = pme.sample_neighbor_selection(
                 pme.make_generator(k_sel, device), topo.nbrs, topo.valid,
-                topo.t, comm_mask,
+                topo.t, comm_mask, survivors=survivors,
             )
+        a = a.to(device)
+        n_messages = a.sum()
         if cfg.exchange == "dense":
             v_bar = pme.pme_average_pytree(
-                k_mask, state.params, a.to(device), rate, mode=cfg.mask_mode,
-                masks=masks,
+                k_mask, state.params, a, rate, mode=cfg.mask_mode,
+                self_params=self_params, masks=masks,
             )
         else:
+            if self_params is not None:
+                raise NotImplementedError(
+                    "self_params (message-only delay) is not supported on the "
+                    "compressed exchange path"
+                )
             v_bar = gossip.compressed_pme_average_pytree(
-                k_mask, state.params, a.to(device), cfg.p,
+                k_mask, state.params, a, cfg.p,
                 quantize_bits=8 if cfg.exchange == "compressed_q8" else 0,
                 offsets=draws.get("offsets"),
             )
@@ -238,6 +266,19 @@ def pame_step(
         "comm_nodes": comm_mask.sum(),
         "sigma_mean": new_state.sigma.mean(),
     }
+    if realization is not None:
+        # realized Eq.-(8) accounting: each selected surviving neighbour
+        # sends one sparse message (int8 values under compressed_q8); flat
+        # partition prices one vector of s = round(p·n) coordinates, tree
+        # partition the per-leaf segments
+        sizes = [int(np.prod(tuple(x.shape[1:]))) for x in leaves]
+        value_bits = 8 if cfg.exchange == "compressed_q8" else 64
+        if cfg.partition == "tree":
+            bits = pme.tree_message_bits(sizes, rate, value_bits)
+        else:
+            n_total = sum(sizes)
+            bits = pme.message_bits(max(1, int(round(cfg.p * n_total))), n_total, value_bits)
+        metrics["wire_bits"] = n_messages.to(torch.float32) * float(bits)
     return new_state, metrics
 
 

@@ -38,11 +38,14 @@ def _bind():
 def gossip_gather(
     nbrs: torch.Tensor,              # [m, k] int32
     ws: torch.Tensor,                # [G, m, k] float32, padding already 0.0
-    xs: Sequence[torch.Tensor],      # T sender stacks, each [m, n], one type
+    xs: Sequence[torch.Tensor],      # T sender stacks, each [M, n], one type
     term_groups: Tuple[int, ...],    # term t contracts ws[term_groups[t]]
 ) -> Tuple[torch.Tensor, ...]:
     """out_t[i, l] = sum_slot ws[g_t][i, slot] * xs[t][nbrs[i, slot], l],
-    summed in f32 and stored in the operands' type (float32 or bfloat16)."""
+    summed in f32 and stored in the operands' type (float32 or bfloat16),
+    [m, n] each.  A sender stack may hold more rows than there are
+    receivers (M >= m: the replica tables of `mixing.mix_replicated`);
+    `nbrs` must index its rows."""
     m, k = nbrs.shape
     g = ws.shape[0]
     if not nbrs.is_cuda:
@@ -64,12 +67,12 @@ def gossip_gather(
     for x in xs:
         if x.dtype != dtype:
             raise TypeError(f"all terms of a launch share one type: {dtype} and {x.dtype}")
-        if x.shape != (m, n) or not x.is_contiguous():
-            raise ValueError("every operand must be a contiguous [m, n]")
+        if x.dim() != 2 or x.shape[0] < m or x.shape[1] != n or not x.is_contiguous():
+            raise ValueError("every operand must be a contiguous [M, n] with M >= m")
         if x.device != nbrs.device:
             raise ValueError("operands and neighbour table on different devices")
     nbrs, ws = nbrs.contiguous(), ws.contiguous()
-    outs = tuple(torch.empty_like(x) for x in xs)
+    outs = tuple(torch.empty((m, n), dtype=x.dtype, device=x.device) for x in xs)
     if n == 0:
         return outs
     fn = _bind()

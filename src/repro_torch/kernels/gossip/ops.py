@@ -30,11 +30,12 @@ from repro_torch.kernels.gossip.ref import gather_terms_ref
 
 def gather_terms_kernel(
     nbrs: torch.Tensor,                                   # [m, k] padded table
-    terms: Sequence[Tuple[torch.Tensor, torch.Tensor]],   # ([m, k] w, [m, ...] x)
+    terms: Sequence[Tuple[torch.Tensor, torch.Tensor]],   # ([m, k] w, [M, ...] x)
     *,
     pad: Optional[torch.Tensor] = None,                   # [m, k] padding slots
 ) -> Tuple[torch.Tensor, ...]:
-    """out_t[i] = sum_slot w_t[i, slot] * x_t[nbrs[i, slot]] for every term."""
+    """out_t[i] = sum_slot w_t[i, slot] * x_t[nbrs[i, slot]] for every term,
+    [m, ...] out of M >= m sender rows."""
     if not nbrs.is_cuda:
         return gather_terms_ref(nbrs, terms, pad=pad)
     m = nbrs.shape[0]
@@ -61,10 +62,10 @@ def gather_terms_kernel(
 
     outs: list = [None] * len(terms)
     for (n_flat, _), (tables, _, entries) in buckets.items():
-        xs = [x.reshape(m, n_flat).contiguous() for _, _, x in entries]
+        xs = [x.reshape(x.shape[0], n_flat).contiguous() for _, _, x in entries]
         res = gossip_gather(
             nbrs32, torch.stack(tables), xs, tuple(g for _, g, _ in entries)
         )
         for (t, _, x), out in zip(entries, res):
-            outs[t] = out.reshape(x.shape)
+            outs[t] = out.reshape((m,) + tuple(x.shape[1:]))
     return tuple(outs)

@@ -2,8 +2,8 @@
 contraction of ``src/repro/kernels/gossip/ref.py``.
 
 Builds S[i, j] = sum_{slot: nbrs[i, slot] = j} w[i, slot] (padding slots
-zeroed first) and contracts it with one f32 matmul per term.  O(m^2)
-memory: a test oracle and the kernel's yardstick on the card, not a
+zeroed first; j over the M >= m sender rows) and contracts it with one f32
+matmul per term.  O(m·M) memory: a test oracle and the kernel's yardstick on the card, not a
 production path.
 """
 from __future__ import annotations
@@ -27,8 +27,8 @@ def gather_terms_ref(
         wf = w.float()
         if pad is not None:
             wf = torch.where(pad, torch.zeros_like(wf), wf)
-        s = torch.zeros((m, m), dtype=torch.float32, device=nbrs.device)
+        s = torch.zeros((m, x.shape[0]), dtype=torch.float32, device=nbrs.device)
         s.index_put_((rows, idx), wf, accumulate=True)
-        x2 = x.reshape(m, -1).float()
-        outs.append((s @ x2).reshape(x.shape).to(x.dtype))
+        x2 = x.reshape(x.shape[0], -1).float()
+        outs.append((s @ x2).reshape((m,) + tuple(x.shape[1:])).to(x.dtype))
     return tuple(outs)

@@ -4,20 +4,28 @@
         --variant full --algo pame --nodes 4 --batch 4 --seq 128 --steps 3
 
 Same flags and log lines as the JAX CLI, plus ``--device {cuda,cpu}``
-(default ``cuda``; without a card the run raises instead of falling back).
+(default ``cuda``; without a card the run raises instead of falling back)
+and ``--layers N`` (the configuration at full width, cut to N layers: what
+one card holds for the replicated fault variants of BEER and ANQ-NIDS).
 Every registered algorithm runs (``--algo pame``, ``dpsgd``, ``dfedsam``,
 ``choco``, ``beer``, ``anq_nids``; ``--lr`` and ``--rho`` reach the
-baselines) on the static network with one seed: every dynamic-network
-scenario, fault, temporal, checkpoint and multi-seed flag raises "not yet
-ported".  Steps run
+baselines) with one seed, on the static network or under the JAX CLI's
+dynamic-network flags: ``--scenario`` and ``--churn`` / ``--straggler`` /
+``--edge-drop`` (i.i.d.), ``--burst`` / ``--session`` / ``--staleness`` /
+``--resample`` / ``--mobility-keep`` (Markov dynamics and bounded
+staleness), ``--loss-rate`` / ``--loss-burst`` / ``--crash`` /
+``--msg-delay`` / ``--no-repair`` (message-level faults).  The checkpoint,
+compilation-cache and multi-seed flags raise "not yet ported".  Steps run
 through `repro_torch.core.engine` in ``--chunk``-step chunks with one host
 sync per chunk; gossip goes through the sparse neighbour exchange by
 default (``--mixing dense`` for the selection-matrix form), and per-step
-wire cost (Eq. 8) is logged beside the loss.
+wire cost (Eq. 8, realized under a dynamic network) is logged beside the
+loss.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -36,18 +44,16 @@ from repro_torch.core.algorithms import (
     get_algorithm,
     list_algorithms,
 )
+from repro_torch.core.faults import FaultModel
+from repro_torch.core.scenarios import get_scenario, list_scenarios
+from repro_torch.core.temporal import TemporalScenario
 from repro_torch.core.topology import build_topology
 from repro_torch.data.synthetic import SyntheticTokens
 from repro_torch.models.model import init_params, train_loss
 from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 
-# flags whose non-default values select code this slice does not port
-_NOT_PORTED = (
-    ("scenario", "static"), ("churn", None), ("straggler", None),
-    ("edge_drop", None), ("burst", None), ("session", None), ("staleness", 0),
-    ("resample", 0), ("loss_rate", None), ("loss_burst", None), ("crash", None),
-    ("msg_delay", None), ("seeds", 1), ("ckpt_dir", None), ("compile_cache", None),
-)
+# flags whose non-default values select code the port does not have yet
+_NOT_PORTED = (("seeds", 1), ("ckpt_dir", None), ("compile_cache", None))
 
 
 def _hps_from_args(name: str, args):
@@ -74,6 +80,77 @@ def batch_stream_rng(seed: int, step: int) -> np.random.Generator:
     """The per-step batch-window RNG, independent across steps and runs
     (same stream as the JAX CLI's)."""
     return np.random.default_rng((int(seed), 1000 + int(step)))
+
+
+def _parse_rate_pair(spec):
+    """Parse "down[,up]" Markov-rate flags (e.g. --burst 0.1,0.3)."""
+    if spec is None:
+        return None
+    parts = [float(x) for x in spec.split(",")]
+    if len(parts) == 1:
+        parts.append(0.5)
+    if len(parts) != 2:
+        raise ValueError(f"expected RATE or RATE_DOWN,RATE_UP, got {spec!r}")
+    return tuple(parts)
+
+
+def _scenario_from_args(args):
+    """The --scenario preset with per-probability overrides.  Any temporal
+    flag (--burst/--session/--staleness/--resample) makes it a
+    `TemporalScenario`: explicit Markov rates win, and the i.i.d. churn /
+    edge-drop probabilities lower to their degenerate Markov equivalents
+    (leave=c, rejoin=1−c reproduces i.i.d. churn bit for bit)."""
+    burst = _parse_rate_pair(args.burst)
+    session = _parse_rate_pair(args.session)
+    scen = get_scenario(args.scenario)
+    overrides = {field: value for field, value in (
+        ("churn", args.churn), ("straggler", args.straggler), ("edge_drop", args.edge_drop),
+    ) if value is not None}
+    if overrides:
+        scen = dataclasses.replace(scen, name=f"{scen.name}+custom", **overrides)
+    scen = dataclasses.replace(scen, seed=args.seed)
+    if not (burst or session or args.staleness > 0 or args.resample > 0):
+        return scen
+    if burst is None:
+        burst = (scen.edge_drop, 1.0 - scen.edge_drop) if scen.edge_drop > 0 else (0.0, 0.5)
+    if session is None:
+        session = (scen.churn, 1.0 - scen.churn) if scen.churn > 0 else (0.0, 0.5)
+    return TemporalScenario(
+        name=f"{scen.name}+temporal",
+        burst_down=burst[0], burst_up=burst[1],
+        leave=session[0], rejoin=session[1],
+        straggler=scen.straggler, staleness=args.staleness,
+        resample_every=args.resample, mobility_keep=args.mobility_keep,
+        seed=args.seed,
+    )
+
+
+def _faults_from_args(args):
+    """The message-level fault flags as a FaultModel (or None): --loss-rate
+    (i.i.d. per-direction drops), --loss-burst (Gilbert–Elliott lossy
+    links), --crash (transient crashes, state frozen while down),
+    --msg-delay (delayed delivery only).  All compose with --scenario."""
+    burst = _parse_rate_pair(args.loss_burst)
+    crash = _parse_rate_pair(args.crash)
+    delay_p, delay_d = 0.0, 0
+    if args.msg_delay is not None:
+        parts = args.msg_delay.split(",")
+        delay_p = float(parts[0])
+        delay_d = int(parts[1]) if len(parts) > 1 else 2
+    if args.loss_rate is None and burst is None and crash is None and args.msg_delay is None:
+        return None
+    return FaultModel(
+        name="cli",
+        loss=args.loss_rate or 0.0,
+        burst_down=burst[0] if burst else 0.0,
+        burst_up=burst[1] if burst else 0.5,
+        crash=crash[0] if crash else 0.0,
+        rejoin=crash[1] if crash else 0.5,
+        delay=delay_p,
+        max_delay=delay_d,
+        repair=args.repair,
+        seed=args.seed,
+    )
 
 
 def make_lm_task(cfg, m: int, batch: int, seq: int, seed: int, topology: str,
@@ -113,6 +190,8 @@ def build_everything(args):
             )
     device = resolve_device(args.device)
     cfg = get_config(args.arch, args.variant)
+    if args.layers is not None:
+        cfg = cfg.replace(n_layers=args.layers)
     m = args.nodes
     topo, params0, grad_fn, make_batch = make_lm_task(
         cfg, m, args.batch, args.seq, args.seed, args.topology, device
@@ -120,6 +199,7 @@ def build_everything(args):
     alg = get_algorithm(args.algo)
     hps = _hps_from_args(args.algo, args)
     bound = alg.bind(grad_fn, topo, hps, mixing=args.mixing, seed=args.seed,
+                     scenario=_scenario_from_args(args), faults=_faults_from_args(args),
                      device=device)
     stacked = bound.stack_params(params0, m)
     batch0 = make_batch(0) if alg.needs_batch0 else None
@@ -132,6 +212,9 @@ def make_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--variant", default="smoke", choices=["smoke", "full"])
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the configuration's depth to N layers (full "
+                         "width kept; default: the configuration's depth)")
     ap.add_argument("--algo", default="pame", choices=list(list_algorithms()))
     ap.add_argument("--mixing", default="sparse", choices=["sparse", "dense"],
                     help="gossip contraction: padded neighbor gather vs dense")
@@ -143,22 +226,51 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--nodes", type=int, default=8)
     ap.add_argument("--topology", default="erdos_renyi")
-    ap.add_argument("--scenario", default="static",
-                    help="dynamic-network preset (not yet ported: static only)")
-    ap.add_argument("--churn", type=float, default=None)
-    ap.add_argument("--straggler", type=float, default=None)
-    ap.add_argument("--edge-drop", type=float, default=None)
-    ap.add_argument("--burst", default=None, metavar="DOWN[,UP]")
-    ap.add_argument("--session", default=None, metavar="LEAVE[,REJOIN]")
-    ap.add_argument("--staleness", type=int, default=0)
-    ap.add_argument("--resample", type=int, default=0)
-    ap.add_argument("--mobility-keep", type=float, default=0.7)
-    ap.add_argument("--loss-rate", type=float, default=None)
-    ap.add_argument("--loss-burst", default=None, metavar="DOWN[,UP]")
-    ap.add_argument("--crash", default=None, metavar="RATE[,REJOIN]")
-    ap.add_argument("--msg-delay", default=None, metavar="P[,D]")
-    ap.add_argument("--repair", dest="repair", action="store_true", default=True)
-    ap.add_argument("--no-repair", dest="repair", action="store_false")
+    ap.add_argument("--scenario", default="static", choices=list(list_scenarios()),
+                    help="dynamic-network preset: per-step link churn, node "
+                         "dropout, stragglers (see repro_torch.core.scenarios)")
+    ap.add_argument("--churn", type=float, default=None,
+                    help="override: P[node fully offline per step]")
+    ap.add_argument("--straggler", type=float, default=None,
+                    help="override: P[node misses the exchange per step]")
+    ap.add_argument("--edge-drop", type=float, default=None,
+                    help="override: P[link fails per step]")
+    ap.add_argument("--burst", default=None, metavar="DOWN[,UP]",
+                    help="Gilbert-Elliott per-link burst rates: P[good->bad]"
+                         "[,P[bad->good]] per step (temporal scenario)")
+    ap.add_argument("--session", default=None, metavar="LEAVE[,REJOIN]",
+                    help="geometric node sessions: P[up->down][,P[down->up]]"
+                         " per step (temporal scenario)")
+    ap.add_argument("--staleness", type=int, default=0,
+                    help="bounded staleness D: stragglers keep participating"
+                         " through their <=D-step-old params from the "
+                         "snapshot ring (0 = miss the round)")
+    ap.add_argument("--resample", type=int, default=0,
+                    help="mobility: redraw the active edge subset every N "
+                         "steps (0 = off)")
+    ap.add_argument("--mobility-keep", type=float, default=0.7,
+                    help="P[base edge active within a mobility epoch]")
+    ap.add_argument("--loss-rate", type=float, default=None,
+                    help="message-level faults: P[a directed message is "
+                         "dropped] per step (asymmetric per direction)")
+    ap.add_argument("--loss-burst", default=None, metavar="DOWN[,UP]",
+                    help="Gilbert-Elliott lossy-link chain per directed "
+                         "slot: P[good->lossy][,P[lossy->good]] per step")
+    ap.add_argument("--crash", default=None, metavar="RATE[,REJOIN]",
+                    help="transient node crashes: P[up->crashed]"
+                         "[,P[crashed->recovered]] per step; crashed state "
+                         "freezes")
+    ap.add_argument("--msg-delay", default=None, metavar="P[,D]",
+                    help="delayed delivery: P[a node's outgoing messages "
+                         "are late][,staleness bound D (default 2)]; "
+                         "message-only — local compute never waits")
+    ap.add_argument("--repair", dest="repair", action="store_true", default=True,
+                    help="surrogate algorithms resync desynced per-receiver "
+                         "replicas by full-surrogate retransmission, charged "
+                         "on the wire (default)")
+    ap.add_argument("--no-repair", dest="repair", action="store_false",
+                    help="no replica repair: lost innovations desync "
+                         "surrogates permanently")
     ap.add_argument("--seeds", type=int, default=1,
                     help="seed replicas as batched lanes (not yet ported: 1)")
     ap.add_argument("--chunk", type=int, default=16,
@@ -189,47 +301,74 @@ def make_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     """Run the CLI; returns {"loss": per-step mean loss, "seconds": wall
-    seconds of each chunk, "steps": steps run} for callers such as the
-    chip smoke."""
+    seconds of each chunk, "steps": steps run, "metrics": every per-step
+    metric by name, "staleness_hist": the run's histogram or None} for
+    callers such as the chip smoke."""
     args = make_parser().parse_args(argv)
     cfg, bound, state, make_batch, n_params, params0 = build_everything(args)
     wire_per_step = bound.wire_bits_for(params0)
+    scen_tag = bound.scenario.name if bound.dynamic else "static"
+    if bound.faulty:
+        fm = bound.faults
+        scen_tag += (
+            f"+faults(loss={fm.loss}, burst={fm.burst_down}/{fm.burst_up}, "
+            f"crash={fm.crash}/{fm.rejoin}, delay={fm.delay}<= {fm.max_delay}, "
+            f"repair={fm.repair})"
+        )
     part_tag = f"partition={args.partition} " if args.algo == "pame" else ""
     print(
         f"[train] algo={args.algo} mixing={args.mixing} {part_tag}"
-        f"nodes={args.nodes} scenario=static "
+        f"nodes={args.nodes} scenario={scen_tag} "
         f"params={n_params/1e6:.2f}M wire_bits/step={wire_per_step:.3e} "
-        f"({wire_per_step/8e6:.2f} MB/step network-wide) device={bound.device}",
+        f"({wire_per_step/8e6:.2f} MB/step network-wide"
+        f"{'; full graph — realized bits logged per step' if bound.dynamic else ''})"
+        f" device={bound.device}",
         flush=True,
     )
     del params0
-    runner = engine.make_scan_runner(bound.step, chunk_size=args.chunk)
+    aux = bound.aux_init(state) if bound.carries_aux else None
+    runner = engine.make_scan_runner(bound.step, chunk_size=args.chunk,
+                                     step_takes_index=bound.dynamic,
+                                     carries_aux=bound.carries_aux)
     log_every = max(args.log_every or args.chunk, 1)
     t0 = time.time()
     k = 0
     cum_bits = 0.0
-    out = {"loss": [], "seconds": [], "steps": 0}
+    stale_hist = None
+    out = {"loss": [], "seconds": [], "steps": 0, "metrics": {}, "staleness_hist": None}
     while k < args.steps:
         length = min(args.chunk, args.steps - k)
         k0 = k
         tc = time.time()
+        # k_start keeps batches and realizations aligned with the global step
         state, metrics, info = runner(
-            state, make_batch, length, copy_state=False, k_start=k0
+            state, make_batch, length, copy_state=False, k_start=k0, aux=aux
         )
+        aux = info["aux"]
         out["seconds"].append(time.time() - tc)
         out["loss"].extend(float(v) for v in metrics["loss_mean"])
+        for key, vals in metrics.items():
+            out["metrics"].setdefault(key, []).extend(np.asarray(vals).tolist())
         k += info["steps_dispatched"]
-        cum_bits += wire_per_step * info["steps_dispatched"]
+        if "wire_bits" in metrics:  # realized (surviving-edge) accounting
+            cum_bits += float(np.sum(metrics["wire_bits"]))
+        else:
+            cum_bits += wire_per_step * info["steps_dispatched"]
+        if "stale_hist" in metrics:  # per-run staleness occupancy histogram
+            row = np.asarray(metrics["stale_hist"]).sum(axis=0)
+            stale_hist = row if stale_hist is None else stale_hist + row
         if (k // log_every) != (k0 // log_every) or k >= args.steps:
             loss = float(np.mean(metrics["loss_mean"]))
-            last = lambda key: float(metrics[key][-1])
+            last = lambda key: float(np.asarray(metrics[key])[-1])  # noqa: E731
             extra = ""
-            if "consensus" in metrics:
-                extra += f" consensus={last('consensus'):.3e}"
-            if "comm_nodes" in metrics:
-                extra += f" comm_nodes={last('comm_nodes'):.0f}"
-            if "sigma_mean" in metrics:
-                extra += f" sigma={last('sigma_mean'):.2f}"
+            for key, fmt in (("consensus", " consensus={:.3e}"), ("comm_nodes", " comm_nodes={:.0f}"),
+                             ("alive_nodes", " alive={:.0f}"), ("stale_nodes", " stale={:.0f}"),
+                             ("crashed_nodes", " crashed={:.0f}"),
+                             ("dropped_msgs", " dropped={:.0f}"), ("mean_drift", " drift={:.3f}"),
+                             ("surrogate_desync", " desync={:.3e}"),
+                             ("sigma_mean", " sigma={:.2f}")):
+                if key in metrics:
+                    extra += fmt.format(last(key))
             print(
                 f"[train] step={k} loss={loss:.4f}{extra}"
                 f" wire_gbits={cum_bits/1e9:.4f}"
@@ -237,6 +376,11 @@ def main(argv=None) -> dict:
                 flush=True,
             )
     out["steps"] = k
+    if stale_hist is not None:
+        out["staleness_hist"] = stale_hist.tolist()
+        total = max(float(stale_hist.sum()), 1.0)
+        cells = " ".join(f"tau={t}:{int(c)}({c / total:.0%})" for t, c in enumerate(stale_hist))
+        print(f"[train] staleness histogram (participant-steps): {cells}")
     print("[train] done")
     return out
 

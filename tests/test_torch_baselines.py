@@ -338,10 +338,25 @@ def test_stack_params_and_state_fields_have_distinct_storage():
 
 
 def test_grad_shift_raises():
+    """A grad_shift whose leaves do not match the parameters' raises; a
+    matching one (JAX's tree form, or the rows of the shifted nodes only)
+    moves each gradient point as JAX's `_shifted` does."""
     mx, batch = _t_problem()
     st = TB.dpsgd_init(0, TB.stack_params(torch.zeros(N), M))
-    with pytest.raises(NotImplementedError, match="grad_shift"):
-        TB.dpsgd_step(st, batch, t_grad, mx, 0.05, grad_shift=st.params)
+    with pytest.raises(ValueError, match="grad_shift"):
+        TB.dpsgd_step(st, batch, t_grad, mx, 0.05, grad_shift=[st.params, st.params])
+    shift = np.zeros((M, N), np.float32)
+    shift[[1, 5]] = np.random.default_rng(7).standard_normal((2, N)).astype(np.float32)
+    jm = jmix.make_mixer(jbuild(*REG_TOPO[:2], **REG_TOPO[2]), "sparse", impl="slots")
+    want, _ = JB.dpsgd_step(JB.dpsgd_init(jax.random.PRNGKey(0), jnp.asarray(W0_NP)),
+                            (jnp.asarray(A_NP), jnp.asarray(Y_NP)), j_grad, jm, 0.05,
+                            grad_shift=jnp.asarray(shift))
+    rows = TB.GradShift({i: [torch.as_tensor(shift[i])] for i in (1, 5)})
+    for gs in (torch.as_tensor(shift), rows):
+        got, _ = TB.dpsgd_step(TB.dpsgd_init(0, torch.as_tensor(W0_NP)), batch, t_grad,
+                               tmix.make_mixer(tbuild(*REG_TOPO[:2], **REG_TOPO[2]), "sparse",
+                                               impl="slots"), 0.05, grad_shift=gs)
+        np.testing.assert_allclose(to_np(got.params), np.asarray(want.params), atol=1e-6)
 
 
 # ---------------------------------------------------------------------------

@@ -107,6 +107,32 @@ def test_gossip_kernel_bf16_equals_f32_slots_rounded(dev, m, n, kind):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,d,n", [(5, 3, 4104), (4, 3, 3 * 4096 + 7)])
+def test_mix_replicated_through_the_kernel(dev, dtype, m, d, n):
+    """The per-receiver replica mix of the fault steps: one launch over a
+    held leaf [m, d + 1, n] read in place as m·(d + 1) sender rows
+    (replicas, then each receiver's own row), equal to the f32 slots chain
+    over the d + 1 slots rounded once; path E's graph (m = 4, d = 3) with
+    a zero-weight padding replica among the cases."""
+    g = torch.Generator(device=dev).manual_seed(d * n)
+    w_off = torch.rand((m, d), generator=g, device=dev) * 0.3
+    w_off[-1, -1] = 0.0
+    self_w = 1.0 - w_off.sum(dim=1)
+    held = torch.randn((m, d + 1, n), generator=g, device=dev).to(dtype)
+    before = dict(gkernel.gossip_gather.variant_launches)
+    got = mixing.mix_replicated(w_off, self_w, held)
+    torch.cuda.synchronize()
+    variant = "f32" if dtype == torch.float32 else "bf16"
+    assert gkernel.gossip_gather.variant_launches[variant] == before[variant] + 1
+    table = mixing.replica_table(m, d, dev)
+    w = torch.cat([w_off, self_w[:, None]], dim=1)
+    want = mixing.gather_terms(table, [(w, held.view(m * (d + 1), n).float())],
+                               impl="slots")[0].to(dtype)
+    assert got.shape == (m, n) and got.dtype == dtype
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 def test_gossip_kernel_refuses_other_types(dev):
     nbrs = torch.zeros((2, 1), dtype=torch.int32, device=dev)
     ws = torch.ones((1, 2, 1), device=dev)

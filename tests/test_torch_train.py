@@ -110,8 +110,7 @@ def test_cli_runs_each_baseline_on_cpu(algo, capsys):
 
 def test_cli_unported_flags_raise():
     base = ["--arch", "stablelm-1.6b", "--device", "cpu"]
-    for extra in (["--scenario", "churn"], ["--seeds", "2"], ["--loss-rate", "0.1"],
-                  ["--ckpt-dir", "x"]):
+    for extra in (["--seeds", "2"], ["--ckpt-dir", "x"], ["--compile-cache", "x"]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             ttrain.main(base + extra)
 
@@ -141,3 +140,120 @@ def test_port_imports_neither_jax_nor_repro():
                          env=env, timeout=120)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.strip()) >= 25
+
+
+DYNAMIC_FLAGS = {
+    "pame-harsh": ("pame", ["--scenario", "harsh"]),
+    "dpsgd-temporal": ("dpsgd", ["--scenario", "flaky_links", "--burst", "0.1,0.5",
+                                 "--session", "0.05,0.5", "--staleness", "2",
+                                 "--straggler", "0.5"]),
+    "pame-faults": ("pame", ["--loss-rate", "0.1", "--crash", "0.02,0.25",
+                             "--msg-delay", "0.2,2"]),
+    "choco-faults": ("choco", ["--loss-rate", "0.1", "--loss-burst", "0.05,0.3"]),
+    "beer-no-repair": ("beer", ["--loss-rate", "0.3", "--no-repair", "--layers", "1"]),
+    "anq_nids-mobile": ("anq_nids", ["--resample", "2", "--mobility-keep", "0.5",
+                                     "--churn", "0.2"]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DYNAMIC_FLAGS))
+def test_cli_dynamic_network_flags_run_on_cpu(case, capsys):
+    """The scenario, temporal and fault flags of the JAX CLI on the smoke
+    model: finite losses, the realized metrics in the log, and the
+    staleness histogram when stragglers are mixed from the ring."""
+    algo, flags = DYNAMIC_FLAGS[case]
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = ttrain.main(["--arch", "stablelm-1.6b", "--variant", "smoke", "--nodes", "4",
+                           "--batch", "1", "--seq", "8", "--steps", "3", "--chunk", "2",
+                           "--device", "cpu", "--algo", algo] + flags)
+    finally:
+        torch.set_num_threads(n)
+    assert out["steps"] == 3 and np.isfinite(out["loss"]).all()
+    assert len(out["metrics"]["wire_bits"]) == 3 and len(out["metrics"]["alive_nodes"]) == 3
+    log = capsys.readouterr().out
+    assert "full graph — realized bits logged per step" in log and " alive=" in log
+    if "--loss-rate" in flags:
+        assert "+faults(" in log and " dropped=" in log and " drift=" in log
+    if algo in ("choco", "beer") and "--loss-rate" in flags:
+        assert " desync=" in log
+    if "--staleness" in flags:
+        assert "staleness histogram" in log and len(out["staleness_hist"]) == 3
+
+
+def _log_rows(text):
+    """{step: {field: value}} of the CLI's per-step log lines."""
+    rows = {}
+    for line in text.splitlines():
+        if line.startswith("[train] step="):
+            fields = dict(f.split("=", 1) for f in line.split()[1:] if "=" in f)
+            rows[int(fields.pop("step"))] = fields
+    return rows
+
+
+@pytest.mark.parametrize("algo,flags", [
+    ("dpsgd", ["--scenario", "flaky_links", "--burst", "0.2,0.5", "--session", "0.2,0.5",
+               "--staleness", "2", "--straggler", "0.4"]),
+    ("choco", ["--scenario", "churn", "--loss-rate", "0.2", "--loss-burst", "0.1,0.3",
+               "--crash", "0.1,0.5", "--msg-delay", "0.3,2"]),
+])
+def test_cli_realized_metrics_match_jax(algo, flags, capsys, monkeypatch):
+    """The JAX CLI and the port's on the same flags, the port fed the JAX
+    run's network draws (scenario, temporal, fault and stationary
+    uniforms): the realized metrics of every step's log line agree — the
+    alive, delayed and crashed counts, the dropped messages, the drift and
+    the cumulative realized wire bits (the models' weights differ, the
+    network's realizations do not)."""
+    from repro.core import scenarios as jscen
+    from repro.core.topology import build_topology as jtopo
+    from repro.launch import train as jtrain
+    from repro_torch.core import algorithms as talg
+
+    from _torch_parity import (jax_fault_draws, jax_fault_init_draws, jax_scenario_draws,
+                               jax_temporal_draws, jax_temporal_init_draws)
+
+    argv = ["--arch", "stablelm-1.6b", "--variant", "smoke", "--nodes", "4", "--batch", "1",
+            "--seq", "8", "--steps", "4", "--chunk", "1", "--algo", algo] + flags
+    jargs = jtrain.make_parser().parse_args(argv)
+    jscenario = jtrain._scenario_from_args(jargs)
+    jfaults = jtrain._faults_from_args(jargs)
+    if jfaults is not None and jscenario.is_static:
+        jscenario = jscen.Scenario(name="static")
+    arrays = jscen.make_scenario_arrays(jtopo("erdos_renyi", 4, p=0.5, seed=0), jscenario)
+    fkey = None if jfaults is None else jax.random.PRNGKey(jfaults.seed)
+    d = arrays.nbrs.shape[1]
+    step0, aux0 = talg.BoundAlgorithm.step, talg.BoundAlgorithm.aux_init
+
+    def step(self, state, batch, k=None, aux=None, *, draws=None):
+        if fkey is not None:
+            draws = {"scenario": jax_scenario_draws(arrays, k),
+                     "faults": jax_fault_draws(fkey, k, 4, d)}
+        elif self.temporal:
+            draws = {"temporal": jax_temporal_draws(jscenario, arrays, k)}
+        else:
+            draws = {"scenario": jax_scenario_draws(arrays, k)}
+        return step0(self, state, batch, k, aux, draws=draws)
+
+    def aux_init(self, state, *, u=None):
+        u = (jax_fault_init_draws(fkey, 4, d) if fkey is not None
+             else jax_temporal_init_draws(arrays))
+        return aux0(self, state, u=u)
+
+    monkeypatch.setattr(talg.BoundAlgorithm, "step", step)
+    monkeypatch.setattr(talg.BoundAlgorithm, "aux_init", aux_init)
+    jtrain.main(argv)
+    want = _log_rows(capsys.readouterr().out)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ttrain.main(argv + ["--device", "cpu"])
+    finally:
+        torch.set_num_threads(n)
+    got = _log_rows(capsys.readouterr().out)
+    assert sorted(got) == sorted(want) == [1, 2, 3, 4]
+    fields = {"alive", "stale", "crashed", "dropped", "drift", "wire_gbits"}
+    for k in want:
+        assert fields & set(want[k]) == fields & set(got[k]) != set(), k
+        for f in fields & set(want[k]):
+            assert float(got[k][f]) == pytest.approx(float(want[k][f]), rel=1e-4, abs=1e-3), (k, f)
