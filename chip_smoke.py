@@ -22,7 +22,8 @@ non-zero without the final result line:
      sweep (f32, bf16), on ragged, windowed, D = 128 and 40/8 GQA bf16
      shapes and at path C's [8, 2048, 32, 64] bf16; SSD intra-chunk on the
      JAX tests' shapes, on short-chunk and G > 1 bf16 shapes, at path C's
-     [8, 16, 128, 64, 64] bf16 and at mamba2-1.3b's N = 128.  Each row
+     [8, 16, 128, 64, 64] bf16 and at mamba2-1.3b's N = 128; gossip (f32)
+     and PME average at path F3's fc1 [4, 401,408].  Each row
      names the variant it launched (tensor_cores or cuda_cores).  Max
      error, kernel / plain / library times (CUDA events, median), the
      least time the card could take (bound) and the share of it reached;
@@ -70,11 +71,33 @@ non-zero without the final result line:
      through the kernels and through the plain contraction: 0 bf16 ulps,
      f32 leaves bit-equal, ring snapshots and replicas included, the
      launches of each step counted;
- 11. the kernel table line, then the result line.
+ 11. path F: the paper's own tasks at the JAX benchmark's settings, each
+     run's s/step, peak, launches of each kernel and its own result — F1
+     Example 1 through examples/quickstart_torch.py's entry points
+     (`run_pame` under the stop rule: the objective below half its start;
+     the registry race of PaME and D-PSGD, f32 gossip; the Theorem-1
+     demo); F2 Example 2, all six algorithms through the registry on 32
+     nodes, 50 steps (f32 gossip, one launch a step, two for BEER;
+     objectives fall, ANQ-NIDS recorded either way); F3 Example 3 on
+     Fashion-MNIST's size (60,000 synthetic images, the last 512 held
+     out), C = 7: PaME through `run_pame` (PME average on fc1, one launch
+     a step) and D-PSGD through the registry (f32 gossip, 6 a step), 80
+     steps, held-out accuracy at least 0.5, and the width-2 CNN with the
+     tree partition and p_leaf (C = 3, 60 steps, f32 gossip 6 a step);
+     F4 Example 4, ResNet-20 on CIFAR-10's size (50,000) under
+     Dirichlet(0.3), PaME, 40 steps (PME average, 5 a step); 5 profiled
+     steps of F3's PaME and of F4: launches, device-busy time, wall time
+     and idle share a step;
+ 12. one PaME and one D-PSGD step of the CNN and of ResNet-20 through the
+     kernels and through the plain routes (D-PSGD 0 f32 ulps, PaME's
+     exchange within one ulp), and each model's forward on the card
+     against the CPU within rtol 1e-5 with the TF32 pin (recorded without);
+ 13. the kernel table line, then the result line.
 
 Exits non-zero with no result when no CUDA device is present, or when the
 port's sources are not beside this script.
 """
+import concurrent.futures
 import contextlib
 import gc
 import json
@@ -94,6 +117,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 BIG_N = 24 * 2048 * 5632  # the largest leaf of stablelm-1.6b (w_gate / w_up / w_down)
+FC1_N = 7 * 7 * 64 * 128  # the Example-3 CNN's fc1, path F3's largest leaf
 M = 4
 # elements (columns) at a time in the comparisons and the plain contraction:
 # a full-width replica leaf is then never copied whole into f32
@@ -153,10 +177,11 @@ def bf16_ulps(got, want):
     return ((got.float() - w).abs() / ulp).max().item()
 
 
-def bf16_ulps_floored(got, want):
-    """max |got - want| in bf16 ulps of max(|want|, max|want| / 256): below
-    1/256 of the output's scale, f32 sums taken in another order differ by
-    more than an ulp of the tiny value itself.  CHUNK elements at a time."""
+def ulps_floored(got, want, mantissa=7):
+    """max |got - want| in ulps of max(|want|, max|want| / 256) in a type
+    with `mantissa` stored bits (bf16 7, f32 23): below 1/256 of the
+    output's scale, f32 sums taken in another order differ by more than an
+    ulp of the tiny value itself.  CHUNK elements at a time."""
     import torch
 
     floor = want.abs().max().float() / 256
@@ -164,7 +189,7 @@ def bf16_ulps_floored(got, want):
     for g, w in zip(got.reshape(-1).split(CHUNK), want.reshape(-1).split(CHUNK)):
         w = w.float()
         ulp = torch.exp2(torch.floor(torch.log2(
-            torch.maximum(w.abs(), floor).clamp(min=2.0 ** -126))) - 7)
+            torch.maximum(w.abs(), floor).clamp(min=2.0 ** -126))) - mantissa)
         worst = max(worst, ((g.float() - w).abs() / ulp).max().item())
     return worst
 
@@ -225,7 +250,7 @@ def check_gossip(dev):
         else:  # the plain version rounds its f32 matmul once too: within 1 ulp
             row.update(max_abs_err=max((g.float() - s.float()).abs().max().item()
                                        for g, s in zip(got, slots)),
-                       plain_bf16_ulps_floored=max(bf16_ulps_floored(g, p)
+                       plain_bf16_ulps_floored=max(ulps_floored(g, p)
                                                    for g, p in zip(got, plain)),
                        tol="bit-equal to the f32 slots chain rounded to bf16")
             ok = row["plain_bf16_ulps_floored"] <= 1.0
@@ -305,7 +330,11 @@ def check_gossip(dev):
                    None, [held.view(M * (d + 1), BIG_N)], reps=3)
     del held
     free()
-    return {"f32": row, "bf16": row_bf16, "bf16_replicas": row_rep}
+    # path F3's largest leaf: D-PSGD's f32 mix of the CNN's fc1 on the complete graph
+    mx = make_mixer(build_topology("complete", M), "sparse", device=dev)
+    x = torch.randn((M, FC1_N), generator=g, device=dev)
+    row_fc1 = case("path-f3-fc1", mx.pm.nbrs, mx.pm.w, mx.pm.pad, [x], reps=50)
+    return {"f32": row, "bf16": row_bf16, "bf16_replicas": row_rep, "f32_fc1": row_fc1}
 
 
 def check_pme(dev):
@@ -378,7 +407,23 @@ def check_pme(dev):
     row = case("path-b-largest-leaf", w, masks, a, reps=5)
     del w, masks
     free()
-    return row
+    # path F3's PaME leaf: the CNN's fc1 in f32, exact masks at p = 0.3, a
+    # selection of t_i = 2 of 3 neighbours on the complete graph
+    ta = f3_topology_arrays(dev)
+    comm = torch.ones(M, dtype=torch.bool, device=dev)
+    a = pme.sample_neighbor_selection(g, ta.nbrs, ta.valid, ta.t, comm)
+    w = torch.randn((M, FC1_N), generator=g, device=dev)
+    masks = pme.sample_coordinate_masks(g, M, FC1_N, round(0.3 * FC1_N))
+    row_fc1 = case("path-f3-fc1", w, masks, a, reps=50)
+    return row, row_fc1
+
+
+def f3_topology_arrays(dev):
+    """Path F3's topology arrays: the complete graph on M nodes, EX3_CFG."""
+    from repro_torch.core import build_topology, pame
+
+    return pame.make_topology_arrays(build_topology("complete", M), pame.PaMEConfig(**EX3_CFG),
+                                     seed=0, device=dev)
 
 
 def _hold(kernel, case, got, want, plain_work, row):
@@ -393,7 +438,7 @@ def _hold(kernel, case, got, want, plain_work, row):
         ok, tol = err <= 1e-5 * scale, 1e-5 * scale
     else:
         row["bf16_ulps"] = bf16_ulps(got, want)
-        row["bf16_ulps_floored"] = bf16_ulps_floored(got, want)
+        row["bf16_ulps_floored"] = ulps_floored(got, want)
         ok, tol = row["bf16_ulps_floored"] <= 1.0, "1 bf16 ulp (floored)"
         # against the plain version in the working type
         row["err_vs_plain_bf16"] = (got.float() - plain_work.float()).abs().max().item()
@@ -888,7 +933,7 @@ def path_d_parity(dev, cfg=None, batch=4, seq=128, tol=PARITY_ULPS):
                            "launches": gossip_gather.variant_launches["bf16"]}
             del state, new
         fields = [f for f in outs["kernel"]["state"]._fields if f not in ("step", "key")]
-        ulps = {f: max(bf16_ulps_floored(a, b) for a, b in zip(
+        ulps = {f: max(ulps_floored(a, b) for a, b in zip(
                     tree_leaves(getattr(outs["kernel"]["state"], f)),
                     tree_leaves(getattr(outs["plain"]["state"], f))))
                 for f in fields}
@@ -1189,7 +1234,7 @@ def path_e_parity(dev, cfg=None, batch=4, seq=128):
                 if a.dtype == torch.float32:
                     f32_equal = f32_equal and torch.equal(a, b)
                 else:
-                    ulps = max(ulps, bf16_ulps_floored(a, b))
+                    ulps = max(ulps, ulps_floored(a, b))
             results[f"{algo}-{net}"] = row = {
                 "max_bf16_ulps_floored": ulps, "f32_bit_equal": f32_equal,
                 "loss_kernel": outs["kernel"]["loss"], "loss_plain": outs["plain"]["loss"],
@@ -1327,6 +1372,594 @@ def path_c(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# path F: the paper's own tasks (Examples 1-4)
+# ---------------------------------------------------------------------------
+# Fashion-MNIST's and CIFAR-10's training-set sizes (the synthetic stand-ins
+# of `repro_torch.data`); the last HELD samples stay out of the partition
+# and score the node-mean model
+FMNIST = dict(n=60000, shape=(28, 28, 1), seed=0, sep=3.0)
+CIFAR = dict(n=50000, shape=(32, 32, 3), seed=1, sep=2.0)
+HELD = 512
+F_BATCH = 32  # per node, as examples/cnn_heterogeneity.py and the benchmark
+# examples/cnn_heterogeneity.py's PaME config (the benchmark's run_fl too)
+EX3_CFG = dict(nu=0.7, p=0.3, gamma=1.002, sigma0=10.0, kappa_lo=2, kappa_hi=4)
+# the wide-CNN headline of the benchmark: leaf order b1 b2 c1 c2 fc1 fc2
+WIDE_P_LEAF = (1.0, 1.0, 0.8, 0.4, 0.15, 0.8)
+WIDE_CLASSES = 3
+# F2's race: the benchmark's vs_baselines (Figs 8-10) on 32 nodes; 50 steps
+# (cut from 100: six host-bound runs of 32 nodes' gradients took 15.5 s)
+F2 = dict(m=32, n=1000, spn=128, steps=50, levels=16)
+# each path's steps; path F's share of the script's clock is ~45 s
+F_STEPS = dict(ex1=400, race=8, cnn=80, wide=60, resnet=40, profile=5)
+# parity phase F: D-PSGD's step through the f32 gossip kernel equals the
+# slots chain bit for bit (0 ulps); PaME's dense exact exchange through the
+# PME-average kernel against the einsum (sums of <= m terms in another
+# order) within one f32 ulp, and its whole step within 1e-5 of the scale;
+# the forward on the card against the CPU within rtol 1e-5 with the TF32 pin
+PARITY_F_ULPS = 0.0
+PARITY_F_PME_ULPS = 1.0
+PARITY_F_RTOL = 1e-5
+
+
+def _example(name):
+    """A port example under ``examples/`` as a module (its entry points)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(HERE, "examples",
+                                                                     name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _counts():
+    from repro_torch.kernels.gossip.kernel import gossip_gather
+    from repro_torch.kernels.pme_average.kernel import pme_average_cuda
+
+    return dict(gossip_gather.variant_launches, pme_average=pme_average_cuda.launches)
+
+
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _start(dev):
+    import torch
+
+    free()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    return time.perf_counter()
+
+
+def _finish(dev, t0, steps, row, expected):
+    """Seconds a step, peak, launches (and a step) into `row`; on the card
+    the launches must be `expected` (per kernel, for the whole run)."""
+    import torch
+
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    got = _counts()
+    row.update(seconds=secs, s_per_step=secs / max(steps, 1), launches=got,
+               launches_per_step={k: v / max(steps, 1) for k, v in got.items()},
+               peak_bytes=torch.cuda.max_memory_allocated() if dev.type == "cuda" else None)
+    if dev.type == "cuda" and got != dict({"f32": 0, "bf16": 0, "pme_average": 0}, **expected):
+        emit(**row)
+        fail(f"path F ({row['run']}): expected launches {expected}, got {got}")
+
+
+def _falls(losses, k=5):
+    """The mean of the last k values below the mean of the first k."""
+    k = max(1, min(k, len(losses) // 2))
+    return sum(losses[-k:]) / k < sum(losses[:k]) / k
+
+
+def pame_bits(dev, topo, cfg, params0):
+    """Expected Eq.-(8) bits a step of `run_pame` (the registry's count)."""
+    from repro_torch.core import algorithms as ALG
+
+    return ALG.get_algorithm("pame").bind(None, topo, cfg, mixing="dense",
+                                          device=dev).wire_bits_for(params0)
+
+
+def logreg_problem(dev, m, n, spn=128, seed=0, lam=1e-3):
+    """Example 2 in torch, the benchmark's `logreg_problem`
+    (benchmarks/common.py): per-node loss and gradient, the objective over
+    the training split, and the accuracy on 32 test samples a node."""
+    import numpy as np
+    import torch
+    from repro_torch.data import make_logistic_regression
+
+    a, b, _ = make_logistic_regression(m, spn + 32, n, seed=seed)
+    put = lambda v: torch.as_tensor(np.ascontiguousarray(v), device=dev)  # noqa: E731
+    a_tr, b_tr, a_te, b_te = put(a[:, :spn]), put(b[:, :spn]), put(a[:, spn:]), put(b[:, spn:])
+
+    def softplus(z):  # log(1 + e^z), as jnp.logaddexp(0, z)
+        return torch.logaddexp(torch.zeros_like(z), z)
+
+    def grad_fn(w, batch, key):
+        aa, yy = batch
+        z = aa @ w
+        loss = torch.mean(softplus(z) - yy * z) + 0.5 * lam * torch.sum(w ** 2)
+        g = aa.T @ (torch.sigmoid(z) - yy) / aa.shape[0] + lam * w
+        return loss, g
+
+    def objective(w):
+        z = torch.einsum("mbn,n->mb", a_tr, w)
+        return (torch.sum(torch.mean(softplus(z) - b_tr * z, dim=1))
+                + 0.5 * lam * m * torch.sum(w ** 2))
+
+    def accuracy(w):
+        z = torch.einsum("mbn,n->mb", a_te, w)
+        return float(((z > 0).float() == b_te).float().mean())
+
+    return (a_tr, b_tr), grad_fn, objective, accuracy
+
+
+def images(spec):
+    """The synthetic image set of `spec` (FMNIST or CIFAR)."""
+    from repro_torch.data import SyntheticClassification
+
+    return SyntheticClassification.make(spec["n"], spec["shape"], 10, seed=spec["seed"],
+                                        sep=spec["sep"])
+
+
+def vision_task(dev, ds, partition, apply_fn, batch=F_BATCH):
+    """On image set `ds` (its last HELD samples held out): the per-node
+    shards `partition(labels)` of the rest, a batch_fn moving each
+    node-stacked numpy batch to `dev`, the ce_loss grad_fn of `apply_fn`,
+    and the held-out accuracy of a node-mean model."""
+    import torch
+    from repro_torch.data import NodeBatcher
+    from repro_torch.models.cnn import ce_loss
+    from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+
+    train = {"x": ds.images[:-HELD], "y": ds.labels[:-HELD]}
+    parts = partition(train["y"])
+    nb = NodeBatcher(train, parts, batch_size=batch, seed=0)
+    held_x = torch.as_tensor(ds.images[-HELD:], device=dev)
+    held_y = torch.as_tensor(ds.labels[-HELD:], device=dev)
+
+    def batch_fn(k):
+        b = nb.next()
+        return {"x": torch.as_tensor(b["x"], device=dev), "y": torch.as_tensor(b["y"], device=dev)}
+
+    def grad_fn(params, b, key):
+        leaves, treedef = tree_flatten(params)
+        loss = ce_loss(apply_fn(params, b["x"]), b["y"])
+        return loss.detach(), tree_unflatten(treedef, list(torch.autograd.grad(loss, leaves)))
+
+    def accuracy(stacked):
+        with torch.no_grad():
+            logits = apply_fn(tree_map(lambda x: x.mean(0), stacked), held_x)
+        return float((logits.argmax(-1) == held_y).float().mean())
+
+    return {"batch_fn": batch_fn, "grad_fn": grad_fn, "accuracy": accuracy,
+            "shards": [len(p) for p in parts]}
+
+
+def profile_steps(dev, run, steps):
+    """Launch overhead of `run()` (`steps` steps, ends in a host sync),
+    after warm-up: the wall time of one unprofiled call, then under
+    ``torch.profiler`` with CUDA activity only (no CPU-op tracing, whose
+    post-processing takes seconds at thousands of launches a step) the
+    device kernels, copies and launch calls it made and the device-busy
+    time (the union of their spans); idle share = 1 - busy / wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    run()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    if dev.type != "cuda":
+        return {"wall_s_per_step": wall / steps}
+    t_enter = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        setup = t0 - t_enter
+        run()
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spans, kernels, copies, launch_calls = [], 0, 0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.name.startswith(("Memcpy", "Memset")):
+                copies += 1
+            else:
+                kernels += 1
+            spans.append((e.time_range.start, e.time_range.end))
+        elif e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                        "cuLaunchKernelEx"):
+            launch_calls += 1
+    busy_us, end = 0.0, -math.inf
+    for s, t in sorted(spans):
+        if t > end:
+            busy_us += t - max(s, end)
+            end = t
+    busy = busy_us * 1e-6
+    return {"wall_s_per_step": wall / steps, "wall_s_per_step_profiled": wall_prof / steps,
+            "device_kernels_per_step": kernels / steps, "copies_per_step": copies / steps,
+            "launch_calls_per_step": launch_calls / steps, "busy_s_per_step": busy / steps,
+            "idle_share": 1.0 - busy / wall, "profiler_saw_device": kernels > 0,
+            "profiler_setup_s": setup, "postprocess_s": time.perf_counter() - t0}
+
+
+def path_f1(dev, steps=None):
+    """Example 1 through examples/quickstart_torch.py's entry points:
+    `run_pame` under the stop rule (16 x 200: no leaf reaches the PME
+    kernel's 2^17 floor), the registry race of PaME and D-PSGD on the sparse
+    exchange (the f32 gossip kernel, one launch a step each), the Theorem-1
+    demo."""
+    import torch
+    from repro_torch.core import build_topology
+
+    steps = steps or F_STEPS
+    qs = _example("quickstart_torch")
+    rows = {}
+    t0 = _start(dev)
+    ex1 = qs.example1(dev, steps["ex1"])
+    rows["F1-pame"] = row = {"run": "F1-pame"}
+    _finish(dev, t0, ex1["steps_run"], row, {})
+    row.update(objective_first=ex1["objective"][0], objective_last=ex1["objective"][-1],
+               steps_run=ex1["steps_run"], recovery_error=ex1["recovery_error"],
+               wire_bits_per_step=pame_bits(
+                   dev, build_topology("erdos_renyi", qs.M, p=0.4, seed=1), qs.CFG,
+                   torch.zeros(qs.N)))
+    emit(phase="path_f", **row)
+    if not row["objective_last"] < 0.5 * row["objective_first"]:
+        fail("path F (F1): the objective did not fall below half its start")
+    t0 = _start(dev)
+    race = qs.race(dev, steps["race"])
+    rows["F1-race"] = row = {"run": "F1-race", "steps": steps["race"]}
+    for name, h in race.items():
+        row[name] = {"loss_first": h["loss"][0], "loss_last": h["loss"][-1],
+                     "wire_bits_per_step": h["wire_bits_per_step"], "seconds": h["seconds"]}
+    _finish(dev, t0, 2 * steps["race"], row, {"f32": 2 * steps["race"]})
+    emit(phase="path_f", **row)
+    if not all(row[n]["loss_last"] < row[n]["loss_first"] for n in race):
+        fail("path F (F1 race): a loss did not fall")
+    t0 = _start(dev)
+    th = qs.theorem1(dev, 2000)
+    bias = lambda v: float(abs(v - th["target"]).mean())  # noqa: E731
+    row = {"run": "F1-theorem1", "mean_abs_err_count_weighted": bias(th["count_weighted"]),
+           "mean_abs_err_naive": bias(th["naive"])}
+    _finish(dev, t0, 2000, row, {})
+    emit(phase="path_f", **row)
+    return rows
+
+
+def path_f2(dev, m=None, n=None, steps=None):
+    """Example 2, the race of Figs 8-10: all six algorithms through the
+    registry on the sparse exchange with the benchmark's hyperparameters,
+    logistic regression on 32 nodes: finite losses, the objective below its
+    start (ANQ-NIDS at 16 QSGD levels is recorded either way), accuracy and
+    wire bits, the f32 gossip kernel one launch a step (two for BEER)."""
+    import torch
+    from repro_torch.core import PaMEConfig, build_topology
+    from repro_torch.core import algorithms as ALG
+
+    m, n, steps = m or F2["m"], n or F2["n"], steps or F2["steps"]
+    topo = build_topology("erdos_renyi", m, p=0.4, seed=0)
+    batch, grad_fn, objective, accuracy = logreg_problem(dev, m, n, spn=F2["spn"], seed=0)
+    hps = {
+        "pame": PaMEConfig(nu=0.2, p=0.2, gamma=1.002, sigma0=1.0, kappa_lo=3, kappa_hi=7),
+        "dpsgd": ALG.DPSGDHp(lr=0.1),
+        "dfedsam": ALG.DFedSAMHp(lr=0.1, rho=0.01),
+        "choco": ALG.ChocoHp(lr=0.05, gossip_gamma=0.3, comp_frac=0.3),
+        "beer": ALG.BeerHp(lr=0.05, gossip_gamma=0.4, comp_frac=0.2),
+        "anq_nids": ALG.AnqNidsHp(lr=0.1, qsgd_levels=F2["levels"]),
+    }
+    rows = {}
+    for name in ALG.list_algorithms():
+        bound = ALG.get_algorithm(name).bind(grad_fn, topo, hps[name], mixing="sparse",
+                                             device=dev)
+        t0 = _start(dev)
+        state, h = bound.run(0, torch.zeros(n), m, lambda k: batch, steps,
+                             objective_fn=objective, tol_std=0.0, chunk_size=25)
+        rows[name] = row = {"run": f"F2-{name}"}
+        _finish(dev, t0, steps, row, {"f32": (2 if name == "beer" else 1) * steps})
+        row.update(steps=h["steps_run"], loss_first=h["loss"][0], loss_last=h["loss"][-1],
+                   objective_first=h["objective"][0], objective_last=h["objective"][-1],
+                   accuracy=accuracy(bound.params_of(state).mean(dim=0)),
+                   wire_bits_per_step=h["wire_bits_per_step"],
+                   wire_bits_total=h["wire_bits_total"])
+        row["descends"] = row["objective_last"] < row["objective_first"]
+        emit(phase="path_f", **row)
+        if not all(math.isfinite(x) for x in h["loss"]) or h["steps_run"] != steps:
+            fail(f"path F (F2 {name}): losses not finite or steps missing")
+        if not row["descends"] and name != "anq_nids":
+            fail(f"path F (F2 {name}): the objective did not fall")
+    return rows
+
+
+def path_f3(dev, ds=None, spec=FMNIST, steps=None):
+    """Example 3 on Fashion-MNIST's size: the CNN under label skew (C = 7,
+    4 nodes, complete graph): PaME through `run_pame` (dense exact: the
+    PME-average kernel takes fc1, one launch a step), D-PSGD through the
+    registry (f32 gossip, one launch a leaf a step), and the width-2 CNN
+    through the registry with the tree partition, p_leaf and Bernoulli
+    masks (the benchmark's headline, C = 3).  Loss falls, held-out accuracy
+    of the node-mean model at least 0.5 (the width-1 runs).  Then 5 profiled
+    steps of the PaME run.  `ds`, when given, is `images(spec)` made ahead."""
+    from repro_torch.core import PaMEConfig, build_topology, run_pame
+    from repro_torch.core import algorithms as ALG
+    from repro_torch.data import label_skew_partition
+    from repro_torch.models.cnn import cnn_apply, cnn_init
+    from repro_torch.tree import tree_leaves
+
+    steps = steps or F_STEPS
+    topo = build_topology("complete", M)
+    rows = {}
+    ds = images(spec) if ds is None else ds
+    task = vision_task(dev, ds, lambda y: label_skew_partition(y, M, 7, seed=0), cnn_apply)
+    cfg = PaMEConfig(**EX3_CFG)
+
+    def pame_run(k):
+        return run_pame(0, cnn_init(1, device=dev), M, task["grad_fn"], task["batch_fn"], topo,
+                        cfg, num_steps=k, tol_std=0.0, chunk_size=min(k, 40), device=dev)
+
+    runs = (
+        ("F3-pame", 1, steps["cnn"], pame_run),
+        ("F3-dpsgd", 6, steps["cnn"], lambda k: ALG.get_algorithm("dpsgd").bind(
+            task["grad_fn"], topo, ALG.DPSGDHp(lr=0.05), mixing="sparse", device=dev).run(
+            0, cnn_init(1, device=dev), M, task["batch_fn"], k, tol_std=0.0,
+            chunk_size=min(k, 40))),
+    )
+    for name, per_step, k, run in runs:
+        t0 = _start(dev)
+        state, h = run(k)
+        rows[name] = row = {"run": name}
+        _finish(dev, t0, k, row, {"pme_average" if name == "F3-pame" else "f32": per_step * k})
+        row.update(steps=h["steps_run"], loss_first=h["loss"][0], loss_last=h["loss"][-1],
+                   accuracy=task["accuracy"](state.params), shards=task["shards"],
+                   wire_bits_per_step=h.get("wire_bits_per_step")
+                   or pame_bits(dev, topo, cfg, cnn_init(1, device=dev)))
+        emit(phase="path_f", **row)
+        if not (_falls(h["loss"]) and row["accuracy"] >= 0.5):
+            fail(f"path F ({name}): the loss did not fall or accuracy {row['accuracy']} < 0.5")
+    # the profile reuses F3-pame's warm state of the libraries: 5 fresh steps
+    prof = profile_steps(dev, lambda: pame_run(steps["profile"]), steps["profile"])
+    rows["F3-pame"]["profile"] = prof
+    emit(phase="path_f_profile", run="F3-pame", **prof)
+
+    wide = vision_task(dev, ds, lambda y: label_skew_partition(y, M, WIDE_CLASSES, seed=0),
+                       cnn_apply)
+    hp = ALG.PaMEHp(partition="tree", p_leaf=WIDE_P_LEAF, mask_mode="bernoulli", **EX3_CFG)
+    bound = ALG.get_algorithm("pame").bind(wide["grad_fn"], topo, hp, mixing="sparse",
+                                           device=dev)
+    params0 = cnn_init(1, width=2, device=dev)
+    t0 = _start(dev)
+    state, h = bound.run(0, params0, M, wide["batch_fn"], steps["wide"], tol_std=0.0,
+                         chunk_size=min(steps["wide"], 30))
+    rows["F3-wide"] = row = {"run": "F3-wide"}
+    _finish(dev, t0, steps["wide"], row, {"f32": 6 * steps["wide"]})
+    row.update(steps=h["steps_run"], loss_first=h["loss"][0], loss_last=h["loss"][-1],
+               accuracy=wide["accuracy"](state.params),
+               params=sum(x.numel() for x in tree_leaves(params0)),
+               wire_bits_per_step=h["wire_bits_per_step"], shards=wide["shards"])
+    emit(phase="path_f", **row)
+    if not _falls(h["loss"]):
+        fail("path F (F3-wide): the loss did not fall")
+    return rows
+
+
+def path_f4(dev, ds=None, spec=CIFAR, steps=None):
+    """Example 4 on CIFAR-10's size: ResNet-20 under Dirichlet(0.3) skew,
+    4 nodes, PaME through `run_pame` (dense exact: the five stage-3 3x3
+    convs of 36,864 coordinates reach the PME-average kernel, five launches
+    a step): finite loss that falls.  Then 5 profiled steps.  `ds`, when
+    given, is `images(spec)` made ahead."""
+    from repro_torch.core import PaMEConfig, build_topology, run_pame
+    from repro_torch.data import dirichlet_partition
+    from repro_torch.models.cnn import resnet20_apply, resnet20_init
+
+    steps = steps or F_STEPS
+    topo = build_topology("complete", M)
+    task = vision_task(dev, images(spec) if ds is None else ds, lambda y: dirichlet_partition(y, M, 0.3, seed=0),
+                       resnet20_apply)
+    cfg = PaMEConfig(**EX3_CFG)
+
+    def run(k):
+        return run_pame(0, resnet20_init(1, device=dev), M, task["grad_fn"], task["batch_fn"],
+                        topo, cfg, num_steps=k, tol_std=0.0, chunk_size=min(k, 40), device=dev)
+
+    t0 = _start(dev)
+    state, h = run(steps["resnet"])
+    row = {"run": "F4-pame"}
+    _finish(dev, t0, steps["resnet"], row, {"pme_average": 5 * steps["resnet"]})
+    row.update(steps=h["steps_run"], loss_first=h["loss"][0], loss_last=h["loss"][-1],
+               accuracy=task["accuracy"](state.params), shards=task["shards"],
+               wire_bits_per_step=pame_bits(dev, topo, cfg, resnet20_init(1, device=dev)))
+    emit(phase="path_f", **row)
+    if not (all(math.isfinite(x) for x in h["loss"]) and _falls(h["loss"])):
+        fail("path F (F4): the loss is not finite or did not fall")
+    row["profile"] = prof = profile_steps(dev, lambda: run(steps["profile"]), steps["profile"])
+    emit(phase="path_f_profile", run="F4-pame", **prof)
+    return {"F4-pame": row}
+
+
+def path_f(dev, data):
+    """F1-F4 (`data`: futures of F3's and F4's image sets); the launches of
+    each kernel over the path's runs (each run read just after it ran with
+    the counts at 0)."""
+    rows = {}
+    for fn, args in ((path_f1, ()), (path_f2, ()), (path_f3, ("F3",)), (path_f4, ("F4",))):
+        t = time.perf_counter()
+        ds = [data[a].result() for a in args]
+        waited = time.perf_counter() - t
+        rows.update(fn(dev, *ds))
+        emit(phase=f"{fn.__name__}_done", seconds=time.perf_counter() - t,
+             waited_for_data_s=waited)
+    launches = {"f32": 0, "bf16": 0, "pme_average": 0}
+    for r in rows.values():
+        if "launches" in r:
+            for k in launches:
+                launches[k] += r["launches"][k]
+    return rows, launches
+
+
+@contextlib.contextmanager
+def _tf32_convs():
+    """The CNN's convolutions with cuDNN's TF32 allowed (the pin lifted)."""
+    import torch
+    from repro_torch.models import cnn
+
+    pin = cnn._ieee_fp32
+
+    @contextlib.contextmanager
+    def allow():
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
+
+    cnn._ieee_fp32 = allow
+    try:
+        yield
+    finally:
+        cnn._ieee_fp32 = pin
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    import torch
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def path_f_parity(dev, sizes=None):
+    """One PaME step (dense exact exchange) and one D-PSGD step (sparse
+    Mixer) of the CNN and of ResNet-20, from distinct node models with the
+    same injected draws, through the kernels and through `plain_routes()`,
+    cuDNN deterministic and IEEE fp32; then each model's forward on the card
+    against the CPU forward, with the TF32 pin and without it.  Tolerances:
+    PARITY_F_ULPS, PARITY_F_PME_ULPS, PARITY_F_RTOL.  `sizes` shrinks the
+    batches (the CPU tests rehearse this phase)."""
+    import torch
+    from repro_torch.core import baselines as B
+    from repro_torch.core import build_topology, make_mixer, pame, pme
+    from repro_torch.data import SyntheticClassification
+    from repro_torch.kernels.gossip.kernel import gossip_gather
+    from repro_torch.kernels.pme_average.kernel import pme_average_cuda
+    from repro_torch.models.cnn import ce_loss, cnn_apply, cnn_init, resnet20_apply
+    from repro_torch.models.cnn import resnet20_init
+    from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
+
+    sizes = sizes or {"batch": F_BATCH, "forward": 64}
+    topo = build_topology("complete", M)
+    cfg = pame.PaMEConfig(**EX3_CFG)
+    ta = pame.make_topology_arrays(topo, cfg, seed=0, device=dev)
+    mixer = make_mixer(topo, "sparse", device=dev)
+    results = {}
+    models = (("cnn", cnn_init, cnn_apply, FMNIST, 1), ("resnet20", resnet20_init,
+                                                        resnet20_apply, CIFAR, 5))
+    for name, init, apply_fn, spec, pme_per_step in models:
+        g = torch.Generator(device=dev).manual_seed(7)
+        leaves, treedef = tree_flatten(init(1, device=dev))
+        stacked = [x.unsqueeze(0) + 0.01 * torch.randn((M,) + tuple(x.shape), generator=g,
+                                                        device=dev) for x in leaves]
+        ds = SyntheticClassification.make(M * sizes["batch"] + sizes["forward"],
+                                          spec["shape"], 10, seed=spec["seed"], sep=spec["sep"])
+        nb = M * sizes["batch"]
+        batch = {"x": torch.as_tensor(ds.images[:nb], device=dev).view(
+                     (M, sizes["batch"]) + spec["shape"]),
+                 "y": torch.as_tensor(ds.labels[:nb], device=dev).view(M, sizes["batch"])}
+
+        def grad_fn(params, b, key):
+            ls, td = tree_flatten(params)
+            loss = ce_loss(apply_fn(params, b["x"]), b["y"])
+            return loss.detach(), tree_unflatten(td, list(torch.autograd.grad(loss, ls)))
+
+        comm = torch.ones(M, dtype=torch.bool, device=dev)
+        draws = {"a": pme.sample_neighbor_selection(g, ta.nbrs, ta.valid, ta.t, comm),
+                 "masks": [pme.sample_coordinate_masks(g, M, x[0].numel(),
+                                                       max(1, round(cfg.p * x[0].numel())))
+                           for x in stacked]}
+        outs = {}
+        for route in ("kernel", "plain"):
+            with (plain_routes() if route == "plain" else contextlib.nullcontext()), \
+                    _deterministic_cudnn():
+                state = pame.pame_init(3, tree_unflatten(treedef, stacked), M, cfg)
+                v_bar = pme.pme_average_pytree(None, state.params, draws["a"], cfg.p,
+                                               mode="exact", masks=draws["masks"])
+                _reset_counts()
+                new, _ = pame.pame_step(state, batch, grad_fn, ta, cfg, draws=draws)
+                pme_n = pme_average_cuda.launches
+                _reset_counts()
+                st = B.DPSGDState(tree_unflatten(treedef, [x.clone() for x in stacked]), 0, 3)
+                dp, _ = B.dpsgd_step(st, batch, grad_fn, mixer, 0.05)
+                _sync(dev)
+                outs[route] = {"v_bar": tree_leaves(v_bar), "pame": tree_leaves(new.params),
+                               "dpsgd": tree_leaves(dp.params), "pme_launches": pme_n,
+                               "gossip_launches": dict(gossip_gather.variant_launches)}
+        k, p = outs["kernel"], outs["plain"]
+        row = {
+            "model": name, "leaves": len(leaves),
+            "pame_exchange_f32_ulps": max(ulps_floored(a, b, 23) for a, b in
+                                          zip(k["v_bar"], p["v_bar"])),
+            "pame_step_f32_ulps": max(ulps_floored(a, b, 23) for a, b in
+                                      zip(k["pame"], p["pame"])),
+            "pame_step_rel_err": max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                                     for a, b in zip(k["pame"], p["pame"])),
+            "dpsgd_step_f32_ulps": max(ulps_floored(a, b, 23) for a, b in
+                                       zip(k["dpsgd"], p["dpsgd"])),
+            "pme_launches_kernel_route": k["pme_launches"],
+            "pme_launches_plain_route": p["pme_launches"],
+            "gossip_launches_kernel_route": k["gossip_launches"],
+            "gossip_launches_plain_route": p["gossip_launches"],
+            "tol": {"dpsgd_ulps": PARITY_F_ULPS, "pame_exchange_ulps": PARITY_F_PME_ULPS,
+                    "pame_step_rel": PARITY_F_RTOL}}
+        del outs, k, p
+        # the forward on the card against the CPU forward, pinned and not
+        params = tree_unflatten(treedef, leaves)
+        x = torch.as_tensor(ds.images[nb:], device=dev)
+        with torch.no_grad():
+            want = apply_fn(tree_unflatten(treedef, [t.cpu() for t in leaves]), x.cpu())
+            got = apply_fn(params, x).cpu()
+            with _tf32_convs():
+                got_tf32 = apply_fn(params, x).cpu()
+        scale = want.abs().max().item()
+        row["forward_rel_err_ieee"] = (got - want).abs().max().item() / scale
+        row["forward_rel_err_tf32"] = (got_tf32 - want).abs().max().item() / scale
+        if dev.type == "cuda":
+            row["forward_ms_ieee"] = time_ms(lambda: apply_fn(params, x), 10)
+            with _tf32_convs():
+                row["forward_ms_tf32"] = time_ms(lambda: apply_fn(params, x), 10)
+        results[name] = row
+        emit(phase="parity_f", **row)
+        free()
+        if row["dpsgd_step_f32_ulps"] > PARITY_F_ULPS \
+                or row["pame_exchange_f32_ulps"] > PARITY_F_PME_ULPS \
+                or row["pame_step_rel_err"] > PARITY_F_RTOL:
+            fail(f"path F parity ({name}): kernel and plain routes differ beyond the tolerance")
+        if row["forward_rel_err_ieee"] > PARITY_F_RTOL:
+            fail(f"path F parity ({name}): the forward on the card is "
+                 f"{row['forward_rel_err_ieee']} off the CPU's (> {PARITY_F_RTOL})")
+        if dev.type == "cuda" and (
+                row["pme_launches_kernel_route"] != pme_per_step
+                or row["gossip_launches_kernel_route"] != {"f32": len(leaves), "bf16": 0}
+                or row["pme_launches_plain_route"]
+                or any(row["gossip_launches_plain_route"].values())):
+            fail(f"path F parity ({name}): the kernel route did not run the kernels "
+                 f"({pme_per_step} PME, {len(leaves)} gossip) or the plain route ran one")
+    return results
+
+
 def main():
     try:
         import torch
@@ -1343,6 +1976,11 @@ def main():
     from repro_torch.kernels import _build
 
     t_start = time.perf_counter()
+    # path F's image sets (set-up: ~20 s of numpy on the card's host) are
+    # made in the background while the kernels build and paths A-E run
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    data = {"F3": pool.submit(images, FMNIST), "F4": pool.submit(images, CIFAR)}
+    pool.shutdown(wait=False)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -1366,7 +2004,7 @@ def main():
 
     t = time.perf_counter()
     gossip = check_gossip(dev)
-    pme_row = check_pme(dev)
+    pme_row, pme_fc1 = check_pme(dev)
     flash = check_flash(dev)
     ssd = check_ssd(dev)
     emit(phase="kernels_checked", seconds=time.perf_counter() - t)
@@ -1398,11 +2036,17 @@ def main():
     t = time.perf_counter()
     path_e_parity(dev)
     emit(phase="parity_e_done", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    _, f_launches = path_f(dev, data)
+    emit(phase="path_f_done", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    path_f_parity(dev)
+    emit(phase="parity_f_done", seconds=time.perf_counter() - t)
     bf16_launches = sum(r["gossip_launches"]["bf16"] for r in baselines.values())
     # each path's launches, read just after the path ran with the counts at 0
-    f32_launches = gossip_launches + e_launches["f32"]
-    bf16_launches += e_launches["bf16"]
-    pme_launches += e_launches["pme_average"]
+    f32_launches = gossip_launches + e_launches["f32"] + f_launches["f32"]
+    bf16_launches += e_launches["bf16"] + f_launches["bf16"]
+    pme_launches += e_launches["pme_average"] + f_launches["pme_average"]
 
     def entry(name, source, replaces, launches, row):
         e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1430,10 +2074,15 @@ def main():
     rep_launches = sum(r["gossip_launches"]["bf16"] for k, r in e_rows.items()
                        if k.split("-")[0] in ("E5", "E6"))
     g32["variants"]["bf16_replicas"] = variant(rep_launches, gossip["bf16_replicas"])
+    # path F's f32 launches (F1 race, F2, F3 D-PSGD and wide CNN), timed at F3's fc1
+    g32["variants"]["f32_path_f"] = variant(f_launches["f32"], gossip["f32_fc1"])
+    pme = entry("pme_average", "src/repro_torch/csrc/pme_average.cu",
+                "src/repro/kernels/pme_average/kernel.py:46", pme_launches, pme_row)
+    # path F's launches (F3 PaME on fc1, F4 on five ResNet-20 convs), timed at F3's fc1
+    pme["variants"] = {"path_f": variant(f_launches["pme_average"], pme_fc1)}
     kernels = [
         g32,
-        entry("pme_average", "src/repro_torch/csrc/pme_average.cu",
-              "src/repro/kernels/pme_average/kernel.py:46", pme_launches, pme_row),
+        pme,
         entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention/kernel.py:78", serve_launches["flash"], flash),
         entry("ssd_intra_chunk", "src/repro_torch/csrc/ssd_intra_chunk.cu",

@@ -96,6 +96,30 @@ def jax_step_draws(key, step, params, topo_arrays, cfg, realization=None):
             "masks": masks}
 
 
+# the history keys every driver of the reference reports: per-step series
+# and run counters (`wire_bits_*` where the registry accounts them)
+HISTORY_SERIES = ("loss", "objective", "consensus")
+HISTORY_COUNTS = ("steps_run", "steps_dispatched")
+
+
+def assert_history_matches(got, want, rtol=1e-5, atol=1e-5):
+    """A port run's history dict against the reference's, over the
+    reference's keys: the per-step series at (rtol, atol), the run counters
+    exactly, the registry's `wire_bits_*` at rtol."""
+    for k in HISTORY_SERIES:
+        if len(want.get(k, ())):
+            assert len(got[k]) == len(want[k]), k
+            np.testing.assert_allclose(np.asarray(got[k], np.float64),
+                                       np.asarray(want[k], np.float64),
+                                       rtol=rtol, atol=atol, err_msg=k)
+    for k in HISTORY_COUNTS:
+        if k in want:
+            assert int(got[k]) == int(want[k]), k
+    for k in ("wire_bits_per_step", "wire_bits_total"):
+        if k in want:
+            np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=rtol, err_msg=k)
+
+
 # ---------------------------------------------------------------------------
 # dynamic networks: the uniforms behind JAX's scenario, temporal and fault
 # draws, in the port's ``u=`` format

@@ -171,7 +171,7 @@ def t_grad(w, batch, key):
 @pytest.mark.parametrize("mode", ["matrix", "sparse"])
 @pytest.mark.parametrize("name", NAMES)
 def test_regression_steps_match_jax(name, mode):
-    _run_parity(name, mode, j_grad, t_grad, jnp.asarray(W0_NP), torch.as_tensor(W0_NP),
+    _run_parity(name, mode, j_grad, t_grad, jnp.asarray(W0_NP), torch.tensor(W0_NP),
                 (jnp.asarray(A_NP), jnp.asarray(Y_NP)),
                 (torch.as_tensor(A_NP), torch.as_tensor(Y_NP)), REG_TOPO, atol=1e-5)
 
@@ -201,7 +201,7 @@ def test_nids_without_compression_matches_jax():
     jm = jmix.make_mixer(jbuild(*REG_TOPO[:2], **REG_TOPO[2]), "sparse", impl="slots")
     tm = tmix.make_mixer(tbuild(*REG_TOPO[:2], **REG_TOPO[2]), "sparse", impl="slots")
     sj = JB.nids_init(jax.random.PRNGKey(0), jnp.asarray(W0_NP))
-    st = TB.nids_init(0, torch.as_tensor(W0_NP))
+    st = TB.nids_init(0, torch.tensor(W0_NP))
     step = jax.jit(lambda s, b: JB.nids_step(s, b, j_grad, jm, 0.05))
     jb, tb = (jnp.asarray(A_NP), jnp.asarray(Y_NP)), (torch.as_tensor(A_NP), torch.as_tensor(Y_NP))
     for _ in range(4):
@@ -261,7 +261,7 @@ def test_anq_nids_step_by_step_against_jax_scan_driver():
     """ANQ-NIDS on the regression fixture, held step by step against JAX's
     scan driver, to 1e-5 with no coordinate off."""
     _run_parity("anq_nids", "sparse", j_grad, t_grad, jnp.asarray(W0_NP),
-                torch.as_tensor(W0_NP), (jnp.asarray(A_NP), jnp.asarray(Y_NP)),
+                torch.tensor(W0_NP), (jnp.asarray(A_NP), jnp.asarray(Y_NP)),
                 (torch.as_tensor(A_NP), torch.as_tensor(Y_NP)), REG_TOPO, atol=1e-5,
                 step_by_step=True)
 
@@ -353,7 +353,7 @@ def test_grad_shift_raises():
                             grad_shift=jnp.asarray(shift))
     rows = TB.GradShift({i: [torch.as_tensor(shift[i])] for i in (1, 5)})
     for gs in (torch.as_tensor(shift), rows):
-        got, _ = TB.dpsgd_step(TB.dpsgd_init(0, torch.as_tensor(W0_NP)), batch, t_grad,
+        got, _ = TB.dpsgd_step(TB.dpsgd_init(0, torch.tensor(W0_NP)), batch, t_grad,
                                tmix.make_mixer(tbuild(*REG_TOPO[:2], **REG_TOPO[2]), "sparse",
                                                impl="slots"), 0.05, grad_shift=gs)
         np.testing.assert_allclose(to_np(got.params), np.asarray(want.params), atol=1e-6)

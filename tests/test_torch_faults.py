@@ -201,7 +201,7 @@ def test_bound_fault_steps_match_jax(name):
     bj, bt = _fault_binds(name, HARSH, scen=dict(edge_drop=0.1, straggler=0.1, seed=1))
     assert bt.faulty and bt.carries_aux
     assert (bt.spec.rep_step is not None) == (bj.spec.rep_step is not None)
-    out = bound_parity(name, bj, bt, jnp.asarray(W0_NP), torch.as_tensor(W0_NP), JB, TB_(), 6)
+    out = bound_parity(name, bj, bt, jnp.asarray(W0_NP), torch.tensor(W0_NP), JB, TB_(), 6)
     assert sum(float(mt["dropped_msgs"]) for _, mt in out) > 0
     assert sum(float(mt["stale_nodes"]) for _, mt in out) > 0
 
@@ -209,7 +209,7 @@ def test_bound_fault_steps_match_jax(name):
 @pytest.mark.parametrize("name", ["choco", "beer", "anq_nids"])
 def test_replicated_steps_without_repair_match_jax(name):
     bj, bt = _fault_binds(name, dict(loss=0.3, repair=False, seed=3))
-    out = bound_parity(name, bj, bt, jnp.asarray(W0_NP), torch.as_tensor(W0_NP), JB, TB_(), 4)
+    out = bound_parity(name, bj, bt, jnp.asarray(W0_NP), torch.tensor(W0_NP), JB, TB_(), 4)
     assert all(float(mt["repair_bits"]) == 0.0 for _, mt in out)
 
 

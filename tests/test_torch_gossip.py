@@ -183,7 +183,7 @@ def test_pame_compressed_steps_match_jax(exchange, mixing):
     cfg = jpame.PaMEConfig(nu=0.3, p=0.2, gamma=1.01, sigma0=8.0, exchange=exchange,
                            mixing=mixing)
     w0 = np.random.default_rng(7).standard_normal((M, N)).astype(np.float32)
-    _run(cfg, jnp.asarray(w0), torch.as_tensor(w0), j_grad, t_grad,
+    _run(cfg, jnp.asarray(w0), torch.tensor(w0), j_grad, t_grad,
          (jnp.asarray(A_NP), jnp.asarray(B_NP)), (torch.as_tensor(A_NP), torch.as_tensor(B_NP)),
          ("erdos_renyi", M, {"p": 0.4, "seed": 1}), atol=1e-5)
 

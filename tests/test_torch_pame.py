@@ -16,7 +16,7 @@ from repro_torch.core import algorithms as talg
 from repro_torch.core import pame as tpame
 from repro_torch.core.topology import build_topology as tbuild
 
-from _torch_parity import jax_step_draws, to_np
+from _torch_parity import assert_history_matches, jax_step_draws, to_np
 
 ATOL = 1e-5
 M, N = 16, 200
@@ -66,7 +66,7 @@ def test_pame_steps_match_jax(name):
     w0 = np.random.default_rng(7).standard_normal((M, N)).astype(np.float32)
     key = jax.random.PRNGKey(0)
     sj = jpame.pame_init(key, jnp.asarray(w0), M, cfg)
-    st = tpame.pame_init(0, torch.as_tensor(w0), M, _t_cfg(cfg))
+    st = tpame.pame_init(0, torch.tensor(w0), M, _t_cfg(cfg))
     batch_j = (jnp.asarray(A_NP), jnp.asarray(B_NP))
     batch_t = (torch.as_tensor(A_NP), torch.as_tensor(B_NP))
     step_j = jax.jit(lambda s, b: jpame.pame_step(s, b, j_grad, ta_j, cfg))
@@ -104,11 +104,11 @@ def test_run_pame_matches_jax_and_host(name):
         for driver in ("scan", "host")
     }
     for driver, (state, hist) in runs.items():
-        assert hist["steps_run"] == jhist["steps_run"], driver
-        for k in ("loss", "objective", "consensus"):
-            np.testing.assert_allclose(hist[k], jhist[k], rtol=1e-5, atol=1e-5, err_msg=k)
+        # the host driver dispatches exactly the steps it runs
+        want = dict(jhist, steps_dispatched=jhist["steps_dispatched"] if driver == "scan"
+                    else jhist["steps_run"])
+        assert_history_matches(hist, want, rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(to_np(state.params), np.asarray(jstate.params), atol=ATOL)
-    assert runs["scan"][1]["steps_dispatched"] == jhist["steps_dispatched"]
 
 
 def test_stop_rule_freezes_triggering_state():

@@ -284,7 +284,7 @@ def test_bound_dynamic_steps_match_jax(name):
     stragglers: every state tree and every realized metric."""
     bj, bt = binds(name, {"scenario": JS.Scenario(**HARSH)}, {"scenario": TS.Scenario(**HARSH)})
     assert bt.dynamic and not bt.carries_aux
-    out = bound_parity(name, bj, bt, jnp.asarray(W0_NP), torch.as_tensor(W0_NP), JB, TB_(), 4)
+    out = bound_parity(name, bj, bt, jnp.asarray(W0_NP), torch.tensor(W0_NP), JB, TB_(), 4)
     assert {"wire_bits", "alive_nodes"} <= set(out[0][1])
     assert min(float(mt["alive_nodes"]) for _, mt in out) < M  # churn happened
 
@@ -293,7 +293,7 @@ def test_bound_dynamic_steps_match_jax(name):
 def test_bound_dynamic_dense_mixing_matches_jax(name):
     bj, bt = binds(name, {"scenario": JS.Scenario(**HARSH)}, {"scenario": TS.Scenario(**HARSH)},
                    mixing="dense")
-    bound_parity(name, bj, bt, jnp.asarray(W0_NP), torch.as_tensor(W0_NP), JB, TB_(), 3)
+    bound_parity(name, bj, bt, jnp.asarray(W0_NP), torch.tensor(W0_NP), JB, TB_(), 3)
 
 
 def test_partition_metrics_match_jax():
@@ -302,7 +302,7 @@ def test_partition_metrics_match_jax():
     wt = (TS.PartitionWindow(1, 3, n_parts=2, seed=2),)
     bj, bt = binds("dpsgd", {"scenario": JS.Scenario(edge_drop=0.1, partitions=wj)},
                    {"scenario": TS.Scenario(edge_drop=0.1, partitions=wt)})
-    out = bound_parity("dpsgd", bj, bt, jnp.asarray(W0_NP), torch.as_tensor(W0_NP), JB, TB_(), 4)
+    out = bound_parity("dpsgd", bj, bt, jnp.asarray(W0_NP), torch.tensor(W0_NP), JB, TB_(), 4)
     assert all("comp_mean_gap" in mt for _, mt in out)
 
 

@@ -271,7 +271,7 @@ def test_bound_temporal_steps_match_jax(name):
     bj, bt = binds(name, {"scenario": JT.TemporalScenario(**STALE)},
                    {"scenario": TT.TemporalScenario(**STALE)})
     assert bt.temporal and bt.carries_aux
-    out = bound_parity(name, bj, bt, jnp.asarray(W0_NP), torch.as_tensor(W0_NP), JB, TB_(), 6)
+    out = bound_parity(name, bj, bt, jnp.asarray(W0_NP), torch.tensor(W0_NP), JB, TB_(), 6)
     assert sum(float(mt["stale_nodes"]) for _, mt in out) > 0
 
 

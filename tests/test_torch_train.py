@@ -139,7 +139,27 @@ def test_port_imports_neither_jax_nor_repro():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 25
+    assert int(res.stdout.strip()) >= 54
+
+
+@pytest.mark.parametrize("example", ["quickstart_torch", "cnn_heterogeneity_torch"])
+def test_port_examples_import_neither_jax_nor_repro(example):
+    """Loading a port example (its imports, not its main) pulls in neither
+    the JAX package nor jax."""
+    path = os.path.join(os.path.dirname(SRC), "examples", example + ".py")
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('ex', {path!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
+        "             or n == 'repro' or n.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "assert 'repro_torch' in sys.modules\n"
+    )
+    env = dict(os.environ, PYTHONPATH=SRC)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
 
 
 DYNAMIC_FLAGS = {
