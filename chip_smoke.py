@@ -92,7 +92,22 @@ non-zero without the final result line:
      kernels and through the plain routes (D-PSGD 0 f32 ulps, PaME's
      exchange within one ulp), and each model's forward on the card
      against the CPU within rtol 1e-5 with the TF32 pin (recorded without);
- 13. the kernel table line, then the result line.
+ 13. path G: serve-while-train with elastic membership through
+     `repro_torch.launch.serve_train` — G1 on stablelm-1.6b at full width
+     and depth, PaME (f32 gossip, 11 a step at every m), rush traffic, 12
+     steps in chunks of 3, m = 4 -> 5 -> 4 through join@3, partition@6,
+     heal@9 and leave@10, consensus serving of 8 x 512-token prompts (16
+     generated) on 2 nodes a round: finite losses, conformant joins and
+     leaves, green monitors with no cross-component mass, deferrals,
+     served <= arrived, [8, 16] tokens from finite logits, a peak under 80
+     GB; G2 at 2 layers: a join at step 5 catching up from the step-4
+     checkpoint (the joiner's rows the donor's checkpointed rows bit for
+     bit) and the trainer resuming at step 4 from its own checkpoints,
+     each save's and restore's seconds and bytes; parity phase G: a paced
+     PaME and D-PSGD step (node 1 deferred) through the kernel and the
+     plain routes (0 ulps), `retire_state` and `expand_state` on the card
+     against the CPU (within one bf16 ulp);
+ 14. the kernel table line, then the result line.
 
 Exits non-zero with no result when no CUDA device is present, or when the
 port's sources are not beside this script.
@@ -225,6 +240,7 @@ def check_gossip(dev):
     from repro_torch.core.topology import build_topology
     from repro_torch.kernels.gossip.ops import gather_terms_kernel
     from repro_torch.kernels.gossip.ref import gather_terms_ref
+    from repro_torch.serve import membership
 
     def case(name, nbrs, w, pad, xs, reps=0):
         terms = [(w, x) for x in xs]
@@ -254,11 +270,12 @@ def check_gossip(dev):
                                                    for g, p in zip(got, plain)),
                        tol="bit-equal to the f32 slots chain rounded to bf16")
             ok = row["plain_bf16_ulps_floored"] <= 1.0
-        del slots, plain
+        del slots, plain, got
         if not (ok and same and finite):
             emit(**row)
             fail(f"gossip kernel disagrees with its plain version ({name}, {row['variant']})")
         if reps:
+            free()  # the segsum library call below holds [m * k, n] f32 products
             m, k = nbrs.shape
             n = xs[0][0].numel()
             row["ms"] = time_ms(lambda: gather_terms_kernel(nbrs, terms, pad=pad), reps)
@@ -312,6 +329,19 @@ def check_gossip(dev):
     row = case("path-a-largest-leaf", nbrs, sel.float(), ~valid, xs, reps=5)
     del xs
     free()
+    # path G1's largest leaf at m = 5: the same walks over the table of the
+    # graph its join@3 grows (one node attached to two)
+    nbrs, valid = (torch.as_tensor(v, device=dev) for v in
+                   membership.grown_topology(topo, 1, degree=2, seed=0).neighbor_matrix_padded())
+    sel = valid.clone()
+    sel[0] = False
+    mask = torch.rand((M + 1, BIG_N), generator=g, device=dev) < 0.2
+    payload = torch.randn((M + 1, BIG_N), generator=g, device=dev).to(torch.bfloat16) * mask
+    xs = [payload.float(), mask.float()]
+    del payload, mask
+    row_grown = case("path-g1-grown-largest-leaf", nbrs, sel.float(), ~valid, xs, reps=5)
+    del xs
+    free()
     # path D's largest leaf: one bf16 term over the baselines' sparse Mixer
     mx = make_mixer(topo, "sparse", device=dev)
     x = torch.randn((M, BIG_N), generator=g, device=dev).to(torch.bfloat16)
@@ -334,7 +364,8 @@ def check_gossip(dev):
     mx = make_mixer(build_topology("complete", M), "sparse", device=dev)
     x = torch.randn((M, FC1_N), generator=g, device=dev)
     row_fc1 = case("path-f3-fc1", mx.pm.nbrs, mx.pm.w, mx.pm.pad, [x], reps=50)
-    return {"f32": row, "bf16": row_bf16, "bf16_replicas": row_rep, "f32_fc1": row_fc1}
+    return {"f32": row, "bf16": row_bf16, "bf16_replicas": row_rep, "f32_fc1": row_fc1,
+            "f32_grown": row_grown}
 
 
 def check_pme(dev):
@@ -1109,6 +1140,11 @@ REP_SEEDS = {
 
 
 def path_e_parity(dev, cfg=None, batch=4, seq=128):
+    """Parity phase E (`_network_parity` over PARITY_E)."""
+    return _network_parity(dev, PARITY_E, "e", cfg, batch, seq)
+
+
+def _network_parity(dev, steps, phase, cfg=None, batch=4, seq=128):
     """One `_dynamic_step`, one `_temporal_step` and one `_fault_step` of
     D-PSGD and of PaME, and one `_fault_step` of rep-CHOCO, rep-BEER and
     rep-ANQ-NIDS under E5's message loss, through `Algorithm.bind`, with
@@ -1117,6 +1153,11 @@ def path_e_parity(dev, cfg=None, batch=4, seq=128):
     (the ring's snapshots noisy copies of the weights, so that a delayed
     node sends other values; the replicas noisy copies of the surrogates, and
     node 1's links pending, so that a delivered message repairs them).
+    Parity phase G runs the paced steps of `steps` the same way, the event
+    clock's draws injected so that node 1 defers its exchange; a network
+    named "...-grown" runs on path G1's graph after its join (one node
+    attached to two, `membership.grown_topology`), from a 5-row state that
+    `membership.expand_state` grows out of the 4-node one, as G1 does.
     Both routes run the same code but the contraction, so the kernel must
     give 0 ulps: the bf16 gossip variant (D-PSGD and the replica mixes)
     equals the f32 slots chain rounded once, the f32 variant (PaME) the
@@ -1129,9 +1170,12 @@ def path_e_parity(dev, cfg=None, batch=4, seq=128):
     from repro_torch.core import faults, scenarios, temporal
     from repro_torch.core.algorithms import PaMEHp, get_algorithm
     from repro_torch.kernels.gossip.kernel import gossip_gather
-    from repro_torch.launch.train import make_lm_task
+    from repro_torch.launch.train import lm_batch_fn, make_lm_task
+    from repro_torch.serve import membership
+    from repro_torch.serve.events import ArrivalProcess, ServePacing
     from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 
+    label = f"path {phase.upper()} parity"
     if cfg is None:
         cfg = get_config("stablelm-1.6b", "full").replace(n_layers=PARITY_LAYERS)
     topo, params0, grad_fn, make_batch = make_lm_task(cfg, M, batch, seq, 0, "erdos_renyi", dev)
@@ -1139,8 +1183,9 @@ def path_e_parity(dev, cfg=None, batch=4, seq=128):
     leaves0, treedef = tree_flatten(params0)
     del params0
     sizes = [x.numel() for x in leaves0]
-    d = topo.max_degree
     k = 3  # the global step index of the parity step (ring slot k mod D)
+    # path G1's graph after join@3 (its --join-degree 2, --seed 0)
+    grown = membership.grown_topology(topo, 1, degree=2, seed=0)
 
     def tree(seed, scale=0.01):
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1156,27 +1201,31 @@ def path_e_parity(dev, cfg=None, batch=4, seq=128):
                 row.copy_(torch.randn(row.shape, generator=gen, device=dev).mul_(scale)
                           .add_(w.float() * around))
 
-    def uniforms():
+    def uniforms(m, d):
         # node 1 straggles (delayed on the temporal path), node 2 is late
         # on the fault path, one link direction drops; the rest is seeded
         g = torch.Generator().manual_seed(5)
-        edge = torch.rand((M, d), generator=g)
-        strag = torch.rand(M, generator=g).clamp(min=0.6)
+        edge = torch.rand((m, d), generator=g)
+        strag = torch.rand(m, generator=g).clamp(min=0.6)
         strag[1] = 0.0
-        delay = torch.rand(M, generator=g).clamp(min=0.6)
+        delay = torch.rand(m, generator=g).clamp(min=0.6)
         delay[2] = 0.0
-        loss = torch.rand((M, d), generator=g).clamp(min=0.3)
+        loss = torch.rand((m, d), generator=g).clamp(min=0.3)
         loss[0, 0] = 0.0
-        net = {"edge": edge, "node": torch.ones(M), "strag": strag}
+        net = {"edge": edge, "node": torch.ones(m), "strag": strag}
+        # the event clock: node 1 gets 20 requests, serves 4 and defers
+        arrivals = torch.zeros(m, dtype=torch.int32)
+        arrivals[1] = 20
         return {"scenario": net, "temporal": dict(net),
-                "faults": {"loss": loss, "burst": torch.ones((M, d)), "crash": torch.ones(M),
-                           "delay": delay}}
+                "faults": {"loss": loss, "burst": torch.ones((m, d)), "crash": torch.ones(m),
+                           "delay": delay},
+                "pacing": {"mod": torch.ones(m), "arrivals": arrivals}}
 
-    def compression(algo):
-        # the baselines' compression uniforms, one [M, n] row per leaf
+    def compression(algo, m):
+        # the baselines' compression uniforms, one [m, n] row per leaf
         gen = torch.Generator(device=dev).manual_seed(11)
         rows = lambda dtype=torch.float32: [  # noqa: E731
-            torch.rand((M, n), generator=gen, device=dev, dtype=dtype) for n in sizes]
+            torch.rand((m, n), generator=gen, device=dev, dtype=dtype) for n in sizes]
         return {"choco": lambda: {"q": rows()}, "beer": lambda: {"h": rows(), "z": rows()},
                 "anq_nids": lambda: {"q": rows(torch.bfloat16)}}.get(algo, lambda: None)()
 
@@ -1187,42 +1236,57 @@ def path_e_parity(dev, cfg=None, batch=4, seq=128):
         "fault": dict(faults=faults.FaultModel(name="e", loss=0.1, delay=0.3, max_delay=2)),
         "loss": dict(faults=faults.FaultModel(name="e", loss=0.1, burst_down=0.05,
                                               burst_up=0.3)),
+        # path G1's clock (the rush preset, capacity 4, defer above 8)
+        "paced": dict(pacing=ServePacing(ArrivalProcess(name="g", rate=4.0, burst_rate=16.0,
+                                                        p_up=0.1, p_down=0.1),
+                                         capacity=4, defer_threshold=8)),
     }
     hps = {"pame": PaMEHp(nu=0.5, p=0.2, gamma=1.001, sigma0=20.0, mask_mode="bernoulli")}
     results = {}
-    for algo, nets, variant, per_step in PARITY_E:
+    for algo, nets, variant, per_step in steps:
         spec = get_algorithm(algo)
+        hp = hps.get(algo) or spec.hp_cls(lr=0.05)
         for net in nets:
-            bound = spec.bind(grad_fn, topo, hps.get(algo) or spec.hp_cls(lr=0.05), device=dev,
-                              **networks[net])
+            grow = net.endswith("-grown")
+            kw = networks[net.removesuffix("-grown")]
+            t = grown if grow else topo
+            m, batch_m = t.m, (lm_batch_fn(cfg, t.m, batch, seq, 0, dev)(0) if grow else data)
+            bound = spec.bind(grad_fn, t, hp, device=dev, **kw)
             outs = {}
             for route in ("kernel", "plain"):
-                draws = uniforms()  # the same seeded draws for both routes
-                draws["algo"] = compression(algo)
-                state = bound.init(3, tree(1), data if spec.needs_batch0 else None)
+                draws = uniforms(m, t.max_degree)  # the same seeded draws for both routes
+                draws["algo"] = compression(algo, m)
+                if grow:  # the joiner clones its donor's rows, as at G1's join
+                    state = spec.bind(grad_fn, topo, hp, device=dev, **kw).init(
+                        3, tree(1), data if spec.needs_batch0 else None)
+                    state = membership.expand_state(state, M,
+                                                    membership.default_donors(t, M))
+                else:
+                    state = bound.init(3, tree(1), data if spec.needs_batch0 else None)
                 if algo in REP_SEEDS:
                     for i, (field, (around, scale)) in enumerate(REP_SEEDS[algo].items()):
                         seed_field(tree_leaves(getattr(state, field)), 20 + i, around, scale)
                     pending = bound.scen_arrays.valid.cpu().clone()
-                    pending[torch.arange(M) != 1] = False
+                    pending[torch.arange(m) != 1] = False
                     state = state._replace(pending=pending)
                 aux = None
                 if bound.carries_aux:
                     aux = bound.aux_init(state)
-                    if aux.ring is not None:
+                    if getattr(aux, "ring", None) is not None:
                         for r in tree_leaves(aux.ring):  # older snapshots: other values
                             r.copy_(r.float().add_(0.01 * torch.randn(
                                 r.shape, generator=torch.Generator(device=dev).manual_seed(9),
                                 device=dev)).to(r.dtype))
                 _reset_counts()
                 with (plain_routes() if route == "plain" else contextlib.nullcontext()):
-                    res = bound.step(state, data, k, aux, draws=draws)
+                    res = bound.step(state, batch_m, k, aux, draws=draws)
                 new, metrics = res[0], res[1]
                 new_aux = res[2] if len(res) == 3 else None
                 outs[route] = {
-                    "leaves": tree_leaves((new, None if new_aux is None else new_aux.ring)),
+                    "leaves": tree_leaves((new, getattr(new_aux, "ring", None))),
                     "loss": float(metrics["loss_mean"]),
                     "stale_nodes": int(metrics.get("stale_nodes", 0)),
+                    "deferred_nodes": int(metrics.get("deferred_nodes", 0)),
                     "repair_bits": float(metrics.get("repair_bits", 0.0)),
                     "launches": dict(gossip_gather.variant_launches)}
                 del state, aux, new, new_aux, res, draws
@@ -1239,24 +1303,27 @@ def path_e_parity(dev, cfg=None, batch=4, seq=128):
                 "max_bf16_ulps_floored": ulps, "f32_bit_equal": f32_equal,
                 "loss_kernel": outs["kernel"]["loss"], "loss_plain": outs["plain"]["loss"],
                 "stale_nodes": outs["kernel"]["stale_nodes"],
+                "deferred_nodes": outs["kernel"]["deferred_nodes"],
                 "repair_bits": outs["kernel"]["repair_bits"],
                 "launches_kernel_route": outs["kernel"]["launches"],
                 "launches_plain_route": outs["plain"]["launches"],
-                "expected_launches": {variant: per_step}, "layers": cfg.n_layers}
-            emit(phase="parity_e", algo=algo, network=net, **row)
+                "expected_launches": {variant: per_step}, "layers": cfg.n_layers, "m": m}
+            emit(phase=f"parity_{phase}", algo=algo, network=net, **row)
             del outs
             free()
             if ulps != 0.0 or not f32_equal:
-                fail(f"path E parity ({algo}, {net}): kernel and plain routes differ "
+                fail(f"{label} ({algo}, {net}): kernel and plain routes differ "
                      f"({ulps} bf16 ulps, f32 bit-equal: {f32_equal})")
             if dev.type == "cuda" and (row["launches_kernel_route"][variant] != per_step
                                        or sum(row["launches_plain_route"].values())):
-                fail(f"path E parity ({algo}, {net}): the kernel route did not launch the "
+                fail(f"{label} ({algo}, {net}): the kernel route did not launch the "
                      f"{variant} gossip kernel {per_step} times, or the plain route launched it")
             if net in ("temporal", "fault") and row["stale_nodes"] != 1:
-                fail(f"path E parity ({algo}, {net}): expected one delayed node")
+                fail(f"{label} ({algo}, {net}): expected one delayed node")
+            if net.startswith("paced") and row["deferred_nodes"] != 1:
+                fail(f"{label} ({algo}, {net}): expected one deferred node")
             if algo in REP_SEEDS and not row["repair_bits"] > 0:
-                fail(f"path E parity ({algo}, {net}): no pending replica was repaired")
+                fail(f"{label} ({algo}, {net}): no pending replica was repaired")
     return results
 
 
@@ -1272,20 +1339,6 @@ def path_c(dev):
     from repro_torch.serve import ServeLoop
     from repro_torch.tree import tree_leaves, tree_map
 
-    class CheckedLoop(ServeLoop):
-        """ServeLoop that also keeps, on the card, whether every logit of the
-        prefills and decode steps was finite (read once at the end)."""
-
-        def _pf(self, params, batch):
-            logits, caches = super()._pf(params, batch)
-            self.finite = self.finite & torch.isfinite(logits).all()
-            return logits, caches
-
-        def _dc(self, params, tok, pos, caches):
-            logits, caches = super()._dc(params, tok, pos, caches)
-            self.finite = self.finite & torch.isfinite(logits).all()
-            return logits, caches
-
     cfg = get_config("zamba2-1.2b", "full").replace(use_flash=True, use_ssd_kernel=True)
     t0 = time.perf_counter()
     params0 = init_params(0, cfg, device=dev)
@@ -1295,14 +1348,13 @@ def path_c(dev):
         (M,) + tuple(x.shape), generator=g, device=dev)).to(x.dtype), params0)
     del params0
     n_params = sum(x[0].numel() for x in tree_leaves(stacked))
-    loop = CheckedLoop(cfg, device=dev, **SERVE)
-    loop.finite = torch.ones((), dtype=torch.bool, device=dev)
+    loop = ServeLoop(cfg, device=dev, **SERVE)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     tc = lambda fn: fn.variant_launches["tensor_cores"]  # noqa: E731
-    rounds = {}
+    rounds, finite = {}, True
     for policy in ("local", "consensus"):
         f0, s0 = tc(flash_attention_cuda), tc(ssd_intra_chunk_cuda)
         n0 = flash_attention_cuda.launches + ssd_intra_chunk_cuda.launches
@@ -1313,6 +1365,7 @@ def path_c(dev):
         others = flash_attention_cuda.launches + ssd_intra_chunk_cuda.launches - n0 \
             - per["flash"] - per["ssd"]
         shapes = sorted({tuple(st["tokens"].shape) for st in stats.values()})
+        finite = finite and all(st["logits_finite"] for st in stats.values())
         rounds[policy] = {
             "seconds": secs, "launches": per, "cuda_core_launches": others, "token_shapes": shapes,
             "prefill_ms": [st["prefill_ms"] for st in stats.values()],
@@ -1327,7 +1380,6 @@ def path_c(dev):
         if shapes != [(SERVE["batch"], SERVE["gen"])]:
             fail(f"path C ({policy}): expected [{SERVE['batch']}, {SERVE['gen']}] tokens per node")
     launches = {"flash": tc(flash_attention_cuda), "ssd": tc(ssd_intra_chunk_cuda)}
-    finite = bool(loop.finite)
     peak = torch.cuda.max_memory_allocated()
     emit(phase="path_c_done", params_per_node=n_params, depth=cfg.n_layers, setup_s=setup_s,
          peak_bytes=peak, logits_finite=finite, launches=launches)
@@ -1960,6 +2012,232 @@ def path_f_parity(dev, sizes=None):
     return results
 
 
+# ---------------------------------------------------------------------------
+# path G: serve-while-train with elastic membership
+# ---------------------------------------------------------------------------
+# G1: stablelm-1.6b at full width and depth, PaME (sparse, f32 gossip kernel,
+# 11 launches a step), rush traffic, m = 4 -> 5 -> 4 through a join, a
+# partition and its heal, and a leave; consensus serving of 8 x 512-token
+# prompts, 16 generated, on 2 nodes a round
+G1_ARGS = ["--arch", "stablelm-1.6b", "--variant", "full", "--algo", "pame", "--mixing",
+           "sparse", "--nodes", str(M), "--batch", "4", "--seq", "128", "--steps", "12",
+           "--chunk", "3", "--arrival", "rush", "--serve-capacity", "4",
+           "--defer-threshold", "8", "--prompt-len", "512", "--gen", "16",
+           "--serve-batch", "8", "--serve-nodes", "2", "--serve-policy", "consensus",
+           "--chaos", "join@3:1,partition@6:2,heal@9,leave@10:1"]
+# G2: checkpoint catch-up at full width, 2 layers (a save is about 4.9 GB)
+G2_ARGS = ["--arch", "stablelm-1.6b", "--variant", "full", "--algo", "pame", "--nodes",
+           str(M), "--batch", "4", "--seq", "128", "--layers", "2", "--steps", "6",
+           "--chunk", "2", "--join", "5:1", "--arrival", "off", "--ckpt-every", "2",
+           "--prompt-len", "512", "--gen", "16", "--serve-batch", "8"]
+# the trainer saves at step 4 only (each save takes ~10 s of the host)
+G2_TRAIN = model_args("pame") + ["--layers", "2", "--chunk", "2", "--ckpt-every", "4"]
+G_PER_STEP = 11  # f32 gossip launches a step of PaME's sparse exchange (11 leaves)
+# parity phase G: a paced PaME and D-PSGD step, node 1 deferred by its queue;
+# PaME's also on G1's grown 5-node graph
+PARITY_G = (("pame", ("paced", "paced-grown"), "f32", 11), ("dpsgd", ("paced",), "bf16", 11))
+
+
+def _value(argv, flag):
+    return argv[argv.index(flag) + 1]
+
+
+def path_g1(dev, argv=G1_ARGS, per_step=G_PER_STEP):
+    """`serve_train.main` on G1_ARGS: every loss finite, the f32 gossip
+    kernel `per_step` times a step at every m (no bf16 launch), each join
+    and leave conformant (the leave at its leaf type's tolerance), the
+    monitors green with zero cross-component mass in the window, deferrals
+    and served <= arrived, every serve round [batch, gen] tokens from
+    finite logits, the peak under 80 GB.  `argv` and `per_step` let the CPU
+    tests rehearse it at a tiny size."""
+    import torch
+    from repro_torch.kernels.gossip.kernel import gossip_gather
+    from repro_torch.launch import serve_train
+
+    steps, gen, sb = (int(_value(argv, f)) for f in ("--steps", "--gen", "--serve-batch"))
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    state, rec = serve_train.main(argv + ["--device", dev.type])
+    seconds = time.perf_counter() - t0
+    launches = dict(gossip_gather.variant_launches)
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    del state
+    free()
+    for c in rec["chunks"]:
+        emit(phase="path_g1_chunk", k=c["k"], m=c["m"], s_per_step=c["seconds"] / c["steps"],
+             loss=c["loss"], deferred=c.get("deferred"), comp_gap=c.get("comp_gap"),
+             peak_bytes_so_far=c["peak_bytes"])
+    for r in rec["serves"]:
+        for i, st in r["nodes"].items():
+            emit(phase="path_g1_serve", k=r["k"], m=r["m"], node=i, prefill_ms=st["prefill_ms"],
+                 decode_ms_per_token=st["decode_ms"] / (gen - 1),
+                 tokens_per_s=st["tokens_per_s"], tokens=list(st["tokens"]),
+                 logits_finite=st["logits_finite"],
+                 latency_rounds=(r["latency_rounds"] or {}).get(i),
+                 peak_bytes_so_far=r["peak_bytes"])
+    for ev in rec["events"]:
+        emit(phase="path_g1_event", **ev)
+    row = {"steps": rec["steps"], "seconds": seconds, "peak_bytes": peak,
+           "gossip_launches": launches, "summary": rec["summary"],
+           "m_after_events": [ev["m_after"] for ev in rec["events"]]}
+    emit(phase="path_g1", **row)
+    losses = rec["losses"]
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        fail(f"path G1: expected {steps} finite losses, got {losses}")
+    if cuda and launches != {"f32": per_step * steps, "bf16": 0}:
+        fail(f"path G1: expected {per_step} f32 gossip launches a step, got {launches}")
+    if row["m_after_events"] != [M + 1, M + 1, M + 1, M]:
+        fail(f"path G1: expected m = 4 -> 5 -> 4, got {row['m_after_events']}")
+    kinds = {ev["kind"]: ev for ev in rec["events"]}
+    conf = [all(kinds[k]["conformance"].values()) for k in ("join", "leave")]
+    if not all(conf) or not kinds["join"]["incumbents_untouched"] \
+            or not kinds["join"]["joiners_equal_source"] or "leave_check" not in kinds["leave"]:
+        fail("path G1: a join or leave was not conformant")
+    if not (kinds["partition"]["monitor"].get("green") and kinds["heal"]["monitor"].get("green")
+            and kinds["partition"]["monitor"]["cross_mass"] == 0.0):
+        fail("path G1: the partition or heal monitor was not green")
+    summ = rec["summary"]
+    if not summ["deferred_node_rounds"] > 0 or not summ["served"] <= summ["arrived"]:
+        fail(f"path G1: expected deferrals and served <= arrived, got {summ}")
+    for r in rec["serves"]:
+        for i, st in r["nodes"].items():
+            if tuple(st["tokens"]) != (sb, gen) or not st["logits_finite"]:
+                fail(f"path G1: serve@{r['k']} node {i} gave {st['tokens']} tokens, "
+                     f"finite logits {st['logits_finite']}")
+    if peak is not None and peak >= PEAK_LIMIT:
+        fail(f"path G1: peak {peak} bytes is not under 80 GB")
+    return launches["f32"]
+
+
+def path_g2(dev, argv=G2_ARGS, train_argv=G2_TRAIN, per_step=G_PER_STEP):
+    """Checkpoint catch-up: `serve_train.main` on G2_ARGS with a fresh
+    --ckpt-dir (the joiner at step 5 reports catch-up=ckpt@4, its rows equal
+    its donor's rows in the step-4 checkpoint bit for bit, the incumbents'
+    rows are untouched), then the trainer for 4 steps and for 6 from one
+    --ckpt-dir (it resumes at step 4).  Each save's and restore's seconds
+    and bytes; the directories are removed at the end."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.kernels.gossip.kernel import gossip_gather
+    from repro_torch.launch import serve_train, train
+    from repro_torch.tree import tree_leaves, tree_map
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_g2_")
+    seen = {}
+
+    def observe(rec, state):
+        # the joiner's rows against its donor's rows in the checkpoint the
+        # run says it caught up from, read back independently
+        if rec["kind"] != "join":
+            return
+        m_old, m_new = rec["m_before"], rec["m_after"]
+        stacked = lambda x: isinstance(x, torch.Tensor) and x.dim() >= 1 \
+            and x.shape[0] == m_new  # noqa: E731
+        tmpl = {"state": tree_map(lambda x: x[:m_old] if stacked(x) else x, state)}
+        src = restore_checkpoint(ckpt, tmpl, int(rec["catch_up"].split("@")[1]))["state"]
+        pairs = [(x, s) for x, s in zip(tree_leaves(state), tree_leaves(src)) if stacked(x)]
+        seen["joiner_equals_ckpt_donor"] = all(
+            torch.equal(x[m_old + j], s[d].to(x.device))
+            for x, s in pairs for j, d in enumerate(rec["donors"]))
+        del tmpl, src, pairs
+
+    try:
+        ckpt = os.path.join(root, "serve_train")
+        _reset_counts()
+        state, rec = serve_train.main(argv + ["--ckpt-dir", ckpt, "--device", dev.type],
+                                      observe=observe)
+        del state
+        free()
+        g_launches = gossip_gather.variant_launches["f32"]
+        join = [ev for ev in rec["events"] if ev["kind"] == "join"][0]
+        row = {"catch_up": join["catch_up"], "donors": join["donors"],
+               "incumbents_untouched": join["incumbents_untouched"],
+               "joiners_equal_source": join["joiners_equal_source"],
+               "saves": rec["checkpoints"], "catch_up_restores": rec["catch_up_restores"],
+               "losses": rec["losses"], "gossip_f32_launches": g_launches, **seen}
+        shutil.rmtree(ckpt)
+        tdir = os.path.join(root, "train")
+        _reset_counts()
+        first = train.main(train_argv + ["--steps", "4", "--ckpt-dir", tdir,
+                                         "--device", dev.type])
+        second = train.main(train_argv + ["--steps", "6", "--ckpt-dir", tdir,
+                                          "--device", dev.type])
+        t_launches = gossip_gather.variant_launches["f32"]
+        row.update(train_start=second["start"], train_saves=first["checkpoints"]
+                   + second["checkpoints"], train_restore=second["restore"],
+                   train_losses=first["loss"] + second["loss"], train_gossip_f32=t_launches)
+        emit(phase="path_g2", **row)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if row["catch_up"] != "ckpt@4" or not row.get("joiner_equals_ckpt_donor") \
+            or not row["incumbents_untouched"] or not row["joiners_equal_source"]:
+        fail(f"path G2: expected catch-up=ckpt@4 with the donor's checkpointed rows, got {row}")
+    if row["train_start"] != 4:
+        fail(f"path G2: the trainer resumed at {row['train_start']}, not at step 4")
+    if not all(math.isfinite(x) for x in row["losses"] + row["train_losses"]):
+        fail("path G2: a loss was not finite")
+    steps = int(_value(argv, "--steps"))
+    if dev.type == "cuda" and (g_launches != per_step * steps or t_launches != per_step * 6):
+        fail(f"path G2: expected {per_step} f32 gossip launches a step, got {g_launches} "
+             f"and {t_launches}")
+    return g_launches + t_launches
+
+
+def path_g_parity(dev, cfg=None, batch=4, seq=128):
+    """Parity phase G: the paced steps of PARITY_G through the kernel and the
+    plain routes (`_network_parity`, 0 ulps), then `retire_state` (the last
+    node leaves) and `expand_state` (one joiner cloning node 1) of a
+    distinct-node parameter stack on the card against the same calls on a
+    CPU copy, within one floored bf16 ulp.  stablelm-1.6b at full width and
+    PARITY_LAYERS layers unless `cfg` says otherwise."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.core.topology import build_topology
+    from repro_torch.serve import membership
+    from repro_torch.tree import tree_leaves, tree_map
+
+    rows = _network_parity(dev, PARITY_G, "g", cfg, batch, seq)
+    if cfg is None:
+        cfg = get_config("stablelm-1.6b", "full").replace(n_layers=PARITY_LAYERS)
+    g = torch.Generator(device=dev).manual_seed(13)
+    stacked = tree_map(lambda x: (x.float().unsqueeze(0) + 0.01 * torch.randn(
+        (M,) + tuple(x.shape), generator=g, device=dev)).to(x.dtype),
+        init_params(0, cfg, device=dev))
+    host = tree_map(lambda x: x.cpu(), stacked)
+    topo = build_topology("erdos_renyi", M, p=0.5, seed=0)
+    row = {"layers": cfg.n_layers}
+    for name, fn in (("retire", lambda t: membership.retire_state(t, topo, (M - 1,))),
+                     ("expand", lambda t: membership.expand_state(t, M, [1]))):
+        _sync(dev)
+        t0 = time.perf_counter()
+        got = fn(stacked)
+        _sync(dev)
+        row[f"{name}_s_card"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = fn(host)
+        row[f"{name}_s_cpu"] = time.perf_counter() - t0
+        row[f"{name}_max_bf16_ulps_floored"] = max(
+            ulps_floored(a, b.to(dev)) for a, b in zip(tree_leaves(got), tree_leaves(want)))
+        del got, want
+        free()
+    emit(phase="parity_g_membership", **row)
+    del stacked, host
+    free()
+    if row["retire_max_bf16_ulps_floored"] > PARITY_ULPS \
+            or row["expand_max_bf16_ulps_floored"] > PARITY_ULPS:
+        fail(f"path G parity: retire_state or expand_state on the card is more than "
+             f"{PARITY_ULPS} bf16 ulp from the CPU's ({row})")
+    rows["membership"] = row
+    return rows
+
+
 def main():
     try:
         import torch
@@ -2042,9 +2320,18 @@ def main():
     t = time.perf_counter()
     path_f_parity(dev)
     emit(phase="parity_f_done", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    g_launches = path_g1(dev)
+    emit(phase="path_g1_done", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    g_launches += path_g2(dev)
+    emit(phase="path_g2_done", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    path_g_parity(dev)
+    emit(phase="parity_g_done", seconds=time.perf_counter() - t)
     bf16_launches = sum(r["gossip_launches"]["bf16"] for r in baselines.values())
     # each path's launches, read just after the path ran with the counts at 0
-    f32_launches = gossip_launches + e_launches["f32"] + f_launches["f32"]
+    f32_launches = gossip_launches + e_launches["f32"] + f_launches["f32"] + g_launches
     bf16_launches += e_launches["bf16"] + f_launches["bf16"]
     pme_launches += e_launches["pme_average"] + f_launches["pme_average"]
 
@@ -2076,6 +2363,9 @@ def main():
     g32["variants"]["bf16_replicas"] = variant(rep_launches, gossip["bf16_replicas"])
     # path F's f32 launches (F1 race, F2, F3 D-PSGD and wide CNN), timed at F3's fc1
     g32["variants"]["f32_path_f"] = variant(f_launches["f32"], gossip["f32_fc1"])
+    # path G's f32 launches (G1 at full depth, G2 at 2 layers; among the f32
+    # launches), timed at the largest training leaf on G1's grown 5-node graph
+    g32["variants"]["f32_path_g"] = variant(g_launches, gossip["f32_grown"])
     pme = entry("pme_average", "src/repro_torch/csrc/pme_average.cu",
                 "src/repro/kernels/pme_average/kernel.py:46", pme_launches, pme_row)
     # path F's launches (F3 PaME on fc1, F4 on five ResNet-20 convs), timed at F3's fc1

@@ -17,8 +17,11 @@ default, the gossip kernel on the card).  `Algorithm.bind` takes dynamic
 networks as JAX's does: an i.i.d. `core.scenarios.Scenario`, a Markov
 `core.temporal.TemporalScenario` with bounded staleness, or a
 `core.faults.FaultModel` with per-receiver surrogate replicas for CHOCO,
-BEER and ANQ-NIDS.  Serving pacing and batched lanes come in later
-slices and raise until then.
+BEER and ANQ-NIDS.  Serving pacing (`serve.events.ServePacing`) layers
+the serve-while-train event clock over any of these but a temporal one:
+a node whose request backlog passes its threshold defers its exchange
+that round like a straggler.  Batched lanes come in a later slice and
+raise until then.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from repro_torch.core.mixing import Mixer, make_mixer
 from repro_torch.core.pme import leaf_rates as pme_leaf_rates
 from repro_torch.core.pme import message_bits, tree_message_bits
 from repro_torch.core.topology import Topology
+from repro_torch.serve.events import PacedCarry, ServePacing
 from repro_torch.tree import tree_leaves, tree_map
 
 AnyScenario = Union[scen_mod.Scenario, temp_mod.TemporalScenario]
@@ -142,7 +146,7 @@ class Algorithm:
         seed: int = 0,
         scenario: Optional[AnyScenario] = None,
         faults: Optional[flt_mod.FaultModel] = None,
-        pacing=None,
+        pacing: Optional[ServePacing] = None,
         device=None,
     ) -> "BoundAlgorithm":
         """Close the spec over (grad_fn, topology, hps, mixing) on `device`
@@ -155,14 +159,17 @@ class Algorithm:
         ring (``step(state, batch, k, aux) -> (state, metrics, aux)``,
         `aux_init`).  A non-static `FaultModel` layers message-level
         faults over the (possibly static) base scenario, with the temporal
-        signature; a zero-rate one binds the fault-free program.  Serving
-        pacing is not ported and raises unless static.
+        signature; a zero-rate one binds the fault-free program.  A
+        non-static `ServePacing` threads the serve event clock through the
+        carry too (`PacedCarry`, its ``inner`` slot the fault carry): each
+        round's busy nodes OR into the straggler mask before the weights
+        are built; a zero-rate pacing binds the unpaced program, bit for
+        bit, and pacing on a `TemporalScenario` raises.
         """
-        if pacing is not None and not getattr(pacing, "is_static", False):
-            raise NotImplementedError("pacing= not yet ported to repro_torch")
         for what, obj, kinds in (("scenario", scenario, (scen_mod.Scenario,
                                                          temp_mod.TemporalScenario)),
-                                 ("faults", faults, (flt_mod.FaultModel,))):
+                                 ("faults", faults, (flt_mod.FaultModel,)),
+                                 ("pacing", pacing, (ServePacing,))):
             if obj is not None and not isinstance(obj, kinds):
                 raise NotImplementedError(
                     f"{what}={type(obj).__name__} is not a repro_torch "
@@ -182,17 +189,20 @@ class Algorithm:
                           extras=extras)
         if faults is not None and faults.is_static:
             faults = None  # zero-rate model == the fault-free program
-        if faults is not None:
+        if pacing is not None and pacing.is_static:
+            pacing = None  # zero-rate process == the unpaced program
+        if faults is not None or pacing is not None:
             if isinstance(scenario, temp_mod.TemporalScenario):
+                what = "faults" if faults is not None else "pacing"
                 raise NotImplementedError(
-                    "faults cannot stack on a TemporalScenario: fold the "
+                    f"{what} cannot stack on a TemporalScenario: fold the "
                     "staleness into FaultModel(delay=..., max_delay=...) "
                     "and the link/node dynamics into a base Scenario"
                 )
             base = scenario if scenario is not None else scen_mod.Scenario(name="static")
             return BoundAlgorithm(self, ctx, dev, scenario=base,
                                   scen_arrays=scen_mod.make_scenario_arrays(topo, base),
-                                  mixing_mode=mixing, faults=faults)
+                                  mixing_mode=mixing, faults=faults, pacing=pacing)
         if scenario is not None and not scenario.is_static:
             return BoundAlgorithm(self, ctx, dev, scenario=scenario,
                                   scen_arrays=scen_mod.make_scenario_arrays(topo, scenario),
@@ -212,12 +222,13 @@ class BoundAlgorithm:
 
     Without a dynamic scenario, ``step(state, batch)`` is a plain closure
     the engine runs.  A dynamic `Scenario` makes it ``step(state, batch,
-    k)``; a `TemporalScenario` or a `FaultModel` ``step(state, batch, k,
-    aux) -> (state, metrics, aux)`` with the carry of `aux_init`.  Every
-    form takes ``draws=`` (keys "scenario", "temporal", "faults": the
-    uniforms of `scenarios.sample_masks`, `temporal.advance` and
-    `faults.advance_faults`; "algo": the algorithm step's own draws),
-    which is how the parity tests feed it the JAX package's.
+    k)``; a `TemporalScenario`, a `FaultModel` or a `ServePacing`
+    ``step(state, batch, k, aux) -> (state, metrics, aux)`` with the carry
+    of `aux_init`.  Every form takes ``draws=`` (keys "scenario",
+    "temporal", "faults", "pacing": the draws of `scenarios.sample_masks`,
+    `temporal.advance`, `faults.advance_faults` and `ServePacing.advance`;
+    "algo": the algorithm step's own draws), which is how the parity tests
+    feed it the JAX package's.
 
     The realizations are built on the host (`core.scenarios`), so the
     wrappers know which nodes are dropped or delayed without reading the
@@ -232,7 +243,8 @@ class BoundAlgorithm:
                  scenario: Optional[AnyScenario] = None,
                  scen_arrays: Optional[scen_mod.ScenarioArrays] = None,
                  mixing_mode: str = "sparse",
-                 faults: Optional[flt_mod.FaultModel] = None):
+                 faults: Optional[flt_mod.FaultModel] = None,
+                 pacing: Optional[ServePacing] = None):
         self.spec = spec
         self.ctx = ctx
         self.device = device
@@ -242,6 +254,8 @@ class BoundAlgorithm:
         self._mixing_mode = mixing_mode
         self.faults = faults
         self.fault_key = None if faults is None else int(faults.seed)
+        self.pacing = pacing
+        self.pace_key = None if pacing is None else int(pacing.process.seed)
 
     @property
     def name(self) -> str:
@@ -266,8 +280,14 @@ class BoundAlgorithm:
         return self.faults is not None
 
     @property
+    def paced(self) -> bool:
+        """True when a non-static ServePacing is bound (the step threads the
+        event clock through the carry)."""
+        return self.pacing is not None
+
+    @property
     def carries_aux(self) -> bool:
-        return self.temporal or self.faulty
+        return self.temporal or self.faulty or self.paced
 
     @property
     def params_of(self) -> Callable:
@@ -283,11 +303,18 @@ class BoundAlgorithm:
     def aux_init(self, state, *, u: Optional[dict] = None):
         """The initial carry: a `FaultCarry` for a fault bind, a
         `TemporalCarry` (stationary Markov draws, the staleness ring seeded
-        with the state's parameters) for a temporal one.  ``u`` injects the
-        stationary draws."""
+        with the state's parameters) for a temporal one, and for a paced
+        one a `PacedCarry` of a fresh event clock around the fault carry
+        (None without faults).  ``u`` injects the stationary draws."""
+        inner = None
         if self.faulty:
-            return flt_mod.fault_carry_init(self.faults, self.scen_arrays,
-                                            self.spec.params_of(state), self.fault_key, u=u)
+            inner = flt_mod.fault_carry_init(self.faults, self.scen_arrays,
+                                             self.spec.params_of(state), self.fault_key, u=u)
+        if self.paced:
+            return PacedCarry(events=self.pacing.init(self.scen_arrays.m, self.pace_key),
+                              inner=inner)
+        if inner is not None:
+            return inner
         if not self.temporal:
             raise TypeError(f"{self.name} is not bound to a TemporalScenario")
         return temp_mod.temporal_carry_init(self.scenario, self.scen_arrays,
@@ -312,9 +339,22 @@ class BoundAlgorithm:
                 "step(state, batch, k) needs the global step index"
             )
         if self.carries_aux and aux is None:
-            what = "FaultCarry" if self.faulty else "TemporalCarry"
+            what = ("PacedCarry" if self.paced else "FaultCarry" if self.faulty
+                    else "TemporalCarry")
             raise TypeError(f"{self.name}: step(state, batch, k, aux) needs the {what} "
                             "(see aux_init)")
+        if self.paced:
+            new_ev, busy, ev_metrics = self.pacing.advance(aux.events, int(k),
+                                                           u=draws.get("pacing"))
+            if self.faulty:
+                new_state, metrics, new_inner = self._fault_step(
+                    state, batch, int(k), aux.inner, draws, extra_straggler=busy)
+            else:
+                new_state, metrics = self._dynamic_step(state, batch, int(k), draws,
+                                                        extra_straggler=busy)
+                new_inner = None
+            metrics.update(ev_metrics)
+            return new_state, metrics, PacedCarry(new_ev, new_inner)
         if self.faulty:
             return self._fault_step(state, batch, int(k), aux, draws)
         if self.temporal:
@@ -412,11 +452,18 @@ class BoundAlgorithm:
         return scen_mod.restore_rows(frozen, new_state), metrics
 
     # -- the three step wrappers ------------------------------------------
-    def _dynamic_step(self, state, batch, k: int, draws: dict):
+    def _dynamic_step(self, state, batch, k: int, draws: dict,
+                      extra_straggler: Optional[torch.Tensor] = None):
         """One step under the bound i.i.d. scenario: step k's realization,
         its mixer in the context, dropped nodes' state restored, realized
-        edges charged on the wire."""
-        r = scen_mod.realize(self.scenario, self.scen_arrays, k, u=draws.get("scenario"))
+        edges charged on the wire.  ``extra_straggler`` (the pacing layer's
+        busy mask) ORs into the scenario's straggler draw before the weights
+        are built."""
+        edge_up, alive, straggler = scen_mod.sample_masks(
+            self.scenario, self.scen_arrays, k, u=draws.get("scenario"))
+        if extra_straggler is not None:
+            straggler = straggler | extra_straggler
+        r = scen_mod.realization_from_masks(self.scen_arrays, edge_up, alive, straggler)
         ctx_t = self._ctx(self._mixer(r), {**self.ctx.extras, "realization": r}, draws)
         frozen = scen_mod.dropped_rows(r.alive, state)
         new_state, metrics = self.spec.step(state, batch, ctx_t)
@@ -446,16 +493,20 @@ class BoundAlgorithm:
         metrics = self._realized_metrics(r, state, metrics)
         return new_state, metrics, temp_mod.TemporalCarry(new_ts, aux.ring)
 
-    def _fault_step(self, state, batch, k: int, aux: flt_mod.FaultCarry, draws: dict):
-        """One step under the bound FaultModel: the base scenario's masks,
-        the fault transition and per-direction losses, per-receiver
-        renormalized weights for direct parameter mixing, the replicated
-        step (``rep_step``) where the algorithm has one, PaME's delivery
-        masks, delayed delivery through the ring as on the temporal path,
-        and crashed nodes frozen."""
+    def _fault_step(self, state, batch, k: int, aux: flt_mod.FaultCarry, draws: dict,
+                    extra_straggler: Optional[torch.Tensor] = None):
+        """One step under the bound FaultModel: the base scenario's masks
+        (a paced bind's busy nodes added to the stragglers), the fault
+        transition and per-direction losses, per-receiver renormalized
+        weights for direct parameter mixing, the replicated step
+        (``rep_step``) where the algorithm has one, PaME's delivery masks,
+        delayed delivery through the ring as on the temporal path, and
+        crashed nodes frozen."""
         fm = self.faults
         edge_up, alive, straggler = scen_mod.sample_masks(
             self.scenario, self.scen_arrays, k, u=draws.get("scenario"))
+        if extra_straggler is not None:
+            straggler = straggler | extra_straggler
         new_fs, fr = flt_mod.advance_faults(fm, self.scen_arrays, aux.fs, self.fault_key, k,
                                             edge_up, alive, straggler, u=draws.get("faults"))
         r = fr.base
@@ -517,8 +568,8 @@ class BoundAlgorithm:
         def run(key, params0, m, batch_fn, num_steps):
             batch_fn = self._batches(batch_fn)
             state, aux = self._start(key, params0, m, batch_fn)
-            state, metrics, info = runner(state, batch_fn, num_steps, copy_state=False,
-                                          aux=aux)
+            box, state = engine.Donated(state), None  # freed after the first step
+            state, metrics, info = runner(box, batch_fn, num_steps, aux=aux)
             history = {k: [float(v) for v in vals] for k, vals in metrics.items()
                        if k != "stale_hist"}
             if "stale_hist" in metrics:

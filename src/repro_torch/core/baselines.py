@@ -463,6 +463,7 @@ _OPTIONAL_METRICS = (
     "wire_bits", "alive_nodes", "stale_nodes",
     "col_defect", "mean_drift", "dropped_msgs", "crashed_nodes",
     "repair_bits", "surrogate_desync",
+    "queue_depth", "served_reqs", "deferred_nodes",
     "comp_consensus", "comp_mean_gap",
 )
 

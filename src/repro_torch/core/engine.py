@@ -21,6 +21,12 @@ keeps what made the scan cheap:
   * a step may update its input state in place (the baselines do, as
     JAX's scan donates its carry); under the stop rule the engine hands
     the step a clone, so the frozen state survives the steps after it;
+  * ``run(Donated(state), ...)`` donates the state as JAX's runner does:
+    the caller drops its own names for the state first, the runner takes
+    the only reference, and the input tensors that the first step's
+    outputs do not hold are freed when it returns, so that a chunk of
+    several steps holds one state, not two.  Nothing is freed under the
+    caller's feet: a view of the state kept elsewhere keeps its storage;
   * ``carries_aux=True`` threads an auxiliary carry (the temporal or
     fault Markov state and the staleness ring) through the steps, frozen
     by the same select.
@@ -39,7 +45,7 @@ import torch
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 __all__ = ["make_scan_runner", "run_scan_loop", "history_from", "staleness_hist",
-           "DEFAULT_CHUNK_SIZE"]
+           "Donated", "DEFAULT_CHUNK_SIZE"]
 
 DEFAULT_CHUNK_SIZE = 32
 
@@ -75,6 +81,23 @@ def _select(pred: torch.Tensor, on_true, on_false):
         lambda t, f: torch.where(pred, t, f) if _on(f, pred.device) else f,
         on_true, on_false,
     )
+
+
+class Donated:
+    """A state handed to a runner for good: ``box, state = Donated(state),
+    None`` and then ``run(box, ...)``.  The runner takes the state out of
+    the box (once), so its reference is the only one left."""
+
+    __slots__ = ("_state",)
+
+    def __init__(self, state):
+        self._state = state
+
+    def take(self):
+        state, self._state = self._state, None
+        if state is None:
+            raise ValueError("a Donated state is taken once")
+        return state
 
 
 def _clone(state):
@@ -139,14 +162,17 @@ def make_scan_runner(
     one comes back in ``info["aux"]``.  ``copy_state=True`` clones the
     caller's state (and carry) first, so a step that updates its input in
     place cannot touch them; callers that rebind to the returned values
-    pass False.
+    pass False, or hand the state over in a `Donated` box (no clone), so
+    that it is freed after the first step.
     """
 
     def run(state, batch_fn: Callable[[int], object], num_steps: int, *,
             copy_state: bool = True, k_start: int = 0, aux=None):
         if carries_aux and aux is None:
             raise ValueError("carries_aux runner needs run(..., aux=aux0)")
-        if copy_state:
+        if isinstance(state, Donated):
+            state = state.take()
+        elif copy_state:
             state, aux = _clone(state), _clone(aux)
         done = win = dev = None
         keys: list = []
@@ -168,7 +194,7 @@ def make_scan_runner(
                 else:
                     new_state, metrics = step_fn(*args)
                     new_aux = aux
-                del step_state, step_aux
+                del step_state, step_aux, args
                 ys = dict(metrics)
                 if dev is None:
                     dev = torch.as_tensor(ys["loss_mean"]).device

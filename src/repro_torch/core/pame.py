@@ -328,9 +328,10 @@ def make_pame_runner(
     )
 
     def run(key, params0, m, batch_fn, num_steps):
-        state = pame_init(key, _stack_params(_on(dev, params0), m), m, cfg)
-        # the state was built here, so the runner may own it outright
-        state, metrics, info = runner(state, batch_fn, num_steps, copy_state=False)
+        # the state is built here, so the runner owns it outright
+        state, metrics, info = runner(
+            engine.Donated(pame_init(key, _stack_params(_on(dev, params0), m), m, cfg)),
+            batch_fn, num_steps)
         history = engine.history_from(metrics, info, {
             "loss": "loss_mean",
             "objective": "objective",

@@ -391,6 +391,11 @@ def active_components(arrays: ScenarioArrays, k: int) -> torch.Tensor:
     return torch.zeros(arrays.m, dtype=torch.int32, device=arrays.nbrs.device)
 
 
+# columns of a leaf `component_stats` takes at a time: a [5, 2^24] f32 block
+# is 320 MB, where a whole full-width leaf would be 5.5 GB
+STATS_COLS = 1 << 24
+
+
 def _component_sums(comp: torch.Tensor, x: torch.Tensor, n_comp: int):
     """(Σ_i ||x_i − x̄_comp(i)||², [C] ||x̄_c − x̄||², [C] counts) of one
     [m, n] block, in f32."""
@@ -410,12 +415,14 @@ def component_stats(comp: torch.Tensor, x, n_comp: int) -> Tuple[torch.Tensor, t
     disagreement) and the largest ||x̄_c − x̄_global||₂ over non-empty
     components (the drift a split builds up).  ``x`` is one [m, n] matrix,
     as in JAX, or a list of [m, ...] leaves, whose sums are accumulated
-    leaf by leaf so that no concatenated copy is made (equal to the
+    leaf by leaf and STATS_COLS columns at a time, so that neither a
+    concatenated copy nor an f32 copy of a whole leaf is made (equal to the
     concatenated form up to the order of the f32 additions)."""
-    blocks = [x] if isinstance(x, torch.Tensor) else list(x)
-    m = blocks[0].shape[0]
+    leaves = [x] if isinstance(x, torch.Tensor) else list(x)
+    m = leaves[0].shape[0]
     within = gap2 = counts = None
-    for b in blocks:
+    for b in (blk for leaf in leaves
+              for blk in leaf.reshape(m, -1).split(STATS_COLS, dim=1)):
         w, g, c = _component_sums(comp, b, n_comp)
         within = w if within is None else within + w
         gap2 = g if gap2 is None else gap2 + g

@@ -14,7 +14,10 @@ dynamic-network flags: ``--scenario`` and ``--churn`` / ``--straggler`` /
 ``--edge-drop`` (i.i.d.), ``--burst`` / ``--session`` / ``--staleness`` /
 ``--resample`` / ``--mobility-keep`` (Markov dynamics and bounded
 staleness), ``--loss-rate`` / ``--loss-burst`` / ``--crash`` /
-``--msg-delay`` / ``--no-repair`` (message-level faults).  The checkpoint,
+``--msg-delay`` / ``--no-repair`` (message-level faults).  ``--ckpt-dir``
+saves the state (with the auxiliary carry and the realized wire bits)
+every ``--ckpt-every`` steps and resumes from the newest intact step
+(`repro_torch.checkpoint`, the JAX package's format); the
 compilation-cache and multi-seed flags raise "not yet ported".  Steps run
 through `repro_torch.core.engine` in ``--chunk``-step chunks with one host
 sync per chunk; gossip goes through the sparse neighbour exchange by
@@ -26,12 +29,14 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.core import engine
 from repro_torch.core.algorithms import (
@@ -52,8 +57,9 @@ from repro_torch.data.synthetic import SyntheticTokens
 from repro_torch.models.model import init_params, train_loss
 from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 
-# flags whose non-default values select code the port does not have yet
-_NOT_PORTED = (("seeds", 1), ("ckpt_dir", None), ("compile_cache", None))
+# flags whose non-default values select code the port does not have yet:
+# batched seed lanes and the compilation cache
+_NOT_PORTED = (("seeds", 1), ("compile_cache", None))
 
 
 def _hps_from_args(name: str, args):
@@ -153,14 +159,11 @@ def _faults_from_args(args):
     )
 
 
-def make_lm_task(cfg, m: int, batch: int, seq: int, seed: int, topology: str,
-                 device: torch.device):
-    """The LM workload of the CLI: (topology, params0, grad_fn, make_batch).
-
-    The corpus, topology and batch windows are the JAX CLI's (numpy, same
-    seeds); the initial weights are drawn by torch from `seed`.
-    """
-    topo = build_topology(topology, m, p=0.5, seed=seed)
+def lm_batch_fn(cfg, m: int, batch: int, seq: int, seed: int, device: torch.device):
+    """Per-node LM batches for m nodes: ``make_batch(step) -> {"tokens":
+    [m, batch, seq]}``, the JAX CLI's corpus and windows (numpy, same
+    seeds).  The corpus draws node shards in order, so the first m shards
+    are the same for any larger m (incumbents keep their data at a join)."""
     corpus = SyntheticTokens.make(m, 65536, cfg.vocab, seed=seed)
     node_ids = np.arange(m)[:, None, None]
     offsets = np.arange(seq)
@@ -171,6 +174,12 @@ def make_lm_task(cfg, m: int, batch: int, seq: int, seed: int, topology: str,
         toks = corpus.tokens[node_ids, starts[..., None] + offsets]
         return {"tokens": torch.as_tensor(toks, dtype=torch.int64, device=device)}
 
+    return make_batch
+
+
+def lm_grad_fn(cfg):
+    """``grad_fn(params, batch, key) -> (loss, grads)`` of one node's LM loss."""
+
     def grad_fn(p, b, key):
         del key
         leaves, treedef = tree_flatten(p)
@@ -178,8 +187,25 @@ def make_lm_task(cfg, m: int, batch: int, seq: int, seed: int, topology: str,
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), tree_unflatten(treedef, list(grads))
 
+    return grad_fn
+
+
+def make_lm_task(cfg, m: int, batch: int, seq: int, seed: int, topology: str,
+                 device: torch.device):
+    """The LM workload of the CLI: (topology, params0, grad_fn, make_batch).
+
+    The corpus, topology and batch windows are the JAX CLI's (numpy, same
+    seeds); the initial weights are drawn by torch from `seed`.
+    """
+    topo = build_topology(topology, m, p=0.5, seed=seed)
+    make_batch = lm_batch_fn(cfg, m, batch, seq, seed, device)
     params0 = init_params(seed, cfg, device=device)
-    return topo, params0, grad_fn, make_batch
+    return topo, params0, lm_grad_fn(cfg), make_batch
+
+
+def dir_bytes(path: str) -> int:
+    """Bytes of the files under a checkpoint step directory."""
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
 
 
 def build_everything(args):
@@ -299,11 +325,43 @@ def make_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _resume(args, state, aux, carries_aux: bool):
+    """(state, aux, start step, realized wire bits or None, restore record)
+    from the newest checkpoint under --ckpt-dir, as the JAX CLI resumes:
+    the payload carries the auxiliary carry and the cumulative realized
+    wire bits; a legacy payload without the bits restores too."""
+    os.makedirs(args.ckpt_dir, exist_ok=True)
+    last = latest_step(args.ckpt_dir)
+    if last is None:
+        return state, aux, 0, None, None
+    t0 = time.perf_counter()
+    payload = {"state": state, "cum_bits": np.zeros((), np.float64)}
+    if carries_aux:
+        payload["aux"] = aux
+    resumed_bits = None
+    try:
+        restored = restore_checkpoint(args.ckpt_dir, payload, last)
+        resumed_bits = float(restored["cum_bits"])
+    except ValueError:
+        # legacy checkpoint (no cum_bits leaf): the old payload's shape
+        if carries_aux:
+            restored = restore_checkpoint(args.ckpt_dir, {"state": state, "aux": aux}, last)
+        else:
+            restored = {"state": restore_checkpoint(args.ckpt_dir, state, last)}
+    record = {"step": last, "seconds": time.perf_counter() - t0,
+              "bytes": dir_bytes(os.path.join(args.ckpt_dir, f"step_{last:09d}"))}
+    print(f"[train] resumed from step {last}")
+    return restored["state"], restored.get("aux") if carries_aux else None, last, \
+        resumed_bits, record
+
+
 def main(argv=None) -> dict:
     """Run the CLI; returns {"loss": per-step mean loss, "seconds": wall
-    seconds of each chunk, "steps": steps run, "metrics": every per-step
-    metric by name, "staleness_hist": the run's histogram or None} for
-    callers such as the chip smoke."""
+    seconds of each chunk, "steps": the step reached, "start": the step it
+    resumed from (0 without a checkpoint), "metrics": every per-step metric
+    by name, "staleness_hist": the run's histogram or None, "checkpoints":
+    each save's step, seconds and bytes, "restore": the resume's, or None}
+    for callers such as the chip smoke."""
     args = make_parser().parse_args(argv)
     cfg, bound, state, make_batch, n_params, params0 = build_everything(args)
     wire_per_step = bound.wire_bits_for(params0)
@@ -327,23 +385,29 @@ def main(argv=None) -> dict:
     )
     del params0
     aux = bound.aux_init(state) if bound.carries_aux else None
+    start, resumed_bits, restore = 0, None, None
+    if args.ckpt_dir:
+        state, aux, start, resumed_bits, restore = _resume(args, state, aux,
+                                                           bound.carries_aux)
     runner = engine.make_scan_runner(bound.step, chunk_size=args.chunk,
                                      step_takes_index=bound.dynamic,
                                      carries_aux=bound.carries_aux)
     log_every = max(args.log_every or args.chunk, 1)
     t0 = time.time()
-    k = 0
-    cum_bits = 0.0
+    k = start
+    # the realized bits of the resumed steps, else the static estimate
+    cum_bits = resumed_bits if resumed_bits is not None else wire_per_step * start
     stale_hist = None
-    out = {"loss": [], "seconds": [], "steps": 0, "metrics": {}, "staleness_hist": None}
+    next_ckpt = (start // args.ckpt_every + 1) * args.ckpt_every
+    out = {"loss": [], "seconds": [], "steps": 0, "start": start, "metrics": {},
+           "staleness_hist": None, "checkpoints": [], "restore": restore}
     while k < args.steps:
         length = min(args.chunk, args.steps - k)
         k0 = k
         tc = time.time()
         # k_start keeps batches and realizations aligned with the global step
-        state, metrics, info = runner(
-            state, make_batch, length, copy_state=False, k_start=k0, aux=aux
-        )
+        box, state = engine.Donated(state), None  # freed after the chunk's first step
+        state, metrics, info = runner(box, make_batch, length, k_start=k0, aux=aux)
         aux = info["aux"]
         out["seconds"].append(time.time() - tc)
         out["loss"].extend(float(v) for v in metrics["loss_mean"])
@@ -372,9 +436,18 @@ def main(argv=None) -> dict:
             print(
                 f"[train] step={k} loss={loss:.4f}{extra}"
                 f" wire_gbits={cum_bits/1e9:.4f}"
-                f" ({(time.time()-t0)/k:.2f}s/step)",
+                f" ({(time.time()-t0)/(k-start):.2f}s/step)",
                 flush=True,
             )
+        if args.ckpt_dir and k >= next_ckpt:
+            payload = {"state": state, "cum_bits": np.asarray(cum_bits, np.float64)}
+            if bound.carries_aux:
+                payload["aux"] = aux
+            tc = time.perf_counter()
+            step_dir = save_checkpoint(args.ckpt_dir, k, payload)
+            out["checkpoints"].append({"step": k, "seconds": time.perf_counter() - tc,
+                                       "bytes": dir_bytes(step_dir)})
+            next_ckpt = (k // args.ckpt_every + 1) * args.ckpt_every
     out["steps"] = k
     if stale_hist is not None:
         out["staleness_hist"] = stale_hist.tolist()

@@ -116,18 +116,27 @@ class ServeLoop:
 
     def serve_node(self, params_node) -> Dict[str, object]:
         """One decode batch against a single node's parameters: prefill and
-        decode wall-clock, decode tokens/s (batch x decode steps / wall) and
-        the [batch, gen] tokens (numpy)."""
+        decode wall-clock, decode tokens/s (batch x decode steps / wall), the
+        [batch, gen] tokens (numpy) and whether every prefill and decode
+        logit was finite (kept on the device, read with the tokens)."""
         batch = self.make_batch()
         with torch.inference_mode():
             self._sync()
             t0 = time.perf_counter()
             logits, caches = self._pf(params_node, batch)
             tok = torch.argmax(logits, -1).to(torch.int32)
+            finite = torch.isfinite(logits).all()
             self._sync()
             t_prefill = time.perf_counter() - t0
+
+            def dc(params, tok, pos, caches):
+                nonlocal finite
+                logits, caches = self._dc(params, tok, pos, caches)
+                finite = finite & torch.isfinite(logits).all()
+                return logits, caches
+
             t0 = time.perf_counter()
-            out = decode_greedy(self._dc, params_node, tok, caches, self.prompt_len, self.gen)
+            out = decode_greedy(dc, params_node, tok, caches, self.prompt_len, self.gen)
             out = out.cpu().numpy()
             t_decode = time.perf_counter() - t0
         n_decoded = self.batch * (self.gen - 1)
@@ -136,6 +145,7 @@ class ServeLoop:
             "decode_ms": t_decode * 1e3,
             "tokens_per_s": n_decoded / max(t_decode, 1e-9),
             "tokens": out,
+            "logits_finite": bool(finite),
         }
 
     def serve_round(self, params_stacked, node_ids: Optional[Sequence[int]] = None,

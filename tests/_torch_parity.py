@@ -8,6 +8,7 @@ port as injected draws.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.core import pme as jpme
@@ -185,15 +186,27 @@ def _close(got, want, rtol, atol, msg):
                                np.asarray(want, np.float64), rtol=rtol, atol=atol, err_msg=msg)
 
 
+def jax_pacing_draws(pacing, es, k):
+    """The draws `repro.serve.events.ServePacing.advance` makes at round k
+    from the event clock `es`: the burst chain's uniforms, from
+    split(fold_in(key, k))[0], and the round's Poisson arrivals (read off
+    the JAX clock's cumulative count)."""
+    k_mod, _ = jax.random.split(jax.random.fold_in(es.key, jnp.asarray(k, jnp.int32)))
+    new_es = pacing.advance(es, jnp.asarray(k, jnp.int32))[0]
+    return {"mod": to_t(jax.random.uniform(k_mod, (es.queue.shape[0],))),
+            "arrivals": to_t(np.asarray(new_es.arrived) - np.asarray(es.arrived))}
+
+
 def bound_parity(name, jbound, tbound, jstacked, tstacked, jbatch, tbatch, steps,
                  rtol=1e-5, atol=1e-6, key=None, tkey=0):
     """`steps` bound steps of JAX's and the port's `BoundAlgorithm` (static,
-    dynamic, temporal or faulty) from the same stacked parameters, with
-    JAX's network draws (scenario, temporal, fault uniforms, stationary
-    initial draws) and the algorithm's own draws (PaME's realized
-    selection and masks, the baselines' compression uniforms) injected
-    into the port.  After each step every state leaf and every metric the
-    JAX step reports are compared (rtol, atol).  Returns the per-step
+    dynamic, temporal, faulty or paced) from the same stacked parameters,
+    with JAX's network draws (scenario, temporal, fault uniforms,
+    stationary initial draws, the event clock's draws) and the algorithm's
+    own draws (PaME's realized selection and masks, the baselines'
+    compression uniforms) injected into the port.  After each step every
+    state leaf and every metric the JAX step reports are compared (rtol,
+    atol), and a paced bind's event clocks exactly.  Returns the per-step
     (JAX metrics, port metrics)."""
     from repro.core import faults as jflt
     from repro.core import scenarios as jscen
@@ -203,28 +216,39 @@ def bound_parity(name, jbound, tbound, jstacked, tstacked, jbatch, tbatch, steps
     sj = jbound.init(key, jstacked, jbatch)
     st = tbound.init(tkey, tstacked, tbatch)
     arr = jbound.scen_arrays
+    paced = getattr(jbound, "paced", False)
     aj = at = None
     if jbound.carries_aux:
         aj = jbound.aux_init(sj)
         d = arr.nbrs.shape[1]
         u0 = (jax_fault_init_draws(jbound.fault_key, arr.m, d) if jbound.faulty
-              else jax_temporal_init_draws(arr))
+              else None if paced else jax_temporal_init_draws(arr))
         at = tbound.aux_init(st, u=u0)
     out = []
     for k in range(steps):
-        draws, jr = {}, None
+        draws, jr, busy = {}, None, None
         kk = jnp.asarray(k, jnp.int32)
+        if paced:
+            draws["pacing"] = jax_pacing_draws(jbound.pacing, aj.events, k)
+            busy = jbound.pacing.advance(aj.events, kk)[1]
         if jbound.faulty:
             draws["scenario"] = jax_scenario_draws(arr, k)
             draws["faults"] = jax_fault_draws(jbound.fault_key, k, arr.m, arr.nbrs.shape[1])
-            masks = jscen.sample_masks(jbound.scenario, arr, kk)
-            jr = jflt.advance_faults(jbound.faults, arr, aj.fs, jbound.fault_key, kk, *masks)[1].base
+            edge_up, alive, strag = jscen.sample_masks(jbound.scenario, arr, kk)
+            if busy is not None:
+                strag = strag | busy
+            fs = (aj.inner if paced else aj).fs
+            jr = jflt.advance_faults(jbound.faults, arr, fs, jbound.fault_key, kk,
+                                     edge_up, alive, strag)[1].base
         elif jbound.temporal:
             draws["temporal"] = jax_temporal_draws(jbound.scenario, arr, k)
             jr = jtemp.advance(jbound.scenario, arr, aj.ts, kk)[1]
         elif jbound.dynamic:
             draws["scenario"] = jax_scenario_draws(arr, k)
-            jr = jscen.realize(jbound.scenario, arr, kk)
+            edge_up, alive, strag = jscen.sample_masks(jbound.scenario, arr, kk)
+            if busy is not None:
+                strag = strag | busy
+            jr = jscen.realization_from_masks(arr, edge_up, alive, strag)
         if name == "pame":
             draws["algo"] = jax_step_draws(sj.key, int(sj.step), sj.params,
                                            jbound.ctx.extras["topo_arrays"], jbound.ctx.hps,
@@ -250,6 +274,11 @@ def bound_parity(name, jbound, tbound, jstacked, tstacked, jbatch, tbatch, steps
             assert mk in mt, f"{name} step {k}: metric {mk} missing"
             _close(torch.as_tensor(mt[mk]), w, max(rtol, 1e-5), max(atol, 1e-5),
                    f"{name} step {k} metric {mk}")
+        if paced:
+            for field in ("hi", "queue", "arrived", "served", "wait"):
+                np.testing.assert_array_equal(to_np(getattr(at.events, field)),
+                                              np.asarray(getattr(aj.events, field)),
+                                              err_msg=f"{name} step {k} events.{field}")
         out.append((mj, mt))
     return out
 
@@ -413,3 +442,15 @@ def check_fixed_point(name, bound, state, params0, per_node):
         if name in per_node:
             torch.testing.assert_close(out[key], ref.expand_as(out[key]), rtol=0,
                                        atol=inv_atol(name))
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch's intra-op threads at 1 for a module of small CPU runs, restored
+    after: the suite runs several workers at once, and OpenMP threads that
+    wait on each other across busy cores made the smoke CLI runs 10-30x
+    slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -165,10 +165,10 @@ def test_registry_bind_and_wire_bits_match_jax():
 
 
 def test_not_ported_options_raise():
-    """What the port still lacks raises "not yet ported" (mesh shardings,
-    serving pacing); the combinations JAX refuses raise as JAX's do
-    (message-only delay on the compressed exchange, delivery masks without
-    the padded selection)."""
+    """What the port still lacks raises "not yet ported" (mesh shardings);
+    a pacing that is not the port's `ServePacing` raises; the combinations
+    JAX refuses raise as JAX's do (message-only delay on the compressed
+    exchange, delivery masks without the padded selection)."""
     cfg = tpame.PaMEConfig(exchange="compressed")
     ta = tpame.make_topology_arrays(tbuild("ring", 4), cfg, device="cpu")
     st = tpame.pame_init(0, torch.zeros(4, 3), 4, cfg)
@@ -179,7 +179,7 @@ def test_not_ported_options_raise():
     with pytest.raises(NotImplementedError, match="mixing='sparse'"):
         tpame.pame_step(st, None, t_grad, ta, tpame.PaMEConfig(),
                         delivered=torch.ones(4, 2, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(NotImplementedError, match="ServePacing"):
         talg.get_algorithm("pame").bind(t_grad, tbuild("ring", 4), device="cpu",
                                         pacing=object())
     with pytest.raises(ValueError, match="p_leaf"):
