@@ -107,7 +107,28 @@ non-zero without the final result line:
      PaME and D-PSGD step (node 1 deferred) through the kernel and the
      plain routes (0 ulps), `retire_state` and `expand_state` on the card
      against the CPU (within one bf16 ulp);
- 14. the kernel table line, then the result line.
+ 14. path H: batched seed and config lanes — H1 the trainer CLI with
+     --seeds 2 on path A's model at full width and 12 layers (kappa_i = 2, so
+     that step 2's exchange separates the lanes): 11 f32 gossip launches a
+     step for both lanes, finite losses that differ, peak under 80 GB; H2
+     Example 3 as the JAX heterogeneity bench runs it (the CNN, C = 7,
+     PaME through `bind_batched` with the sparse exchange) at L = 1 and
+     L = 5 seeds, 80 steps each: gossip launches a step equal at both,
+     held-out accuracy of every lane's node-mean model at least 0.5,
+     `lane_finals`, 5 profiled steps of each, then 10 steps of the same
+     grid under a dynamic network at L = 1 and 5 (each lane steps alone:
+     6·L gossip launches a step); H3 ResNet-20 under
+     Dirichlet(0.3) through `bind_batched(seeds=range(5), mixing="dense")`:
+     5 PME-average launches a step, all with the lane axis, losses that
+     fall in every lane; parity phase H: one batched step of 2 lanes
+     through the kernels against each lane unbatched (0 ulps) for PaME
+     sparse, PaME dense exact and D-PSGD bf16 at full width and 2 layers
+     and for the CNN, the same step through the plain routes (phases 5 and
+     8's tolerance), and a NaN lane leaving the other bit-equal.  Phase 2
+     times the lane forms: the PME average's lane axis at [2, 4,
+     276,824,064] bf16 and [5, 4, 36,864] f32, the gossip kernel on the
+     lane-offset table at H1's embedding, [8, 205,520,896] f32;
+ 15. the kernel table line, then the result line.
 
 Exits non-zero with no result when no CUDA device is present, or when the
 port's sources are not beside this script.
@@ -449,6 +470,142 @@ def check_pme(dev):
     return row, row_fc1
 
 
+def check_lanes(dev):
+    """The lane forms at path H's shapes.  PME average with its lane axis
+    at [2, 4, BIG_N] bf16 (path B's leaf, 2 lanes) and at H3's largest
+    leaf [5, 4, 36,864] f32; the gossip kernel on the lane-offset table of
+    2 lanes of path A's graph, [8, H1_LEAF_N] f32, PaME's two walks (H1's
+    largest leaf, the embedding).  Each against its plain version (the PME average's lane
+    loop, the dense scatter product) and, lane by lane, against one
+    single-lane launch (bit-equal).  Library: the lane-batched einsum
+    (PME) and one batched matmul a term over the lanes' [m, m] scatter
+    matrices (gossip).  Bound: L times the bytes of one lane."""
+    import torch
+    from repro_torch.core import pme
+    from repro_torch.core.topology import build_topology
+    from repro_torch.kernels.gossip.ops import gather_terms_kernel
+    from repro_torch.kernels.gossip.ref import gather_terms_ref
+    from repro_torch.kernels.pme_average.kernel import pme_average_cuda
+    from repro_torch.kernels.pme_average.ref import pme_average_ref
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows = {}
+
+    def pme_case(name, w, masks, a, reps):
+        lanes, m, n = w.shape
+        got = pme_average_cuda(w, masks, a)
+        plain = pme_average_ref(w, masks.to(w.dtype), a)
+        torch.cuda.synchronize()
+        row = {"kernel": "pme_average", "variant": "lanes", "case": name, "lanes": lanes,
+               "m": m, "n": n, "dtype": str(w.dtype),
+               "max_abs_err": (got.float() - plain.float()).abs().max().item(),
+               "lanes_bit_equal_single": all(torch.equal(got[lane], pme_average_cuda(
+                   w[lane], masks[lane], a[lane])) for lane in range(lanes))}
+        if w.dtype == torch.float32:
+            ok = row["max_abs_err"] <= 1e-6 * max(1.0, plain.abs().max().item())
+        else:
+            row["bf16_ulps"] = bf16_ulps(got, plain)
+            ok = row["bf16_ulps"] <= 1.0
+        del got, plain
+        free()
+        if not (ok and row["lanes_bit_equal_single"]):
+            emit(**row)
+            fail(f"pme_average lane axis disagrees ({name})")
+        row["ms"] = time_ms(lambda: pme_average_cuda(w, masks, a), reps)
+        row["plain_ms"] = time_ms(lambda: pme_average_ref(w, masks.to(w.dtype), a), reps)
+
+        def library():  # the einsum form with the lane axis
+            wm = torch.where(masks, w, 0)
+            at = a.to(w.dtype)
+            agg = torch.einsum("ljn,lji->lin", wm, at)
+            cnt = torch.einsum("ljn,lji->lin", masks.to(w.dtype), at)
+            return torch.where(cnt > 0, agg / cnt.clamp(min=1), w)
+
+        row["library_ms"] = time_ms(library, reps)
+        bytes_ = lanes * (m * n * (2 * w.element_size() + masks.element_size()) + m * m * 4)
+        row["bound_ms"], row["bound_by"] = bound(bytes_, 4 * lanes * m * m * n, F32_FLOPS)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        emit(**row)
+        return row
+
+    # path B's largest leaf, two lanes: bf16 W, exact masks, two selections
+    w = torch.randn((2, M, BIG_N), generator=g, device=dev).to(torch.bfloat16)
+    masks = torch.stack([pme.sample_coordinate_masks(g, M, BIG_N, round(0.2 * BIG_N))
+                         for _ in range(2)])
+    a = torch.zeros((2, M, M), device=dev)
+    a[0, [1, 0, 3, 2], [0, 1, 2, 3]] = 1
+    a[1, [2, 3, 0, 1], [0, 1, 2, 3]] = 1
+    rows["pme_lanes"] = pme_case("path-h-lanes-largest-leaf", w, masks, a, reps=5)
+    del w, masks
+    free()
+    # H3's largest leaf (a stage-3 3x3 conv of ResNet-20), five lanes
+    ta = f3_topology_arrays(dev)
+    comm = torch.ones(M, dtype=torch.bool, device=dev)
+    n3 = 3 * 3 * 64 * 64
+    a = torch.stack([pme.sample_neighbor_selection(g, ta.nbrs, ta.valid, ta.t, comm)
+                     for _ in range(H_SEEDS)])
+    w = torch.randn((H_SEEDS, M, n3), generator=g, device=dev)
+    masks = torch.stack([pme.sample_coordinate_masks(g, M, n3, round(0.3 * n3))
+                         for _ in range(H_SEEDS)])
+    rows["pme_lanes_h3"] = pme_case("path-h3-resnet-conv-5-lanes", w, masks, a, reps=50)
+    del w, masks
+
+    # H1's largest leaf (the embedding at H1_LAYERS layers): PaME's payload
+    # and count walks over 2 lanes of path A's table, folded (every slot of
+    # lane l offset by l·m)
+    lanes = 2
+    nbrs, valid = (torch.as_tensor(v, device=dev) for v in
+                   build_topology("erdos_renyi", M, p=0.5, seed=0).neighbor_matrix_padded())
+    sel = valid.clone()
+    sel[0] = False  # a silent receiver, as between communication rounds
+    fnbrs = torch.cat([nbrs + lane * M for lane in range(lanes)]).to(torch.int32)
+    fsel, fpad = sel.float().repeat(lanes, 1), (~valid).repeat(lanes, 1)
+    mask = torch.rand((lanes * M, H1_LEAF_N), generator=g, device=dev) < 0.2
+    payload = torch.randn((lanes * M, H1_LEAF_N), generator=g, device=dev)
+    payload = payload.to(torch.bfloat16) * mask
+    xs = [payload.float(), mask.float()]
+    del payload, mask
+    terms = [(fsel, x) for x in xs]
+    got = gather_terms_kernel(fnbrs, terms, pad=fpad)
+    plain = gather_terms_ref(fnbrs, terms, pad=fpad)
+    torch.cuda.synchronize()
+    row = {"kernel": "gossip_gather", "variant": "f32_lanes", "case": "path-h1-folded-embedding",
+           "lanes": lanes, "m": lanes * M, "n": H1_LEAF_N, "k": int(nbrs.shape[1]), "terms": 2,
+           "max_abs_err": max((o - p).abs().max().item() for o, p in zip(got, plain)),
+           "tol": 1e-6 * max(1.0, max(p.abs().max().item() for p in plain))}
+    del plain
+    free()
+    row["lanes_bit_equal_single"] = all(
+        torch.equal(o[lane * M:(lane + 1) * M], one)
+        for lane in range(lanes)
+        for o, one in zip(got, gather_terms_kernel(
+            nbrs.to(torch.int32), [(sel.float(), x[lane * M:(lane + 1) * M]) for x in xs],
+            pad=~valid)))
+    del got
+    free()
+    if not (row["max_abs_err"] <= row["tol"] and row["lanes_bit_equal_single"]):
+        emit(**row)
+        fail("gossip kernel on the lane-offset table disagrees with its plain version "
+             "or with one launch a lane")
+    rows_i = torch.arange(M, device=dev)[:, None].expand_as(nbrs)
+    scatter = torch.zeros((M, M), device=dev).index_put_(
+        (rows_i, nbrs.long()), torch.where(~valid, 0.0, sel.float()), accumulate=True)
+    scatter = scatter.expand(lanes, M, M).contiguous()
+    row["ms"] = time_ms(lambda: gather_terms_kernel(fnbrs, terms, pad=fpad), 5)
+    row["plain_ms"] = time_ms(lambda: gather_terms_ref(fnbrs, terms, pad=fpad), 5)
+    row["library_ms"] = time_ms(
+        lambda: [torch.bmm(scatter, x.view(lanes, M, H1_LEAF_N)) for x in xs], 5)
+    bytes_ = 2 * (2 * lanes * M) * H1_LEAF_N * 4 + fnbrs.numel() * 4 + fsel.numel() * 4
+    row["bound_ms"], row["bound_by"] = bound(
+        bytes_, 2 * 2 * lanes * M * nbrs.shape[1] * H1_LEAF_N, F32_FLOPS)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    emit(**row)
+    rows["gossip_f32_lanes"] = row
+    del xs, terms
+    free()
+    return rows
+
+
 def f3_topology_arrays(dev):
     """Path F3's topology arrays: the complete graph on M nodes, EX3_CFG."""
     from repro_torch.core import build_topology, pame
@@ -751,6 +908,8 @@ def _reset_counts():
         fn.launches = 0
         if hasattr(fn, "variant_launches"):
             fn.variant_launches = dict.fromkeys(fn.variant_launches, 0)
+        if hasattr(fn, "lane_launches"):
+            fn.lane_launches = 0
 
 
 def path_d():
@@ -2238,6 +2397,324 @@ def path_g_parity(dev, cfg=None, batch=4, seq=128):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# path H: batched seed and config lanes
+# ---------------------------------------------------------------------------
+# H1: path A's CLI with --seeds 2 at full width and path D's 12 layers: at
+# the full 24 the first step needs about 77 GB of the card's 80 (63.57 GiB
+# held when the last MLP leaf's exchange asked for another 8.25 GiB, on an
+# H100 80GB HBM3): two lanes double the state and the exchange's f32
+# transients.  kappa_i = 2: with path A's periods (7, 6, 5, 4 at seed 0) no
+# node exchanges between steps 0 and 4, and two lanes from the same weights
+# run the same first three steps.
+H1_LAYERS = PATH_D_LAYERS
+# H1's largest leaf: the embedding (vocab × d_model), larger than an MLP
+# leaf (layers × d_model × d_ff) at H1_LAYERS layers
+H1_LEAF_N = max(100352 * 2048, H1_LAYERS * 2048 * 5632)
+H1_ARGS = ["--seeds", "2", "--kappa-lo", "2", "--kappa-hi", "2"]
+H_SEEDS = 5
+# H2 runs F3's steps, H3 fewer than F4's 40 (five lanes' gradients a step),
+# H2's dynamic grid a few
+H_STEPS = dict(cnn=80, resnet=20, profile=5, dynamic=10)
+# H2's dynamic network: the i.i.d. link drops and churn of path E's
+# dynamic runs
+H_SCENARIO = dict(name="flaky", churn=0.1, edge_drop=0.2, seed=5)
+PARITY_H_ULPS = 0.0  # batched against unbatched, both through the kernels
+
+
+def path_h1(dev, layers=H1_LAYERS):
+    """The trainer CLI with --seeds 2: path A's model and flags, two lanes
+    of PaME with the sparse exchange, 3 steps.  The f32 gossip kernel must
+    launch 11 times a step for both lanes together, the lanes' losses be
+    finite and differ, the peak stay under 80 GB."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.gossip.kernel import gossip_gather
+    from repro_torch.launch import train
+
+    steps = 3
+    depth = [] if layers is None else ["--layers", str(layers)]
+    t0 = _start(dev)
+    out = train.main(model_args("pame") + depth + H1_ARGS + ["--steps", str(steps), "--chunk",
+                                                            "1", "--device", "cuda"])
+    _sync(dev)
+    lanes = np.asarray(out["metrics"]["loss_mean"])
+    row = {"phase": "path_h1", "steps": out["steps"], "lane_losses": lanes.tolist(),
+           "s_per_step": out["seconds"], "seconds": time.perf_counter() - t0,
+           "peak_bytes": torch.cuda.max_memory_allocated(), "layers": layers or 24,
+           "gossip_variant_launches": dict(gossip_gather.variant_launches)}
+    emit(**row)
+    if row["gossip_variant_launches"] != {"f32": 11 * steps, "bf16": 0}:
+        fail("path H1: expected 11 f32 gossip launches a step for both lanes")
+    if lanes.shape != (steps, 2) or not np.isfinite(lanes).all() or lanes[-1, 0] == lanes[-1, 1]:
+        fail("path H1: the two lanes' losses must be finite and differ")
+    if row["peak_bytes"] >= PEAK_LIMIT:
+        fail(f"path H1: peak {row['peak_bytes']} B over {PEAK_LIMIT}")
+    free()
+    return row
+
+
+def _lane_accuracy(task, params, lanes):
+    """Held-out accuracy of each lane's node-mean model."""
+    from repro_torch.tree import tree_map
+
+    return [task["accuracy"](tree_map(lambda x: x[lane], params)) for lane in range(lanes)]
+
+
+def path_h2(dev, ds=None, spec=FMNIST, steps=None):
+    """Example 3 as the JAX `heterogeneity` bench runs it: the CNN under
+    label skew C = 7 (F3's data, EX3_CFG, complete graph, batch 32), PaME
+    through `bind_batched` with the sparse exchange, at L = 1 and L = 5
+    seeds with the same steps.  Gossip launches a step equal at both (one
+    a leaf), held-out accuracy of every lane's node-mean model at least
+    0.5, `lane_finals(hist, "loss")`, and 5 profiled steps of each.  Then
+    the same grid under a dynamic network (H_SCENARIO) at L = 1 and L = 5:
+    there each lane steps on its own, so the exchange launches once a lane
+    a leaf (6·L a step), which the card must show."""
+    from repro_torch.core import algorithms as ALG
+    from repro_torch.core import build_topology
+    from repro_torch.core.scenarios import Scenario
+    from repro_torch.data import label_skew_partition
+    from repro_torch.models.cnn import cnn_apply, cnn_init
+
+    steps = steps or H_STEPS
+    topo = build_topology("complete", M)
+    task = vision_task(dev, images(spec) if ds is None else ds,
+                       lambda y: label_skew_partition(y, M, 7, seed=0), cnn_apply)
+    rows = {}
+    for lanes in (1, H_SEEDS):
+        ba = ALG.get_algorithm("pame").bind_batched(
+            task["grad_fn"], topo, [ALG.PaMEHp(**EX3_CFG)], seeds=range(lanes), mixing="sparse",
+            device=dev)
+
+        def run(k):
+            return ba.run(cnn_init(1, device=dev), M, task["batch_fn"], k,
+                          chunk_size=min(k, 40))
+
+        k = steps["cnn"]
+        t0 = _start(dev)
+        state, h = run(k)
+        name = f"H2-L{lanes}"
+        rows[name] = row = {"run": name, "lanes": lanes, "folded": lanes > 1}
+        _finish(dev, t0, k, row, {"f32": 6 * k})
+        row.update(s_per_step_per_lane=row["s_per_step"] / lanes,
+                   loss_first=h["loss"][0].tolist(),
+                   lane_final_loss=ALG.lane_finals(h, "loss").tolist(),
+                   accuracy=_lane_accuracy(task, ba.params_of(state), lanes),
+                   wire_bits_per_step=h["wire_bits_per_step"].tolist(),
+                   steps_run=h["steps_run"].tolist())
+        emit(phase="path_h", **row)
+        if min(row["accuracy"]) < 0.5 or not all(math.isfinite(x) for x in
+                                                 row["lane_final_loss"]):
+            fail(f"path H ({name}): a lane's accuracy is below 0.5 or its loss not finite")
+        row["profile"] = prof = profile_steps(dev, lambda: run(steps["profile"]),
+                                              steps["profile"])
+        emit(phase="path_h_profile", run=name, **prof)
+        del state, ba
+    if rows["H2-L1"]["launches_per_step"] != rows[f"H2-L{H_SEEDS}"]["launches_per_step"]:
+        fail("path H2: gossip launches a step differ between 1 and 5 lanes")
+    k = steps["dynamic"]
+    for lanes in (1, H_SEEDS):
+        ba = ALG.get_algorithm("pame").bind_batched(
+            task["grad_fn"], topo, [ALG.PaMEHp(**EX3_CFG)], seeds=range(lanes), mixing="sparse",
+            scenario=Scenario(**H_SCENARIO), device=dev)
+        t0 = _start(dev)
+        state, h = ba.run(cnn_init(1, device=dev), M, task["batch_fn"], k, chunk_size=k)
+        name = f"H2dyn-L{lanes}"
+        rows[name] = row = {"run": name, "lanes": lanes, "folded": False}
+        _finish(dev, t0, k, row, {"f32": 6 * lanes * k})
+        row.update(s_per_step_per_lane=row["s_per_step"] / lanes,
+                   lane_final_loss=ALG.lane_finals(h, "loss").tolist(),
+                   wire_bits_per_step=h["wire_bits_per_step"].tolist())
+        emit(phase="path_h", **row)
+        if not all(math.isfinite(x) for x in row["lane_final_loss"]):
+            fail(f"path H ({name}): a lane's loss is not finite")
+        del state, ba
+    return rows
+
+
+def path_h3(dev, ds=None, spec=CIFAR, steps=None, batch=F_BATCH):
+    """Example 4's ResNet-20 under Dirichlet(0.3), F4's settings, through
+    `bind_batched(seeds=range(5), mixing="dense")` with exact masks: the
+    PME-average kernel's lane axis 5 times a step (F4's count, not 25);
+    finite losses that fall in every lane."""
+    import numpy as np
+    from repro_torch.core import algorithms as ALG
+    from repro_torch.core import build_topology
+    from repro_torch.data import dirichlet_partition
+    from repro_torch.kernels.pme_average.kernel import pme_average_cuda
+    from repro_torch.models.cnn import resnet20_apply, resnet20_init
+
+    steps = steps or H_STEPS
+    k = steps["resnet"]
+    topo = build_topology("complete", M)
+    task = vision_task(dev, images(spec) if ds is None else ds,
+                       lambda y: dirichlet_partition(y, M, 0.3, seed=0), resnet20_apply, batch)
+    ba = ALG.get_algorithm("pame").bind_batched(
+        task["grad_fn"], topo, [ALG.PaMEHp(**EX3_CFG)], seeds=range(H_SEEDS), mixing="dense",
+        device=dev)
+    t0 = _start(dev)
+    state, h = ba.run(resnet20_init(1, device=dev), M, task["batch_fn"], k,
+                      chunk_size=min(k, 40))
+    row = {"run": "H3", "lanes": H_SEEDS, "folded": True}
+    _finish(dev, t0, k, row, {"pme_average": 5 * k})
+    losses = np.asarray(h["loss"])
+    row.update(s_per_step_per_lane=row["s_per_step"] / H_SEEDS,
+               pme_lane_launches=pme_average_cuda.lane_launches,
+               loss_first=losses[0].tolist(), lane_final_loss=ALG.lane_finals(h, "loss").tolist(),
+               accuracy=_lane_accuracy(task, ba.params_of(state), H_SEEDS))
+    emit(phase="path_h", **row)
+    falls = [_falls(losses[:, lane].tolist()) for lane in range(H_SEEDS)]
+    if not (np.isfinite(losses).all() and all(falls)):
+        fail(f"path H3: a lane's loss is not finite or did not fall ({falls})")
+    if dev.type == "cuda" and row["pme_lane_launches"] != 5 * k:
+        fail("path H3: the PME-average launches did not take the lane axis")
+    del state, ba
+    free()
+    return {"H3": row}
+
+
+def path_h(dev, data):
+    """H2 and H3 (`data`: the futures of F3's and F4's image sets); the
+    launches of each kernel over them."""
+    rows = {}
+    for fn, key in ((path_h2, "F3"), (path_h3, "F4")):
+        t = time.perf_counter()
+        rows.update(fn(dev, data[key].result()))
+        emit(phase=f"{fn.__name__}_done", seconds=time.perf_counter() - t)
+    launches = {"f32": 0, "bf16": 0, "pme_average": 0}
+    for r in rows.values():
+        for k in launches:
+            launches[k] += r["launches"][k]
+    return rows, launches
+
+
+def path_h_parity(dev, cfg=None, batch=4, seq=128, cnn_sizes=None):
+    """One lane-batched step of 2 lanes through the kernels against each
+    lane stepped unbatched through the kernels (0 ulps: f32 and bf16 leaves
+    bit-equal), for PaME's sparse exchange (path A's config), PaME's dense
+    exact exchange (path B's), D-PSGD on the bf16 Mixer at full width and
+    PARITY_LAYERS layers, and for the CNN (PaME sparse, f32); the same
+    batched step through the plain routes within phases 5 and 8's
+    tolerance (one bf16 ulp, floored for D-PSGD; 1e-5 of the scale for the
+    f32 CNN); and lane 0 poisoned with a NaN leaving lane 1 bit-equal.
+    Each lane's node models differ (seeded noise)."""
+    import torch
+    from repro_torch.core import algorithms as ALG
+    from repro_torch.core import build_topology
+    from repro_torch.data import SyntheticClassification
+    from repro_torch.kernels.gossip.kernel import gossip_gather
+    from repro_torch.kernels.pme_average.kernel import pme_average_cuda
+    from repro_torch.models.cnn import ce_loss, cnn_apply, cnn_init
+    from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+
+    seeds = [3, 4]
+    if cfg is None:
+        from repro_torch.configs import get_config
+
+        cfg = get_config("stablelm-1.6b", "full").replace(n_layers=PARITY_LAYERS)
+    from repro_torch.launch.train import make_lm_task
+
+    topo, params0, lm_grad, make_batch = make_lm_task(cfg, M, batch, seq, 0, "erdos_renyi", dev)
+    lm_batch = make_batch(0)
+    cnn_sizes = cnn_sizes or {"batch": F_BATCH}
+    ds = SyntheticClassification.make(M * cnn_sizes["batch"], FMNIST["shape"], 10,
+                                      seed=FMNIST["seed"], sep=FMNIST["sep"])
+    cnn_batch = {"x": torch.as_tensor(ds.images, device=dev).view(
+                     (M, cnn_sizes["batch"]) + FMNIST["shape"]),
+                 "y": torch.as_tensor(ds.labels, device=dev).view(M, cnn_sizes["batch"])}
+
+    def cnn_grad(params, b, key):
+        ls, td = tree_flatten(params)
+        loss = ce_loss(cnn_apply(params, b["x"]), b["y"])
+        return loss.detach(), tree_unflatten(td, list(torch.autograd.grad(loss, ls)))
+
+    lm_hp = ALG.PaMEHp(nu=0.5, p=0.2, gamma=1.001, sigma0=20.0, mask_mode="bernoulli")
+    cases = (
+        ("pame-sparse", "pame", lm_hp, "sparse", lm_grad, params0, lm_batch, topo),
+        ("pame-dense-exact", "pame", ALG.PaMEHp(), "dense", lm_grad, params0, lm_batch, topo),
+        ("dpsgd-bf16", "dpsgd", ALG.DPSGDHp(lr=0.05), "sparse", lm_grad, params0, lm_batch, topo),
+        ("cnn-pame-sparse", "pame", ALG.PaMEHp(**EX3_CFG), "sparse", cnn_grad,
+         cnn_init(1, device=dev), cnn_batch, build_topology("complete", M)),
+    )
+    results = {}
+    for name, algo, hp, mixing_mode, grad_fn, p0, b, tp in cases:
+        ba = ALG.get_algorithm(algo).bind_batched(grad_fn, tp, [hp], seeds=seeds,
+                                                  mixing=mixing_mode, device=dev)
+        g = torch.Generator(device=dev).manual_seed(11)
+        state = ba.init(p0, M)
+        with torch.no_grad():  # distinct node models in each lane
+            for x in tree_leaves(ba.params_of(state)):
+                x.add_((0.01 * torch.randn(x.shape, generator=g, device=dev)).to(x.dtype))
+        params = [x.clone() for x in tree_leaves(ba.params_of(state))]
+        treedef = tree_flatten(ba.params_of(state))[1]
+
+        def start(lanes_params):
+            """The batched state with the given [L, M, ...] parameter leaves."""
+            st = ba.init(p0, M)
+            for x, v in zip(tree_leaves(ba.params_of(st)), lanes_params):
+                x.copy_(v)
+            return st
+
+        def batched(route="kernel", poison=False):
+            st = start(params)
+            if poison:
+                tree_leaves(ba.params_of(st))[0][0, 1].view(-1)[0] = float("nan")
+            with (plain_routes() if route == "plain" else contextlib.nullcontext()), \
+                    _deterministic_cudnn():
+                _reset_counts()
+                new, _ = ba.step(st, b)
+                _sync(dev)
+            out = [x.clone() for x in tree_leaves(ba.params_of(new))]
+            return out, dict(gossip_gather.variant_launches), pme_average_cuda.launches
+
+        got, g_launches, p_launches = batched()
+        worst, equal = 0.0, True
+        for lane, seed in enumerate(seeds):
+            bound = ALG.get_algorithm(algo).bind(grad_fn, tp, hp, mixing=mixing_mode, device=dev)
+            st = bound.init(seed, tree_unflatten(treedef, [x[lane].clone() for x in params]))
+            with _deterministic_cudnn():
+                new, _ = bound.step(st, b)
+                _sync(dev)
+            for gl, wl in zip(got, tree_leaves(bound.params_of(new))):
+                equal = equal and torch.equal(gl[lane], wl)
+                worst = max(worst, ulps_floored(gl[lane], wl,
+                                                7 if wl.dtype == torch.bfloat16 else 23))
+            del st, new
+        plain, _, _ = batched("plain")
+        poisoned, _, _ = batched(poison=True)
+        row = {"case": name, "lanes": len(seeds), "bit_equal": equal,
+               "batched_vs_unbatched_ulps": worst,
+               "gossip_launches": g_launches, "pme_average_launches": p_launches,
+               "nan_lane_isolated": all(torch.equal(a[1], c[1]) for a, c in zip(poisoned, got)),
+               "poisoned_lane_finite": all(bool(torch.isfinite(a[0]).all()) for a in poisoned)}
+        if name.startswith("cnn"):
+            row["plain_rel_err"] = max(((a - c).abs().max() / c.abs().max().clamp(min=1e-30))
+                                       .item() for a, c in zip(got, plain))
+            ok_plain = row["plain_rel_err"] <= PARITY_F_RTOL
+        else:
+            row["plain_bf16_ulps"] = max((
+                (ulps_floored(a, c) if algo == "dpsgd" else bf16_ulps(a, c))
+                for a, c in zip(got, plain) if a.dtype == torch.bfloat16), default=0.0)
+            ok_plain = row["plain_bf16_ulps"] <= PARITY_ULPS
+        results[name] = row
+        emit(phase="parity_h", **row)
+        del got, plain, poisoned, params, state, ba
+        free()
+        if not equal or worst > PARITY_H_ULPS or not ok_plain or not row["nan_lane_isolated"]:
+            fail(f"path H parity ({name}): batched and unbatched steps differ, the plain "
+                 "route is out of tolerance, or a NaN lane reached the other")
+        # one launch a leaf for both lanes: every leaf through the gossip
+        # kernel (sparse), the leaves of at least 2^17 elements a lane
+        # through the PME average (dense)
+        leaves = tree_leaves(p0)
+        want = (len(leaves) if mixing_mode == "sparse"
+                else sum(M * x.numel() >= 1 << 17 for x in leaves))
+        if dev.type == "cuda" and g_launches["f32"] + g_launches["bf16"] + p_launches != want:
+            fail(f"path H parity ({name}): {want} exchange launches expected for both lanes")
+    return results
+
+
 def main():
     try:
         import torch
@@ -2285,6 +2762,7 @@ def main():
     pme_row, pme_fc1 = check_pme(dev)
     flash = check_flash(dev)
     ssd = check_ssd(dev)
+    lane_rows = check_lanes(dev)
     emit(phase="kernels_checked", seconds=time.perf_counter() - t)
 
     t = time.perf_counter()
@@ -2329,11 +2807,27 @@ def main():
     t = time.perf_counter()
     path_g_parity(dev)
     emit(phase="parity_g_done", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    h1 = path_h1(dev)
+    emit(phase="path_h1_done", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    h_rows, h_launches = path_h(dev, data)
+    emit(phase="path_h_done", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    path_h_parity(dev)
+    emit(phase="parity_h_done", seconds=time.perf_counter() - t)
+    # path H's f32 launches (H1, H2 static and dynamic); those on lane-offset
+    # tables (H1 and H2 at 5 lanes) are the f32_lanes variant's
+    h_f32 = h1["gossip_variant_launches"]["f32"] + h_launches["f32"]
+    h_folded = h1["gossip_variant_launches"]["f32"] + sum(
+        r["launches"]["f32"] for r in h_rows.values() if r["folded"])
     bf16_launches = sum(r["gossip_launches"]["bf16"] for r in baselines.values())
     # each path's launches, read just after the path ran with the counts at 0
-    f32_launches = gossip_launches + e_launches["f32"] + f_launches["f32"] + g_launches
+    f32_launches = (gossip_launches + e_launches["f32"] + f_launches["f32"] + g_launches
+                    + h_f32)
     bf16_launches += e_launches["bf16"] + f_launches["bf16"]
-    pme_launches += e_launches["pme_average"] + f_launches["pme_average"]
+    pme_launches += e_launches["pme_average"] + f_launches["pme_average"] \
+        + h_launches["pme_average"]
 
     def entry(name, source, replaces, launches, row):
         e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2366,10 +2860,16 @@ def main():
     # path G's f32 launches (G1 at full depth, G2 at 2 layers; among the f32
     # launches), timed at the largest training leaf on G1's grown 5-node graph
     g32["variants"]["f32_path_g"] = variant(g_launches, gossip["f32_grown"])
+    # the f32 launches on lane-offset tables (H1 at 2 lanes, H2 at 5; among
+    # the f32 launches), timed at H1's largest leaf folded over 2 lanes
+    g32["variants"]["f32_lanes"] = variant(h_folded, lane_rows["gossip_f32_lanes"])
     pme = entry("pme_average", "src/repro_torch/csrc/pme_average.cu",
                 "src/repro/kernels/pme_average/kernel.py:46", pme_launches, pme_row)
     # path F's launches (F3 PaME on fc1, F4 on five ResNet-20 convs), timed at F3's fc1
-    pme["variants"] = {"path_f": variant(f_launches["pme_average"], pme_fc1)}
+    pme["variants"] = {"path_f": variant(f_launches["pme_average"], pme_fc1),
+                       # H3's launches, all with the lane axis, timed at H3's
+                       # largest leaf over its 5 lanes
+                       "lanes": variant(h_launches["pme_average"], lane_rows["pme_lanes_h3"])}
     kernels = [
         g32,
         pme,

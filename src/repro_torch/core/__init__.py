@@ -1,7 +1,8 @@
 """PaME core: topology, PME, gossip contraction and mixers, compression,
 the compressed exchange, engine, Algorithm 1, the five baselines, the
-registry and dynamic networks — i.i.d. scenarios, Markov dynamics with
-bounded staleness, message-level faults (port of `repro.core`)."""
+registry with its batched seed and config lanes, and dynamic networks —
+i.i.d. scenarios, Markov dynamics with bounded staleness, message-level
+faults (port of `repro.core`)."""
 from repro_torch.core import (
     algorithms,
     baselines,
@@ -9,11 +10,13 @@ from repro_torch.core import (
     engine,
     faults,
     gossip,
+    lanes,
     mixing,
     pme,
     scenarios,
     temporal,
 )
+from repro_torch.core.algorithms import BatchedAlgorithm, lane_finals
 from repro_torch.core.baselines import (
     BeerState,
     ChocoState,
@@ -34,6 +37,7 @@ from repro_torch.core.baselines import (
     stack_params,
 )
 from repro_torch.core.compression import Compressor, identity, one_bit, qsgd, rand_k, top_k
+from repro_torch.core.engine import run_batched
 from repro_torch.core.gossip import compressed_pme_average_pytree, systematic_offsets
 from repro_torch.core.mixing import Mixer, PaddedMixing, as_mixer, make_mixer, mix_padded
 from repro_torch.core.pame import (
@@ -69,8 +73,9 @@ from repro_torch.core.temporal import (
 from repro_torch.core.topology import Topology, build_topology
 
 __all__ = [
-    "algorithms", "baselines", "compression", "engine", "faults", "gossip", "mixing",
-    "pme", "scenarios", "temporal",
+    "algorithms", "baselines", "compression", "engine", "faults", "gossip", "lanes",
+    "mixing", "pme", "scenarios", "temporal",
+    "BatchedAlgorithm", "lane_finals", "run_batched",
     "PaMEConfig", "PaMEState", "TopologyArrays", "make_pame_runner",
     "make_topology_arrays", "pame_init", "pame_step", "run_pame",
     "pme_average", "pme_average_pytree", "pme_average_pytree_padded",

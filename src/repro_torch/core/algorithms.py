@@ -20,13 +20,19 @@ networks as JAX's does: an i.i.d. `core.scenarios.Scenario`, a Markov
 BEER and ANQ-NIDS.  Serving pacing (`serve.events.ServePacing`) layers
 the serve-while-train event clock over any of these but a temporal one:
 a node whose request backlog passes its threshold defers its exchange
-that round like a straggler.  Batched lanes come in a later slice and
-raise until then.
+that round like a straggler.
+
+:meth:`Algorithm.bind_batched` runs S seeds × C configs of one algorithm
+as one lane-batched step (:class:`BatchedAlgorithm`, `core.lanes`): lane
+(s, c) reproduces the unbatched ``bind(hps_c)`` run under seed s bit for
+bit.  On a static network the lanes fold into the node axis and the
+exchange launches once a leaf for all of them; dynamic, temporal, fault
+and paced grids step lane by lane (their exchange launches once a lane).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,6 +46,7 @@ from repro_torch.core import scenarios as scen_mod
 from repro_torch.core import temporal as temp_mod
 from repro_torch.core.compression import qsgd, rand_k
 from repro_torch.core.mixing import Mixer, make_mixer
+from repro_torch.core.pme import fold_in
 from repro_torch.core.pme import leaf_rates as pme_leaf_rates
 from repro_torch.core.pme import message_bits, tree_message_bits
 from repro_torch.core.topology import Topology
@@ -49,8 +56,8 @@ from repro_torch.tree import tree_leaves, tree_map
 AnyScenario = Union[scen_mod.Scenario, temp_mod.TemporalScenario]
 
 __all__ = [
-    "Algorithm", "BoundAlgorithm", "AlgoContext",
-    "register", "get_algorithm", "list_algorithms",
+    "Algorithm", "BoundAlgorithm", "BatchedAlgorithm", "AlgoContext",
+    "register", "get_algorithm", "list_algorithms", "lane_finals",
     "PaMEHp", "DPSGDHp", "DFedSAMHp", "ChocoHp", "BeerHp", "AnqNidsHp",
 ]
 
@@ -109,8 +116,7 @@ class AlgoContext:
 class Algorithm:
     """A registered DFL algorithm: ``init(key, params_stacked, ctx, batch0)``,
     ``step(state, batch, ctx) -> (state, metrics)`` with a ``loss_mean``
-    metric, ``wire_bits(topo, hps, n)`` expected bits per step.  The fields
-    for batched sweeps arrive with the code that reads them."""
+    metric, ``wire_bits(topo, hps, n)`` expected bits per step."""
 
     name: str
     hp_cls: type
@@ -135,6 +141,13 @@ class Algorithm:
     # ``rep_step(state, batch, ctx)`` reading ``ctx.extras["fault"]``
     rep_init: Optional[Callable] = None
     rep_step: Optional[Callable] = None
+    # hyperparameter fields that shape the step (payload sizes, loop
+    # counts, wire formats): bind_batched refuses configs that differ in them
+    static_hp_fields: Tuple[str, ...] = ()
+    # fields realized by `setup` into per-config arrays (PaME's nu and
+    # kappa_* -> TopologyArrays): configs may differ in them, each lane
+    # taking its config's arrays
+    setup_hp_fields: Tuple[str, ...] = ()
 
     def bind(
         self,
@@ -166,15 +179,7 @@ class Algorithm:
         are built; a zero-rate pacing binds the unpaced program, bit for
         bit, and pacing on a `TemporalScenario` raises.
         """
-        for what, obj, kinds in (("scenario", scenario, (scen_mod.Scenario,
-                                                         temp_mod.TemporalScenario)),
-                                 ("faults", faults, (flt_mod.FaultModel,)),
-                                 ("pacing", pacing, (ServePacing,))):
-            if obj is not None and not isinstance(obj, kinds):
-                raise NotImplementedError(
-                    f"{what}={type(obj).__name__} is not a repro_torch "
-                    f"{' / '.join(k.__name__ for k in kinds)}"
-                )
+        scenario, faults, pacing = _networks(scenario, faults, pacing)
         hps = self.hp_cls() if hps is None else hps
         if not isinstance(hps, self.hp_cls):
             raise TypeError(
@@ -187,30 +192,117 @@ class Algorithm:
         mixer = make_mixer(topo, mixing, device=dev)
         ctx = AlgoContext(grad_fn=grad_fn, topo=topo, hps=hps, mixer=mixer,
                           extras=extras)
-        if faults is not None and faults.is_static:
-            faults = None  # zero-rate model == the fault-free program
-        if pacing is not None and pacing.is_static:
-            pacing = None  # zero-rate process == the unpaced program
-        if faults is not None or pacing is not None:
-            if isinstance(scenario, temp_mod.TemporalScenario):
-                what = "faults" if faults is not None else "pacing"
-                raise NotImplementedError(
-                    f"{what} cannot stack on a TemporalScenario: fold the "
-                    "staleness into FaultModel(delay=..., max_delay=...) "
-                    "and the link/node dynamics into a base Scenario"
-                )
-            base = scenario if scenario is not None else scen_mod.Scenario(name="static")
-            return BoundAlgorithm(self, ctx, dev, scenario=base,
-                                  scen_arrays=scen_mod.make_scenario_arrays(topo, base),
-                                  mixing_mode=mixing, faults=faults, pacing=pacing)
-        if scenario is not None and not scenario.is_static:
-            return BoundAlgorithm(self, ctx, dev, scenario=scenario,
-                                  scen_arrays=scen_mod.make_scenario_arrays(topo, scenario),
-                                  mixing_mode=mixing)
-        return BoundAlgorithm(self, ctx, dev)
+        if scenario is None:
+            return BoundAlgorithm(self, ctx, dev)
+        return BoundAlgorithm(self, ctx, dev, scenario=scenario,
+                              scen_arrays=scen_mod.make_scenario_arrays(topo, scenario),
+                              mixing_mode=mixing, faults=faults, pacing=pacing)
 
-    def bind_batched(self, *args, **kwargs):
-        raise NotImplementedError("bind_batched (lanes) not yet ported to repro_torch")
+    def bind_batched(
+        self,
+        grad_fn: Callable,
+        topo: Topology,
+        hps_list: Optional[Sequence[object]] = None,
+        *,
+        seeds: Sequence[int] = (0,),
+        mixing: str = "sparse",
+        seed: int = 0,
+        scenario: Optional[AnyScenario] = None,
+        faults: Optional[flt_mod.FaultModel] = None,
+        pacing: Optional[ServePacing] = None,
+        device=None,
+    ) -> "BatchedAlgorithm":
+        """Close the spec over S seeds × C configs as ONE lane-batched step
+        on `device` (default ``cuda``).
+
+        Lane order is config-major, ``lane = c·S + s``; lane (s, c)
+        reproduces the unbatched ``bind(hps_c)`` run started from key s,
+        bit for bit.  A field named in ``static_hp_fields`` shapes the step
+        and must be equal across `hps_list` (differing values raise); one in
+        ``setup_hp_fields`` is realized per config by ``setup`` (PaME's t_i
+        and kappa_i); a float field becomes a per-lane value; any other
+        field that differs raises.
+
+        A dynamic `scenario`, a `faults` model or a `pacing` folds each
+        lane's seed into its key (`pme.fold_in`), as JAX does: the same
+        seed under different configs sees the same sample path, different
+        seeds different ones.  Faults or pacing on a `TemporalScenario`
+        raise, as in `bind`.
+        """
+        scenario, faults, pacing = _networks(scenario, faults, pacing)
+        hps_list = [self.hp_cls() if h is None else h for h in (hps_list or [None])]
+        for h in hps_list:
+            if not isinstance(h, self.hp_cls):
+                raise TypeError(f"{self.name} expects {self.hp_cls.__name__}, "
+                                f"got {type(h).__name__}")
+        seeds = [int(s_) for s_ in seeds]
+        if not seeds:
+            raise ValueError("bind_batched needs at least one seed")
+        dev = resolve_device(device)
+        extras_list, eff_hps = [], []
+        for h in hps_list:
+            extras = dict(self.setup(topo, h, mixing, seed, dev)) if self.setup else {}
+            if "hps" in extras:  # setup may rewrite hps (PaME's mixing field)
+                h = extras.pop("hps")
+            extras_list.append(extras)
+            eff_hps.append(h)
+        # classify differing fields: static -> refuse, setup-realized ->
+        # per-config extras, float -> per-lane value
+        swept: dict = {}
+        for field in dataclasses.fields(self.hp_cls):
+            vals = [getattr(h, field.name) for h in eff_hps]
+            if all(v == vals[0] for v in vals[1:]):
+                continue
+            if field.name in self.static_hp_fields:
+                raise ValueError(
+                    f"{self.name}: hp field {field.name!r} shapes the traced program and "
+                    f"must be equal across batched configs (got {vals})")
+            if field.name in self.setup_hp_fields:
+                continue
+            if isinstance(vals[0], float) and not isinstance(vals[0], bool):
+                swept[field.name] = vals
+                continue
+            raise ValueError(
+                f"{self.name}: cannot batch over non-float hp field {field.name!r} "
+                f"(got {vals}); sweep it across separate binds instead")
+        return BatchedAlgorithm(self, grad_fn, topo, eff_hps, seeds, swept, extras_list, dev,
+                                mixing_mode=mixing, scenario=scenario, faults=faults,
+                                pacing=pacing)
+
+
+def _networks(scenario, faults, pacing):
+    """The network a bind realizes: (scenario, faults, pacing) with a
+    zero-rate fault model or pacing dropped (the fault-free or unpaced
+    program, bit for bit), a static base scenario under faults or pacing,
+    and a static scenario alone dropped (the fixed-topology program).
+    Faults or pacing on a `TemporalScenario`, and objects of other types,
+    raise."""
+    for what, obj, kinds in (("scenario", scenario, (scen_mod.Scenario,
+                                                     temp_mod.TemporalScenario)),
+                             ("faults", faults, (flt_mod.FaultModel,)),
+                             ("pacing", pacing, (ServePacing,))):
+        if obj is not None and not isinstance(obj, kinds):
+            raise NotImplementedError(
+                f"{what}={type(obj).__name__} is not a repro_torch "
+                f"{' / '.join(k.__name__ for k in kinds)}"
+            )
+    if faults is not None and faults.is_static:
+        faults = None  # zero-rate model == the fault-free program
+    if pacing is not None and pacing.is_static:
+        pacing = None  # zero-rate process == the unpaced program
+    if faults is not None or pacing is not None:
+        if isinstance(scenario, temp_mod.TemporalScenario):
+            what = "faults" if faults is not None else "pacing"
+            raise NotImplementedError(
+                f"{what} cannot stack on a TemporalScenario: fold the "
+                "staleness into FaultModel(delay=..., max_delay=...) "
+                "and the link/node dynamics into a base Scenario"
+            )
+        return (scenario if scenario is not None else scen_mod.Scenario(name="static"),
+                faults, pacing)
+    if scenario is not None and scenario.is_static:
+        scenario = None  # static scenario == the fixed-topology program
+    return scenario, None, None
 
 
 def _n_coords(params) -> int:
@@ -244,7 +336,8 @@ class BoundAlgorithm:
                  scen_arrays: Optional[scen_mod.ScenarioArrays] = None,
                  mixing_mode: str = "sparse",
                  faults: Optional[flt_mod.FaultModel] = None,
-                 pacing: Optional[ServePacing] = None):
+                 pacing: Optional[ServePacing] = None,
+                 fault_key: Optional[int] = None, pace_key: Optional[int] = None):
         self.spec = spec
         self.ctx = ctx
         self.device = device
@@ -253,9 +346,13 @@ class BoundAlgorithm:
         self._arrays_dev = None if scen_arrays is None else scen_arrays.to(device)
         self._mixing_mode = mixing_mode
         self.faults = faults
-        self.fault_key = None if faults is None else int(faults.seed)
+        if faults is not None and fault_key is None:
+            fault_key = int(faults.seed)
+        self.fault_key = fault_key
         self.pacing = pacing
-        self.pace_key = None if pacing is None else int(pacing.process.seed)
+        if pacing is not None and pace_key is None:
+            pace_key = int(pacing.process.seed)
+        self.pace_key = pace_key
 
     @property
     def name(self) -> str:
@@ -608,6 +705,311 @@ class BoundAlgorithm:
         history["wire_bits_total"] = history["wire_bits_per_step"] * history["steps_run"]
 
 
+def _lane_of(tree, lane: int):
+    """Lane `lane` of a lane-stacked tree: tensors [L, ...] -> [...], int64
+    arrays [L] -> Python ints."""
+
+    def one(x):
+        if isinstance(x, torch.Tensor):
+            return x[lane]
+        if isinstance(x, np.ndarray):
+            return x[lane].item()
+        return x
+
+    return tree_map(one, tree)
+
+
+def _stack_lanes(trees: list):
+    """Per-lane trees stacked into one: tensors [L, ...], numbers int64 /
+    float arrays [L]; None stays None."""
+
+    def one(*xs):
+        if isinstance(xs[0], torch.Tensor):
+            return torch.stack(xs)
+        if xs[0] is None:
+            return None
+        return np.asarray(xs)
+
+    return tree_map(one, *trees)
+
+
+def _fold(tree):
+    """[L, m, ...] tensor leaves viewed as [L·m, ...]."""
+    return tree_map(lambda x: x.reshape((-1,) + tuple(x.shape[2:]))
+                    if isinstance(x, torch.Tensor) else x, tree)
+
+
+def _unfold(tree, lanes: int):
+    return tree_map(lambda x: x.reshape((lanes, -1) + tuple(x.shape[1:]))
+                    if isinstance(x, torch.Tensor) else x, tree)
+
+
+def _fold_draws(per_lane: list) -> Optional[dict]:
+    """Per-lane algorithm draws (`BoundAlgorithm.step`'s ``draws["algo"]``
+    format) folded over the lanes' rows: tensors and per-leaf lists
+    concatenated, PaME's [m, m] selection ``a`` stacked [L, m, m]."""
+    if not per_lane or per_lane[0] is None:
+        return None
+    out = {}
+    for key, v0 in per_lane[0].items():
+        vals = [d[key] for d in per_lane]
+        if key == "a":
+            out[key] = torch.stack([torch.as_tensor(v) for v in vals])
+        elif isinstance(v0, (list, tuple)):
+            out[key] = [torch.cat([torch.as_tensor(v[i]) for v in vals]) for i in range(len(v0))]
+        else:
+            out[key] = torch.cat([torch.as_tensor(v) for v in vals])
+    return out
+
+
+class BatchedAlgorithm:
+    """S seeds × C configs of one Algorithm as a single lane-batched step.
+
+    Built by :meth:`Algorithm.bind_batched`.  State leaves are [L, m, ...]
+    (lane = c·S + s), the step counter and key int64 [L]; ``step`` has the
+    signature the engine expects of a lane-batched step, ``(state,
+    batch[, k][, aux]) -> (state, metrics[, aux])`` with metrics [L], the
+    batch and the global step index broadcast to every lane, plus
+    ``draws=``: a list of L per-lane dicts in `BoundAlgorithm.step`'s
+    format (how the parity tests feed each lane the reference's streams).
+
+    On a static network the step views the leaves as [L·m, ...] and runs
+    the algorithm once over them (`core.lanes`): per-lane keys, per-lane
+    values of the swept fields, each lane's config's topology arrays, and
+    a mixer over lane-offset tables, so each leaf's exchange is one launch
+    for all lanes.  Under a dynamic scenario, faults or pacing each lane
+    runs its own `BoundAlgorithm` step on its rows (its network, fault and
+    pace keys folded with its seed): bit for bit the same, but the
+    exchange launches once a lane.
+
+    ``run``/``make_runner`` drive it through ``engine.make_scan_runner(
+    lanes=L)``: per-lane stopping, [steps, L] metric buffers and per-lane
+    wire accounting; :func:`lane_finals` reads a buffer at each lane's
+    own stopping step.
+    """
+
+    def __init__(self, spec: Algorithm, grad_fn: Callable, topo: Topology, hps_list: list,
+                 seeds: list, swept: dict, extras_list: list, device: torch.device, *,
+                 mixing_mode: str = "sparse", scenario: Optional[AnyScenario] = None,
+                 faults: Optional[flt_mod.FaultModel] = None,
+                 pacing: Optional[ServePacing] = None):
+        self.spec = spec
+        self.topo = topo
+        self.hps_list = list(hps_list)
+        self.seeds = list(seeds)
+        self.device = device
+        self.scenario = scenario
+        self.faults = faults
+        self.pacing = pacing
+        self._mixing_mode = mixing_mode
+        c, s_ = len(self.hps_list), len(self.seeds)
+        self.lane_config = np.repeat(np.arange(c), s_)   # [L]
+        self.lane_seed = np.asarray(self.seeds * c)      # [L]
+        self.scen_arrays = (None if scenario is None
+                            else scen_mod.make_scenario_arrays(topo, scenario))
+        if self.dynamic:
+            mixer = make_mixer(topo, mixing_mode, device=device)
+            self._bounds = []
+            for cfg, seed_ in zip(self.lane_config, self.lane_seed):
+                ctx = AlgoContext(grad_fn=grad_fn, topo=topo, hps=self.hps_list[cfg],
+                                  mixer=mixer, extras=extras_list[cfg])
+                # each seed's network, fault and request sample paths,
+                # shared across configs
+                arrays = self.scen_arrays._replace(key=fold_in(self.scen_arrays.key, seed_))
+                self._bounds.append(BoundAlgorithm(
+                    spec, ctx, device, scenario=scenario, scen_arrays=arrays,
+                    mixing_mode=mixing_mode, faults=faults, pacing=pacing,
+                    fault_key=None if faults is None else fold_in(int(faults.seed), seed_),
+                    pace_key=None if pacing is None else fold_in(int(pacing.process.seed),
+                                                                 seed_)))
+            self.ctx = self._bounds[0].ctx
+            return
+        # the static fold: per-lane values of the swept fields, each lane's
+        # config's setup arrays, the mixer's lane-offset tables
+        hps = dataclasses.replace(self.hps_list[0], **{
+            f: tuple(vals[cfg] for cfg in self.lane_config) for f, vals in swept.items()})
+        extras = {}
+        for key, v0 in extras_list[0].items():
+            if isinstance(v0, pame_mod.TopologyArrays):
+                extras[key] = pame_mod.fold_topology_arrays(
+                    [extras_list[cfg][key] for cfg in self.lane_config])
+            else:
+                extras[key] = v0  # shared: equal across configs (static fields)
+        self.ctx = AlgoContext(grad_fn=grad_fn, topo=topo, hps=hps,
+                               mixer=make_mixer(topo, mixing_mode, device=device,
+                                                lanes=self.lanes),
+                               extras=extras)
+
+    # -- grid geometry ------------------------------------------------------
+    @property
+    def name(self) -> str:
+        return self.spec.name
+
+    @property
+    def lanes(self) -> int:
+        return len(self.hps_list) * len(self.seeds)
+
+    @property
+    def dynamic(self) -> bool:
+        return self.scenario is not None
+
+    @property
+    def temporal(self) -> bool:
+        return isinstance(self.scenario, temp_mod.TemporalScenario)
+
+    @property
+    def faulty(self) -> bool:
+        return self.faults is not None
+
+    @property
+    def paced(self) -> bool:
+        return self.pacing is not None
+
+    @property
+    def carries_aux(self) -> bool:
+        return self.temporal or self.faulty or self.paced
+
+    @property
+    def params_of(self) -> Callable:
+        return self.spec.params_of
+
+    # -- state and step -----------------------------------------------------
+    def init(self, params0, m: int, batch0=None):
+        """The lane-stacked initial state ([L, m, ...] leaves), lane l
+        started from key ``lane_seed[l]``."""
+        if self.spec.needs_batch0 and batch0 is None:
+            raise ValueError(f"{self.name} needs batch0 at init")
+        params0 = tree_map(lambda x: x.to(self.device), params0)
+        if self.dynamic:
+            return _stack_lanes([
+                b.init(int(s_), B.stack_params(params0, m), batch0)
+                for b, s_ in zip(self._bounds, self.lane_seed)])
+        stacked = B.stack_params(params0, self.lanes * m)
+        state = self.spec.init(np.asarray(self.lane_seed, dtype=np.int64), stacked, self.ctx,
+                               batch0)
+        return _unfold(state, self.lanes)
+
+    def aux_init(self, state, *, u: Optional[list] = None):
+        """The lane-stacked auxiliary carry, each lane's from its own state
+        and keys; ``u`` injects each lane's stationary draws (a list)."""
+        if not self.carries_aux:
+            raise TypeError(f"{self.name} carries no auxiliary state")
+        return _stack_lanes([
+            b.aux_init(_lane_of(state, lane), u=None if u is None else u[lane])
+            for lane, b in enumerate(self._bounds)])
+
+    def step(self, state, batch, k: Optional[int] = None, aux=None, *,
+             draws: Optional[list] = None):
+        """One step of every lane; the batch and the global step index are
+        shared by the lanes."""
+        if not self.dynamic:
+            ctx = self.ctx
+            algo = _fold_draws([d.get("algo") for d in draws] if draws else None)
+            if algo is not None:
+                ctx = dataclasses.replace(ctx, extras={**ctx.extras, "draws": algo})
+            new_state, metrics = self.spec.step(_fold(state), batch, ctx)
+            return _unfold(new_state, self.lanes), metrics
+        outs = []
+        for lane, b in enumerate(self._bounds):
+            args = (_lane_of(state, lane), batch, k)
+            if self.carries_aux:
+                args += (_lane_of(aux, lane),)
+            outs.append(b.step(*args, draws=None if draws is None else draws[lane]))
+        new_state = _stack_lanes([o[0] for o in outs])
+        metrics = {key: torch.stack([torch.as_tensor(o[1][key]) for o in outs])
+                   for key in outs[0][1]}
+        if self.carries_aux:
+            return new_state, metrics, _stack_lanes([o[2] for o in outs])
+        return new_state, metrics
+
+    # -- accounting and drivers ---------------------------------------------
+    def wire_bits(self, n: int) -> float:
+        """Expected bits/step (network-wide) of config 0, the scalar the
+        training log prints; per-lane accounting lives in the history."""
+        return float(self.spec.wire_bits(self.topo, self.hps_list[0], n))
+
+    def _wire_bits_sizes(self, hps, sizes) -> float:
+        if self.spec.wire_bits_sizes is not None:
+            return float(self.spec.wire_bits_sizes(self.topo, hps, sizes))
+        return float(self.spec.wire_bits(self.topo, hps, sum(sizes)))
+
+    def wire_bits_for(self, params0) -> float:
+        """Config 0's expected bits/step for a concrete model pytree."""
+        sizes = tuple(int(np.prod(tuple(x.shape))) for x in tree_leaves(params0))
+        return self._wire_bits_sizes(self.hps_list[0], sizes)
+
+    def _batches(self, batch_fn):
+        return lambda k: tree_map(lambda x: x.to(self.device), batch_fn(k))
+
+    def make_runner(self, *, objective_fn=None, tol_std: float = 1e-3,
+                    chunk_size: int = engine.DEFAULT_CHUNK_SIZE) -> Callable:
+        """Persistent lane-batched runner: ``run(params0, m, batch_fn,
+        num_steps) -> (state, history)`` with [steps, L] metric buffers."""
+        runner = engine.make_scan_runner(
+            self.step, objective_fn=objective_fn, params_of=self.spec.params_of,
+            tol_std=tol_std, chunk_size=chunk_size, step_takes_index=self.dynamic,
+            carries_aux=self.carries_aux, lanes=self.lanes,
+        )
+
+        def run(params0, m, batch_fn, num_steps):
+            batch_fn = self._batches(batch_fn)
+            batch0 = batch_fn(0) if self.spec.needs_batch0 else None
+            state = self.init(params0, m, batch0)
+            aux = self.aux_init(state) if self.carries_aux else None
+            box, state = engine.Donated(state), None  # freed after the first step
+            state, metrics, info = runner(box, batch_fn, num_steps, aux=aux)
+            return state, self._assemble_history(metrics, info, params0)
+
+        return run
+
+    def run(self, params0, m: int, batch_fn, num_steps: int, *, objective_fn=None,
+            tol_std: float = 1e-3, chunk_size: int = engine.DEFAULT_CHUNK_SIZE):
+        """One-shot batched grid run (see `make_runner`)."""
+        return self.make_runner(objective_fn=objective_fn, tol_std=tol_std,
+                                chunk_size=chunk_size)(params0, m, batch_fn, num_steps)
+
+    def _assemble_history(self, metrics: dict, info: dict, params0) -> dict:
+        """JAX's batched history: [steps, L] buffers (``loss`` from
+        ``loss_mean``), ``steps_run`` [L], ``lane_config`` / ``lane_seed``,
+        per-lane ``wire_bits_per_step`` / ``wire_bits_total`` and the
+        per-lane ``staleness_hist`` [L, D+1], each lane cut at its own
+        stopping step."""
+        history = {k: np.asarray(v) for k, v in metrics.items() if k != "stale_hist"}
+        steps_run = np.asarray(info["steps_run"])
+        if "stale_hist" in metrics:
+            rows = np.asarray(metrics["stale_hist"])
+            history["staleness_hist"] = np.stack([
+                rows[: steps_run[lane], lane].sum(axis=0) for lane in range(self.lanes)])
+        if "loss_mean" in history:
+            history["loss"] = history.pop("loss_mean")
+        history["steps_run"] = steps_run
+        history["steps_dispatched"] = info["steps_dispatched"]
+        history["lane_config"] = self.lane_config
+        history["lane_seed"] = self.lane_seed
+        if "wire_bits" in history:
+            # dynamic: per-step realized bits [steps, L], cut per lane
+            per = history["wire_bits"]
+            total = np.array([per[: steps_run[lane], lane].sum() for lane in range(self.lanes)])
+            history["wire_bits_total"] = total
+            history["wire_bits_per_step"] = total / np.maximum(steps_run, 1)
+        else:
+            sizes = tuple(int(np.prod(tuple(x.shape))) for x in tree_leaves(params0))
+            per_cfg = np.array([self._wire_bits_sizes(h, sizes) for h in self.hps_list])
+            history["wire_bits_per_step"] = per_cfg[self.lane_config]
+            history["wire_bits_total"] = history["wire_bits_per_step"] * steps_run
+        return history
+
+
+def lane_finals(history: dict, key: str = "objective") -> np.ndarray:
+    """Per-lane final value of a batched metric buffer: entry l is
+    ``history[key][steps_run[l] - 1, l]``, each lane read at its own
+    stopping step (the buffers run to the last dispatched chunk)."""
+    buf = np.asarray(history[key])
+    steps_run = np.asarray(history["steps_run"])
+    return np.array([buf[max(int(steps_run[lane]) - 1, 0), lane]
+                     for lane in range(buf.shape[1])])
+
+
 # ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
@@ -713,6 +1115,10 @@ register(Algorithm(
     # the dense exchange takes message-only delay natively: senders
     # transmit the ring-delayed stack, the λ = 0 fill reads the fresh view
     handles_delay=lambda hps: hps.exchange == "dense",
+    # p fixes the payload size s = round(p·n); nu and kappa_* are realized
+    # into TopologyArrays by setup, one per config
+    static_hp_fields=("p", "mask_mode", "exchange", "mixing", "partition", "p_leaf"),
+    setup_hp_fields=("nu", "kappa_lo", "kappa_hi", "homogeneous_kappa"),
 ))
 
 
@@ -737,6 +1143,7 @@ register(Algorithm(
         grad_shift=ctx.extras.get("grad_shift"), draws=ctx.extras.get("draws")),
     wire_bits=lambda topo, hps, n: _dense_edges_bits(topo, n, _full_msg_bits(hps, n)),
     edge_bits=_full_msg_bits,
+    static_hp_fields=("local_steps",),  # the loop count of the local chain
 ))
 
 
@@ -761,6 +1168,8 @@ register(Algorithm(
     wire_bits=lambda topo, hps, n: _dense_edges_bits(topo, n, _choco_edge_bits(hps, n)),
     edge_bits=_choco_edge_bits,
     setup=_choco_setup,
+    # the rand-k keep count round(frac·n) and the value width shape the payload
+    static_hp_fields=("comp_frac", "value_bits"),
     rep_init=lambda key, stacked, ctx, batch0, arrays: flt_mod.rep_choco_init(
         key, stacked, arrays),
     rep_step=lambda state, batch, ctx: flt_mod.rep_choco_step(
@@ -781,6 +1190,7 @@ register(Algorithm(
     edge_bits=_beer_edge_bits,
     needs_batch0=True,
     setup=_choco_setup,
+    static_hp_fields=("comp_frac", "value_bits"),
     rep_init=lambda key, stacked, ctx, batch0, arrays: flt_mod.rep_beer_init(
         key, stacked, batch0, ctx.grad_fn, arrays),
     rep_step=lambda state, batch, ctx: flt_mod.rep_beer_step(
@@ -801,6 +1211,7 @@ register(Algorithm(
     edge_bits=_anq_edge_bits,
     needs_batch0=True,
     setup=lambda topo, hps, mixing, seed, device: {"q": qsgd(hps.qsgd_levels)},
+    static_hp_fields=("qsgd_levels",),  # the quantizer's wire format
     rep_init=lambda key, stacked, ctx, batch0, arrays: flt_mod.rep_nids_init(
         key, stacked, arrays),
     rep_step=lambda state, batch, ctx: flt_mod.rep_nids_step(

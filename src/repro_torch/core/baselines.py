@@ -36,6 +36,10 @@ losses ignore them).  Every step takes ``draws=``, the per-leaf uniforms
 of each compression in JAX's leaf order (each leaf's [m, n] tensor, or its
 shape), drawn otherwise from `fold_in(fold_in(key, tag), leaf_index)`
 generators with JAX's tags (BEER 3 and 5, CHOCO 7, NIDS 11).
+Every step also runs lane-batched (`core.lanes`): a state whose key and
+step are int64 arrays [L] holds L lanes folded into its L·m rows, each
+lane with its own keys, its own swept hyperparameters (per-lane tuples)
+and its own loss mean, and the mixer's tables keep the lanes apart.
 ``grad_shift`` (bounded staleness: `core.algorithms`' temporal and fault
 steps) moves each delayed node's gradient point from its delayed
 parameters e_i back to e_i + (f_i − e_i), the fresh point in JAX's
@@ -51,6 +55,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import engine
+from repro_torch.core import lanes as LN
 from repro_torch.core.compression import Compressor
 from repro_torch.core.mixing import Mixer, as_mixer
 from repro_torch.core.pme import fold_in, make_generator
@@ -77,6 +82,15 @@ def stack_params(params0, m: int):
 
 def _zeros(tree):
     return tree_map(torch.zeros_like, tree)
+
+
+def _start(key):
+    """(step 0, key) of a new state: ints, or int64 arrays [L] for a
+    lane-batched state's per-lane keys."""
+    if LN.count(key) is None:
+        return 0, int(key)
+    key = np.asarray(key, dtype=np.int64)
+    return np.zeros_like(key), key
 
 
 class GradShift:
@@ -115,40 +129,60 @@ def _point(rows: Sequence[torch.Tensor], shift: Optional[GradShift], i: int):
 
 def _node_grad(grad_fn: GradFn, leaves: Sequence[torch.Tensor], treedef, batch,
                i: int, key: int):
-    """(loss, gradient leaves) of node i at the single-node `leaves`."""
+    """(loss, gradient leaves) of node i (its batch row; the node's index
+    within its lane) at the single-node `leaves`."""
     p_i = tree_unflatten(treedef, [x.detach().requires_grad_(True) for x in leaves])
     b_i = tree_map(lambda b: b[i], batch)
     loss, g = grad_fn(p_i, b_i, key)
     return loss.detach().float().reshape(()), [t.detach() for t in tree_leaves(g)]
 
 
+def _rows(leaves, key):
+    """(rows, nodes a lane) of stacked `leaves` under `key`."""
+    rows = leaves[0].shape[0]
+    return rows, rows // (LN.count(key) or 1)
+
+
 def _grads_inplace(grad_fn, leaves, treedef, batch, key, lr, shift=None):
-    """x_i ← x_i − lr·grad f_i(x_i + shift_i), node by node, in place on the
-    stacked `leaves` (node i's gradient reads only its own rows).  Returns
-    the per-node losses."""
+    """x_i ← x_i − lr·grad f_i(x_i + shift_i), row by row, in place on the
+    stacked `leaves` (row r's gradient reads only its own rows), with each
+    lane's key and lr.  Returns the per-row losses."""
     losses = []
-    for i in range(leaves[0].shape[0]):
-        loss, g = _node_grad(grad_fn, _point([x[i] for x in leaves], shift, i), treedef,
-                             batch, i, fold_in(key, i))
+    rows, m = _rows(leaves, key)
+    for r in range(rows):
+        loss, g = _node_grad(grad_fn, _point([x[r] for x in leaves], shift, r), treedef,
+                             batch, r % m, LN.node_key(key, r, m))
         losses.append(loss)
+        step = -LN.lane_value(lr, r // m)
         with torch.no_grad():
             for x, gi in zip(leaves, g):
-                x[i].add_(gi.to(x.dtype) * (-lr))
+                x[r].add_(gi.to(x.dtype) * step)
         del g
     return losses
 
 
-def _add_compressed_(comp: Compressor, key: int, idx: int, target: torch.Tensor,
+def _generators(key, idx: int, u, rows: int, device):
+    """Row r's generator for leaf `idx`: its lane's, seeded with
+    fold_in(lane key, idx) and drawn in row order (None when `u` is given)."""
+    if u is not None:
+        return [None] * rows
+    m = rows // (LN.count(key) or 1)
+    gens = [make_generator(fold_in(LN.lane_key(key, lane), idx), device)
+            for lane in range(rows // m)]
+    return [gens[r // m] for r in range(rows)]
+
+
+def _add_compressed_(comp: Compressor, key, idx: int, target: torch.Tensor,
                      source: torch.Tensor, u=None) -> None:
     """target += C(source − target), one node's message (row) at a time, in
-    place; leaf `idx`'s uniforms from `u` ([m, ...]) or drawn from
-    fold_in(key, idx)."""
+    place; leaf `idx`'s uniforms from `u` ([rows, ...]) or drawn from
+    fold_in(key, idx) (each lane from its own key)."""
     m = target.shape[0]
     t2, s2 = target.view(m, -1), source.reshape(m, -1)
-    gen = make_generator(fold_in(key, idx), target.device) if u is None else None
+    gens = _generators(key, idx, u, m, target.device)
     for r in range(m):
         ur = None if u is None else u[r].reshape(1, -1)
-        t2[r].add_(comp.apply((s2[r] - t2[r])[None], u=ur, generator=gen)[0])
+        t2[r].add_(comp.apply((s2[r] - t2[r])[None], u=ur, generator=gens[r])[0])
 
 
 def _compressed_diff(comp: Compressor, key: int, idx: int, source: torch.Tensor,
@@ -159,10 +193,10 @@ def _compressed_diff(comp: Compressor, key: int, idx: int, source: torch.Tensor,
     m = target.shape[0]
     s2, t2 = source.reshape(m, -1), target.reshape(m, -1)
     out = torch.empty_like(t2)
-    gen = make_generator(fold_in(key, idx), target.device) if u is None else None
+    gens = _generators(key, idx, u, m, target.device)
     for r in range(m):
         ur = None if u is None else u[r].reshape(1, -1)
-        out[r] = comp.apply((s2[r] - t2[r])[None], u=ur, generator=gen)[0]
+        out[r] = comp.apply((s2[r] - t2[r])[None], u=ur, generator=gens[r])[0]
     return out.view(target.shape)
 
 
@@ -182,8 +216,8 @@ def _draw(draws, name: str, idx: int):
     return None if draws is None else draws[name][idx]
 
 
-def _mean(losses) -> torch.Tensor:
-    return torch.stack(losses).mean()
+def _mean(losses, key) -> torch.Tensor:
+    return LN.lane_mean(losses, key)
 
 
 # --------------------------------------------------------------------------
@@ -195,8 +229,9 @@ class DPSGDState(NamedTuple):
     key: int
 
 
-def dpsgd_init(key: int, params_stacked) -> DPSGDState:
-    return DPSGDState(params_stacked, 0, int(key))
+def dpsgd_init(key, params_stacked) -> DPSGDState:
+    step, key = _start(key)
+    return DPSGDState(params_stacked, step, key)
 
 
 def dpsgd_step(state: DPSGDState, batch, grad_fn: GradFn, b: MixOp, lr: float,
@@ -205,20 +240,22 @@ def dpsgd_step(state: DPSGDState, batch, grad_fn: GradFn, b: MixOp, lr: float,
     node's gradient at the old x (shifted by `grad_shift`), subtracted in
     place."""
     mx = as_mixer(b)
-    key = fold_in(state.key, state.step)
+    key = LN.fold(state.key, state.step)
     leaves, treedef = tree_flatten(state.params)
     shift = _as_shift(grad_shift, len(leaves))
     new = [mx.mix(x) for x in leaves]
     losses = []
-    for i in range(leaves[0].shape[0]):
-        loss, g = _node_grad(grad_fn, _point([x[i] for x in leaves], shift, i), treedef,
-                             batch, i, fold_in(key, i))
+    rows, m = _rows(leaves, key)
+    for r in range(rows):
+        loss, g = _node_grad(grad_fn, _point([x[r] for x in leaves], shift, r), treedef,
+                             batch, r % m, LN.node_key(key, r, m))
         losses.append(loss)
+        step = -LN.lane_value(lr, r // m)
         with torch.no_grad():
             for y, gi in zip(new, g):
-                y[i].add_(gi.to(y.dtype) * (-lr))
+                y[r].add_(gi.to(y.dtype) * step)
     return (DPSGDState(tree_unflatten(treedef, new), state.step + 1, state.key),
-            {"loss_mean": _mean(losses)})
+            {"loss_mean": _mean(losses, key)})
 
 
 # --------------------------------------------------------------------------
@@ -230,8 +267,9 @@ class DFedSAMState(NamedTuple):
     key: int
 
 
-def dfedsam_init(key: int, params_stacked) -> DFedSAMState:
-    return DFedSAMState(params_stacked, 0, int(key))
+def dfedsam_init(key, params_stacked) -> DFedSAMState:
+    step, key = _start(key)
+    return DFedSAMState(params_stacked, step, key)
 
 
 def dfedsam_step(state: DFedSAMState, batch, grad_fn: GradFn, b: MixOp, lr: float,
@@ -243,32 +281,36 @@ def dfedsam_step(state: DFedSAMState, batch, grad_fn: GradFn, b: MixOp, lr: floa
     `grad_shift` is constant through the chain: g1 is taken at x + shift
     and the ascent starts there, as in JAX."""
     mx = as_mixer(b)
-    key = fold_in(state.key, state.step)
+    key = LN.fold(state.key, state.step)
     leaves, treedef = tree_flatten(state.params)
     shift = _as_shift(grad_shift, len(leaves))
     losses = []
-    for i in range(leaves[0].shape[0]):
-        p = [x[i] for x in leaves]  # views: the local chain updates the state
+    rows, m = _rows(leaves, key)
+    for r in range(rows):
+        lane, i = divmod(r, m)
+        k_lane = LN.lane_key(key, lane)
+        rho_l, step = LN.lane_value(rho, lane), -LN.lane_value(lr, lane)
+        p = [x[r] for x in leaves]  # views: the local chain updates the state
         for t in range(local_steps):
-            k_t = fold_in(key, t)
-            gp = _point(p, shift, i)
+            k_t = fold_in(k_lane, t)
+            gp = _point(p, shift, r)
             loss, g1 = _node_grad(grad_fn, gp, treedef, batch, i, fold_in(k_t, i))
             if t == 0:
                 losses.append(loss)
             with torch.no_grad():
                 sq = sum(torch.sum(g ** 2) for g in g1)
-                scale = rho / torch.sqrt(sq + 1e-12)
+                scale = rho_l / torch.sqrt(sq + 1e-12)
                 adv = [x + g.to(x.dtype) * scale.to(x.dtype) for x, g in zip(gp, g1)]
             del g1, gp
             _, g2 = _node_grad(grad_fn, adv, treedef, batch, i, fold_in(fold_in(k_t, 1), i))
             del adv
             with torch.no_grad():
                 for x, g in zip(p, g2):
-                    x.add_(g.to(x.dtype) * (-lr))
+                    x.add_(g.to(x.dtype) * step)
             del g2
     new = [mx.mix(x) for x in leaves]
     return (DFedSAMState(tree_unflatten(treedef, new), state.step + 1, state.key),
-            {"loss_mean": _mean(losses)})
+            {"loss_mean": _mean(losses, key)})
 
 
 # --------------------------------------------------------------------------
@@ -281,8 +323,9 @@ class ChocoState(NamedTuple):
     key: int
 
 
-def choco_init(key: int, params_stacked) -> ChocoState:
-    return ChocoState(params_stacked, _zeros(params_stacked), 0, int(key))
+def choco_init(key, params_stacked) -> ChocoState:
+    step, key = _start(key)
+    return ChocoState(params_stacked, _zeros(params_stacked), step, key)
 
 
 def choco_step(state: ChocoState, batch, grad_fn: GradFn, b: MixOp, lr: float,
@@ -292,20 +335,20 @@ def choco_step(state: ChocoState, batch, grad_fn: GradFn, b: MixOp, lr: float,
     x̂ += C(x^{t+1/2} − x̂) and x = x^{t+1/2} + γ(B x̂ − x̂).
     ``draws={"q": [u per leaf]}`` (JAX tag 7)."""
     mx = as_mixer(b)
-    key = fold_in(state.key, state.step)
+    key = LN.fold(state.key, state.step)
     leaves, treedef = tree_flatten(state.params)
     hats = tree_leaves(state.hats)
     losses = _grads_inplace(grad_fn, leaves, treedef, batch, key, lr,
                             _as_shift(grad_shift, len(leaves)))
-    k_q = fold_in(key, 7)
+    k_q = LN.fold(key, 7)
     with torch.no_grad():
         for idx, (x, h) in enumerate(zip(leaves, hats)):
             _add_compressed_(comp, k_q, idx, h, x, _draw(draws, "q", idx))
             corr = mx.mix(h)
-            x.add_(corr.sub_(h).mul_(gossip_gamma))
+            x.add_(LN.scale_(corr.sub_(h), gossip_gamma, key))
             del corr
     return (ChocoState(state.params, state.hats, state.step + 1, state.key),
-            {"loss_mean": _mean(losses)})
+            {"loss_mean": _mean(losses, key)})
 
 
 # --------------------------------------------------------------------------
@@ -325,19 +368,21 @@ def _stacked_grads(grad_fn, params_stacked, batch, key):
     """Every node's gradient at its own rows, stacked like the params."""
     leaves, treedef = tree_flatten(params_stacked)
     out = [torch.empty_like(x) for x in leaves]
-    for i in range(leaves[0].shape[0]):
-        _, g = _node_grad(grad_fn, [x[i] for x in leaves], treedef, batch, i,
-                          fold_in(key, i))
+    rows, m = _rows(leaves, key)
+    for r in range(rows):
+        _, g = _node_grad(grad_fn, [x[r] for x in leaves], treedef, batch, r % m,
+                          LN.node_key(key, r, m))
         with torch.no_grad():
             for o, gi in zip(out, g):
-                o[i].copy_(gi)
+                o[r].copy_(gi)
     return tree_unflatten(treedef, out)
 
 
-def beer_init(key: int, params_stacked, batch0, grad_fn: GradFn) -> BeerState:
-    g0 = _stacked_grads(grad_fn, params_stacked, batch0, int(key))
+def beer_init(key, params_stacked, batch0, grad_fn: GradFn) -> BeerState:
+    step, key = _start(key)
+    g0 = _stacked_grads(grad_fn, params_stacked, batch0, key)
     return BeerState(params_stacked, _zeros(params_stacked), g0,
-                     _zeros(params_stacked), tree_map(torch.clone, g0), 0, int(key))
+                     _zeros(params_stacked), tree_map(torch.clone, g0), step, key)
 
 
 def beer_step(state: BeerState, batch, grad_fn: GradFn, b: MixOp, lr: float,
@@ -355,37 +400,38 @@ def beer_step(state: BeerState, batch, grad_fn: GradFn, b: MixOp, lr: float,
     is subtracted before gn is added, which changes the rounding only.
     ``draws={"h": [...], "z": [...]}`` (JAX tags 3 and 5)."""
     mx = as_mixer(b)
-    key = fold_in(state.key, state.step)
+    key = LN.fold(state.key, state.step)
     xs, treedef = tree_flatten(state.params)
     shift = _as_shift(grad_shift, len(xs))
     hs, gs, zs, ps = (tree_leaves(t) for t in (state.h, state.g, state.z, state.prev_grad))
-    k_h, k_z = fold_in(key, 3), fold_in(key, 5)
+    k_h, k_z = LN.fold(key, 3), LN.fold(key, 5)
     with torch.no_grad():
         for idx, (x, h, g) in enumerate(zip(xs, hs, gs)):
             mh = mx.mix_lazy(h)
-            x.add_(mh.mul_(gossip_gamma)).sub_(g * lr)
+            x.add_(LN.scale_(mh, gossip_gamma, key)).sub_(LN.scaled(g, lr, key))
             del mh
             _add_compressed_(comp, k_h, idx, h, x, _draw(draws, "h", idx))
         for z, g, gp in zip(zs, gs, ps):
             mz = mx.mix_lazy(z)
-            g.add_(mz.mul_(gossip_gamma)).sub_(gp)
+            g.add_(LN.scale_(mz, gossip_gamma, key)).sub_(gp)
             del mz
     losses = []
-    for i in range(xs[0].shape[0]):
-        loss, gn = _node_grad(grad_fn, _point([x[i] for x in xs], shift, i), treedef, batch,
-                              i, fold_in(key, i))
+    rows, m = _rows(xs, key)
+    for r in range(rows):
+        loss, gn = _node_grad(grad_fn, _point([x[r] for x in xs], shift, r), treedef, batch,
+                              r % m, LN.node_key(key, r, m))
         losses.append(loss)
         with torch.no_grad():
             for g, gp, gi in zip(gs, ps, gn):
-                g[i].add_(gi.to(g.dtype))
-                gp[i].copy_(gi)
+                g[r].add_(gi.to(g.dtype))
+                gp[r].copy_(gi)
         del gn
     with torch.no_grad():
         for idx, (z, g) in enumerate(zip(zs, gs)):
             _add_compressed_(comp, k_z, idx, z, g, _draw(draws, "z", idx))
     return (BeerState(state.params, state.h, state.g, state.z, state.prev_grad,
                       state.step + 1, state.key),
-            {"loss_mean": _mean(losses)})
+            {"loss_mean": _mean(losses, key)})
 
 
 # --------------------------------------------------------------------------
@@ -400,14 +446,15 @@ class NidsState(NamedTuple):
     key: int
 
 
-def nids_init(key: int, params_stacked, batch0=None, grad_fn: Optional[GradFn] = None,
-              lr: Optional[float] = None) -> NidsState:
+def nids_init(key, params_stacked, batch0=None, grad_fn: Optional[GradFn] = None,
+              lr=None) -> NidsState:
     """All memory starts at zero (the drop-aware form needs no warm-up
     gradient); ``batch0`` / ``grad_fn`` / ``lr`` are accepted and ignored,
     as in JAX."""
     del batch0, grad_fn, lr
+    step, key = _start(key)
     return NidsState(params_stacked, _zeros(params_stacked), _zeros(params_stacked),
-                     _zeros(params_stacked), 0, int(key))
+                     _zeros(params_stacked), step, key)
 
 
 def nids_step(state: NidsState, batch, grad_fn: GradFn, b: MixOp, lr: float,
@@ -427,12 +474,12 @@ def nids_step(state: NidsState, batch, grad_fn: GradFn, b: MixOp, lr: float,
     in place in x node by node, then each leaf is corrected in place.
     ``draws={"q": [...]}`` (JAX tag 11)."""
     mx = as_mixer(b)
-    key = fold_in(state.key, state.step)
+    key = LN.fold(state.key, state.step)
     xs, treedef = tree_flatten(state.params)
     cs, hzs, hcs = (tree_leaves(t) for t in (state.c, state.hat_z, state.hat_c))
     losses = _grads_inplace(grad_fn, xs, treedef, batch, key, lr,
                             _as_shift(grad_shift, len(xs)))  # x holds z now
-    k_q = fold_in(key, 11)
+    k_q = LN.fold(key, 11)
     with torch.no_grad():
         for idx, (z, c, hz, hc) in enumerate(zip(xs, cs, hzs, hcs)):
             v = 2.0 * z + c
@@ -451,7 +498,7 @@ def nids_step(state: NidsState, batch, grad_fn: GradFn, b: MixOp, lr: float,
             del corr
     return (NidsState(state.params, state.c, state.hat_z, state.hat_c,
                       state.step + 1, state.key),
-            {"loss_mean": _mean(losses)})
+            {"loss_mean": _mean(losses, key)})
 
 
 # --------------------------------------------------------------------------

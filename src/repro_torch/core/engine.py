@@ -29,10 +29,18 @@ keeps what made the scan cheap:
     caller's feet: a view of the state kept elsewhere keeps its storage;
   * ``carries_aux=True`` threads an auxiliary carry (the temporal or
     fault Markov state and the staleness ring) through the steps, frozen
-    by the same select.
+    by the same select;
+  * ``lanes=L`` runs a lane-batched step (`core.algorithms.BatchedAlgorithm`:
+    state leaves [L, m, ...], metrics [L]) with the stop rule per lane: the
+    select is lane-wise, so a finished lane's state and carry stop moving
+    while the others run on, host leaves (the per-lane step counters and
+    keys) are restored per lane, and the chunk loop stops once every lane
+    has stopped.  Metrics come back as [steps, L] and ``steps_run`` as an
+    [L] array.
 
 A metric may be a scalar or a vector (the temporal path's per-step
-``stale_hist``); each comes back as a host array with one row per step.
+``stale_hist``, a lane-batched step's [L] values); each comes back as a
+host array with one row per step.
 CUDA-graph capture of a chunk is later work.
 """
 from __future__ import annotations
@@ -44,8 +52,8 @@ import torch
 
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
-__all__ = ["make_scan_runner", "run_scan_loop", "history_from", "staleness_hist",
-           "Donated", "DEFAULT_CHUNK_SIZE"]
+__all__ = ["make_scan_runner", "run_scan_loop", "run_batched", "history_from",
+           "staleness_hist", "Donated", "DEFAULT_CHUNK_SIZE"]
 
 DEFAULT_CHUNK_SIZE = 32
 
@@ -75,12 +83,17 @@ def _on(x, device) -> bool:
 
 def _select(pred: torch.Tensor, on_true, on_false):
     """Per-tensor `where(pred, on_true, on_false)` for leaves on pred's
-    device; other leaves keep on_false's value (the engine restores them
+    device, a lane predicate [L] broadcast over each leaf's leading lane
+    axis; other leaves keep on_false's value (the engine restores them
     after the chunk)."""
-    return tree_map(
-        lambda t, f: torch.where(pred, t, f) if _on(f, pred.device) else f,
-        on_true, on_false,
-    )
+
+    def one(t, f):
+        if not _on(f, pred.device):
+            return f
+        p = pred.reshape(tuple(pred.shape) + (1,) * (f.dim() - pred.dim()))
+        return torch.where(p, t, f)
+
+    return tree_map(one, on_true, on_false)
 
 
 class Donated:
@@ -114,6 +127,25 @@ def _with_host_leaves(tree, host: list, device):
     return tree_unflatten(treedef, [x if _on(x, device) else next(it) for x in leaves])
 
 
+def _restore_lanes(tree, per_step: list, stops: dict, device):
+    """Each stopped lane l's entries of the host leaves back to their values
+    after step ``stops[l]`` (host leaves with a leading lane axis: numpy
+    arrays and host tensors; anything else is kept)."""
+    leaves, treedef = tree_flatten(tree)
+    out, j = [], 0
+    for x in leaves:
+        if _on(x, device):
+            out.append(x)
+            continue
+        if isinstance(x, (np.ndarray, torch.Tensor)) and x.ndim:
+            x = x.copy() if isinstance(x, np.ndarray) else x.clone()
+            for lane, at in stops.items():
+                x[lane] = per_step[at][j][lane]
+        out.append(x)
+        j += 1
+    return tree_unflatten(treedef, out)
+
+
 def _table(chunk: list, keys: list, device) -> dict:
     """A chunk's per-step metrics as host arrays, one row per step: the
     metrics on `device` stacked and read back in one transfer, the others
@@ -130,9 +162,9 @@ def _table(chunk: list, keys: list, device) -> dict:
         block = rows.cpu().numpy()
         col = 0
         for key in ks:
-            width = torch.as_tensor(chunk[0][key]).numel()
-            val = block[:, col:col + width]
-            out[key] = val if torch.as_tensor(chunk[0][key]).dim() else val[:, 0]
+            shape = tuple(torch.as_tensor(chunk[0][key]).shape)
+            width = int(np.prod(shape))
+            out[key] = block[:, col:col + width].reshape((len(chunk),) + shape)
             col += width
     return out
 
@@ -146,6 +178,7 @@ def make_scan_runner(
     chunk_size: int = DEFAULT_CHUNK_SIZE,
     step_takes_index: bool = False,
     carries_aux: bool = False,
+    lanes: Optional[int] = None,
 ) -> Callable[..., Tuple[object, dict, dict]]:
     """Build a reusable chunked driver.
 
@@ -164,7 +197,27 @@ def make_scan_runner(
     place cannot touch them; callers that rebind to the returned values
     pass False, or hand the state over in a `Donated` box (no clone), so
     that it is freed after the first step.
+
+    ``lanes=L`` expects a lane-batched step (state leaves [L, m, ...],
+    metrics [L]); `objective_fn` stays the per-run callable and is applied
+    to each lane's node-mean parameters.  Metrics come back as [steps, L]
+    (every dispatched step: the lanes' lengths are ``info["steps_run"]``,
+    an [L] int array).
     """
+
+    def objective(params):
+        if lanes is None:
+            mean_params = tree_map(lambda x: x.mean(dim=0), params)
+            return torch.as_tensor(objective_fn(mean_params)).float().reshape(())
+        # lane by lane, the arithmetic of an unbatched run
+        return torch.stack([
+            torch.as_tensor(objective_fn(tree_map(lambda x: x[lane].mean(dim=0), params)))
+            .float().reshape(()) for lane in range(lanes)])
+
+    def spread(win):
+        if lanes is None:
+            return torch.std(win, correction=0)
+        return torch.stack([torch.std(w, correction=0) for w in win])
 
     def run(state, batch_fn: Callable[[int], object], num_steps: int, *,
             copy_state: bool = True, k_start: int = 0, aux=None):
@@ -199,19 +252,20 @@ def make_scan_runner(
                 if dev is None:
                     dev = torch.as_tensor(ys["loss_mean"]).device
                 if objective_fn is not None:
-                    mean_params = tree_map(lambda x: x.mean(dim=0), params_of(new_state))
-                    obj = torch.as_tensor(objective_fn(mean_params)).float().reshape(())
+                    obj = objective(params_of(new_state))
                     dev = obj.device
                     if done is None:
-                        done = torch.zeros((), dtype=torch.bool, device=dev)
-                        win = torch.zeros(3, dtype=torch.float32, device=dev)
-                    new_win = torch.cat([win[1:], obj[None]])
+                        done = torch.zeros(obj.shape, dtype=torch.bool, device=dev)
+                        win = torch.zeros(tuple(obj.shape) + (3,), dtype=torch.float32,
+                                          device=dev)
+                    new_win = torch.cat([win[..., 1:], obj[..., None]], dim=-1)
                     # the rule needs three values of *this* run in the window
-                    trigger = (torch.std(new_win, correction=0) < tol_std) & (k - k_start >= 2)
+                    trigger = (spread(new_win) < tol_std) & (k - k_start >= 2)
                     # a step after the rule fired is a no-op: keep the frozen
                     # state so the returned state is the triggering step's
+                    # (lane by lane)
                     state, aux = _select(done, (state, aux), (new_state, new_aux))
-                    win = torch.where(done, win, new_win)
+                    win = torch.where(done[..., None], win, new_win)
                     done = done | trigger
                     ys["objective"] = obj
                     ys["_stopped"] = done
@@ -225,20 +279,29 @@ def make_scan_runner(
             block = _table(chunk, keys, dev)
             blocks.append(block)
             k0 += length
-            if objective_fn is not None and block["_stopped"][-1]:
-                stopped_at = len(host_per_step) - length + int(
-                    np.argmax(block["_stopped"] > 0))
+            # every lane stopped: the batched loop ends too
+            if objective_fn is not None and np.all(block["_stopped"][-1]):
                 break
         if not blocks:
-            return state, {}, {"steps_run": 0, "steps_dispatched": 0, "aux": aux}
+            zero = 0 if lanes is None else np.zeros(lanes, np.int64)
+            return state, {}, {"steps_run": zero, "steps_dispatched": 0, "aux": aux}
         host = {key: np.concatenate([b[key] for b in blocks]) for key in keys}
         stopped = host.pop("_stopped", None)
-        if stopped_at is not None:
+        n_steps = len(host_per_step)
+        if lanes is not None:
+            fired = np.zeros(lanes, bool) if stopped is None else (stopped > 0).any(axis=0)
+            first = np.zeros(lanes, np.int64) if stopped is None else np.argmax(stopped > 0, axis=0)
+            steps_run = np.where(fired, first + 1, n_steps).astype(np.int64)
+            stops = {lane: int(first[lane]) for lane in range(lanes) if fired[lane]}
+            if stops:
+                state, aux = _restore_lanes((state, aux), host_per_step, stops, dev)
+            return state, host, {
+                "steps_run": steps_run, "steps_dispatched": k0 - k_start, "aux": aux,
+            }
+        if stopped is not None and stopped.any():
+            stopped_at = int(np.argmax(stopped > 0))
             state, aux = _with_host_leaves((state, aux), host_per_step[stopped_at], dev)
-        steps_run = (
-            int(np.argmax(stopped > 0)) + 1
-            if stopped is not None and stopped.any() else len(host[keys[0]])
-        )
+        steps_run = n_steps if stopped_at is None else stopped_at + 1
         metrics = {key: val[:steps_run] for key, val in host.items()}
         return state, metrics, {
             "steps_run": steps_run, "steps_dispatched": k0 - k_start, "aux": aux,
@@ -266,5 +329,32 @@ def run_scan_loop(
         step_fn, objective_fn=objective_fn, params_of=params_of,
         tol_std=tol_std, chunk_size=chunk_size, step_takes_index=step_takes_index,
         carries_aux=carries_aux,
+    )
+    return runner(state, batch_fn, num_steps, aux=aux)
+
+
+def run_batched(
+    step_fn: Callable,  # lane-batched: state leaves [L, m, ...], metrics [L]
+    state,
+    batch_fn: Callable[[int], object],
+    num_steps: int,
+    *,
+    lanes: int,
+    objective_fn: Optional[Callable] = None,
+    params_of: Callable = lambda s: s.params,
+    tol_std: float = 1e-3,
+    chunk_size: int = DEFAULT_CHUNK_SIZE,
+    step_takes_index: bool = False,
+    carries_aux: bool = False,
+    aux=None,
+):
+    """One-shot lane-batched run: `make_scan_runner(lanes=lanes)` over a
+    step that is already lane-batched (`Algorithm.bind_batched` builds one
+    from any registered algorithm); per-lane [steps, L] metric buffers and
+    ``info["steps_run"]`` [L]."""
+    runner = make_scan_runner(
+        step_fn, objective_fn=objective_fn, params_of=params_of, tol_std=tol_std,
+        chunk_size=chunk_size, step_takes_index=step_takes_index,
+        carries_aux=carries_aux, lanes=lanes,
     )
     return runner(state, batch_fn, num_steps, aux=aux)

@@ -400,7 +400,7 @@ def rep_choco_step(state: RepChocoState, batch, grad_fn, lr: float, comp: Compre
     wire_bits, repair_bits, pending = _link_traffic(
         arrays, fr, state.pending, repair, innov_bits, 1, _n_total(state.params))
     metrics = {
-        "loss_mean": B._mean(losses),
+        "loss_mean": B._mean(losses, key),
         "wire_bits": wire_bits,
         "repair_bits": repair_bits,
         "surrogate_desync": _desync(arrays, state.reps, state.hats),
@@ -501,7 +501,7 @@ def rep_beer_step(state: RepBeerState, batch, grad_fn, lr: float, comp: Compress
     wire_bits, repair_bits, pending = _link_traffic(
         arrays, fr, state.pending, repair, innov_bits, 2, _n_total(state.params))
     desync = _desync(arrays, state.h_reps, state.h) + _desync(arrays, state.z_reps, state.z)
-    metrics = {"loss_mean": B._mean(losses), "wire_bits": wire_bits,
+    metrics = {"loss_mean": B._mean(losses, key), "wire_bits": wire_bits,
                "repair_bits": repair_bits, "surrogate_desync": desync}
     return (RepBeerState(state.params, state.h_held, state.g, state.z_held, state.prev_grad,
                          pending, state.step + 1, state.key), metrics)
@@ -578,7 +578,7 @@ def rep_nids_step(state: RepNidsState, batch, grad_fn, lr: float, comp: Compress
         arrays, fr, state.pending, repair, innov_bits, 2, _n_total(state.params))
     desync = (_desync(arrays, state.z_reps, state.hat_z)
               + _desync(arrays, state.c_reps, state.hat_c))
-    metrics = {"loss_mean": B._mean(losses), "wire_bits": wire_bits,
+    metrics = {"loss_mean": B._mean(losses, key), "wire_bits": wire_bits,
                "repair_bits": repair_bits, "surrogate_desync": desync}
     return (RepNidsState(state.params, state.c, state.hat_z, state.hat_c, state.z_reps,
                          state.c_reps, pending, state.step + 1, state.key), metrics)

@@ -40,6 +40,15 @@ Three `Mixer` modes, as in JAX:
   * "matrix" — the plain `torch.einsum("ji,j...->i...")` of B, what a raw
     [m, m] tensor becomes through `as_mixer`.
 
+Lanes (`core.lanes`): `make_mixer(..., lanes=L)` builds a mixer over L
+copies of the graph folded into L·m rows.  `fold_padded` offsets every
+slot of lane l's rows by l·m, padding slots included, so a padding slot
+repeats the receiver's own row in its own lane and a weight of 0.0 never
+multiplies another lane's value (a NaN in one lane stays there).  The
+tables are built once, with the mixer, and one launch a leaf covers all
+lanes.  The "matrix" mode contracts lane by lane with the [m, m] matrix;
+it never builds a block-diagonal [L·m, L·m] one.
+
 Two helpers serve the temporal and fault paths:
 
   * `ring_gather` — each node's value from the staleness ring where it is
@@ -61,12 +70,13 @@ from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.core import lanes as LN
 from repro_torch.tree import tree_map
 
 __all__ = [
     "PaddedMixing", "Mixer", "mix_padded", "make_mixer", "as_mixer",
     "gather_terms", "default_impl", "env_impl", "IMPLS", "ENV_VAR",
-    "ring_gather", "mix_replicated", "replica_table",
+    "ring_gather", "mix_replicated", "replica_table", "fold_padded",
 ]
 
 # The closed set of contraction implementations; every entry point that
@@ -120,6 +130,17 @@ class PaddedMixing(NamedTuple):
 
     def with_weights(self, w: torch.Tensor) -> "PaddedMixing":
         return PaddedMixing(self.nbrs, w, self.is_self, self.pad)
+
+
+def fold_padded(pm: PaddedMixing, lanes: int) -> PaddedMixing:
+    """L copies of `pm` as one [L·m, k] table: lane l's rows index rows
+    l·m ... l·m + m − 1 in every slot (padding slots too), so no lane
+    reads another's rows."""
+    if lanes == 1:
+        return pm
+    rep = lambda t: None if t is None else t.repeat(lanes, 1)  # noqa: E731
+    return PaddedMixing(LN.offset_rows([pm.nbrs] * lanes), rep(pm.w), rep(pm.is_self),
+                        rep(pm.pad))
 
 
 def _bcast(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -236,9 +257,12 @@ def _dense_padded(bmat: torch.Tensor) -> PaddedMixing:
     return PaddedMixing(nbrs, w, is_self)
 
 
-def _einsum(mat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """out_i = sum_j mat_ji x_j in x's type."""
-    return torch.einsum("ji,j...->i...", mat.to(x.dtype), x)
+def _einsum(mat: torch.Tensor, x: torch.Tensor, lanes: int = 1) -> torch.Tensor:
+    """out_i = sum_j mat_ji x_j in x's type; with lanes, each lane's m rows
+    by the [m, m] `mat` on their own."""
+    if lanes == 1:
+        return torch.einsum("ji,j...->i...", mat.to(x.dtype), x)
+    return torch.cat([_einsum(mat, xl) for xl in x.chunk(lanes)])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,13 +273,16 @@ class Mixer:
     padded form the "dense" / "sparse" modes gather over, and `impl` the
     neighbour contraction ("slots" | "segsum" | "kernel" | None =
     `default_impl` for the tensors' device).  Every method takes a pytree
-    of [m, ...] leaves, or one leaf, and returns fresh tensors.
+    of [m, ...] leaves, or one leaf, and returns fresh tensors.  With
+    ``lanes=L`` the leaves are [L·m, ...] and `pm` is the folded table
+    (`fold_padded`).
     """
 
     mode: str                        # "matrix" | "dense" | "sparse"
     b: Optional[torch.Tensor]        # [m, m]
     pm: Optional[PaddedMixing] = None
     impl: Optional[str] = None
+    lanes: int = 1
 
     @property
     def m(self) -> int:
@@ -267,21 +294,21 @@ class Mixer:
     def mix(self, tree):
         """out_i = sum_j B_ji x_j."""
         if self.mode == "matrix":
-            return tree_map(lambda x: _einsum(self.b, x), tree)
+            return tree_map(lambda x: _einsum(self.b, x, self.lanes), tree)
         return mix_padded(self.pm, tree, impl=self.impl)
 
     def mix_lazy(self, tree):
         """(B − I) x — the gossip increment used by BEER."""
         if self.mode == "matrix":
             w = self.b - self._eye()
-            return tree_map(lambda x: _einsum(w, x), tree)
+            return tree_map(lambda x: _einsum(w, x, self.lanes), tree)
         return tree_map(lambda mx, x: mx - x, mix_padded(self.pm, tree, impl=self.impl), tree)
 
     def mix_half(self, tree):
         """((I + B)/2) x — the NIDS averaging operator Ã."""
         if self.mode == "matrix":
             a_tilde = 0.5 * (self._eye() + self.b)
-            return tree_map(lambda x: _einsum(a_tilde, x), tree)
+            return tree_map(lambda x: _einsum(a_tilde, x, self.lanes), tree)
         return tree_map(lambda mx, x: (0.5 * (mx + x)).to(x.dtype),
                         mix_padded(self.pm, tree, impl=self.impl), tree)
 
@@ -293,7 +320,9 @@ class Mixer:
             a_tilde = 0.5 * (self._eye() + self.b)
             diag = torch.diagonal(a_tilde)
             off = a_tilde - torch.diag(diag)
-            return tree_map(lambda uh, ue: _einsum(off, uh) + ue * _bcast(diag, ue), hats, u)
+            diag = diag.repeat(self.lanes)
+            return tree_map(lambda uh, ue: _einsum(off, uh, self.lanes) + ue * _bcast(diag, ue),
+                            hats, u)
         sw = self.pm.self_weight  # B_ii
         half_diag = 0.5 * (1.0 + sw)
 
@@ -304,28 +333,30 @@ class Mixer:
 
 
 def make_mixer(topo, mode: str = "sparse", impl: Optional[str] = None,
-               device=None) -> Mixer:
+               device=None, lanes: int = 1) -> Mixer:
     """Build a Mixer from a `repro_torch.core.topology.Topology` on `device`
     (default CPU).
 
     mode="sparse" gathers over N_i ∪ {i}; mode="dense" runs the same gather
     over full connectivity; mode="matrix" is the plain einsum.  `impl`
     picks the neighbour contraction (None = `default_impl` per call).
+    ``lanes=L`` mixes L lanes folded into [L·m, ...] leaves (`fold_padded`).
     """
     if impl is not None:
         _check_impl(impl)
     b = torch.as_tensor(topo.mixing, dtype=torch.float32, device=device)
     if mode == "matrix":
-        return Mixer("matrix", b)
+        return Mixer("matrix", b, lanes=lanes)
     if mode == "dense":
-        return Mixer("dense", b, _dense_padded(b), impl)
+        return Mixer("dense", b, fold_padded(_dense_padded(b), lanes), impl, lanes)
     if mode != "sparse":
         raise ValueError(f"unknown mixing mode {mode!r}")
     nbrs, w, is_self = (torch.as_tensor(v, device=device) for v in topo.mixing_padded())
     nbrs = nbrs.to(torch.int32)
     # padding slots repeat the row's own id without being the self slot
     pad = (nbrs == torch.arange(nbrs.shape[0], device=nbrs.device)[:, None]) & ~is_self
-    return Mixer("sparse", b, PaddedMixing(nbrs, w.to(torch.float32), is_self, pad), impl)
+    pm = PaddedMixing(nbrs, w.to(torch.float32), is_self, pad)
+    return Mixer("sparse", b, fold_padded(pm, lanes), impl, lanes)
 
 
 def as_mixer(b: Union[Mixer, torch.Tensor]) -> Mixer:

@@ -15,6 +15,13 @@ Update rule (lines 4–14):
 
 The non-communicating branch zeroes the receiver's selection, which
 drives every coordinate count to zero and makes PME return w_i exactly.
+
+Lanes (`core.lanes`): given `LaneTopologyArrays` (one `TopologyArrays` a
+lane and the lane-offset tables of all of them), `pame_step` steps L lanes
+folded into [L·m, ...] leaves, the state's key, step and sigma per lane:
+each lane draws its selection and masks from its own key on its own m-node
+arrays, takes its own t_i, kappa_i and gamma, and reports its own metrics
+([L]); the exchange is one call a leaf for all lanes.
 """
 from __future__ import annotations
 
@@ -26,11 +33,13 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import engine, gossip, pme
+from repro_torch.core import lanes as LN
 from repro_torch.core.topology import Topology
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 __all__ = [
-    "PaMEConfig", "PaMEState", "TopologyArrays", "make_topology_arrays",
+    "PaMEConfig", "PaMEState", "TopologyArrays", "LaneTopologyArrays",
+    "make_topology_arrays", "fold_topology_arrays",
     "pame_init", "pame_step", "make_pame_runner", "run_pame",
 ]
 
@@ -83,11 +92,22 @@ class TopologyArrays(NamedTuple):
     kappa: torch.Tensor  # [m] per-node communication periods (int32)
 
 
+class LaneTopologyArrays(NamedTuple):
+    """L lanes' topology arrays: each lane's own (its config's t_i and
+    kappa_i) and the folded [L·m, d] tables the exchange gathers over,
+    every slot of lane l offset by l·m (`fold_topology_arrays`)."""
+
+    lanes: tuple         # L TopologyArrays of m nodes each
+    nbrs: torch.Tensor   # [L·m, d] lane-offset neighbour ids (padding too)
+    valid: torch.Tensor  # [L·m, d] bool
+    t: torch.Tensor      # [L·m] int32
+
+
 class PaMEState(NamedTuple):
-    params: object        # pytree, leaves [m, ...]
+    params: object        # pytree, leaves [m, ...] ([L, m, ...] lane-batched)
     sigma: torch.Tensor   # [m] float32
-    step: int             # host-side step counter
-    key: int              # seed of the run's randomness
+    step: int             # host-side step counter (int64 [L] lane-batched)
+    key: int              # seed of the run's randomness (int64 [L] lane-batched)
 
 
 def make_topology_arrays(
@@ -108,17 +128,41 @@ def make_topology_arrays(
     )
 
 
-def pame_init(key: int, params_stacked, m: int, cfg: PaMEConfig) -> PaMEState:
+def fold_topology_arrays(lanes) -> LaneTopologyArrays:
+    """The lane-offset tables of L lanes' `TopologyArrays` (one graph),
+    built once at bind time."""
+    return LaneTopologyArrays(
+        lanes=tuple(lanes),
+        nbrs=LN.offset_rows([ta.nbrs for ta in lanes]),
+        valid=torch.cat([ta.valid for ta in lanes]),
+        t=torch.cat([ta.t for ta in lanes]),
+    )
+
+
+def pame_init(key, params_stacked, m: int, cfg: PaMEConfig) -> PaMEState:
     """W^0 = 0 per Setup 1 is the caller's choice; any stacked init works
-    as long as it lies in N(delta) (Lemma 3)."""
+    as long as it lies in N(delta) (Lemma 3).  A per-lane key (an int
+    array [L]) starts L lanes folded into the leaves' rows, each lane's
+    sigma at its own sigma0 (a per-lane tuple)."""
     del m
     leaf = tree_leaves(params_stacked)[0]
+    if LN.count(key) is None:
+        return PaMEState(
+            params=params_stacked,
+            sigma=torch.full((leaf.shape[0],), cfg.sigma0, dtype=torch.float32,
+                             device=leaf.device),
+            step=0,
+            key=int(key),
+        )
+    key = np.asarray(key, dtype=np.int64)
+    sl = LN.lane_slices(leaf.shape[0], key)
     return PaMEState(
         params=params_stacked,
-        sigma=torch.full((leaf.shape[0],), cfg.sigma0, dtype=torch.float32,
-                         device=leaf.device),
-        step=0,
-        key=int(key),
+        sigma=torch.cat([torch.full((s.stop - s.start,), LN.lane_value(cfg.sigma0, lane),
+                                    dtype=torch.float32, device=leaf.device)
+                         for lane, s in enumerate(sl)]),
+        step=np.zeros_like(key),
+        key=key,
     )
 
 
@@ -130,7 +174,7 @@ def pame_step(
     state: PaMEState,
     batch,  # pytree, leaves [m, ...] (per-node sub-batches B_i^k)
     grad_fn: GradFn,
-    topo: TopologyArrays,
+    topo,   # TopologyArrays, or LaneTopologyArrays for a lane-batched state
     cfg: PaMEConfig,
     param_shardings=None,
     realization=None,
@@ -155,16 +199,28 @@ def pame_step(
     JAX's kernel route takes its fill from W); `delivered` ([m, d] bool,
     padded selection only) lets only delivered messages into the average
     while every selected one is charged.  An injected ``sel`` / ``a`` must
-    already be the realized selection."""
+    already be the realized selection.
+
+    Lanes: with `LaneTopologyArrays` the state holds L lanes folded into
+    its [L·m, ...] rows (key and step int64 [L], per-lane tuples for the
+    swept floats of `cfg`); draws are then folded too (``sel``, ``masks``
+    and ``offsets`` concatenated over the lanes' rows, ``a`` [L, m, m]),
+    and the metrics come back [L].  Dynamic networks take one lane a step
+    (`core.algorithms.BatchedAlgorithm` steps them lane by lane)."""
     if param_shardings is not None:
         _not_ported("param_shardings")
     if cfg.exchange not in ("dense", "compressed", "compressed_q8"):
         raise ValueError(f"unknown exchange {cfg.exchange!r}")
-    m = topo.nbrs.shape[0]
+    batched = isinstance(topo, LaneTopologyArrays)
+    if batched and not (realization is None and self_params is None and delivered is None):
+        raise NotImplementedError("a lane-batched PaME step takes a static network")
+    lane_arrays = topo.lanes if batched else (topo,)
+    n_lanes = len(lane_arrays)
+    m = lane_arrays[0].nbrs.shape[0]
     device = topo.nbrs.device
-    k_sel, k_mask, k_data = (
-        pme.fold_in(state.key, state.step * 3 + i) for i in range(3)
-    )
+    steps = [int(st) for st in np.atleast_1d(state.step)]
+    # selection, mask and data keys (one a lane for a lane-batched state)
+    k_sel, k_mask, k_data = (LN.fold(state.key, state.step * 3 + i) for i in range(3))
     draws = draws or {}
     masks = draws.get("masks")
 
@@ -173,21 +229,25 @@ def pame_step(
     else:
         rate = cfg.p
 
-    comm_mask = (state.step % topo.kappa) == 0  # k in K_i
+    comm = [(st % ta.kappa) == 0 for st, ta in zip(steps, lane_arrays)]  # k in K_i
     survivors = None
     if realization is not None:
         # offline / straggling receivers skip the exchange; senders are
         # filtered through the realized edge set
-        comm_mask = comm_mask & realization.participating.to(device)
+        comm[0] = comm[0] & realization.participating.to(device)
         survivors = realization.edge_alive.to(device)
+
+    def lanewise(sample):
+        """Each lane's selection from its own key, on its own m-node arrays."""
+        return [sample(pme.make_generator(k, device), ta.nbrs, ta.valid, ta.t, c,
+                       survivors=survivors)
+                for k, ta, c in zip(LN.keys(k_sel), lane_arrays, comm)]
+
     if cfg.exchange == "dense" and cfg.mixing == "sparse":
         # padded neighbour exchange: the [m, m] selection matrix is never built
         sel = draws.get("sel")
         if sel is None:
-            sel = pme.sample_neighbor_selection_padded(
-                pme.make_generator(k_sel, device), topo.nbrs, topo.valid,
-                topo.t, comm_mask, survivors=survivors,
-            )
+            sel = torch.cat(lanewise(pme.sample_neighbor_selection_padded))
         sel = sel.to(device)
         n_messages = sel.sum()
         if delivered is not None:
@@ -205,10 +265,8 @@ def pame_step(
             )
         a = draws.get("a")
         if a is None:
-            a = pme.sample_neighbor_selection(
-                pme.make_generator(k_sel, device), topo.nbrs, topo.valid,
-                topo.t, comm_mask, survivors=survivors,
-            )
+            a = torch.stack(lanewise(pme.sample_neighbor_selection))
+            a = a if batched else a[0]
         a = a.to(device)
         n_messages = a.sum()
         if cfg.exchange == "dense":
@@ -222,50 +280,52 @@ def pame_step(
                     "self_params (message-only delay) is not supported on the "
                     "compressed exchange path"
                 )
-            v_bar = gossip.compressed_pme_average_pytree(
-                k_mask, state.params, a, cfg.p,
-                quantize_bits=8 if cfg.exchange == "compressed_q8" else 0,
-                offsets=draws.get("offsets"),
-            )
+            v_bar = _compressed_exchange(k_mask, state.params, a if batched else a[None],
+                                         cfg, draws.get("offsets"))
 
     # Per-node gradients at v_bar, one node at a time (not a vmap): at full
     # width this keeps a single node's activations alive.  v_bar is a fresh
     # tensor from the exchange, so node i's local step updates its rows in
     # place once node i's gradient is taken — the other nodes' gradients
-    # read only their own rows.
+    # read only their own rows.  Row r is node r % m of lane r // m.
     stepsize = 1.0 / (state.sigma * topo.t.float())
     leaves, treedef = tree_flatten(v_bar)
     batch_leaves, batch_def = tree_flatten(batch)
     losses = []
-    for i in range(m):
-        p_i = tree_unflatten(treedef, [x[i].detach().requires_grad_(True) for x in leaves])
+    for r in range(n_lanes * m):
+        lane, i = divmod(r, m)
+        p_i = tree_unflatten(treedef, [x[r].detach().requires_grad_(True) for x in leaves])
         b_i = tree_unflatten(batch_def, [b[i] for b in batch_leaves])
-        loss_i, g_i = grad_fn(p_i, b_i, pme.fold_in(k_data, i))
+        loss_i, g_i = grad_fn(p_i, b_i, pme.fold_in(LN.lane_key(k_data, lane), i))
         losses.append(loss_i.detach().float().reshape(()))
         with torch.no_grad():
             for x, g in zip(leaves, tree_leaves(g_i)):
                 # w_i = v_i - g_i * (1 / (sigma_i t_i)), the step cast to
                 # the leaf's type before the multiply
-                x[i].sub_(g.to(x.dtype) * stepsize[i].to(x.dtype))
+                x[r].sub_(g.to(x.dtype) * stepsize[r].to(x.dtype))
         del p_i, g_i
     new_params = v_bar
 
-    # consensus error ||W - Pi||_F^2 (metric of Lemma 6)
-    consensus = sum(
-        torch.sum((x - x.mean(dim=0, keepdim=True)) ** 2).float() for x in leaves
-    )
+    # per lane: consensus error ||W - Pi||_F^2 (metric of Lemma 6) and the
+    # penalty's growth sigma <- gamma * sigma
+    rows = LN.lane_slices(n_lanes * m, state.key)
+    consensus = [sum(torch.sum((x[sl] - x[sl].mean(dim=0, keepdim=True)) ** 2).float()
+                     for x in leaves) for sl in rows]
+    sigma = [state.sigma[sl] * LN.lane_value(cfg.gamma, lane) for lane, sl in enumerate(rows)]
     new_state = PaMEState(
         params=new_params,
-        sigma=state.sigma * cfg.gamma,
+        sigma=torch.cat(sigma) if batched else sigma[0],
         step=state.step + 1,
         key=state.key,
     )
     metrics = {
-        "loss_mean": torch.stack(losses).mean(),
+        "loss_mean": LN.lane_mean(losses, state.key),
         "consensus": consensus,
-        "comm_nodes": comm_mask.sum(),
-        "sigma_mean": new_state.sigma.mean(),
+        "comm_nodes": [c.sum() for c in comm],
+        "sigma_mean": [sg.mean() for sg in sigma],
     }
+    for name in ("consensus", "comm_nodes", "sigma_mean"):
+        metrics[name] = torch.stack(metrics[name]) if batched else metrics[name][0]
     if realization is not None:
         # realized Eq.-(8) accounting: each selected surviving neighbour
         # sends one sparse message (int8 values under compressed_q8); flat
@@ -280,6 +340,23 @@ def pame_step(
             bits = pme.message_bits(max(1, int(round(cfg.p * n_total))), n_total, value_bits)
         metrics["wire_bits"] = n_messages.to(torch.float32) * float(bits)
     return new_state, metrics
+
+
+def _compressed_exchange(k_mask, params, a, cfg: PaMEConfig, offsets):
+    """The compressed exchange lane by lane (it runs no kernel): lane l's
+    rows with its [m, m] selection a[l], its key and its offsets."""
+    leaves, treedef = tree_flatten(params)
+    outs = []
+    for lane, (key, sl) in enumerate(zip(LN.keys(k_mask),
+                                         LN.lane_slices(leaves[0].shape[0], k_mask))):
+        part = tree_unflatten(treedef, [x[sl] for x in leaves])
+        offs = None if offsets is None else [o[sl] for o in offsets]
+        outs.append(tree_leaves(gossip.compressed_pme_average_pytree(
+            key, part, a[lane], cfg.p,
+            quantize_bits=8 if cfg.exchange == "compressed_q8" else 0, offsets=offs)))
+    if len(outs) == 1:
+        return tree_unflatten(treedef, outs[0])
+    return tree_unflatten(treedef, [torch.cat(xs) for xs in zip(*outs)])
 
 
 def _stack_params(params0, m: int):

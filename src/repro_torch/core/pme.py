@@ -18,6 +18,12 @@ On CUDA the exact-mode dense exchange sends leaves of at least 2^17
 elements to the hand-written kernel (`repro_torch.kernels.pme_average`);
 ``REPRO_TORCH_GOSSIP_IMPL=kernel`` sends every such leaf, and ``slots`` or
 ``segsum`` keeps them all on the plain average.
+
+Lanes (`core.lanes`): the pytree-level functions also take one key per
+lane (an int64 ndarray [L]) over [L·m, ...] leaves, each lane's masks drawn from its own
+key for its own m rows; the dense exchange then takes an [L, m, m]
+selection, one [m, m] a lane, and sends a leaf of at least 2^17 elements
+a lane to the kernel's lane axis in one launch.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import lanes as LN
 from repro_torch.core.mixing import default_impl, env_impl, gather_terms
 from repro_torch.tree import tree_flatten, tree_unflatten
 
@@ -187,18 +194,33 @@ def _count_average(agg: torch.Tensor, cnt: torch.Tensor, fallback: torch.Tensor)
 
 
 def _leaf_masks(masks, idx, key, device):
-    """Injected masks of leaf idx, or a generator for drawing them."""
+    """Injected masks of leaf idx, or one generator a lane for drawing
+    them (`key` an int, or an int64 ndarray of per-lane keys)."""
     if masks is not None:
         return masks[idx].to(device), None
     if key is None:
         raise ValueError("pass either a key or the masks to use")
-    return None, make_generator(fold_in(key, idx), device)
+    return None, [make_generator(fold_in(k, idx), device) for k in LN.keys(key)]
+
+
+def _draw_masks(gens, shape, p_i: float, mode: str) -> torch.Tensor:
+    """A leaf's masks, [rows, n] (exact) or in the leaf's shape
+    (Bernoulli): each lane's m = rows / L rows from its own generator."""
+    m = shape[0] // len(gens)
+    parts = []
+    for gen in gens:
+        if mode == "exact":
+            parts.append(sample_coordinate_masks(gen, m, shape[1],
+                                                 max(1, int(round(p_i * shape[1])))))
+        else:
+            parts.append(sample_bernoulli_masks(gen, p_i, (m,) + tuple(shape[1:])))
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 def pme_average_pytree(
-    key: Optional[int],
-    params,  # pytree with [m, ...] leaves
-    a: torch.Tensor,
+    key,                     # int, or one key per lane (int64 ndarray [L])
+    params,  # pytree with [m, ...] leaves ([L·m, ...] for L lanes)
+    a: torch.Tensor,         # [m, m], or [L, m, m] for L lanes
     p,  # float, or per-leaf rate sequence (tree partition — see leaf_rates)
     mode: str = "bernoulli",
     self_params=None,
@@ -211,35 +233,51 @@ def pme_average_pytree(
     `fold_in(key, leaf_index)` (or taken from `masks`, exact mode as
     [m, n_leaf], Bernoulli mode in the leaf's shape).  A sequence of rates
     gives each leaf its own keep fraction.  `self_params` overrides the
-    receiver's own view for the lambda = 0 fallback.
+    receiver's own view for the lambda = 0 fallback.  An [L, m, m]
+    selection averages L lanes folded into the leaves' rows, each over its
+    own m rows (masks drawn lane by lane from an ndarray of keys); on the card
+    an exact-mode leaf of at least 2^17 elements a lane takes the kernel's
+    lane axis, one launch for all lanes.
     """
     leaves, treedef = tree_flatten(params)
     self_leaves = leaves if self_params is None else tree_flatten(self_params)[0]
-    m = leaves[0].shape[0]
+    lanes = a.shape[0] if a.dim() == 3 else None
+    if lanes is not None and self_params is not None:
+        raise NotImplementedError("self_params takes one lane (an [m, m] selection)")
+    rows = leaves[0].shape[0]
+    m = rows // (lanes or 1)
     per_leaf = isinstance(p, (tuple, list))
     impl = default_impl(a.device)
     out = []
     for idx, leaf in enumerate(leaves):
         p_i = p[idx] if per_leaf else p
-        mk, gen = _leaf_masks(masks, idx, key, leaf.device)
+        mk, gens = _leaf_masks(masks, idx, key, leaf.device)
         own = self_leaves[idx]
         if mode == "exact":
-            flat = leaf.reshape(m, -1)
+            flat = leaf.reshape(rows, -1)
             n = flat.shape[1]
             if mk is None:
-                mk = sample_coordinate_masks(gen, m, n, max(1, int(round(p_i * n))))
-            mk = mk.reshape(m, n)
+                mk = _draw_masks(gens, (rows, n), p_i, mode)
+            mk = mk.reshape(rows, n)
             if self_params is None and impl == "kernel" and (
-                env_impl() == "kernel" or flat.numel() >= _KERNEL_MIN_ELEMS
+                env_impl() == "kernel" or m * n >= _KERNEL_MIN_ELEMS
             ):
                 # hot path: the fused kernel (one read of W and the masks,
-                # one write).  It takes the fallback from W itself, so a
-                # self-view override stays on the plain average.
+                # one write; all lanes in one launch).  It takes the
+                # fallback from W itself, so a self-view override stays on
+                # the plain average.
                 from repro_torch.kernels.pme_average.ops import (
                     pme_average as pme_average_fused,
                 )
 
-                avg = pme_average_fused(flat.contiguous(), mk, a)
+                if lanes is None:
+                    avg = pme_average_fused(flat.contiguous(), mk, a)
+                else:
+                    avg = pme_average_fused(flat.contiguous().view(lanes, m, n),
+                                            mk.contiguous().view(lanes, m, n), a)
+            elif lanes is not None:
+                avg = torch.cat([pme_average(w_l, mk_l, a_l) for w_l, mk_l, a_l in
+                                 zip(flat.chunk(lanes), mk.chunk(lanes), a)])
             elif self_params is None:
                 avg = pme_average(flat, mk, a)
             else:
@@ -247,30 +285,35 @@ def pme_average_pytree(
             out.append(avg.reshape(leaf.shape))
         else:
             if mk is None:
-                mk = sample_bernoulli_masks(gen, p_i, tuple(leaf.shape))
+                mk = _draw_masks(gens, tuple(leaf.shape), p_i, mode)
             # operands in the leaf's type, accumulation in f32 (JAX's
             # preferred_element_type=f32); 0/1 factors are exact in bf16
             mask_t = mk.reshape(leaf.shape).to(leaf.dtype)
-            a_t = a.to(leaf.dtype).float()
-            agg = torch.einsum("j...,ji->i...", (leaf * mask_t).float(), a_t)
-            cnt = torch.einsum("j...,ji->i...", mask_t.float(), a_t)
-            out.append(_count_average(agg, cnt, own))
+            sel = [a] if lanes is None else list(a)
+            parts = []
+            for x, mt, ow, a_l in zip(leaf.chunk(len(sel)), mask_t.chunk(len(sel)),
+                                      own.chunk(len(sel)), sel):
+                a_t = a_l.to(leaf.dtype).float()
+                agg = torch.einsum("j...,ji->i...", (x * mt).float(), a_t)
+                cnt = torch.einsum("j...,ji->i...", mt.float(), a_t)
+                parts.append(_count_average(agg, cnt, ow))
+            out.append(parts[0] if lanes is None else torch.cat(parts))
     return tree_unflatten(treedef, out)
 
 
-def _padded_leaf(nbrs, sel_f, leaf, own, p_i, mode, mk, gen, pad, impl):
+def _padded_leaf(nbrs, sel_f, leaf, own, p_i, mode, mk, gens, pad, impl):
     m = nbrs.shape[0]
     if mode == "exact":
         flat = leaf.reshape(m, -1)
         n = flat.shape[1]
         if mk is None:
-            mk = sample_coordinate_masks(gen, m, n, max(1, int(round(p_i * n))))
+            mk = _draw_masks(gens, (m, n), p_i, mode)
         mk = mk.reshape(m, n)
         payload = torch.where(mk, flat, 0).float()
     else:
         flat = leaf
         if mk is None:
-            mk = sample_bernoulli_masks(gen, p_i, tuple(leaf.shape))
+            mk = _draw_masks(gens, tuple(leaf.shape), p_i, mode)
         mk = mk.reshape(leaf.shape)
         payload = (flat * mk.to(flat.dtype)).float()
     mask_f = mk.float()
@@ -284,7 +327,7 @@ def _padded_leaf(nbrs, sel_f, leaf, own, p_i, mode, mk, gen, pad, impl):
 
 
 def pme_average_pytree_padded(
-    key: Optional[int],
+    key,                      # int, or one key per lane (int64 ndarray [L])
     params,                   # pytree with [m, ...] leaves
     nbrs: torch.Tensor,       # [m, d] padded neighbour ids
     sel: torch.Tensor,        # [m, d] bool — sample_neighbor_selection_padded
@@ -303,7 +346,9 @@ def pme_average_pytree_padded(
     over the d slots: the payload sum and the lambda_{i,l} counts ride one
     slot walk (two terms sharing the selection table), in f32, and the
     average is cast back to the leaf's type.  Each leaf's f32 transients
-    are dropped before the next leaf is drawn.
+    are dropped before the next leaf is drawn.  L lanes ride one call: the
+    leaves' L·m rows, a lane-offset table (`core.mixing.fold_padded`'s
+    layout) and one key a lane, so each leaf is one walk for all lanes.
     """
     leaves, treedef = tree_flatten(params)
     self_leaves = [None] * len(leaves) if self_params is None else tree_flatten(self_params)[0]
@@ -311,10 +356,10 @@ def pme_average_pytree_padded(
     per_leaf = isinstance(p, (tuple, list))
     out = []
     for idx, leaf in enumerate(leaves):
-        mk, gen = _leaf_masks(masks, idx, key, leaf.device)
+        mk, gens = _leaf_masks(masks, idx, key, leaf.device)
         out.append(_padded_leaf(
             nbrs, sel_f, leaf, self_leaves[idx], p[idx] if per_leaf else p,
-            mode, mk, gen, pad, impl,
+            mode, mk, gens, pad, impl,
         ))
     return tree_unflatten(treedef, out)
 

@@ -12,6 +12,13 @@
 // computed in f32 and written in W's type (f32 or bf16).  M may be bool /
 // uint8 or W's own type.
 //
+// Lanes: W, M and out may hold L independent lanes [L, m, n] and A [L, m, m]
+// (S seeds x C configs of one run batched together).  The grid's y axis is
+// the lane: block (x, l) reads and writes only lane l's rows, at lane l's
+// strides, so one launch covers every lane and no lane reads another's
+// values.  Each lane computes what a single-lane launch on it computes, bit
+// for bit.
+//
 // What bounds it on an H100: bytes.  Per coordinate it does 2*m*m
 // multiply-adds against m*(|W| + |M| + |out|) bytes; at the trainer's m = 4
 // that is about 6 operations a byte, far below the ridge point, so the
@@ -69,6 +76,12 @@ pme_average_kernel(const WT* __restrict__ w, const MT* __restrict__ mask,
                    const float* __restrict__ a, WT* __restrict__ out, int m,
                    int64_t n) {
   extern __shared__ float s_at[];  // [kRecvTile, m]: A^T rows of the tile
+  // this block's lane
+  const int64_t lane = blockIdx.y;
+  w += lane * m * n;
+  mask += lane * m * n;
+  out += lane * m * n;
+  a += lane * m * m;
   const int64_t l0 = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * V;
   const bool active = l0 < n;  // for V > 1 the launcher guarantees n % V == 0
   for (int i0 = 0; i0 < m; i0 += kRecvTile) {
@@ -123,7 +136,7 @@ pme_average_kernel(const WT* __restrict__ w, const MT* __restrict__ mask,
 
 template <typename WT, typename MT>
 int launch(const void* w, const void* mask, const float* a, void* out, int m,
-           int64_t n, cudaStream_t s) {
+           int64_t n, int lanes, cudaStream_t s) {
   const size_t align = 4 * sizeof(WT);
   const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(w) % align == 0 &&
                    reinterpret_cast<uintptr_t>(out) % align == 0 &&
@@ -138,7 +151,7 @@ int launch(const void* w, const void* mask, const float* a, void* out, int m,
   const auto* wp = static_cast<const WT*>(w);
   const auto* mp = static_cast<const MT*>(mask);
   auto* op = static_cast<WT*>(out);
-  const dim3 grid(static_cast<unsigned>(blocks));
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(lanes));
   if (vec && rt == 4)
     pme_average_kernel<WT, MT, 4, 4><<<grid, kThreads, smem, s>>>(wp, mp, a, op, m, n);
   else if (vec)
@@ -150,30 +163,32 @@ int launch(const void* w, const void* mask, const float* a, void* out, int m,
 
 template <typename WT>
 int dispatch_mask(const void* w, const void* mask, const float* a, void* out,
-                  int m, int64_t n, int mask_dtype, cudaStream_t s) {
+                  int m, int64_t n, int lanes, int mask_dtype, cudaStream_t s) {
   switch (mask_dtype) {
-    case 0: return launch<WT, float>(w, mask, a, out, m, n, s);
-    case 1: return launch<WT, __nv_bfloat16>(w, mask, a, out, m, n, s);
-    case 2: return launch<WT, uint8_t>(w, mask, a, out, m, n, s);
+    case 0: return launch<WT, float>(w, mask, a, out, m, n, lanes, s);
+    case 1: return launch<WT, __nv_bfloat16>(w, mask, a, out, m, n, lanes, s);
+    case 2: return launch<WT, uint8_t>(w, mask, a, out, m, n, lanes, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// w, out [m, n] of type w_dtype; mask [m, n] of type mask_dtype; a [m, m]
-// float32, row-major A[sender, receiver].  Type codes: 0 float32, 1 bfloat16,
-// 2 uint8 (bool).  Launches on `stream`, allocates nothing, does not
-// synchronise.  Returns cudaGetLastError() (0 = launched).
+// w, out [lanes, m, n] of type w_dtype; mask [lanes, m, n] of type
+// mask_dtype; a [lanes, m, m] float32, row-major A[sender, receiver] per
+// lane.  Type codes: 0 float32, 1 bfloat16, 2 uint8 (bool).  Launches on
+// `stream`, allocates nothing, does not synchronise.  Returns
+// cudaGetLastError() (0 = launched).
 extern "C" int pme_average(const void* w, const void* mask, const float* a,
-                           void* out, int m, long long n, int w_dtype,
+                           void* out, int m, long long n, int lanes, int w_dtype,
                            int mask_dtype, void* stream) {
-  if (m < 1 || n < 1 || static_cast<size_t>(kMaxRecvTile) * m * sizeof(float) > 48 * 1024)
+  if (m < 1 || n < 1 || lanes < 1 || lanes > 65535 ||
+      static_cast<size_t>(kMaxRecvTile) * m * sizeof(float) > 48 * 1024)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   switch (w_dtype) {
-    case 0: return dispatch_mask<float>(w, mask, a, out, m, n, mask_dtype, s);
-    case 1: return dispatch_mask<__nv_bfloat16>(w, mask, a, out, m, n, mask_dtype, s);
+    case 0: return dispatch_mask<float>(w, mask, a, out, m, n, lanes, mask_dtype, s);
+    case 1: return dispatch_mask<__nv_bfloat16>(w, mask, a, out, m, n, lanes, mask_dtype, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

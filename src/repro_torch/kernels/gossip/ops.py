@@ -13,6 +13,11 @@ Keeps the contract of ``src/repro/kernels/gossip/ops.py``:
     The kernel takes float32 and bfloat16 operands (f32 sums, output in
     the operands' type); any other type on the card raises.
 
+Lanes (`core.lanes`) need nothing of their own here: L lanes' [m, k]
+tables folded into one [L·m, k] table whose every slot of lane l is offset
+by l·m (`core.mixing.fold_padded`) are one launch over L·m receiver rows,
+bit-equal to L single-lane launches.
+
 The device of the tensors decides: CPU tensors take the plain version
 (`ref.gather_terms_ref`), CUDA tensors launch the kernel or raise.  There
 is no fallback from the card to the plain version.

@@ -3,7 +3,11 @@
 Replaces ``src/repro/kernels/pme_average/kernel.py::pme_average_pallas``;
 see the source for the design and what bounds it.  `pme_average_cuda`
 takes CUDA tensors only, checks them, allocates the output and launches on
-the current stream.  ``pme_average_cuda.launches`` counts its launches.
+the current stream.  It takes one lane ([m, n], [m, m]) or L lanes
+([L, m, n], [L, m, m]: the lane grid axis JAX's batching rule gives
+`pme_average_pallas` under `vmap`), each lane its own m rows, in one
+launch.  ``pme_average_cuda.launches`` counts its launches and
+``pme_average_cuda.lane_launches`` those with a lane axis.
 """
 from __future__ import annotations
 
@@ -16,14 +20,15 @@ from repro_torch.kernels import _build
 # type codes of the C interface
 _W_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2, torch.bool: 2}
-MAX_NODES = 48 * 1024 // (8 * 4)  # eight A^T rows in 48 KB of shared memory
+MAX_NODES = 48 * 1024 // (8 * 4)  # eight A^T rows in 48 KB of shared memory (m, not L·m)
+MAX_LANES = 65535  # the grid's y dimension
 
 
 def _bind():
     fn = _build.load("pme_average").pme_average
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
@@ -31,19 +36,24 @@ def _bind():
 
 
 def pme_average_cuda(
-    w: torch.Tensor,      # [m, n] float32 or bfloat16
-    masks: torch.Tensor,  # [m, n] bool / uint8, or float32 / bfloat16
-    a: torch.Tensor,      # [m, m] selection, A[sender, receiver]
+    w: torch.Tensor,      # [m, n] or [L, m, n] float32 or bfloat16
+    masks: torch.Tensor,  # w's shape: bool / uint8, or float32 / bfloat16
+    a: torch.Tensor,      # [m, m] or [L, m, m] selection, A[sender, receiver]
 ) -> torch.Tensor:
-    """out = cnt > 0 ? agg / max(cnt, 1) : w, in w's type (f32 compute)."""
+    """out = cnt > 0 ? agg / max(cnt, 1) : w, in w's type (f32 compute),
+    lane by lane for [L, m, n] operands."""
     if not w.is_cuda:
         raise ValueError("pme_average_cuda launches a CUDA kernel: pass CUDA tensors")
-    if w.dim() != 2 or masks.shape != w.shape:
-        raise ValueError(f"need w and masks of one [m, n] shape, got "
+    if w.dim() not in (2, 3) or masks.shape != w.shape:
+        raise ValueError(f"need w and masks of one [m, n] or [L, m, n] shape, got "
                          f"{tuple(w.shape)} and {tuple(masks.shape)}")
-    m, n = w.shape
-    if a.shape != (m, m):
-        raise ValueError(f"selection must be [{m}, {m}], got {tuple(a.shape)}")
+    lanes = w.shape[0] if w.dim() == 3 else 1
+    m, n = w.shape[-2:]
+    want = (m, m) if w.dim() == 2 else (lanes, m, m)
+    if tuple(a.shape) != want:
+        raise ValueError(f"selection must be {list(want)}, got {tuple(a.shape)}")
+    if not 1 <= lanes <= MAX_LANES:
+        raise ValueError(f"pme_average_cuda takes 1 to {MAX_LANES} lanes, got {lanes}")
     if w.dtype not in _W_TYPES or masks.dtype not in _MASK_TYPES:
         raise TypeError(f"unsupported types: w {w.dtype}, masks {masks.dtype}")
     if m > MAX_NODES:
@@ -57,13 +67,15 @@ def pme_average_cuda(
     if n == 0:
         return out
     rc = _bind()(
-        w.data_ptr(), masks.data_ptr(), a32.data_ptr(), out.data_ptr(), m, n,
+        w.data_ptr(), masks.data_ptr(), a32.data_ptr(), out.data_ptr(), m, n, lanes,
         _W_TYPES[w.dtype], _MASK_TYPES[masks.dtype],
         torch.cuda.current_stream(w.device).cuda_stream,
     )
     _build.check(rc, "pme_average")
     pme_average_cuda.launches += 1
+    pme_average_cuda.lane_launches += int(w.dim() == 3)
     return out
 
 
 pme_average_cuda.launches = 0
+pme_average_cuda.lane_launches = 0

@@ -14,7 +14,8 @@ from repro_torch.kernels.pme_average.ref import pme_average_ref
 
 
 def pme_average(w: torch.Tensor, masks: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """Count-weighted PME average; masks may be bool or numeric."""
+    """Count-weighted PME average; masks may be bool or numeric.  One lane
+    ([m, n], [m, m]) or L lanes ([L, m, n], [L, m, m])."""
     if not w.is_cuda:
         return pme_average_ref(w, masks.to(w.dtype), a)
     return pme_average_cuda(w, masks, a)

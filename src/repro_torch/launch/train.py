@@ -9,7 +9,7 @@ and ``--layers N`` (the configuration at full width, cut to N layers: what
 one card holds for the replicated fault variants of BEER and ANQ-NIDS).
 Every registered algorithm runs (``--algo pame``, ``dpsgd``, ``dfedsam``,
 ``choco``, ``beer``, ``anq_nids``; ``--lr`` and ``--rho`` reach the
-baselines) with one seed, on the static network or under the JAX CLI's
+baselines), on the static network or under the JAX CLI's
 dynamic-network flags: ``--scenario`` and ``--churn`` / ``--straggler`` /
 ``--edge-drop`` (i.i.d.), ``--burst`` / ``--session`` / ``--staleness`` /
 ``--resample`` / ``--mobility-keep`` (Markov dynamics and bounded
@@ -17,8 +17,12 @@ staleness), ``--loss-rate`` / ``--loss-burst`` / ``--crash`` /
 ``--msg-delay`` / ``--no-repair`` (message-level faults).  ``--ckpt-dir``
 saves the state (with the auxiliary carry and the realized wire bits)
 every ``--ckpt-every`` steps and resumes from the newest intact step
-(`repro_torch.checkpoint`, the JAX package's format); the
-compilation-cache and multi-seed flags raise "not yet ported".  Steps run
+(`repro_torch.checkpoint`, the JAX package's format).  ``--seeds N``
+trains N seed replicas as one lane-batched run (`Algorithm.bind_batched`:
+lane s starts from key seed + 1 + s, the key an unbatched run of that seed
+gets) and logs the mean loss across lanes with its spread (``loss_std``)
+and the wire bits a lane; the compilation-cache flag raises "not yet
+ported".  Steps run
 through `repro_torch.core.engine` in ``--chunk``-step chunks with one host
 sync per chunk; gossip goes through the sparse neighbour exchange by
 default (``--mixing dense`` for the selection-matrix form), and per-step
@@ -58,8 +62,8 @@ from repro_torch.models.model import init_params, train_loss
 from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 
 # flags whose non-default values select code the port does not have yet:
-# batched seed lanes and the compilation cache
-_NOT_PORTED = (("seeds", 1), ("compile_cache", None))
+# the compilation cache
+_NOT_PORTED = (("compile_cache", None),)
 
 
 def _hps_from_args(name: str, args):
@@ -224,12 +228,18 @@ def build_everything(args):
     )
     alg = get_algorithm(args.algo)
     hps = _hps_from_args(args.algo, args)
-    bound = alg.bind(grad_fn, topo, hps, mixing=args.mixing, seed=args.seed,
-                     scenario=_scenario_from_args(args), faults=_faults_from_args(args),
-                     device=device)
-    stacked = bound.stack_params(params0, m)
     batch0 = make_batch(0) if alg.needs_batch0 else None
-    state = bound.init(args.seed + 1, stacked, batch0)
+    net = dict(mixing=args.mixing, seed=args.seed, scenario=_scenario_from_args(args),
+               faults=_faults_from_args(args), device=device)
+    if args.seeds > 1:
+        # one lane-batched run of the seed replicas: lane s starts from key
+        # seed + 1 + s, the key the unbatched run of that seed would use
+        bound = alg.bind_batched(grad_fn, topo, [hps],
+                                 seeds=[args.seed + 1 + i for i in range(args.seeds)], **net)
+        state = bound.init(params0, m, batch0)
+    else:
+        bound = alg.bind(grad_fn, topo, hps, **net)
+        state = bound.init(args.seed + 1, bound.stack_params(params0, m), batch0)
     n_params = sum(int(np.prod(tuple(x.shape))) for x in tree_leaves(params0))
     return cfg, bound, state, make_batch, n_params, params0
 
@@ -298,7 +308,7 @@ def make_parser() -> argparse.ArgumentParser:
                     help="no replica repair: lost innovations desync "
                          "surrogates permanently")
     ap.add_argument("--seeds", type=int, default=1,
-                    help="seed replicas as batched lanes (not yet ported: 1)")
+                    help="seed replicas trained together as batched lanes")
     ap.add_argument("--chunk", type=int, default=16,
                     help="steps per engine chunk (one host sync per chunk)")
     ap.add_argument("--lr", type=float, default=0.05, help="baseline step size")
@@ -364,6 +374,7 @@ def main(argv=None) -> dict:
     for callers such as the chip smoke."""
     args = make_parser().parse_args(argv)
     cfg, bound, state, make_batch, n_params, params0 = build_everything(args)
+    lanes = bound.lanes if args.seeds > 1 else None
     wire_per_step = bound.wire_bits_for(params0)
     scen_tag = bound.scenario.name if bound.dynamic else "static"
     if bound.faulty:
@@ -377,7 +388,8 @@ def main(argv=None) -> dict:
     print(
         f"[train] algo={args.algo} mixing={args.mixing} {part_tag}"
         f"nodes={args.nodes} scenario={scen_tag} "
-        f"params={n_params/1e6:.2f}M wire_bits/step={wire_per_step:.3e} "
+        + (f"seeds={args.seeds} (batched lanes) " if lanes else "")
+        + f"params={n_params/1e6:.2f}M wire_bits/step={wire_per_step:.3e} "
         f"({wire_per_step/8e6:.2f} MB/step network-wide"
         f"{'; full graph — realized bits logged per step' if bound.dynamic else ''})"
         f" device={bound.device}",
@@ -391,7 +403,7 @@ def main(argv=None) -> dict:
                                                            bound.carries_aux)
     runner = engine.make_scan_runner(bound.step, chunk_size=args.chunk,
                                      step_takes_index=bound.dynamic,
-                                     carries_aux=bound.carries_aux)
+                                     carries_aux=bound.carries_aux, lanes=lanes)
     log_every = max(args.log_every or args.chunk, 1)
     t0 = time.time()
     k = start
@@ -410,21 +422,28 @@ def main(argv=None) -> dict:
         state, metrics, info = runner(box, make_batch, length, k_start=k0, aux=aux)
         aux = info["aux"]
         out["seconds"].append(time.time() - tc)
-        out["loss"].extend(float(v) for v in metrics["loss_mean"])
+        # a lane-batched run logs each step's mean over the lanes
+        out["loss"].extend(float(np.mean(v)) for v in metrics["loss_mean"])
         for key, vals in metrics.items():
             out["metrics"].setdefault(key, []).extend(np.asarray(vals).tolist())
         k += info["steps_dispatched"]
         if "wire_bits" in metrics:  # realized (surviving-edge) accounting
-            cum_bits += float(np.sum(metrics["wire_bits"]))
+            # lane-batched rows are [steps, L]: the average a lane, so the
+            # log stays comparable with a single-seed run
+            cum_bits += float(np.sum(metrics["wire_bits"])) / (lanes or 1)
         else:
             cum_bits += wire_per_step * info["steps_dispatched"]
         if "stale_hist" in metrics:  # per-run staleness occupancy histogram
-            row = np.asarray(metrics["stale_hist"]).sum(axis=0)
+            rows = np.asarray(metrics["stale_hist"])
+            row = rows.reshape(-1, rows.shape[-1]).sum(axis=0)
             stale_hist = row if stale_hist is None else stale_hist + row
         if (k // log_every) != (k0 // log_every) or k >= args.steps:
-            loss = float(np.mean(metrics["loss_mean"]))
-            last = lambda key: float(np.asarray(metrics[key])[-1])  # noqa: E731
+            lm = np.asarray(metrics["loss_mean"])
+            loss = float(np.mean(lm))
+            last = lambda key: float(np.mean(np.asarray(metrics[key])[-1]))  # noqa: E731
             extra = ""
+            if lanes:  # the seed replicas' spread at the last step
+                extra += f" loss_std={float(np.std(lm[-1])):.4f}"
             for key, fmt in (("consensus", " consensus={:.3e}"), ("comm_nodes", " comm_nodes={:.0f}"),
                              ("alive_nodes", " alive={:.0f}"), ("stale_nodes", " stale={:.0f}"),
                              ("crashed_nodes", " crashed={:.0f}"),

@@ -63,6 +63,61 @@ def test_pme_average_kernel(dev, m, n, dtype, mask_as):
         assert _bf16_ulps(out, ref) <= 1.0
 
 
+@pytest.mark.parametrize("lanes,m,n", [(1, 4, 64), (2, 4, 4096), (5, 7, 257), (3, 37, 130)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pme_average_kernel_lanes(dev, lanes, m, n, dtype):
+    """The lane axis: one launch over [L, m, n] equals one single-lane
+    launch a lane bit for bit and the plain version's lane loop within its
+    tolerance; a NaN lane leaves the other lanes bit-equal."""
+    g = torch.Generator(device=dev).manual_seed(lanes * 100 + m)
+    w = torch.randn((lanes, m, n), generator=g, device=dev).to(dtype)
+    masks = torch.rand((lanes, m, n), generator=g, device=dev) < 0.3
+    a = ((torch.rand((lanes, m, m), generator=g, device=dev) < 0.5)
+         & ~torch.eye(m, dtype=torch.bool, device=dev)).float()
+    before = (pkernel.pme_average_cuda.launches, pkernel.pme_average_cuda.lane_launches)
+    out = pkernel.pme_average_cuda(w, masks, a)
+    torch.cuda.synchronize()
+    assert (pkernel.pme_average_cuda.launches, pkernel.pme_average_cuda.lane_launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref = pme_average_ref(w, masks.to(dtype), a)
+    for lane in range(lanes):
+        one = pkernel.pme_average_cuda(w[lane], masks[lane], a[lane])
+        torch.testing.assert_close(out[lane], one, rtol=0, atol=0)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-6, atol=1e-6)
+    else:
+        assert _bf16_ulps(out, ref) <= 1.0
+    if lanes > 1:
+        w[0, 1, 3] = float("nan")
+        poisoned = pkernel.pme_average_cuda(w, masks, a)
+        torch.testing.assert_close(poisoned[1:], out[1:], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lanes,m,n", [(2, 4, 4096), (5, 9, 257), (3, 40, 130)])
+def test_gossip_kernel_folded_lanes(dev, dtype, lanes, m, n):
+    """Design (a): the lane-offset [L·m, k] table (`fold_padded`) is one
+    launch, bit-equal to one launch a lane (f32: the slots chain; bf16: the
+    f32 chain rounded once), and a NaN lane reaches no other lane."""
+    topo = build_topology("erdos_renyi", m, p=0.5, seed=1)
+    pm = mixing.make_mixer(topo, "sparse", device=dev).pm
+    folded = mixing.fold_padded(pm, lanes)
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn((lanes * m, n), generator=g, device=dev).to(dtype)
+    before = gkernel.gossip_gather.launches
+    (got,) = gather_terms_kernel(folded.nbrs, [(folded.w, x)], pad=folded.pad)
+    torch.cuda.synchronize()
+    assert gkernel.gossip_gather.launches == before + 1
+    for lane, xl in enumerate(x.chunk(lanes)):
+        (one,) = gather_terms_kernel(pm.nbrs, [(pm.w, xl)], pad=pm.pad)
+        torch.testing.assert_close(got[lane * m:(lane + 1) * m], one, rtol=0, atol=0)
+        (slots,) = mixing.gather_terms(pm.nbrs, [(pm.w, xl.float())], impl="slots")
+        torch.testing.assert_close(one, slots.to(dtype), rtol=0, atol=0)
+    x[1] = float("nan")  # lane 0, node 1
+    (poisoned,) = gather_terms_kernel(folded.nbrs, [(folded.w, x)], pad=folded.pad)
+    torch.testing.assert_close(poisoned[m:], got[m:], rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("m,n,kind", [(7, 257, "erdos_renyi"), (9, 1024, "star"),
                                       (40, 130, "ring"), (4, 4096, "erdos_renyi")])
 def test_gossip_kernel_equals_slots(dev, m, n, kind):

@@ -110,9 +110,32 @@ def test_cli_runs_each_baseline_on_cpu(algo, capsys):
 
 def test_cli_unported_flags_raise():
     base = ["--arch", "stablelm-1.6b", "--device", "cpu"]
-    for extra in (["--seeds", "2"], ["--compile-cache", "x"]):
+    for extra in (["--compile-cache", "x"],):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             ttrain.main(base + extra)
+
+
+@pytest.mark.parametrize("algo,flags", [("pame", ["--kappa-lo", "2", "--kappa-hi", "2"]),
+                                        ("dpsgd", ["--straggler", "0.3"])])
+def test_cli_seeds_run_lanes_on_cpu(algo, flags, capsys):
+    """--seeds 2 trains two seed lanes in one run (lane s from key seed + 1
+    + s), logging the mean loss across lanes and its spread; each lane's
+    losses equal the single-seed run of its key (D-PSGD under stragglers:
+    the lane-by-lane dynamic path)."""
+    base = ["--arch", "stablelm-1.6b", "--variant", "smoke", "--nodes", "4", "--batch", "1",
+            "--seq", "16", "--steps", "3", "--chunk", "2", "--device", "cpu", "--algo", algo]
+    out = ttrain.main(base + flags + ["--seeds", "2"])
+    log = capsys.readouterr().out
+    assert "seeds=2 (batched lanes)" in log and "loss_std=" in log
+    lanes = np.asarray(out["metrics"]["loss_mean"])
+    assert lanes.shape == (3, 2) and np.isfinite(lanes).all()
+    np.testing.assert_allclose(out["loss"], lanes.mean(axis=1), rtol=1e-6)
+    if algo == "pame":
+        # the exchange at step 2 (kappa = 2) draws from each lane's key
+        assert lanes[-1, 0] != lanes[-1, 1]
+        # lane 0 starts from key seed + 1, the single-seed run's key
+        single = ttrain.main(base + flags)
+        np.testing.assert_array_equal(np.float32(single["loss"]), np.float32(lanes[:, 0]))
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
