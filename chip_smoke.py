@@ -128,7 +128,28 @@ non-zero without the final result line:
      times the lane forms: the PME average's lane axis at [2, 4,
      276,824,064] bf16 and [5, 4, 36,864] f32, the gossip kernel on the
      lane-offset table at H1's embedding, [8, 205,520,896] f32;
- 15. the kernel table line, then the result line.
+ 15. path I: the remaining LM architectures — I1 the trainer CLI on
+     deepseek-v2-lite-16b (MLA and MoE) at full width and 3 layers (the
+     dense first layer and 2 MoE layers), PaME sparse on 4 nodes, 3 steps:
+     the f32 gossip kernel once a leaf a step (28), finite losses, peak
+     under 80 GB; then one node's train_loss and backward without remat
+     and with the "full" and "dots" policies: equal losses, each peak
+     recorded; I2 deepseek-v2-lite-16b served at full width and depth (27
+     layers, one node model, 8 x 2048-token prompts in query chunks of 512,
+     32 generated): MLA's chunked prefill, its cache and the absorbed
+     decode through 26 MoE layers; I3 qwen3-14b served at full width and
+     depth with use_flash (40 flash launches a prefill, D = 128, 40 heads
+     on 8 KV heads); I4 minitron-4b, internvl2-2b (patch embeddings before
+     the prompt), musicgen-large, yi-34b and deepseek-v2-236b (q_lora) at
+     full width and 2 layers: one train_loss and backward, one prefill of
+     2 x 256 tokens and 4 decoded tokens, all finite; qwen3-14b's chunked
+     GQA prefill (2 x 1024 tokens, chunks of 512) within 2e-2 of the
+     unchunked route on its bf16 logits; I5 sgd, momentum and adam on a
+     quadratic over a tree on the card, the objective below 1e-3 of its
+     start.  Phase 2 times the f32 gossip kernel at I1's largest leaf [4,
+     369,098,752] and flash at I3's shape q [8, 2048, 40, 128] on 8 KV
+     heads (against SDPA with its GQA flag);
+ 16. the kernel table line, then the result line.
 
 Exits non-zero with no result when no CUDA device is present, or when the
 port's sources are not beside this script.
@@ -154,6 +175,9 @@ F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 BIG_N = 24 * 2048 * 5632  # the largest leaf of stablelm-1.6b (w_gate / w_up / w_down)
 FC1_N = 7 * 7 * 64 * 128  # the Example-3 CNN's fc1, path F3's largest leaf
+# path I1's largest leaf: deepseek-v2-lite-16b's stacked routed experts
+# (w_gate / w_up / w_down) over its 2 MoE layers
+I1_LEAF_N = 2 * 64 * 2048 * 1408
 M = 4
 # elements (columns) at a time in the comparisons and the plain contraction:
 # a full-width replica leaf is then never copied whole into f32
@@ -363,6 +387,18 @@ def check_gossip(dev):
     row_grown = case("path-g1-grown-largest-leaf", nbrs, sel.float(), ~valid, xs, reps=5)
     del xs
     free()
+    # path I1's largest leaf (deepseek-v2-lite-16b's routed experts): the
+    # same walks over path A's table
+    nbrs, valid = (torch.as_tensor(v, device=dev) for v in topo.neighbor_matrix_padded())
+    sel = valid.clone()
+    sel[0] = False
+    mask = torch.rand((M, I1_LEAF_N), generator=g, device=dev) < 0.2
+    payload = torch.randn((M, I1_LEAF_N), generator=g, device=dev).to(torch.bfloat16) * mask
+    xs = [payload.float(), mask.float()]
+    del payload, mask
+    row_i1 = case("path-i1-largest-leaf", nbrs, sel.float(), ~valid, xs, reps=5)
+    del xs
+    free()
     # path D's largest leaf: one bf16 term over the baselines' sparse Mixer
     mx = make_mixer(topo, "sparse", device=dev)
     x = torch.randn((M, BIG_N), generator=g, device=dev).to(torch.bfloat16)
@@ -386,7 +422,7 @@ def check_gossip(dev):
     x = torch.randn((M, FC1_N), generator=g, device=dev)
     row_fc1 = case("path-f3-fc1", mx.pm.nbrs, mx.pm.w, mx.pm.pad, [x], reps=50)
     return {"f32": row, "bf16": row_bf16, "bf16_replicas": row_rep, "f32_fc1": row_fc1,
-            "f32_grown": row_grown}
+            "f32_grown": row_grown, "f32_path_i": row_i1}
 
 
 def check_pme(dev):
@@ -660,7 +696,7 @@ def check_flash(dev):
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # [B, heads, S, D]
             row["library_ms"] = time_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True), reps)
+                    qt, kt, vt, is_causal=True, enable_gqa=kv != h), reps)
             flops = 4 * b * h * d * (s * (s + 1) // 2)  # q.k and p.v, causal half
             bytes_ = (2 * q.numel() + 2 * k.numel()) * q.element_size()
             row["bound_ms"], row["bound_by"] = bound(bytes_, flops)
@@ -682,7 +718,10 @@ def check_flash(dev):
         case(f"tc-{shape}", *shape, torch.bfloat16)
     row = case("path-c", 8, 2048, 32, 32, 64, None, torch.bfloat16, reps=10)
     free()
-    return row
+    # path I3's shape: qwen3-14b's 8 x 2048-token prefill, 40 heads on 8 KV heads
+    row_i3 = case("path-i3", 8, 2048, 40, 8, 128, None, torch.bfloat16, reps=10)
+    free()
+    return row, row_i3
 
 
 def check_ssd(dev):
@@ -2715,6 +2754,307 @@ def path_h_parity(dev, cfg=None, batch=4, seq=128, cnn_sizes=None):
     return results
 
 
+# ---------------------------------------------------------------------------
+# path I: the remaining LM architectures (MLA, MoE, chunked prefill, remat,
+# untied heads, the VLM and audio stand-ins, the optimizers)
+# ---------------------------------------------------------------------------
+I_LM = "deepseek-v2-lite-16b"
+# I1: the trainer at full width and 3 layers (the dense first layer and 2
+# MoE layers: 1,460,430,848 parameters a node, about stablelm-1.6b's);
+# 4 full-depth copies (31.0 GB each in bf16) do not fit in 80 GB
+I1_LAYERS = 3
+I_STEPS = 3
+# I2 and I3: one node model at full depth, path C's prompts; I2 prefills
+# in query chunks of 512
+I_SERVE = dict(prompt_len=2048, gen=32, batch=8, seed=0)
+I2_CHUNK = 512
+# I4: the other five new configs at full width, cut to 2 layers (deepseek-
+# v2-236b: its dense first layer and one MoE layer); one prefill of 2 x 256
+# tokens and 4 decoded tokens
+I4_ARCHS = ("minitron-4b", "internvl2-2b", "musicgen-large", "yi-34b", "deepseek-v2-236b")
+I4_LAYERS = 2
+I4_SERVE = dict(prompt_len=256, gen=5, batch=2, seed=0)
+# qwen3-14b's chunked GQA route against the unchunked one (bf16 logits)
+I4_CHUNK = dict(prompt_len=1024, chunk=512, atol=2e-2)
+REMAT_POLICIES = (None, "full", "dots")
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """Deterministic kernels (`index_add_` on the card sums in a fixed
+    order) for runs whose numbers must repeat exactly."""
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _n_leaves(arch, layers):
+    """Leaves of `arch`'s tree at `layers` layers (its smoke variant has the
+    same tree)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(arch, "smoke").replace(n_layers=layers)
+    return len(tree_leaves(init_params(0, cfg, device="cpu")))
+
+
+def _loss_and_grads(params, cfg, batch):
+    """One train_loss and its backward on one node: (loss, grads)."""
+    import torch
+    from repro_torch.models import train_loss
+    from repro_torch.tree import tree_flatten, tree_unflatten
+
+    leaves, treedef = tree_flatten(params)
+    leaves = [x.detach().requires_grad_(True) for x in leaves]
+    loss = train_loss(tree_unflatten(treedef, leaves), cfg, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), grads
+
+
+def path_i1(dev, variant="full", layers=I1_LAYERS, batch=4, seq=128, remat_batch=8,
+            remat_seq=2048):
+    """deepseek-v2-lite-16b through the trainer CLI (PaME, sparse exchange,
+    4 nodes, 3 steps): the f32 gossip kernel once a leaf a step, finite
+    losses, peak under 80 GB.  Then one node's train_loss and backward on
+    remat_batch x remat_seq tokens (where activations, not the weights and
+    gradients, set the peak) without remat and with the "full" and "dots"
+    policies: the three losses equal (deterministic kernels), whether the
+    gradients are equal too, each run's peak."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.gossip.kernel import gossip_gather
+    from repro_torch.launch import train
+    from repro_torch.launch.train import lm_batch_fn
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_leaves, tree_map
+
+    leaves = _n_leaves(I_LM, layers)
+    t0 = _start(dev)
+    out = train.main(["--arch", I_LM, "--variant", variant, "--algo", "pame", "--nodes", str(M),
+                      "--batch", str(batch), "--seq", str(seq), "--layers", str(layers),
+                      "--steps", str(I_STEPS), "--chunk", "1", "--device", dev.type])
+    _sync(dev)
+    row = {"phase": "path_i1", "arch": I_LM, "layers": layers, "steps": out["steps"],
+           "loss": out["loss"], "s_per_step": out["seconds"], "seconds": time.perf_counter() - t0,
+           "peak_bytes": torch.cuda.max_memory_allocated() if dev.type == "cuda" else None,
+           "leaves": leaves, "gossip_variant_launches": dict(gossip_gather.variant_launches)}
+    emit(**row)
+    if dev.type == "cuda" and row["gossip_variant_launches"] != {"f32": leaves * I_STEPS,
+                                                                 "bf16": 0}:
+        fail(f"path I1: expected {leaves} f32 gossip launches a step (one a leaf)")
+    if not all(math.isfinite(x) for x in out["loss"]):
+        fail("path I1: a loss is not finite")
+    if dev.type == "cuda" and row["peak_bytes"] >= PEAK_LIMIT:
+        fail(f"path I1: peak {row['peak_bytes']} B over {PEAK_LIMIT}")
+    launches = row["gossip_variant_launches"]["f32"]
+    free()
+
+    cfg = get_config(I_LM, variant).replace(n_layers=layers)
+    params = init_params(0, cfg, device=dev)
+    b = tree_map(lambda x: x[0], lm_batch_fn(cfg, 1, remat_batch, remat_seq, 0, dev)(0))
+    remat, base = {}, None
+    for policy in REMAT_POLICIES:
+        c = cfg.replace(remat=policy is not None, remat_policy=policy or "full")
+        t0 = _start(dev)
+        with _deterministic():
+            loss, grads = _loss_and_grads(params, c, b)
+            _sync(dev)
+        r = {"loss": loss.item(), "seconds": time.perf_counter() - t0,
+             "peak_bytes": torch.cuda.max_memory_allocated() if dev.type == "cuda" else None,
+             "grads_finite": all(bool(torch.isfinite(g).all()) for g in grads),
+             "tokens": [remat_batch, remat_seq]}
+        if base is None:  # the reference gradients wait on the host
+            base = [g.cpu() for g in grads]
+        else:
+            r["grads_equal"] = all(torch.equal(g.cpu(), w) for g, w in zip(grads, base))
+        remat[policy or "none"] = r
+        emit(phase="path_i1_remat", policy=policy or "none", **r)
+        del grads
+    del base, params
+    free()
+    if len({r["loss"] for r in remat.values()}) != 1 or not all(
+            r["grads_finite"] and math.isfinite(r["loss"]) for r in remat.values()):
+        fail(f"path I1: remat changed the loss or a gradient is not finite ({remat})")
+    row["remat"] = remat
+    return row, launches
+
+
+def _serve(dev, cfg, serve, name):
+    """One node model of `cfg` from seed 0 through `ServeLoop.serve_node`:
+    its prefill ms, decode ms a token, tokens/s and peak; the tokens must be
+    [batch, gen] from finite logits."""
+    import torch
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeLoop
+    from repro_torch.tree import tree_leaves
+
+    t0 = _start(dev)
+    params = init_params(0, cfg, device=dev)
+    loop = ServeLoop(cfg, device=dev, **serve)
+    _sync(dev)
+    setup_s = time.perf_counter() - t0
+    _reset_counts()
+    st = loop.serve_node(params)
+    row = {"run": name, "arch": cfg.name, "layers": cfg.n_layers, "setup_s": setup_s,
+           "params": sum(x.numel() for x in tree_leaves(params)),
+           "prefill_ms": st["prefill_ms"], "decode_ms_per_token": st["decode_ms"] / (serve["gen"] - 1),
+           "tokens_per_s": st["tokens_per_s"], "token_shape": list(st["tokens"].shape),
+           "logits_finite": st["logits_finite"], "offset": loop.offset,
+           "peak_bytes": torch.cuda.max_memory_allocated() if dev.type == "cuda" else None}
+    del params
+    free()
+    if not st["logits_finite"] or row["token_shape"] != [serve["batch"], serve["gen"]]:
+        emit(phase="path_i", **row)
+        fail(f"path {name}: expected [{serve['batch']}, {serve['gen']}] tokens from finite logits")
+    return row
+
+
+def path_i2(dev, cfg=None, serve=None):
+    """deepseek-v2-lite-16b served at full width and depth (27 layers, one
+    node model): MLA's chunked prefill (chunks of 512), the MLA cache and
+    the absorbed decode through 26 MoE layers."""
+    from repro_torch.configs import get_config
+
+    cfg = cfg or get_config(I_LM, "full").replace(prefill_chunk=I2_CHUNK)
+    row = _serve(dev, cfg, serve or I_SERVE, "I2")
+    row["prefill_chunk"] = cfg.prefill_chunk
+    emit(phase="path_i", **row)
+    return row
+
+
+def path_i3(dev, cfg=None, serve=None):
+    """qwen3-14b served at full width and depth (40 layers, one node model)
+    with use_flash: the flash kernel's tensor-core variant once a layer a
+    prefill (D = 128, 40 heads on 8 KV heads)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+
+    cfg = cfg or get_config("qwen3-14b", "full").replace(use_flash=True)
+    row = _serve(dev, cfg, serve or I_SERVE, "I3")
+    row["flash_variant_launches"] = dict(flash_attention_cuda.variant_launches)
+    emit(phase="path_i", **row)
+    if dev.type == "cuda" and row["flash_variant_launches"]["tensor_cores"] != cfg.n_layers:
+        fail(f"path I3: expected {cfg.n_layers} flash launches of the tensor-core variant")
+    return row, row["flash_variant_launches"]["tensor_cores"]
+
+
+def path_i4(dev, variant="full", layers=I4_LAYERS, serve=None, chunk=None, archs=I4_ARCHS):
+    """Each other new config at full width, cut to `layers` layers, on one
+    node: one train_loss and backward (finite loss and gradients), and a
+    prefill with decoded tokens through `ServeLoop` (finite logits; the
+    vlm's patch embeddings come before the prompt).  Then qwen3-14b's
+    chunked GQA prefill against its unchunked one, bf16 logits within
+    atol."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, prefill
+    from repro_torch.serve import ServeLoop
+
+    serve, chunk = serve or I4_SERVE, chunk or I4_CHUNK
+    rows = {}
+    for arch in archs:
+        cfg = get_config(arch, variant).replace(n_layers=layers)
+        t0 = _start(dev)
+        params = init_params(0, cfg, device=dev)
+        batch = ServeLoop(cfg, device=dev, **serve).make_batch()
+        loss, grads = _loss_and_grads(params, cfg, batch)
+        _sync(dev)
+        row = {"run": "I4", "arch": arch, "layers": layers, "loss": loss.item(),
+               "train_seconds": time.perf_counter() - t0,
+               "grads_finite": all(bool(torch.isfinite(g).all()) for g in grads),
+               "train_peak_bytes": torch.cuda.max_memory_allocated() if dev.type == "cuda" else None,
+               "batch_shapes": {k: list(v.shape) for k, v in batch.items()}}
+        del grads, params
+        row.update(_serve(dev, cfg, serve, f"I4 {arch}"))
+        rows[arch] = row
+        emit(phase="path_i", **row)
+        if not (math.isfinite(row["loss"]) and row["grads_finite"]):
+            fail(f"path I4 ({arch}): the loss or a gradient is not finite")
+
+    cfg = get_config("qwen3-14b", variant).replace(n_layers=layers)
+    t0 = _start(dev)
+    params = init_params(0, cfg, device=dev)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (serve["batch"], chunk["prompt_len"])), device=dev)
+    with torch.inference_mode():
+        got = prefill(params, cfg.replace(prefill_chunk=chunk["chunk"]), {"tokens": toks},
+                      chunk["prompt_len"])[0]
+        want = prefill(params, cfg, {"tokens": toks}, chunk["prompt_len"])[0]
+    row = {"run": "I4 qwen3-14b chunked prefill", "layers": layers,
+           "prompt": [serve["batch"], chunk["prompt_len"]], "chunk": chunk["chunk"],
+           "max_abs_err": (got - want).abs().max().item(), "atol": chunk["atol"],
+           "logit_scale": want.abs().max().item(), "finite": bool(torch.isfinite(got).all()),
+           "argmax_agree": (got.argmax(-1) == want.argmax(-1)).float().mean().item(),
+           "seconds": time.perf_counter() - t0}
+    emit(phase="path_i", **row)
+    del params, got, want
+    free()
+    if not row["finite"] or row["max_abs_err"] > chunk["atol"]:
+        fail("path I4: qwen3-14b's chunked prefill is not within atol of the unchunked route")
+    rows["qwen3-14b chunked"] = row
+    return rows
+
+
+def path_i5(dev, steps=200):
+    """sgd, momentum and adam (`repro_torch.optim`) on a quadratic over a
+    tree on the card (an f32 and a bf16 leaf), as the JAX package's
+    optimizer test runs them: the objective must fall below 1e-3 of where
+    it started."""
+    import torch
+    from repro_torch.optim import adam, apply_updates, momentum, sgd
+    from repro_torch.tree import tree_flatten, tree_unflatten
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    target = {"w": torch.randn(8, generator=g, device=dev),
+              "b": torch.randn(4096, generator=g, device=dev).to(torch.bfloat16)}
+    rows = {}
+    for name, opt in (("sgd", sgd(0.1)), ("momentum", momentum(0.05)), ("adam", adam(0.1))):
+        params = {"w": torch.zeros(8, device=dev),
+                  "b": torch.zeros(4096, dtype=torch.bfloat16, device=dev)}
+        state = opt.init(params)
+
+        def objective(p):
+            return sum(torch.sum((p[k].float() - target[k].float()) ** 2) for k in p)
+
+        first = objective(params).item()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            leaves, td = tree_flatten(params)
+            leaves = [x.detach().requires_grad_(True) for x in leaves]
+            grads = tree_unflatten(td, list(torch.autograd.grad(
+                objective(tree_unflatten(td, leaves)), leaves)))
+            updates, state = opt.update(grads, state, params)
+            params = apply_updates(params, updates)
+        _sync(dev)
+        rows[name] = {"first": first, "last": objective(params).item(), "steps": steps,
+                      "seconds": time.perf_counter() - t0,
+                      "devices": sorted({str(x.device) for x in tree_flatten(params)[0]})}
+        emit(phase="path_i5", optimizer=name, **rows[name])
+        if not rows[name]["last"] < 1e-3 * first:
+            fail(f"path I5: {name} did not bring the objective below 1e-3 of its start")
+    return rows
+
+
+def path_i(dev):
+    """I1-I5; the f32 gossip launches of I1 and the flash launches of I3."""
+    rows = {}
+    t = time.perf_counter()
+    rows["I1"], gossip_launches = path_i1(dev)
+    emit(phase="path_i1_done", seconds=time.perf_counter() - t)
+    for name, fn in (("I2", path_i2), ("I3", path_i3), ("I4", path_i4), ("I5", path_i5)):
+        t = time.perf_counter()
+        rows[name] = fn(dev)
+        emit(phase=f"path_{name.lower()}_done", seconds=time.perf_counter() - t)
+    rows["I3"], flash_launches = rows["I3"]
+    return rows, gossip_launches, flash_launches
+
+
 def main():
     try:
         import torch
@@ -2760,7 +3100,7 @@ def main():
     t = time.perf_counter()
     gossip = check_gossip(dev)
     pme_row, pme_fc1 = check_pme(dev)
-    flash = check_flash(dev)
+    flash, flash_i3 = check_flash(dev)
     ssd = check_ssd(dev)
     lane_rows = check_lanes(dev)
     emit(phase="kernels_checked", seconds=time.perf_counter() - t)
@@ -2816,6 +3156,9 @@ def main():
     t = time.perf_counter()
     path_h_parity(dev)
     emit(phase="parity_h_done", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    _, i_gossip, i_flash = path_i(dev)
+    emit(phase="path_i_done", seconds=time.perf_counter() - t)
     # path H's f32 launches (H1, H2 static and dynamic); those on lane-offset
     # tables (H1 and H2 at 5 lanes) are the f32_lanes variant's
     h_f32 = h1["gossip_variant_launches"]["f32"] + h_launches["f32"]
@@ -2824,7 +3167,7 @@ def main():
     bf16_launches = sum(r["gossip_launches"]["bf16"] for r in baselines.values())
     # each path's launches, read just after the path ran with the counts at 0
     f32_launches = (gossip_launches + e_launches["f32"] + f_launches["f32"] + g_launches
-                    + h_f32)
+                    + h_f32 + i_gossip)
     bf16_launches += e_launches["bf16"] + f_launches["bf16"]
     pme_launches += e_launches["pme_average"] + f_launches["pme_average"] \
         + h_launches["pme_average"]
@@ -2863,6 +3206,9 @@ def main():
     # the f32 launches on lane-offset tables (H1 at 2 lanes, H2 at 5; among
     # the f32 launches), timed at H1's largest leaf folded over 2 lanes
     g32["variants"]["f32_lanes"] = variant(h_folded, lane_rows["gossip_f32_lanes"])
+    # path I1's f32 launches (deepseek-v2-lite-16b; among the f32 launches),
+    # timed at its largest leaf, the routed experts of its 2 MoE layers
+    g32["variants"]["f32_path_i"] = variant(i_gossip, gossip["f32_path_i"])
     pme = entry("pme_average", "src/repro_torch/csrc/pme_average.cu",
                 "src/repro/kernels/pme_average/kernel.py:46", pme_launches, pme_row)
     # path F's launches (F3 PaME on fc1, F4 on five ResNet-20 convs), timed at F3's fc1
@@ -2870,11 +3216,16 @@ def main():
                        # H3's launches, all with the lane axis, timed at H3's
                        # largest leaf over its 5 lanes
                        "lanes": variant(h_launches["pme_average"], lane_rows["pme_lanes_h3"])}
+    fa = entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention/kernel.py:78",
+               serve_launches["flash"] + i_flash, flash)
+    # top-level times are path C's shape; path I3's launches (qwen3-14b) at its own
+    fa["variants"] = {"path_c": variant(serve_launches["flash"], flash),
+                      "path_i": variant(i_flash, flash_i3)}
     kernels = [
         g32,
         pme,
-        entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-              "src/repro/kernels/flash_attention/kernel.py:78", serve_launches["flash"], flash),
+        fa,
         entry("ssd_intra_chunk", "src/repro_torch/csrc/ssd_intra_chunk.cu",
               "src/repro/kernels/ssd_scan/kernel.py:53", serve_launches["ssd"], ssd),
     ]

@@ -11,9 +11,14 @@ package's, so each module's counterpart is easy to find:
   kernels/   hand-written CUDA kernels for the four Pallas kernels (PME
              average, gossip, flash attention, SSD intra-chunk), each
              beside its plain PyTorch version
-  models/    dense, ssm and hybrid decoders: train loss, prefill, decode
-  serve/     ServeLoop: batched greedy decode against each node's model
-  launch/    the training CLI
+  models/    every decoder family of the JAX package (dense, MoE with MLA,
+             ssm, hybrid, the vlm and audio stand-ins) and the paper's CNN
+             and ResNet-20: train loss, prefill, decode
+  optim/     functional sgd, momentum and adam
+  configs/   the ten architectures, full and smoke
+  serve/     ServeLoop: batched greedy decode against each node's model;
+             serve-while-train's events and membership
+  launch/    the training and serve-while-train CLIs
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card they raise instead of carrying on on the CPU.

@@ -1,9 +1,10 @@
-"""Architecture registry (port of `repro.configs`).
+"""Architecture registry (port of `repro.configs`): the ten architectures
+of the JAX package.
 
 Each config module exposes FULL (the exact published config) and SMOKE
-(reduced for tests).  The port carries stablelm-1.6b, zamba2-1.2b and
-mamba2-1.3b so far; the other seven architectures of the JAX package come
-in later slices and raise until then.
+(reduced for tests: <= 2 layers, d_model <= 512, <= 4 experts), field for
+field as in JAX.  `get_config(name, variant)` is the one lookup the CLIs
+and tests use.
 """
 from __future__ import annotations
 
@@ -12,7 +13,18 @@ from typing import List
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS: List[str] = ["mamba2_1p3b", "zamba2_1p2b", "stablelm_1p6b"]
+ARCH_IDS: List[str] = [
+    "mamba2_1p3b",
+    "minitron_4b",
+    "yi_34b",
+    "deepseek_v2_236b",
+    "zamba2_1p2b",
+    "stablelm_1p6b",
+    "internvl2_2b",
+    "musicgen_large",
+    "deepseek_v2_lite_16b",
+    "qwen3_14b",
+]
 
 # CLI aliases (the assignment's spelling) -> module names
 ALIASES = {
@@ -36,14 +48,12 @@ def canonical(name: str) -> str:
 def get_config(name: str, variant: str = "full") -> ModelConfig:
     mod_name = canonical(name)
     if mod_name not in ARCH_IDS:
-        known = mod_name in ALIASES.values()
-        raise ValueError(
-            f"architecture {name!r} "
-            + ("not yet ported to repro_torch" if known else "is unknown")
-            + f"; ported: {ARCH_IDS}"
-        )
+        raise ValueError(f"architecture {name!r} is unknown; known: {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     if variant not in ("full", "smoke"):
         raise ValueError(f"unknown variant {variant!r}; pick 'full' or 'smoke'")
     return mod.FULL if variant == "full" else mod.SMOKE
 
+
+def all_arch_names() -> List[str]:
+    return list(ALIASES.keys())

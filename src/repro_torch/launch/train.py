@@ -165,9 +165,11 @@ def _faults_from_args(args):
 
 def lm_batch_fn(cfg, m: int, batch: int, seq: int, seed: int, device: torch.device):
     """Per-node LM batches for m nodes: ``make_batch(step) -> {"tokens":
-    [m, batch, seq]}``, the JAX CLI's corpus and windows (numpy, same
-    seeds).  The corpus draws node shards in order, so the first m shards
-    are the same for any larger m (incumbents keep their data at a join)."""
+    [m, batch, seq]}`` (a vlm also gets zero ``patch_embeds`` [m, batch,
+    n_patches, vision_dim] in the model's type), the JAX CLI's corpus and
+    windows (numpy, same seeds).  The corpus draws node shards in order,
+    so the first m shards are the same for any larger m (incumbents keep
+    their data at a join)."""
     corpus = SyntheticTokens.make(m, 65536, cfg.vocab, seed=seed)
     node_ids = np.arange(m)[:, None, None]
     offsets = np.arange(seq)
@@ -176,7 +178,11 @@ def lm_batch_fn(cfg, m: int, batch: int, seq: int, seed: int, device: torch.devi
         rng = batch_stream_rng(seed, step)
         starts = rng.integers(0, corpus.tokens.shape[1] - seq - 1, (m, batch))
         toks = corpus.tokens[node_ids, starts[..., None] + offsets]
-        return {"tokens": torch.as_tensor(toks, dtype=torch.int64, device=device)}
+        out = {"tokens": torch.as_tensor(toks, dtype=torch.int64, device=device)}
+        if cfg.arch_type == "vlm":
+            out["patch_embeds"] = torch.zeros((m, batch, cfg.n_patches, cfg.vision_dim),
+                                              dtype=getattr(torch, cfg.dtype), device=device)
+        return out
 
     return make_batch
 
@@ -222,6 +228,8 @@ def build_everything(args):
     cfg = get_config(args.arch, args.variant)
     if args.layers is not None:
         cfg = cfg.replace(n_layers=args.layers)
+    if args.seq and cfg.arch_type == "vlm" and args.seq <= cfg.n_patches:
+        raise ValueError(f"--seq must exceed n_patches ({cfg.n_patches}) for a vlm")
     m = args.nodes
     topo, params0, grad_fn, make_batch = make_lm_task(
         cfg, m, args.batch, args.seq, args.seed, args.topology, device

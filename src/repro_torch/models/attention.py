@@ -1,15 +1,20 @@
-"""Grouped-query attention (port of the GQA part of `repro.models.attention`).
+"""Attention blocks: GQA (optional qk-norm, sliding window) and MLA (port
+of `repro.models.attention`).
 
 Two execution modes, as in JAX:
-  * full sequence (train / prefill): causal, optionally windowed mask, or
-    the flash attention kernel when ``cfg.use_flash``;
-  * single-token decode against a ring-buffer KV cache of capacity C.
+  * full sequence (train / prefill): causal, optionally windowed mask; for
+    GQA the flash attention kernel when ``cfg.use_flash``, else query
+    chunks of ``cfg.prefill_chunk`` rows when S is a larger multiple of it
+    (the score buffer is then [.., chunk, S], not [.., S, S]);
+  * single-token decode against a ring-buffer cache of capacity C.
 
-Layout [B, S, H, hd] as in JAX.  The cache stores an explicit
-``positions [C]`` array (-1 = empty), so ring wraparound and window masking
-fall out of one predicate.  The plain grouped attention is written with
-`torch.einsum`, as the JAX package leaves it to XLA.  Query chunking
-(``prefill_chunk``) and MLA come later.
+Layout [B, S, H, hd] as in JAX.  A cache stores an explicit ``positions
+[C]`` array (-1 = empty), so ring wraparound and window masking fall out
+of one predicate.  MLA decodes in the absorbed form: its cache holds only
+the compressed c_kv and k_rope streams, and the per-head expansions W_uk
+and W_uv fold into the query and the output (DeepSeek-V2, Sec. 2.1).  The
+plain attention is written with `torch.einsum`, as the JAX package leaves
+it to XLA.
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, dense_init, linear, rms_norm, rope_freqs
 
-__all__ = ["KVCache", "gqa_init", "gqa_apply", "gqa_decode", "init_kv_cache"]
+__all__ = ["KVCache", "MLACache", "gqa_init", "gqa_apply", "gqa_decode", "mla_init",
+           "mla_apply", "mla_decode", "init_kv_cache", "init_mla_cache"]
 
 NEG_INF = -1e30
 
@@ -29,6 +35,12 @@ NEG_INF = -1e30
 class KVCache(NamedTuple):
     k: torch.Tensor          # [B, C, KV, hd]
     v: torch.Tensor          # [B, C, KV, hd]
+    positions: torch.Tensor  # [C] int32, -1 = empty
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor       # [B, C, kv_lora]
+    k_rope: torch.Tensor     # [B, C, rope_hd]
     positions: torch.Tensor  # [C] int32, -1 = empty
 
 
@@ -75,13 +87,47 @@ def _grouped_attention(q, k, v, mask: torch.Tensor, scale: float) -> torch.Tenso
     return out.reshape(b, s, h, hd)
 
 
-def _causal_mask(s: int, window: Optional[int], device) -> torch.Tensor:
-    i = torch.arange(s, device=device)[:, None]
-    j = torch.arange(s, device=device)[None, :]
-    mask = j <= i
+def _chunk_mask(rows: torch.Tensor, s: int, window: Optional[int]) -> torch.Tensor:
+    """[len(rows), s]: causal (and windowed) mask of query rows `rows`."""
+    j = torch.arange(s, device=rows.device)
+    mask = j[None, :] <= rows[:, None]
     if window is not None:
-        mask &= (i - j) < window
+        mask &= (rows[:, None] - j[None, :]) < window
     return mask
+
+
+def _chunked_grouped_attention(q, k, v, window: Optional[int], scale: float,
+                               chunk: int) -> torch.Tensor:
+    """Causal attention in query chunks of `chunk` rows (S itself: one
+    chunk): the score buffer is [.., chunk, S] instead of [.., S, S] (the
+    prefill memory cap); the keys stay whole."""
+    s = q.shape[1]
+    outs = [_grouped_attention(q[:, lo: lo + chunk], k, v,
+                               _chunk_mask(torch.arange(lo, lo + chunk, device=q.device), s,
+                                           window), scale)
+            for lo in range(0, s, chunk)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def _chunked(cfg: ModelConfig, s: int) -> bool:
+    """Whether a full-sequence pass of length s runs in query chunks."""
+    return bool(cfg.prefill_chunk) and s > cfg.prefill_chunk and s % cfg.prefill_chunk == 0
+
+
+def _full_cache(cache_cls, streams, positions: torch.Tensor, capacity: Optional[int]):
+    """A ring cache of `capacity` (default S) holding the last min(S,
+    capacity) positions of each [B, S, ...] stream."""
+    b, s = streams[0].shape[:2]
+    cap = capacity or s
+    take = min(s, cap)
+    out = []
+    for x in streams:
+        buf = torch.zeros((b, cap) + tuple(x.shape[2:]), dtype=x.dtype, device=x.device)
+        buf[:, :take] = x[:, -take:]
+        out.append(buf)
+    pos = torch.full((cap,), -1, dtype=torch.int32, device=positions.device)
+    pos[:take] = positions[-take:].to(torch.int32)
+    return cache_cls(*out, pos)
 
 
 def gqa_apply(
@@ -97,25 +143,14 @@ def gqa_apply(
     S) holding the last min(S, capacity) positions."""
     b, s, _ = x.shape
     q, k, v = _qkv(params, cfg, x, positions)
-    if cfg.use_flash:
+    scale = cfg.head_dim ** -0.5
+    if cfg.use_flash:  # JAX's mask_is_plain always holds: the kernel masks itself
         out = flash_ops.flash_attention(q, k, v, window=cfg.window)
-    elif cfg.prefill_chunk and s > cfg.prefill_chunk and s % cfg.prefill_chunk == 0:
-        raise NotImplementedError("chunked prefill attention not yet ported to repro_torch")
     else:
-        out = _grouped_attention(q, k, v, _causal_mask(s, cfg.window, x.device),
-                                 cfg.head_dim ** -0.5)
+        out = _chunked_grouped_attention(q, k, v, cfg.window, scale,
+                                         cfg.prefill_chunk if _chunked(cfg, s) else s)
     y = linear(out.reshape(b, s, -1), params["wo"])
-    cache = None
-    if return_cache:
-        cap = cache_capacity or s
-        take = min(s, cap)
-        ck = torch.zeros((b, cap) + tuple(k.shape[2:]), dtype=k.dtype, device=k.device)
-        cv = torch.zeros((b, cap) + tuple(v.shape[2:]), dtype=v.dtype, device=v.device)
-        pos = torch.full((cap,), -1, dtype=torch.int32, device=x.device)
-        ck[:, :take] = k[:, -take:]
-        cv[:, :take] = v[:, -take:]
-        pos[:take] = positions[-take:].to(torch.int32)
-        cache = KVCache(ck, cv, pos)
+    cache = _full_cache(KVCache, (k, v), positions, cache_capacity) if return_cache else None
     return y, cache
 
 
@@ -151,3 +186,122 @@ def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int, dtype, device) ->
         v=torch.zeros((batch, capacity, kv, hd), dtype=dtype, device=device),
         positions=torch.full((capacity,), -1, dtype=torch.int32, device=device),
     )
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, capacity: int, dtype, device) -> MLACache:
+    return MLACache(
+        c_kv=torch.zeros((batch, capacity, cfg.kv_lora), dtype=dtype, device=device),
+        k_rope=torch.zeros((batch, capacity, cfg.rope_head_dim), dtype=dtype, device=device),
+        positions=torch.full((capacity,), -1, dtype=torch.int32, device=device),
+    )
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+def mla_init(generator: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+    d, h = cfg.d_model, cfg.n_heads
+    nope, rope_hd, v_hd = cfg.head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    dev = generator.device
+    p = {}
+    if cfg.q_lora:  # the query's low-rank path (deepseek-v2-236b)
+        p["w_dq"] = dense_init(generator, (d, cfg.q_lora), dtype)
+        p["q_norm"] = torch.ones((cfg.q_lora,), dtype=dtype, device=dev)
+    p.update({
+        "w_uq": dense_init(generator, (cfg.q_lora or d, h * (nope + rope_hd)), dtype),
+        "w_dkv": dense_init(generator, (d, cfg.kv_lora + rope_hd), dtype),
+        "kv_norm": torch.ones((cfg.kv_lora,), dtype=dtype, device=dev),
+        "w_uk": dense_init(generator, (cfg.kv_lora, h * nope), dtype),
+        "w_uv": dense_init(generator, (cfg.kv_lora, h * v_hd), dtype),
+        "wo": dense_init(generator, (h * v_hd, d), dtype),
+    })
+    return p
+
+
+def _mla_q(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    b, s, _ = x.shape
+    h, nope, rope_hd = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    cq = rms_norm(linear(x, params["w_dq"]), params["q_norm"]) if cfg.q_lora else x
+    q = linear(cq, params["w_uq"]).reshape(b, s, h, nope + rope_hd)
+    cos, sin = rope_freqs(positions, rope_hd, cfg.rope_theta)
+    return q[..., :nope], apply_rope(q[..., nope:], cos[None], sin[None])
+
+
+def _mla_ckv(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    ckv_full = linear(x, params["w_dkv"])
+    c_kv = rms_norm(ckv_full[..., :cfg.kv_lora], params["kv_norm"])
+    cos, sin = rope_freqs(positions, cfg.rope_head_dim, cfg.rope_theta)
+    return c_kv, apply_rope(ckv_full[..., cfg.kv_lora:], cos[None], sin[None])
+
+
+def mla_apply(
+    params: dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,          # [B, S, d]
+    positions: torch.Tensor,  # [S]
+    return_cache: bool = False,
+    cache_capacity: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[MLACache]]:
+    """Full-sequence MLA with the per-head expansion (train / prefill), in
+    query chunks of ``cfg.prefill_chunk`` as GQA chunks them."""
+    b, s, _ = x.shape
+    h, nope, v_hd = cfg.n_heads, cfg.head_dim, cfg.v_head_dim
+    q_nope, q_rope = _mla_q(params, cfg, x, positions)
+    c_kv, k_rope = _mla_ckv(params, cfg, x, positions)
+    k_nope = linear(c_kv, params["w_uk"]).reshape(b, s, h, nope)
+    v = linear(c_kv, params["w_uv"]).reshape(b, s, h, v_hd)
+    scale = (nope + cfg.rope_head_dim) ** -0.5
+
+    def attend(qn, qr, rows):  # qn [B, C, H, nope], rows [C]
+        sc = (torch.einsum("bshn,bthn->bhst", qn, k_nope)
+              + torch.einsum("bshr,btr->bhst", qr, k_rope)).float() * scale
+        sc = torch.where(_chunk_mask(rows, s, cfg.window)[None, None], sc, NEG_INF)
+        probs = torch.softmax(sc, dim=-1).to(v.dtype)
+        return torch.einsum("bhst,bthv->bshv", probs, v)
+
+    chunk = cfg.prefill_chunk if _chunked(cfg, s) else s
+    outs = [attend(q_nope[:, lo: lo + chunk], q_rope[:, lo: lo + chunk],
+                   torch.arange(lo, lo + chunk, device=x.device))
+            for lo in range(0, s, chunk)]
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    y = linear(out.reshape(b, s, -1), params["wo"])
+    cache = (_full_cache(MLACache, (c_kv, k_rope), positions, cache_capacity)
+             if return_cache else None)
+    return y, cache
+
+
+def mla_decode(
+    params: dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # [B, 1, d]
+    pos: int,         # position of the new token
+    cache: MLACache,
+) -> Tuple[torch.Tensor, MLACache]:
+    """Absorbed-form decode: scores against the compressed cache.  Writes
+    the new c_kv, k_rope and position into `cache` in place (slot pos % C)
+    and returns it."""
+    b = x.shape[0]
+    h, nope, v_hd = cfg.n_heads, cfg.head_dim, cfg.v_head_dim
+    cap = cache.c_kv.shape[1]
+    p = torch.tensor([pos], device=x.device)
+    q_nope, q_rope = _mla_q(params, cfg, x, p)  # [B, 1, H, *]
+    c_new, kr_new = _mla_ckv(params, cfg, x, p)
+    slot = pos % cap
+    cache.c_kv[:, slot] = c_new[:, 0]
+    cache.k_rope[:, slot] = kr_new[:, 0]
+    cache.positions[slot] = pos
+    valid = (cache.positions >= 0) & (cache.positions <= pos)
+    if cfg.window is not None:
+        valid &= (pos - cache.positions) < cfg.window
+    # absorb W_uk into the query: q_eff[b, h, c] = q_nope . W_uk[c, h, :]
+    w_uk = params["w_uk"].reshape(cfg.kv_lora, h, nope)
+    q_eff = torch.einsum("bshn,chn->bshc", q_nope, w_uk)[:, 0]  # [B, H, kv_lora]
+    scale = (nope + cfg.rope_head_dim) ** -0.5
+    scores = (torch.einsum("bhc,btc->bht", q_eff, cache.c_kv)
+              + torch.einsum("bshr,btr->bht", q_rope, cache.k_rope)).float() * scale
+    scores = torch.where(valid[None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(cache.c_kv.dtype)
+    ctx = torch.einsum("bht,btc->bhc", probs, cache.c_kv)  # the compressed context
+    w_uv = params["w_uv"].reshape(cfg.kv_lora, h, v_hd)
+    out = torch.einsum("bhc,chv->bhv", ctx, w_uv).reshape(b, 1, h * v_hd)
+    return linear(out, params["wo"]), cache

@@ -1,6 +1,5 @@
 """Model configuration shared by all assigned architectures (the port's own
-copy of `repro.models.config`; the port runs the dense, ssm and hybrid
-families so far)."""
+copy of `repro.models.config`)."""
 from __future__ import annotations
 
 import dataclasses

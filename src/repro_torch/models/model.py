@@ -1,36 +1,52 @@
-"""Decoder assembly (port of `repro.models.model`): dense, ssm and hybrid
-families, and three paths: `train_loss`, `prefill`, `decode_step`.
+"""Decoder assembly (port of `repro.models.model`): every family of the JAX
+package, and three paths: `train_loss`, `prefill`, `decode_step`.
 
 A model is a sequence of groups; each group repeats a block pattern:
 
-  dense           : [("attn", "mlp")] * L              (one group)
-  ssm             : [("mamba",)] * L
-  hybrid (zamba2) : [shared_block, mamba * attn_every] per group, plus a
-                    shorter last group; the transformer block's weights are
-                    shared by all sites (``params["shared_block"]``), its KV
-                    cache is per site.
+  dense / vlm / audio : [(attn | mla, mlp)] * L            (one group)
+  moe                 : [(attn | mla, mlp)] * first_dense_layers, then
+                        [(attn | mla, moe)] * the rest
+  ssm                 : [("mamba",)] * L
+  hybrid (zamba2)     : [shared_block, mamba * attn_every] per group, plus a
+                        shorter last group; the transformer block's weights
+                        are shared by all sites (``params["shared_block"]``),
+                        its KV cache is per site.
+
+The vlm stand-in prepends projected patch embeddings (``vision_proj``) to
+the text and scores the text positions only; audio is the dense trunk
+over codec tokens.  Untied models carry an ``lm_head`` [d, vocab].
+`train_loss` adds the MoE layers' aux losses to the cross-entropy.  With
+``cfg.remat`` each layer of a training pass is checkpointed
+(`torch.utils.checkpoint`, non-reentrant): ``"full"`` keeps only the
+layer's input, ``"dots"`` also keeps the outputs of the plain matrix
+products (``aten.mm`` / ``addmm``) and recomputes the rest, as JAX's
+``dots_with_no_batch_dims_saveable``; remat changes peak memory, not a
+number.
 
 Parameters keep the JAX package's layer-stacked tree: ``groups[gi]`` holds
 ``{"{i}_{kind}": block params}`` with every leaf of shape [repeat, ...], so
 leaf count, sizes and JAX leaf order match and weights carry across with
 `repro_torch.convert`.  Caches mirror JAX's tree the same way: a list of
-per-group dicts keyed ``"{i}_{kind}"`` whose `KVCache` / `SSMCache` leaves
-are stacked over repeat.  The trunk is a Python loop over layers (JAX
-scans); each leaf is split with `unbind`, whose backward stacks the
-gradients once.  MoE, MLA, VLM and audio come in later slices.
+per-group dicts keyed ``"{i}_{kind}"`` whose `KVCache` / `MLACache` /
+`SSMCache` leaves are stacked over repeat (mlp and moe blocks carry none).
+The trunk is a Python loop over layers (JAX scans); each leaf is split
+with `unbind`, whose backward stacks the gradients once.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import embed_init, rms_norm
+from repro_torch.models.layers import dense_init, embed_init, linear, rms_norm
 from repro_torch.models.mlp import mlp_apply, mlp_init
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
@@ -71,26 +87,16 @@ def layer_groups(cfg: ModelConfig) -> List[LayerGroup]:
     raise ValueError(f"unknown arch_type {at!r}")
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.arch_type not in ("dense", "ssm", "hybrid") or cfg.use_mla:
-        raise NotImplementedError(
-            f"arch_type={cfg.arch_type!r}{' with MLA' if cfg.use_mla else ''} "
-            "not yet ported to repro_torch (dense, ssm and hybrid only)"
-        )
-    if cfg.remat:
-        raise NotImplementedError("remat not yet ported to repro_torch")
-    if not cfg.tie_embeddings:
-        raise NotImplementedError("untied embeddings not yet ported to repro_torch")
-    if cfg.ssm_split_proj:
-        raise NotImplementedError("ssm_split_proj not yet ported to repro_torch")
-
-
 def _block_init(gen: torch.Generator, kind: str, cfg: ModelConfig, dtype) -> dict:
     ln = torch.ones((cfg.d_model,), dtype=dtype, device=gen.device)
     if kind == "attn":
         return {"ln": ln, "attn": attn.gqa_init(gen, cfg, dtype)}
+    if kind == "mla":
+        return {"ln": ln, "attn": attn.mla_init(gen, cfg, dtype)}
     if kind == "mlp":
         return {"ln": ln, "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)}
+    if kind == "moe":
+        return {"ln": ln, "moe": moe_mod.moe_init(gen, cfg, dtype)}
     if kind == "mamba":
         return {"ln": ln, "mamba": ssm_mod.mamba_init(gen, cfg, dtype)}
     raise ValueError(kind)
@@ -103,15 +109,24 @@ def _shared_block_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
 
 
 def _stack(trees: list):
-    """Stack a list of identical trees along a new leading axis."""
-    per = [tree_flatten(t) for t in trees]
-    return tree_unflatten(per[0][1], [torch.stack(xs) for xs in zip(*(lv for lv, _ in per))])
+    """Stack a list of identical trees along a new leading axis.  Consumes
+    the list: each input leaf is dropped once its stack is made, so the
+    peak is the stacked tree plus one leaf's inputs, not two trees."""
+    per, treedef = [], None
+    while trees:
+        leaves, treedef = tree_flatten(trees.pop(0))
+        per.append(leaves)
+    out = []
+    for j in range(len(per[0])):
+        out.append(torch.stack([lv[j] for lv in per]))
+        for lv in per:
+            lv[j] = None
+    return tree_unflatten(treedef, out)
 
 
 def init_params(seed: int, cfg: ModelConfig, device=None) -> dict:
     """Random parameters from `seed` on `device` (default ``cuda``).  The
     numbers differ from JAX's init (other generator); the tree does not."""
-    _check_ported(cfg)
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     gen = torch.Generator(device=dev)
@@ -120,6 +135,10 @@ def init_params(seed: int, cfg: ModelConfig, device=None) -> dict:
         "embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype),
         "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
     }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab), dtype)
+    if cfg.arch_type == "vlm":
+        params["vision_proj"] = dense_init(gen, (cfg.vision_dim, cfg.d_model), dtype)
     if cfg.arch_type == "hybrid":
         params["shared_block"] = _shared_block_init(gen, cfg, dtype)
     params["groups"] = [
@@ -134,20 +153,26 @@ def init_params(seed: int, cfg: ModelConfig, device=None) -> dict:
 # ---------------------------------------------------------------------------
 # caches
 # ---------------------------------------------------------------------------
+def _block_cache(kind: str, cfg: ModelConfig, batch: int, capacity: int, dtype, device):
+    if kind in ("attn", "shared_block"):
+        return attn.init_kv_cache(cfg, batch, capacity, dtype, device)
+    if kind == "mla":
+        return attn.init_mla_cache(cfg, batch, capacity, dtype, device)
+    if kind == "mamba":
+        return ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
+    return None  # mlp / moe carry no cache
+
+
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, device=None) -> list:
     """Empty caches in the tree `prefill` returns."""
-    _check_ported(cfg)
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     caches = []
     for grp in layer_groups(cfg):
         entry = {}
         for i, kind in enumerate(grp.pattern):
-            if kind in ("attn", "shared_block"):
-                one = attn.init_kv_cache(cfg, batch, capacity, dtype, dev)
-            elif kind == "mamba":
-                one = ssm_mod.init_ssm_cache(cfg, batch, dtype, dev)
-            else:
+            one = _block_cache(kind, cfg, batch, capacity, dtype, dev)
+            if one is None:
                 continue
             entry[f"{i}_{kind}"] = tree_map(
                 lambda x, _r=grp.repeat: x[None].repeat((_r,) + (1,) * x.dim()), one)
@@ -160,32 +185,40 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, device=None) -> list
 # ---------------------------------------------------------------------------
 def _apply_block_full(kind: str, bp: Optional[dict], shared: Optional[dict],
                       cfg: ModelConfig, x, positions, want_cache: bool, capacity: int):
-    """Full sequence (train / prefill).  Returns (x, cache or None)."""
-    if kind == "attn":
-        h, cache = attn.gqa_apply(bp["attn"], cfg, rms_norm(x, bp["ln"]), positions,
-                                  return_cache=want_cache, cache_capacity=capacity)
-        return x + h, cache
+    """Full sequence (train / prefill).  Returns (x, cache or None, MoE aux
+    loss or None)."""
+    if kind in ("attn", "mla"):
+        apply = attn.gqa_apply if kind == "attn" else attn.mla_apply
+        h, cache = apply(bp["attn"], cfg, rms_norm(x, bp["ln"]), positions,
+                         return_cache=want_cache, cache_capacity=capacity)
+        return x + h, cache, None
     if kind == "mlp":
-        return x + mlp_apply(bp["mlp"], rms_norm(x, bp["ln"])), None
+        return x + mlp_apply(bp["mlp"], rms_norm(x, bp["ln"])), None, None
+    if kind == "moe":
+        h, aux = moe_mod.moe_apply(bp["moe"], cfg, rms_norm(x, bp["ln"]))
+        return x + h, None, aux
     if kind == "mamba":
         h, cache = ssm_mod.mamba_apply(bp["mamba"], cfg, rms_norm(x, bp["ln"]),
                                        return_cache=want_cache)
-        return x + h, cache
+        return x + h, cache, None
     if kind == "shared_block":
         h, cache = attn.gqa_apply(shared["attn"], cfg, rms_norm(x, shared["ln1"]), positions,
                                   return_cache=want_cache, cache_capacity=capacity)
         x = x + h
-        return x + mlp_apply(shared["mlp"], rms_norm(x, shared["ln2"])), cache
+        return x + mlp_apply(shared["mlp"], rms_norm(x, shared["ln2"])), cache, None
     raise ValueError(kind)
 
 
 def _apply_block_decode(kind: str, bp: Optional[dict], shared: Optional[dict],
                         cfg: ModelConfig, x, pos: int, cache):
-    if kind == "attn":
-        h, _ = attn.gqa_decode(bp["attn"], cfg, rms_norm(x, bp["ln"]), pos, cache)
+    if kind in ("attn", "mla"):
+        decode = attn.gqa_decode if kind == "attn" else attn.mla_decode
+        h, _ = decode(bp["attn"], cfg, rms_norm(x, bp["ln"]), pos, cache)
         return x + h
     if kind == "mlp":
         return x + mlp_apply(bp["mlp"], rms_norm(x, bp["ln"]))
+    if kind == "moe":
+        return x + moe_mod.moe_apply(bp["moe"], cfg, rms_norm(x, bp["ln"]))[0]
     if kind == "mamba":
         h, _ = ssm_mod.mamba_decode(bp["mamba"], cfg, rms_norm(x, bp["ln"]), cache)
         return x + h
@@ -194,6 +227,27 @@ def _apply_block_decode(kind: str, bp: Optional[dict], shared: Optional[dict],
         x = x + h
         return x + mlp_apply(shared["mlp"], rms_norm(x, shared["ln2"]))
     raise ValueError(kind)
+
+
+# the plain (unbatched) matrix products: what the "dots" remat policy keeps
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (torch_checkpoint.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpointed(cfg: ModelConfig, fn, *args):
+    """``fn(*args)`` checkpointed by ``cfg.remat_policy``: the backward
+    recomputes what the forward did not keep."""
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts, _dots_policy)
+    elif cfg.remat_policy != "full":
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} (full | dots)")
+    return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 def _unbind_layers(tree, repeat: int) -> list:
@@ -205,24 +259,42 @@ def _unbind_layers(tree, repeat: int) -> list:
     return [tree_unflatten(treedef, [u[li] for u in per_leaf]) for li in range(repeat)]
 
 
+def _layer_full(x, lp: dict, pattern: Tuple[str, ...], shared: Optional[dict],
+                cfg: ModelConfig, positions, want_cache: bool, capacity: int):
+    """One layer's blocks over the full sequence: (x, the moe block's aux
+    loss or None, the layer's caches by block key)."""
+    entries, aux = {}, None
+    for i, kind in enumerate(pattern):
+        key = f"{i}_{kind}"
+        x, cache, a = _apply_block_full(kind, lp.get(key), shared, cfg, x, positions,
+                                        want_cache, capacity)
+        if cache is not None:
+            entries[key] = cache
+        if a is not None:
+            aux = a
+    return x, aux, entries
+
+
 def _run_trunk_full(params: dict, cfg: ModelConfig, x, positions, want_cache: bool,
                     capacity: int):
+    """Returns (x, caches, aux): aux sums the MoE layers' aux losses (f32)."""
     shared = params.get("shared_block")
     caches_out = []
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    # remat pays off only where autograd keeps activations (not in prefill)
+    remat = cfg.remat and not want_cache and torch.is_grad_enabled()
     for grp, gparams in zip(layer_groups(cfg), params["groups"]):
         layers = _unbind_layers(gparams, grp.repeat)
         ys = []
-        for li in range(grp.repeat):
-            entries = {}
-            for i, kind in enumerate(grp.pattern):
-                key = f"{i}_{kind}"
-                x, cache = _apply_block_full(kind, layers[li].get(key), shared, cfg, x,
-                                             positions, want_cache, capacity)
-                if cache is not None:
-                    entries[key] = cache
+        for lp in layers:
+            args = (x, lp, grp.pattern, shared, cfg, positions, want_cache, capacity)
+            x, aux, entries = (_checkpointed(cfg, _layer_full, *args) if remat
+                               else _layer_full(*args))
+            if aux is not None:
+                aux_total = aux_total + aux
             ys.append(entries)
         caches_out.append(_stack(ys) if want_cache and ys[0] else {})
-    return x, caches_out
+    return x, caches_out, aux_total
 
 
 def _run_trunk_decode(params: dict, cfg: ModelConfig, x, pos: int, caches: list):
@@ -236,43 +308,55 @@ def _run_trunk_decode(params: dict, cfg: ModelConfig, x, pos: int, caches: list)
     return x
 
 
-def _logits(params: dict, x: torch.Tensor) -> torch.Tensor:
+def _embed_inputs(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Token embeddings; for vlm, the projected patch embeddings
+    (``batch["patch_embeds"]`` [B, n_patches, vision_dim]) before them."""
+    x = params["embed"][batch["tokens"].long()]
+    if cfg.arch_type == "vlm":
+        vis = linear(batch["patch_embeds"].to(x.dtype), params["vision_proj"])
+        x = torch.cat([vis, x], dim=1)
+    return x
+
+
+def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"])
-    return torch.matmul(x, params["embed"].t()).float()
+    head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    return torch.matmul(x, head).float()
 
 
 # ---------------------------------------------------------------------------
 # public paths
 # ---------------------------------------------------------------------------
 def train_loss(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    """Next-token cross-entropy.  batch: tokens [B, S] (int)."""
-    _check_ported(cfg)
-    tok = batch["tokens"].long()
-    x = params["embed"][tok]
+    """Next-token cross-entropy (+ the MoE aux losses).  batch: tokens [B, S]
+    (int; + patch_embeds for vlm); the loss is over the text positions."""
+    x = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, _ = _run_trunk_full(params, cfg, x, positions, False, x.shape[1])
-    logits = _logits(params, x)
+    x, _, aux = _run_trunk_full(params, cfg, x, positions, False, x.shape[1])
+    logits = _logits(params, cfg, x)
+    if cfg.arch_type == "vlm":
+        logits = logits[:, cfg.n_patches:]
+    tok = batch["tokens"].long()
     pred = logits[:, :-1]
     tgt = tok[:, 1:]
     logz = torch.logsumexp(pred, dim=-1)
     gold = torch.gather(pred, -1, tgt[..., None])[..., 0]
-    return torch.mean(logz - gold)
+    return torch.mean(logz - gold) + aux
 
 
 def prefill(params: dict, cfg: ModelConfig, batch: dict, capacity: int):
     """Returns (last-position logits [B, vocab] f32, caches)."""
-    _check_ported(cfg)
-    x = params["embed"][batch["tokens"].long()]
+    x = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, caches = _run_trunk_full(params, cfg, x, positions, True, capacity)
-    return _logits(params, x[:, -1:])[:, 0], caches
+    x, caches, _ = _run_trunk_full(params, cfg, x, positions, True, capacity)
+    return _logits(params, cfg, x[:, -1:])[:, 0], caches
 
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor, pos: int, caches: list):
-    """token [B] int, pos the new token's position -> (logits [B, vocab] f32,
-    caches).  Writes the new KV entries and SSM states into `caches` in
-    place (no copy of the caches per token) and returns the same list."""
-    _check_ported(cfg)
+    """token [B] int, pos the new token's position (after a vlm's patches)
+    -> (logits [B, vocab] f32, caches).  Writes the new cache entries (KV,
+    MLA latents, SSM states) into `caches` in place (no copy of the caches
+    per token) and returns the same list."""
     x = params["embed"][token.long()][:, None]  # [B, 1, d]
     x = _run_trunk_decode(params, cfg, x, int(pos), caches)
-    return _logits(params, x)[:, 0], caches
+    return _logits(params, cfg, x)[:, 0], caches

@@ -1,5 +1,10 @@
 """Mamba2 block, state-space duality (SSD), arXiv:2405.21060 (port of
-`repro.models.ssm`, fused ``in_proj`` form).
+`repro.models.ssm`).
+
+Projections come fused (one ``in_proj`` and one conv over the x, B, C
+streams) or, with ``cfg.ssm_split_proj``, split: one projection a stream
+(``in_z``, ``in_x``, ``in_B``, ``in_C``, ``in_dt``) and one conv each for
+x, B and C.  Both keep the decode cache's fused conv layout [x, B, C].
 
 Full-sequence path: the chunked SSD algorithm, the intra-chunk quadratic
 form (the SSD kernel when ``cfg.use_ssd_kernel``) plus the inter-chunk
@@ -31,24 +36,35 @@ class SSMCache(NamedTuple):
     state: torch.Tensor  # [B, H, P, N] f32: the SSD recurrent state
 
 
-def _check(cfg: ModelConfig) -> None:
-    if cfg.ssm_split_proj:
-        raise NotImplementedError("ssm_split_proj not yet ported to repro_torch")
-
-
 def mamba_init(generator: torch.Generator, cfg: ModelConfig, dtype) -> dict:
-    _check(cfg)
     d, di, g, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     dev = generator.device
-    return {
+    zeros = lambda c: torch.zeros((c,), dtype=dtype, device=dev)  # noqa: E731
+    conv = lambda c: dense_init(generator, (cfg.d_conv, c), dtype, fan_in=cfg.d_conv)  # noqa: E731
+    common = {
         "A_log": torch.zeros((h,), dtype=torch.float32, device=dev),  # A = -1
         "D": torch.ones((h,), dtype=torch.float32, device=dev),
         "dt_bias": torch.full((h,), -2.0, dtype=torch.float32, device=dev),
         "norm": torch.ones((di,), dtype=dtype, device=dev),
         "out_proj": dense_init(generator, (di, d), dtype),
+    }
+    if cfg.ssm_split_proj:
+        return {
+            **common,
+            "in_z": dense_init(generator, (d, di), dtype),
+            "in_x": dense_init(generator, (d, di), dtype),
+            "in_B": dense_init(generator, (d, g * n), dtype),
+            "in_C": dense_init(generator, (d, g * n), dtype),
+            "in_dt": dense_init(generator, (d, h), dtype),
+            "conv_x_w": conv(di), "conv_x_b": zeros(di),
+            "conv_B_w": conv(g * n), "conv_B_b": zeros(g * n),
+            "conv_C_w": conv(g * n), "conv_C_b": zeros(g * n),
+        }
+    return {
+        **common,
         "in_proj": dense_init(generator, (d, 2 * di + 2 * g * n + h), dtype),
-        "conv_w": dense_init(generator, (cfg.d_conv, cfg.conv_dim), dtype, fan_in=cfg.d_conv),
-        "conv_b": torch.zeros((cfg.conv_dim,), dtype=dtype, device=dev),
+        "conv_w": conv(cfg.conv_dim),
+        "conv_b": zeros(cfg.conv_dim),
     }
 
 
@@ -125,6 +141,17 @@ def _ssd_chunked(
 
 def _project(params: dict, cfg: ModelConfig, x: torch.Tensor):
     """Returns (z, xs [B,S,H,P], b_ [B,S,G,N], c_, dt_raw, xbc_preconv)."""
+    if cfg.ssm_split_proj:
+        bsz, s, _ = x.shape
+        g, n = cfg.ssm_groups, cfg.ssm_state
+        raw = {c: linear(x, params[f"in_{c}"]) for c in ("x", "B", "C")}
+        conv = {c: _causal_conv(cfg, raw[c], params[f"conv_{c}_w"], params[f"conv_{c}_b"])
+                for c in raw}
+        xbc = torch.cat([raw["x"], raw["B"], raw["C"]], dim=-1)  # the cache's layout
+        return (linear(x, params["in_z"]),
+                conv["x"].reshape(bsz, s, cfg.ssm_heads, cfg.ssm_head_dim),
+                conv["B"].reshape(bsz, s, g, n), conv["C"].reshape(bsz, s, g, n),
+                linear(x, params["in_dt"]), xbc)
     proj = linear(x, params["in_proj"])
     z, xbc, dt_raw = _split_proj(cfg, proj)
     xbc_conv = _causal_conv(cfg, xbc, params["conv_w"], params["conv_b"])
@@ -138,7 +165,6 @@ def mamba_apply(
     x: torch.Tensor,  # [B, S, d]
     return_cache: bool = False,
 ) -> Tuple[torch.Tensor, Optional[SSMCache]]:
-    _check(cfg)
     bsz, s, _ = x.shape
     z, xs, b_, c_, dt_raw, xbc = _project(params, cfg, x)
     dt = F.softplus(dt_raw.float() + params["dt_bias"][None, None])
@@ -164,12 +190,22 @@ def mamba_decode(
 ) -> Tuple[torch.Tensor, SSMCache]:
     """One token.  Updates `cache` (the conv window and the state) in place
     and returns it."""
-    _check(cfg)
     bsz = x.shape[0]
-    proj = linear(x, params["in_proj"])
-    z, xbc, dt_raw = _split_proj(cfg, proj)
-    window = torch.cat([cache.conv, xbc], dim=1)  # [B, d_conv, C]
-    conv_out = torch.einsum("bkc,kc->bc", window, params["conv_w"]) + params["conv_b"]
+    if cfg.ssm_split_proj:
+        di, gn = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
+        z = linear(x, params["in_z"])
+        xbc = torch.cat([linear(x, params[f"in_{c}"]) for c in ("x", "B", "C")], dim=-1)
+        dt_raw = linear(x, params["in_dt"])
+        window = torch.cat([cache.conv, xbc], dim=1)  # [B, d_conv, C]
+        conv_out = torch.cat([
+            torch.einsum("bkc,kc->bc", window[:, :, lo:hi], params[f"conv_{c}_w"])
+            + params[f"conv_{c}_b"]
+            for lo, hi, c in ((0, di, "x"), (di, di + gn, "B"), (di + gn, di + 2 * gn, "C"))
+        ], dim=-1)
+    else:
+        z, xbc, dt_raw = _split_proj(cfg, linear(x, params["in_proj"]))
+        window = torch.cat([cache.conv, xbc], dim=1)  # [B, d_conv, C]
+        conv_out = torch.einsum("bkc,kc->bc", window, params["conv_w"]) + params["conv_b"]
     conv_out = F.silu(conv_out)[:, None]          # [B, 1, C]
     xs, b_, c_ = _split_xbc(cfg, conv_out)
     dt = F.softplus(dt_raw.float() + params["dt_bias"][None, None])

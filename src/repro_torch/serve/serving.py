@@ -96,7 +96,10 @@ class ServeLoop:
         self.prompt_len = int(prompt_len)
         self.gen = int(gen)
         self.batch = int(batch)
-        self.capacity = self.prompt_len + self.gen
+        # a vlm's patch embeddings sit before the prompt: decode positions
+        # start after them, and the caches hold them too
+        self.offset = cfg.n_patches if cfg.arch_type == "vlm" else 0
+        self.capacity = self.prompt_len + self.gen + self.offset
         self.device = resolve_device(device)
         self._rng = np.random.default_rng(seed)
 
@@ -112,7 +115,12 @@ class ServeLoop:
 
     def make_batch(self) -> dict:
         prompts = self._rng.integers(0, self.cfg.vocab, (self.batch, self.prompt_len))
-        return {"tokens": torch.as_tensor(prompts.astype(np.int32), device=self.device)}
+        batch = {"tokens": torch.as_tensor(prompts.astype(np.int32), device=self.device)}
+        if self.cfg.arch_type == "vlm":
+            batch["patch_embeds"] = torch.zeros(
+                (self.batch, self.cfg.n_patches, self.cfg.vision_dim),
+                dtype=getattr(torch, self.cfg.dtype), device=self.device)
+        return batch
 
     def serve_node(self, params_node) -> Dict[str, object]:
         """One decode batch against a single node's parameters: prefill and
@@ -136,7 +144,8 @@ class ServeLoop:
                 return logits, caches
 
             t0 = time.perf_counter()
-            out = decode_greedy(dc, params_node, tok, caches, self.prompt_len, self.gen)
+            out = decode_greedy(dc, params_node, tok, caches, self.prompt_len, self.gen,
+                                self.offset)
             out = out.cpu().numpy()
             t_decode = time.perf_counter() - t0
         n_decoded = self.batch * (self.gen - 1)

@@ -1,5 +1,7 @@
 """The port's serving path (prefill, decode_step, ServeLoop) against the JAX
-package's, on the CPU, for the ssm and hybrid families.
+package's, on the CPU: the ssm and hybrid families, chunked prefill (GQA
+and MLA), the split SSM projections, and ServeLoop on dense, MLA + MoE and
+vlm models (the vlm's decode positions start after its patches).
 
 Weights are JAX's, carried across with `repro_torch.convert`; inputs come
 from numpy seeds.  Tolerances: `train_loss` rtol 1e-5 (as the dense slice's
@@ -36,6 +38,11 @@ CASES = {
     "zamba2": ("zamba2-1.2b", {}),
     "zamba2-two-groups-kernels": ("zamba2-1.2b", {"n_layers": 3, **KERNELS}),
     "mamba2-kernel": ("mamba2-1.3b", {"use_ssd_kernel": True}),
+    # the 21-token prefill in query chunks of 7 (GQA's and MLA's chunked
+    # routes); the split SSM projections
+    "qwen3-chunked": ("qwen3-14b", {"prefill_chunk": 7}),
+    "deepseek-lite-chunked": ("deepseek-v2-lite-16b", {"prefill_chunk": 7}),
+    "mamba2-split-proj": ("mamba2-1.3b", {"ssm_split_proj": True}),
 }
 
 
@@ -103,8 +110,8 @@ def test_decode_matches_own_full_forward(name):
     tok = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, (b, s)))
     with torch.no_grad():
         x = params["embed"][tok]
-        xf, _ = tm._run_trunk_full(params, cfg, x, torch.arange(s), False, s)
-        full = tm._logits(params, xf)
+        xf, _, _ = tm._run_trunk_full(params, cfg, x, torch.arange(s), False, s)
+        full = tm._logits(params, cfg, xf)
         half = s // 2
         lg, caches = tm.prefill(params, cfg, {"tokens": tok[:, :half]}, s)
         errs = [(lg - full[:, half - 1]).abs().max().item()]
@@ -120,8 +127,9 @@ def test_ring_buffer_wraparound_matches_windowed_attention():
     params = tm.init_params(0, cfg, device="cpu")
     tok = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (b, s)))
     with torch.no_grad():
-        xf, _ = tm._run_trunk_full(params, cfg, params["embed"][tok], torch.arange(s), False, s)
-        full = tm._logits(params, xf)
+        xf, _, _ = tm._run_trunk_full(params, cfg, params["embed"][tok], torch.arange(s), False,
+                                      s)
+        full = tm._logits(params, cfg, xf)
         lg, caches = tm.prefill(params, cfg, {"tokens": tok[:, :4]}, cap)
         errs = []
         for t in range(4, s):
@@ -135,7 +143,8 @@ def _stacked_jax_params(cfg, m, seed):
     return jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *trees)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "stablelm-1.6b"])
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "stablelm-1.6b", "internvl2-2b",
+                                  "deepseek-v2-lite-16b"])
 def test_serve_loop_matches_jax(arch):
     cj, ct = jget_config(arch, "smoke"), get_config(arch, "smoke")
     pj = _stacked_jax_params(cj, 2, 5)
@@ -145,7 +154,9 @@ def test_serve_loop_matches_jax(arch):
     jb, tb = jserving.ServeLoop(cj, **kw).make_batch(), ServeLoop(ct, device="cpu", **kw).make_batch()
     assert tb["tokens"].dtype == torch.int32
     np.testing.assert_array_equal(to_np(tb["tokens"]), np.asarray(jb["tokens"]))
+    assert sorted(tb) == sorted(jb)  # a vlm's zero patch embeddings too
     jloop, tloop = jserving.ServeLoop(cj, **kw), ServeLoop(ct, device="cpu", **kw)
+    assert (tloop.offset, tloop.capacity) == (jloop.offset, jloop.capacity)
     for policy in ("local", "consensus"):
         want = jloop.serve_round(pj, policy=policy)
         got = tloop.serve_round(pt, policy=policy)

@@ -114,6 +114,84 @@ def test_mamba_keeps_jax_dtypes_in_bf16():
     np.testing.assert_allclose(to_np(out), np.asarray(jout, np.float32), atol=5e-2)
 
 
-def test_split_proj_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="ssm_split_proj"):
-        ssm.mamba_init(torch.Generator(), MAMBA.replace(ssm_split_proj=True), torch.float32)
+def _split_cfg(groups, split=True):
+    """tests/test_ssm_split.py's block."""
+    return ModelConfig("t", "ssm", n_layers=1, d_model=32, vocab=8, ssm_state=8, ssm_head_dim=8,
+                       ssm_chunk=4, ssm_groups=groups, ssm_split_proj=split)
+
+
+def _jcfg(cfg):
+    return JConfig(**{f: getattr(cfg, f) for f in cfg.__dataclass_fields__})
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_split_proj_matches_jax(groups):
+    """ssm_split_proj: the per-stream projections and convolutions against
+    JAX's on the same weights (conv biases drawn too), full sequence with
+    its cache and three decode steps, atol 1e-5."""
+    cfg = _split_cfg(groups)
+    pj = dict(jax.device_get(jssm.mamba_init(jax.random.PRNGKey(0), _jcfg(cfg), jnp.float32)))
+    rng = np.random.default_rng(groups)
+    for k in ("conv_x_b", "conv_B_b", "conv_C_b"):
+        pj[k] = (rng.standard_normal(pj[k].shape) * 0.1).astype(np.float32)
+    tl = ssm.mamba_init(torch.Generator().manual_seed(0), cfg, torch.float32)
+    assert sorted(tl) == sorted(pj) and all(tuple(tl[k].shape) == pj[k].shape for k in pj)
+    pt = convert.to_torch(pj)
+    x = rng.standard_normal((2, 15, 32)).astype(np.float32)
+    yj, cj = jssm.mamba_apply(pj, _jcfg(cfg), jnp.asarray(x[:, :12]), return_cache=True)
+    with torch.no_grad():
+        yt, ct = ssm.mamba_apply(pt, cfg, torch.as_tensor(x[:, :12]), return_cache=True)
+    np.testing.assert_allclose(to_np(yt), np.asarray(yj), atol=1e-5)
+    for a, b in zip(ct, cj):
+        np.testing.assert_allclose(to_np(a), np.asarray(b), atol=1e-5)
+    for t in range(12, 15):
+        yj, cj = jssm.mamba_decode(pj, _jcfg(cfg), jnp.asarray(x[:, t: t + 1]), cj)
+        with torch.no_grad():
+            yt, ct = ssm.mamba_decode(pt, cfg, torch.as_tensor(x[:, t: t + 1]), ct)
+        np.testing.assert_allclose(to_np(yt), np.asarray(yj), atol=1e-5, err_msg=str(t))
+        for a, b in zip(ct, cj):
+            np.testing.assert_allclose(to_np(a), np.asarray(b), atol=1e-5)
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_split_proj_equals_fused_from_its_slices(groups):
+    """tests/test_ssm_split.py's equivalence in the port: the split block,
+    initialised from the fused block's slices, gives the fused outputs,
+    full sequence and decode (atol 2e-6)."""
+    from test_ssm_split import _split_from_fused
+
+    cfg = _split_cfg(groups, split=False)
+    pf = ssm.mamba_init(torch.Generator().manual_seed(1), cfg, torch.float32)
+    ps = _split_from_fused(pf, cfg)
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal((2, 12, 32)).astype(np.float32))
+    with torch.no_grad():
+        yf, cf = ssm.mamba_apply(pf, cfg, x, return_cache=True)
+        ys, cs = ssm.mamba_apply(ps, cfg.replace(ssm_split_proj=True), x, return_cache=True)
+        np.testing.assert_allclose(to_np(ys), to_np(yf), atol=2e-6)
+        np.testing.assert_allclose(to_np(cs.conv), to_np(cf.conv), atol=2e-6)
+        x1 = torch.as_tensor(np.random.default_rng(1).standard_normal((2, 1, 32)).astype(np.float32))
+        yd_f, _ = ssm.mamba_decode(pf, cfg, x1, cf)
+        yd_s, _ = ssm.mamba_decode(ps, cfg.replace(ssm_split_proj=True), x1, cs)
+    np.testing.assert_allclose(to_np(yd_s), to_np(yd_f), atol=2e-6)
+
+
+def test_split_proj_model_end_to_end_matches_jax():
+    """tests/test_ssm_split.py's two-layer model: loss and gradients
+    against JAX's (rtol 1e-5, atol 1e-4), all finite."""
+    from repro.models import init_params as jinit, train_loss as jloss
+    from repro_torch.models import train_loss
+    from repro_torch.tree import tree_flatten, tree_unflatten
+
+    cfg = ModelConfig("t", "ssm", n_layers=2, d_model=64, vocab=64, ssm_state=16,
+                      ssm_head_dim=16, ssm_chunk=8, ssm_split_proj=True)
+    pj = jinit(jax.random.PRNGKey(0), _jcfg(cfg))
+    tok = np.random.default_rng(0).integers(0, 64, (2, 16)).astype(np.int32)
+    lj, gj = jax.value_and_grad(lambda p: jloss(p, _jcfg(cfg), {"tokens": jnp.asarray(tok)}))(pj)
+    leaves, td = tree_flatten(convert.to_torch(jax.device_get(pj)))
+    leaves = [x.requires_grad_(True) for x in leaves]
+    lt = train_loss(tree_unflatten(td, leaves), cfg, {"tokens": torch.as_tensor(tok)})
+    grads = torch.autograd.grad(lt, leaves)
+    np.testing.assert_allclose(float(lt.detach()), float(lj), rtol=1e-5)
+    for g, w in zip(grads, jax.tree_util.tree_leaves(gj)):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(to_np(g), np.asarray(w), atol=1e-4)

@@ -300,3 +300,112 @@ def test_cli_realized_metrics_match_jax(algo, flags, capsys, monkeypatch):
         assert fields & set(want[k]) == fields & set(got[k]) != set(), k
         for f in fields & set(want[k]):
             assert float(got[k][f]) == pytest.approx(float(want[k][f]), rel=1e-4, abs=1e-3), (k, f)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "internvl2-2b"])
+def test_new_arch_pame_steps_match_jax(arch):
+    """test_lm_pame_steps_match_jax's slice on an MLA + MoE model (its loss
+    carries the MoE aux terms) and on the vlm stand-in (random patch
+    embeddings before the text): three PaME steps of the trainer's sparse
+    exchange with JAX's draws injected, losses at rtol 1e-5 and parameters
+    at atol 1e-4."""
+    cfg_j, cfg_t = jget_config(arch, "smoke"), get_config(arch, "smoke")
+    pcfg = jpame.PaMEConfig(nu=0.5, p=0.2, gamma=1.001, sigma0=20.0, mask_mode="bernoulli",
+                            mixing="sparse")
+    pcfg_t = tpame.PaMEConfig(nu=0.5, p=0.2, gamma=1.001, sigma0=20.0, mask_mode="bernoulli",
+                              mixing="sparse")
+    ta_j = jpame.make_topology_arrays(jbuild("erdos_renyi", M, p=0.5, seed=0), pcfg, seed=0)
+    ta_t = tpame.make_topology_arrays(tbuild("erdos_renyi", M, p=0.5, seed=0), pcfg_t,
+                                      seed=0, device="cpu")
+    stacked = jax.vmap(lambda k: jinit(k, cfg_j))(jax.random.split(jax.random.PRNGKey(0), M))
+    key = jax.random.PRNGKey(1)
+    sj = jpame.pame_init(key, stacked, M, pcfg)
+    st = tpame.pame_init(1, convert.to_torch(jax.device_get(stacked)), M, pcfg_t)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg_j.vocab, (3, M, 2, 12)).astype(np.int32)
+    patches = (rng.standard_normal((3, M, 2, cfg_j.n_patches, cfg_j.vision_dim))
+               .astype(np.float32) if cfg_j.arch_type == "vlm" else None)
+
+    def batch(k, fn):
+        b = {"tokens": fn(toks[k])}
+        if patches is not None:
+            b["patch_embeds"] = fn(patches[k])
+        return b
+
+    def j_grad(p, b, k):
+        return jax.value_and_grad(lambda pp: jloss(pp, cfg_j, b))(p)
+
+    step_j = jax.jit(lambda s, b: jpame.pame_step(s, b, j_grad, ta_j, pcfg))
+    for k in range(3):
+        draws = jax_step_draws(key, k, sj.params, ta_j, pcfg)
+        sj, mj = step_j(sj, batch(k, jnp.asarray))
+        st, mt = tpame.pame_step(st, batch(k, torch.as_tensor), _t_grad(cfg_t), ta_t, pcfg_t,
+                                 draws=draws)
+        np.testing.assert_allclose(float(mt["loss_mean"]), float(mj["loss_mean"]), rtol=1e-5)
+        for g, w in zip(convert.flatten(st.params), jax.tree_util.tree_leaves(sj.params)):
+            np.testing.assert_allclose(to_np(g), np.asarray(w), atol=1e-4)
+
+
+@pytest.mark.parametrize("arch,seq", [("deepseek-v2-lite-16b", "12"), ("internvl2-2b", "20")])
+def test_cli_runs_new_archs_on_cpu(arch, seq, capsys):
+    """The CLI on the MLA + MoE smoke model and on the vlm smoke model (its
+    batches carry zero patch embeddings): finite losses, one line a step."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = ttrain.main(["--arch", arch, "--variant", "smoke", "--nodes", "4", "--batch", "1",
+                           "--seq", seq, "--steps", "3", "--chunk", "1", "--device", "cpu"])
+    finally:
+        torch.set_num_threads(n)
+    assert out["steps"] == 3 and np.isfinite(out["loss"]).all()
+    assert "[train] step=3 loss=" in capsys.readouterr().out
+    cfg = get_config(arch, "smoke")
+    batch = ttrain.lm_batch_fn(cfg, 4, 1, int(seq), 0, torch.device("cpu"))(0)
+    want = {"tokens": (4, 1, int(seq))}
+    if cfg.arch_type == "vlm":
+        want["patch_embeds"] = (4, 1, cfg.n_patches, cfg.vision_dim)
+        assert not batch["patch_embeds"].any()
+    assert {k: tuple(v.shape) for k, v in batch.items()} == want
+    with pytest.raises(ValueError, match="n_patches"):  # the JAX CLI's seq check
+        ttrain.main(["--arch", "internvl2-2b", "--variant", "smoke", "--seq", "16",
+                     "--device", "cpu"])
+
+
+def test_chip_smoke_path_i_rehearsal(capsys):
+    """`chip_smoke.py`'s path I at tiny sizes on the CPU: I1 through the
+    trainer CLI on deepseek-lite-smoke at 3 layers and its three remat
+    runs (equal losses), I2's MLA + MoE serving with chunked prefill, I3's
+    flash-flag serving (the plain route on the CPU), I4's five configs and
+    qwen3's chunked GQA prefill against the unchunked one, and I5's
+    optimizers: every check of each phase passes."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(SRC), "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cpu = torch.device("cpu")
+    small = dict(prompt_len=8, gen=3, batch=2, seed=0)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        i1, launches = cs.path_i1(cpu, variant="smoke", batch=1, seq=16, remat_batch=1,
+                                  remat_seq=16)
+        i2 = cs.path_i2(cpu, cfg=get_config(cs.I_LM, "smoke").replace(prefill_chunk=4), serve=small)
+        i3, _ = cs.path_i3(cpu, cfg=get_config("qwen3-14b", "smoke").replace(use_flash=True),
+                           serve=small)
+        i4 = cs.path_i4(cpu, variant="smoke", serve=small,
+                        chunk=dict(prompt_len=8, chunk=4, atol=1e-5))
+        i5 = cs.path_i5(cpu)
+    finally:
+        torch.set_num_threads(n)
+    assert launches == 0 and i1["leaves"] == 28 and len(i1["loss"]) == cs.I_STEPS
+    assert sorted(i1["remat"]) == ["dots", "full", "none"]
+    assert len({r["loss"] for r in i1["remat"].values()}) == 1
+    assert i1["remat"]["full"]["grads_equal"] and i1["remat"]["dots"]["grads_equal"]
+    assert i2["token_shape"] == i3["token_shape"] == [2, 3]
+    assert i4["internvl2-2b"]["offset"] == get_config("internvl2-2b", "smoke").n_patches
+    assert sorted(i4) == sorted(cs.I4_ARCHS + ("qwen3-14b chunked",))
+    assert all(r["last"] < r["first"] for r in i5.values())
+    out = capsys.readouterr().out
+    assert '"phase": "path_i1_remat"' in out and '"phase": "path_i5"' in out
