@@ -149,7 +149,35 @@ non-zero without the final result line:
      start.  Phase 2 times the f32 gossip kernel at I1's largest leaf [4,
      369,098,752] and flash at I3's shape q [8, 2048, 40, 128] on 8 KV
      heads (against SDPA with its GQA flag);
- 16. the kernel table line, then the result line.
+ 16. path J: the four input shapes of `repro_torch.configs.shapes` at full
+     width and depth, batch the only cut (each record names it) — J1
+     train_4k: the trainer CLI in a fresh process with --compile-cache
+     (the gossip kernel must be built into that directory) and --remat,
+     stablelm-1.6b, PaME sparse on 4 nodes x 2 x 4096 tokens, 3
+     steps (11 f32 gossip launches a step); J2 prefill_32k: stablelm-1.6b
+     with use_flash, 8 x 32,768 tokens into caches of 32,768 (flash once a
+     layer) and J3 decode_32k: 16 greedy tokens on them; J4 long_500k at
+     its real batch of 1 through `config_for_shape`: J4a stablelm-1.6b
+     (window 4096, flash's window branch at 524,288 tokens), J4b
+     mamba2-1.3b (SSD at N = 128, 48 launches), J4c zamba2-1.2b (7 flash,
+     38 SSD), each a 524,288-token prefill into ring caches of 4096 and 32
+     tokens past the wrap, the ring then holding exactly the last 4096
+     positions; finite logits, prefill ms, decode ms a token, peaks under
+     80 GB; parity phase J: J4a's flash call and J4b's SSD call as the
+     models make them at 2 layers, full width and 8192 tokens, against the
+     plain versions with phase 2's tolerances; J5: the dry run's CLI
+     (`repro_torch.launch.dryrun`, the card's memory) on J1-J4's combos,
+     four processes at a time on the host after every timed path (the card
+     idle), each record's bytes and FLOPs beside the measured seconds and
+     peak.  Phase 2 holds flash at J2's shape [8, 32768, 32, 64], full
+     causal (row 4j: the last batch row whole and the last 4096 query rows
+     of every batch row, against the plain version a block of query rows
+     at a time), and at 524,288 tokens with a 4096-key window: J4a's
+     attention [1, 524288, 32, 64] (row 4w) and qwen3-14b's long_500k
+     attention [1, 524288, 40, 128] on 8 KV heads (row 4L, past 2^31
+     elements a batch row), against the plain version run in blocks of
+     4096 rows;
+ 17. the kernel table line, then the result line.
 
 Exits non-zero with no result when no CUDA device is present, or when the
 port's sources are not beside this script.
@@ -164,6 +192,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+T0 = time.perf_counter()  # the script's start: J5 emits its start and end from it
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
@@ -244,14 +274,22 @@ def ulps_floored(got, want, mantissa=7):
     ulp of the tiny value itself.  CHUNK elements at a time."""
     import torch
 
-    floor = want.abs().max().float() / 256
+    floor = chunked_max(lambda w: w.abs().max().float(), want) / 256
     worst = 0.0
     for g, w in zip(got.reshape(-1).split(CHUNK), want.reshape(-1).split(CHUNK)):
         w = w.float()
         ulp = torch.exp2(torch.floor(torch.log2(
-            torch.maximum(w.abs(), floor).clamp(min=2.0 ** -126))) - mantissa)
+            w.abs().clamp(min=max(floor, 2.0 ** -126)))) - mantissa)
         worst = max(worst, ((g.float() - w).abs() / ulp).max().item())
     return worst
+
+
+def chunked_max(fn, *tensors):
+    """max over CHUNK-element slices of fn(slices...) (a 0-d tensor each):
+    a full-size f32 temporary of a 2.7e9-element output would be 10.7 GB."""
+    flat = [t.reshape(-1) for t in tensors]
+    return max(fn(*(f[i:i + CHUNK] for f in flat)).item()
+               for i in range(0, flat[0].numel(), CHUNK))
 
 
 def bound(bytes_, flops, peak=BF16_FLOPS):
@@ -656,16 +694,17 @@ def _hold(kernel, case, got, want, plain_work, row):
     of the scale) for a bf16 one."""
     import torch
 
-    err = (got.float() - want).abs().max().item()
-    scale = max(1.0, want.abs().max().item())
+    absdiff = lambda a, b: (a.float() - b.float()).abs().max()  # noqa: E731
+    err = chunked_max(absdiff, got, want)
+    scale = max(1.0, chunked_max(lambda w: w.abs().max(), want))
     if got.dtype == torch.float32:
         ok, tol = err <= 1e-5 * scale, 1e-5 * scale
     else:
-        row["bf16_ulps"] = bf16_ulps(got, want)
+        row["bf16_ulps"] = chunked_max(lambda g, w: torch.tensor(bf16_ulps(g, w)), got, want)
         row["bf16_ulps_floored"] = ulps_floored(got, want)
         ok, tol = row["bf16_ulps_floored"] <= 1.0, "1 bf16 ulp (floored)"
         # against the plain version in the working type
-        row["err_vs_plain_bf16"] = (got.float() - plain_work.float()).abs().max().item()
+        row["err_vs_plain_bf16"] = chunked_max(absdiff, got, plain_work)
     row.update(kernel=kernel, case=case, max_abs_err=err, tol=tol)
     if not ok or not torch.isfinite(got).all():
         emit(**row)
@@ -774,10 +813,158 @@ def check_ssd(dev):
         case(f"tc-{shape}", *shape, torch.bfloat16)
     row = case("path-c", 8, 16, 128, 64, 64, 1, 64, torch.bfloat16, reps=10)
     free()
-    # mamba2-1.3b's chunk: the same heads with a 128-wide state
-    case("mamba2-1.3b-n128", 8, 16, 128, 64, 64, 1, 128, torch.bfloat16, reps=10)
+    # mamba2-1.3b's chunk: the same heads with a 128-wide state (path J4b's)
+    row_n128 = case("mamba2-1.3b-n128", 8, 16, 128, 64, 64, 1, 128, torch.bfloat16, reps=10)
+    free()
+    return row, row_n128
+
+
+def windowed_plain(q, k, v, window):
+    """Causal attention with a window of `window` keys in plain PyTorch at
+    any length: each block of `window` query rows through `attention_ref`
+    on the 2 x window positions that hold its keys (the rows before the
+    block are dropped).  The same function as the kernel's; its score
+    buffer is [.., 2w, 2w] a block instead of [.., S, S]."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    s = q.shape[1]
+    out = torch.empty_like(q)
+    for lo in range(0, s, window):
+        first, hi = max(0, lo - window), min(s, lo + window)
+        out[:, lo:hi] = attention_ref(q[:, first:hi], k[:, first:hi], v[:, first:hi],
+                                      window)[:, lo - first:]
+    return out
+
+
+def causal_plain_rows(q, k, v, lo, block):
+    """Query rows lo..S of causal attention (no window) in plain PyTorch:
+    `attention_ref`'s math (scores in the inputs' type, then an f32 softmax,
+    f64 for f64 inputs)
+    on `block` query rows at a time, each block against the keys up to its
+    last row, so the score buffer is [.., block, <= S] instead of [.., S, S]."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import NEG_INF
+
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    out = torch.empty((b, s - lo, h, d), dtype=q.dtype, device=q.device)
+    for a in range(lo, s, block):
+        e = min(s, a + block)
+        qg = q[:, a:e].reshape(b, e - a, kvh, h // kvh, d)
+        scores = torch.einsum("bskgh,btkh->bkgst", qg, k[:, :e]).to(
+            torch.promote_types(q.dtype, torch.float32)) * d ** -0.5
+        i = torch.arange(a, e, device=q.device)[:, None]
+        j = torch.arange(e, device=q.device)[None, :]
+        scores = torch.where((j <= i)[None, None, None], scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        out[:, a - lo:e - lo] = torch.einsum(
+            "bkgst,btkh->bskgh", probs.to(v.dtype), v[:, :e]).reshape(b, e - a, h, d)
+        del scores, probs
+    return out
+
+
+def check_flash_j2(dev):
+    """Row 4j: the flash kernel at path J2's shape, stablelm-1.6b's
+    attention over 8 x 32,768 tokens, full causal (up to 512 K/V tiles a
+    query tile).  The plain version cannot hold [8, 32, 32768, 32768]
+    scores, so two slices of the one launch's output are held against
+    `causal_plain_rows` in f32 within one floored bf16 ulp, as phase 2
+    holds flash: the last batch row whole (every head and query row) and
+    the last 4096 query rows of every batch row.  The plain version's time
+    is that of the first slice (one batch row of 8) in bf16; the library
+    call is SDPA with is_causal."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda, flash_variant
+
+    cfg = get_config("stablelm-1.6b", "full")
+    b, s, h, kv, d = J2_BATCH, 32_768, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+               for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
+    got = flash_attention_cuda(q, k, v)
+    row = {"shape": [b, s, h, kv, d], "window": None, "dtype": "torch.bfloat16",
+           "variant": flash_variant(q.dtype, d)}
+    last = [x[-1:] for x in (q, k, v)]
+    want = causal_plain_rows(*(x.float() for x in last), 0, 512)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain = causal_plain_rows(*last, 0, 512)
+    end.record()
+    torch.cuda.synchronize()
+    _hold("flash_attention", "4j path-j2 last batch row", got[-1:], want, plain, row)
+    row["plain_ms_one_batch_row"] = start.elapsed_time(end)
+    part = {}
+    lo = s - 4096
+    want = causal_plain_rows(q.float(), k.float(), v.float(), lo, 128)
+    plain = causal_plain_rows(q, k, v, lo, 128)
+    _hold("flash_attention", "4j path-j2 last 4096 rows", got[:, lo:], want, plain, part)
+    row["last_rows"] = {key: part[key] for key in
+                        ("max_abs_err", "bf16_ulps", "bf16_ulps_floored", "err_vs_plain_bf16")}
+    row["max_abs_err"] = max(row["max_abs_err"], part["max_abs_err"])
+    del want, plain, got
+    free()
+    row["ms"] = time_ms(lambda: flash_attention_cuda(q, k, v), 3)
+    row["plain_ms"] = None  # [8, 32, 32768, 32768] f32 scores: 1.1 TB
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    row["library_ms"] = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), 3)
+    flops = 4 * b * h * d * (s * (s + 1) // 2)  # q.k and p.v, causal half
+    bytes_ = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    row["bound_ms"], row["bound_by"] = bound(bytes_, flops)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["flops"], row["bytes"] = flops, bytes_
+    emit(**row)
+    del q, k, v, qt, kt, vt
     free()
     return row
+
+
+def check_flash_long(dev):
+    """The flash kernel at 524,288 tokens with a 4096-key window: row 4w at
+    path J4a's stablelm-1.6b attention [1, 524288, 32, 64] and row 4L at
+    qwen3-14b's long_500k attention [1, 524288, 40, 128] on 8 KV heads
+    (S x H x D = 2.68e9, past 2^31: the kernel's 64-bit offsets).  Every
+    row against `windowed_plain` in f32 within one floored bf16 ulp, as
+    phase 2 holds flash; the plain version's time is `windowed_plain`'s in
+    bf16.  No library call computes a sliding window without a dense
+    [S, S] mask (275 GB at this S), so the library column is None."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda, flash_variant
+    from repro_torch.launch.dryrun import band_pairs
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    rows = {}
+    for name, h, kv, d in (("4w path-j4a", 32, 32, 64), ("4L qwen3-14b long_500k", 40, 8, 128)):
+        b, s, win = 1, J_LONG, J_WINDOW
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+                   for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
+        got = flash_attention_cuda(q, k, v, window=win)
+        want = windowed_plain(q.float(), k.float(), v.float(), win)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain = windowed_plain(q, k, v, win)
+        end.record()
+        torch.cuda.synchronize()
+        row = {"shape": [b, s, h, kv, d], "window": win, "dtype": "torch.bfloat16",
+               "variant": flash_variant(q.dtype, d)}
+        _hold("flash_attention", name, got, want, plain, row)
+        del want, plain, got
+        free()
+        row["plain_ms"] = start.elapsed_time(end)
+        row["ms"] = time_ms(lambda: flash_attention_cuda(q, k, v, window=win), 3)
+        row["library_ms"] = None
+        flops = 4 * b * h * d * band_pairs(s, win)  # q.k and p.v over the window band
+        bytes_ = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+        row["bound_ms"], row["bound_by"] = bound(bytes_, flops)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["flops"], row["bytes"] = flops, bytes_
+        emit(**row)
+        rows[name.split()[0]] = row
+        del q, k, v
+        free()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3055,6 +3242,409 @@ def path_i(dev):
     return rows, gossip_launches, flash_launches
 
 
+# ---------------------------------------------------------------------------
+# path J: the four input shapes (configs/shapes.py) at full width and depth
+# ---------------------------------------------------------------------------
+J_LONG, J_WINDOW = 524_288, 4096  # long_500k's sequence and window (configs/shapes.py)
+# J1: train_4k through the trainer CLI, 4 nodes x J1_BATCH sequences of
+# 4096 tokens with each layer checkpointed (global batch 256 cut to 8)
+J1_BATCH = 2
+# J2 / J3: prefill_32k and decode_32k on one node model, batch cut to 8
+# (6.4 GB of KV a sequence: 32 need 205 GB, 128 need 824 GB)
+J2_BATCH = 8
+J3_GEN = 16
+# J4: long_500k at its real batch of 1, 32 decoded tokens past the ring's wrap
+J4_GEN = 32
+J4 = (("J4a", "stablelm-1.6b", dict(use_flash=True)),
+      ("J4b", "mamba2-1.3b", dict(use_ssd_kernel=True)),
+      ("J4c", "zamba2-1.2b", dict(use_flash=True, use_ssd_kernel=True)))
+# the dry run's combos of J1-J4 (J5), one CLI call each, the longest
+# traces (J4b's and J4c's 48 and 38 SSM layers at 524,288 tokens, J1's
+# backward) first
+J5 = (("J4b", ["--arch", "mamba2-1.3b", "--shape", "long_500k", "--kind", "prefill"]),
+      ("J4c", ["--arch", "zamba2-1.2b", "--shape", "long_500k", "--kind", "prefill"]),
+      ("J1", ["--arch", "stablelm-1.6b", "--shape", "train_4k", "--nodes", str(M),
+              "--batch", str(M * J1_BATCH)]),
+      ("J2", ["--arch", "stablelm-1.6b", "--shape", "prefill_32k", "--batch", str(J2_BATCH)]),
+      ("J3", ["--arch", "stablelm-1.6b", "--shape", "decode_32k", "--batch", str(J2_BATCH)]),
+      ("J4a", ["--arch", "stablelm-1.6b", "--shape", "long_500k", "--kind", "prefill"]),
+      ("J4a-decode", ["--arch", "stablelm-1.6b", "--shape", "long_500k"]),
+      ("J4b-decode", ["--arch", "mamba2-1.3b", "--shape", "long_500k"]),
+      ("J4c-decode", ["--arch", "zamba2-1.2b", "--shape", "long_500k"]))
+J5_WORKERS = 4
+# the parity phase's sub-sequence (2 layers, full width)
+PARITY_J_SEQ = 8192
+
+J1_SCRIPT = """
+import json, sys, torch
+from repro_torch.kernels.gossip.kernel import gossip_gather
+from repro_torch.launch import train
+out = train.main(json.loads(sys.argv[1]))
+card = torch.cuda.is_available()
+if card:
+    torch.cuda.synchronize()
+print("J1_RESULT " + json.dumps({
+    "loss": out["loss"], "s_per_step": out["seconds"], "steps": out["steps"],
+    "peak_bytes": torch.cuda.max_memory_allocated() if card else None,
+    "gossip_variant_launches": gossip_gather.variant_launches}), flush=True)
+"""
+
+
+def _env():
+    return dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+
+
+def run_dryruns(device_bytes, out_dir, combos=J5):
+    """J5: the dry run's CLI on J1-J4's combos, J5_WORKERS processes at a
+    time on the host.  It runs after every timed path, so that its CPU-heavy
+    tracing overlaps none of them (the dry run allocates nothing and never
+    touches the card: the card's memory is passed in).  Returns the records
+    by name; a process still running after 300 s is killed and fails
+    the path."""
+    timeout = 300
+    procs, errors = [], []
+    t_end = time.perf_counter() + timeout
+
+    def run(name, argv):
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+               "--device-bytes", str(device_bytes),
+               "--out", os.path.join(out_dir, f"{name}.json")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True, env=_env(), cwd=HERE)
+        procs.append(proc)
+        try:
+            log, _ = proc.communicate(timeout=max(1.0, t_end - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+            errors.append(f"{name}: still running after {timeout} s")
+            return
+        if proc.returncode != 0:
+            errors.append(f"{name}: exit {proc.returncode}\n{log[-2000:]}")
+
+    try:
+        with concurrent.futures.ThreadPoolExecutor(J5_WORKERS) as pool:
+            for f in [pool.submit(run, name, argv) for name, argv in combos]:
+                f.result()
+    finally:  # no dry run outlives the script
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if errors:
+        fail("path J5: a dry run failed:\n" + "\n".join(errors))
+    recs = {}
+    for name, _ in combos:
+        with open(os.path.join(out_dir, f"{name}.json")) as f:
+            (rec,) = json.load(f).values()
+        recs[name] = rec
+    return recs
+
+
+def path_j1(dev, batch=J1_BATCH, seq=4096, variant="full"):
+    """train_4k through the trainer CLI in a fresh process with
+    --compile-cache: stablelm-1.6b, PaME sparse on 4 nodes, batch x 4096
+    tokens a node, each layer checkpointed, 3 steps.  The gossip kernel
+    must be built into the cache directory and launch 11 times a step (f32),
+    the losses be finite and the peak under 80 GB."""
+    import shutil
+    import tempfile
+
+    cache = tempfile.mkdtemp(prefix="repro_torch_compile_cache_")
+    steps = 3
+    argv = ["--arch", "stablelm-1.6b", "--variant", variant, "--algo", "pame", "--nodes", str(M),
+            "--batch", str(batch), "--seq", str(seq), "--steps", str(steps), "--chunk", "1",
+            "--remat", "--device", dev.type, "--compile-cache", cache]
+    free()
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run([sys.executable, "-c", J1_SCRIPT, json.dumps(argv)],
+                             capture_output=True, text=True, env=_env(), cwd=HERE, timeout=600)
+        built = sorted(os.listdir(cache))
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("J1_RESULT ")]
+    if res.returncode != 0 or not lines:
+        print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
+        fail(f"path J1: the trainer exited {res.returncode}")
+    out = json.loads(lines[0][len("J1_RESULT "):])
+    row = {"phase": "path_j1", "shape": "train_4k", "arch": "stablelm-1.6b",
+           "reduced": {"global_batch": [256, M * batch]}, "nodes": M, "seq": seq,
+           "remat": "full", "seconds": time.perf_counter() - t0, "built_in_cache": built,
+           "cache_logged": f"[train] compilation cache at {cache}" in res.stdout, **out}
+    emit(**row)
+    want = {"f32": 11 * steps, "bf16": 0} if dev.type == "cuda" else {"f32": 0, "bf16": 0}
+    if row["gossip_variant_launches"] != want:
+        fail(f"path J1: expected gossip launches {want}")
+    if dev.type == "cuda" and not any(f.startswith("gossip_gather-") for f in built):
+        fail(f"path J1: the gossip kernel was not built into --compile-cache ({built})")
+    if not row["cache_logged"] or not all(math.isfinite(x) for x in row["loss"]):
+        fail("path J1: no compilation-cache line, or a loss is not finite")
+    if dev.type == "cuda" and row["peak_bytes"] >= PEAK_LIMIT:
+        fail(f"path J1: peak {row['peak_bytes']} B over {PEAK_LIMIT}")
+    return row
+
+
+def _kernel_counts():
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan.kernel import ssd_intra_chunk_cuda
+
+    return {"flash": dict(flash_attention_cuda.variant_launches),
+            "ssd": dict(ssd_intra_chunk_cuda.variant_launches)}
+
+
+def _ring(caches):
+    """The positions of the first attention cache of the tree (layer 0),
+    or None for an attention-free model."""
+    for group in caches:
+        for key, c in sorted(group.items()):
+            if hasattr(c, "positions"):
+                return c.positions[0]
+    return None
+
+
+def serve_shape(dev, cfg, batch, seq, capacity, gen, run, prompt_seed=0):
+    """One node model of `cfg` from seed 0: prefill `batch` x `seq` random
+    tokens into caches of `capacity`, then `gen` greedy tokens through
+    `decode_step` (`serve.decode_greedy`).  Prefill ms, decode ms a token,
+    tokens/s, the peak, each kernel's launches in the prefill, finite
+    logits, and the first attention cache's ring positions afterwards."""
+    import numpy as np
+    import torch
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serve.serving import decode_greedy
+
+    free()
+    t0 = time.perf_counter()
+    params = init_params(0, cfg, device=dev)
+    toks = torch.as_tensor(np.random.default_rng(prompt_seed).integers(
+        0, cfg.vocab, (batch, seq)).astype(np.int32), device=dev)
+    _sync(dev)
+    setup_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    finite = []
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, cfg, {"tokens": toks}, capacity)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        finite.append(torch.isfinite(logits).all())
+        _sync(dev)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill_peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+        launches = _kernel_counts()
+
+        def dc(p, t, pos, c):
+            out, c = decode_step(p, cfg, t, pos, c)
+            finite.append(torch.isfinite(out).all())
+            return out, c
+
+        t0 = time.perf_counter()
+        out = decode_greedy(dc, params, tok, caches, seq, gen + 1).cpu().numpy()
+        decode_s = time.perf_counter() - t0
+        ring = _ring(caches)
+        ring = None if ring is None else ring.cpu().numpy()
+    row = {"run": run, "arch": cfg.name, "layers": cfg.n_layers, "batch": batch, "seq": seq,
+           "capacity": capacity, "window": cfg.window, "setup_s": setup_s,
+           "prefill_ms": prefill_ms, "decode_tokens": gen,
+           "decode_ms_per_token": decode_s * 1e3 / gen, "tokens_per_s": batch * gen / decode_s,
+           "prefill_peak_bytes": prefill_peak,
+           "peak_bytes": torch.cuda.max_memory_allocated() if dev.type == "cuda" else None,
+           "prefill_launches": launches, "token_shape": list(out.shape),
+           "logits_finite": bool(torch.stack(finite).all())}
+    if ring is not None:
+        last = seq + gen - 1  # the last decoded token's position
+        row["ring"] = {"min": int(ring.min()), "max": int(ring.max()),
+                       "slots_0_3": ring[:4].tolist(), "wrapped": seq >= capacity}
+        # the ring holds exactly the last `capacity` positions (-1 in the
+        # slots a short run left empty)
+        held = list(range(max(0, last - capacity + 1), last + 1))
+        row["ring_ok"] = sorted(ring.tolist()) == [-1] * (capacity - len(held)) + held
+    del params, caches, logits
+    free()
+    emit(phase="path_j", **row)
+    if not row["logits_finite"] or row["token_shape"] != [batch, gen + 1]:
+        fail(f"path {run}: expected [{batch}, {gen + 1}] tokens from finite logits")
+    if ring is not None and not row["ring_ok"]:
+        fail(f"path {run}: the ring does not hold the last {capacity} positions")
+    if dev.type == "cuda" and row["peak_bytes"] >= PEAK_LIMIT:
+        fail(f"path {run}: peak {row['peak_bytes']} B over {PEAK_LIMIT}")
+    return row
+
+
+def path_j2(dev, batch=J2_BATCH, gen=J3_GEN, seq=None, variant="full"):
+    """prefill_32k and decode_32k: stablelm-1.6b with use_flash, one node
+    model, batch x 32,768 tokens into caches of capacity 32,768 (flash once
+    a layer, full causal), then `gen` tokens (decode_32k's step, plain)."""
+    from repro_torch.configs import INPUT_SHAPES, cache_capacity, config_for_shape, get_config
+
+    shape = INPUT_SHAPES["prefill_32k"]
+    cfg = config_for_shape(get_config("stablelm-1.6b", variant), shape).replace(use_flash=True)
+    seq = seq or shape.seq_len
+    row = serve_shape(dev, cfg, batch, seq, min(seq, cache_capacity(cfg, shape)), gen, "J2+J3")
+    row["reduced"] = {"global_batch": {"prefill_32k": [32, batch], "decode_32k": [128, batch]}}
+    want = cfg.n_layers if dev.type == "cuda" else 0
+    if row["prefill_launches"]["flash"]["tensor_cores"] != want:
+        fail(f"path J2: expected {want} flash launches of the tensor-core variant")
+    return row
+
+
+def path_j4(dev, seq=J_LONG, gen=J4_GEN, variant="full", runs=J4):
+    """long_500k at batch 1 through `config_for_shape` (a 4096-token window
+    on stablelm-1.6b and on zamba2-1.2b's shared attention; mamba2-1.3b
+    native): a prefill of `seq` tokens into ring caches of
+    `cache_capacity`, then `gen` tokens past the ring's wrap.  Flash once
+    an attention site (its window branch), SSD once a Mamba2 layer."""
+    from repro_torch.configs import INPUT_SHAPES, cache_capacity, config_for_shape, get_config
+    from repro_torch.models.model import layer_groups
+
+    shape = INPUT_SHAPES["long_500k"]
+    rows = {}
+    for run, arch, flags in runs:
+        cfg = config_for_shape(get_config(arch, variant), shape).replace(**flags)
+        rows[run] = row = serve_shape(dev, cfg, 1, seq, cache_capacity(cfg, shape), gen, run)
+        groups = layer_groups(cfg)
+        sites = sum(g.repeat for g in groups if g.pattern[0] in ("attn", "shared_block"))
+        mamba = sum(g.repeat * g.pattern.count("mamba") for g in groups)
+        want = ({"flash": sites if cfg.use_flash else 0,
+                 "ssd": mamba if cfg.use_ssd_kernel else 0}
+                if dev.type == "cuda" else {"flash": 0, "ssd": 0})
+        got = {k: row["prefill_launches"][k]["tensor_cores"] for k in ("flash", "ssd")}
+        row["want_launches"] = want
+        if got != want:
+            fail(f"path {run}: expected tensor-core launches {want}, got {got}")
+    return rows
+
+
+@contextlib.contextmanager
+def _capture(module, name, store):
+    """Record the arguments of the first call of ``module.name`` (a kernel
+    wrapper the model calls through its module) while the block runs."""
+    orig = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        if not store:
+            store.append(([a.clone() if hasattr(a, "clone") else a for a in args], kwargs))
+        return orig(*args, **kwargs)
+
+    setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def path_j_parity(dev, seq=PARITY_J_SEQ, layers=PARITY_LAYERS):
+    """J4's kernels against their plain versions on the card at 2 layers and
+    full width, on a sub-sequence where the plain versions fit: the flash
+    call of J4a's first layer (stablelm-1.6b, window 4096) and the SSD
+    call of J4b's first layer (mamba2-1.3b, N = 128), both as the model
+    makes them in a prefill of `seq` tokens, held within phase 2's
+    tolerances (flash and SSD y: one floored bf16 ulp against the f32 plain
+    version; SSD state: 1e-5 x scale); and each model's last-position
+    logits through the kernels and through the plain route, in bf16."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import INPUT_SHAPES, config_for_shape, get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.kernel import ssd_intra_chunk_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
+    from repro_torch.models import init_params, prefill
+
+    shape = INPUT_SHAPES["long_500k"]
+    rows = {}
+    for run, arch, flags, module, name in (
+            ("J4a", "stablelm-1.6b", dict(use_flash=True), flash_ops, "flash_attention"),
+            ("J4b", "mamba2-1.3b", dict(use_ssd_kernel=True), ssd_ops, "ssd_intra_chunk")):
+        cfg = config_for_shape(get_config(arch, "full"), shape).replace(n_layers=layers)
+        params = init_params(0, cfg, device=dev)
+        toks = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, (1, seq)),
+                               device=dev)
+        calls = []
+        with torch.inference_mode():
+            with _capture(module, name, calls):
+                kern = prefill(params, cfg.replace(**flags), {"tokens": toks}, seq)[0]
+            plain = prefill(params, cfg, {"tokens": toks}, seq)[0]
+        args, kwargs = calls[0]
+        row = {"run": run, "arch": arch, "layers": layers, "seq": seq,
+               "shapes": [list(a.shape) for a in args if hasattr(a, "shape")],
+               "logit_rel_err": ((kern - plain).norm() / plain.norm()).item(),
+               "argmax_agree": (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()}
+        if run == "J4a":
+            q, k, v = args
+            got = flash_attention_cuda(q, k, v, window=kwargs["window"])
+            want = attention_ref(q.float(), k.float(), v.float(), kwargs["window"])
+            row["window"] = kwargs["window"]
+            _hold("flash_attention", "parity-j4a", got, want,
+                  attention_ref(q, k, v, kwargs["window"]), row)
+        else:
+            xc, dtc, cum, bc, cc, rep = args
+            got, st = ssd_intra_chunk_cuda(xc, dtc, cum, bc, cc, rep)
+            y_r, st_r = ssd_intra_chunk_ref(xc.float(), dtc, cum, bc.float(), cc.float(), rep)
+            _hold("ssd_intra_chunk", "parity-j4b", got, y_r,
+                  ssd_intra_chunk_ref(xc, dtc, cum, bc, cc, rep)[0], row)
+            row["state_max_abs_err"] = (st - st_r).abs().max().item()
+            if row["state_max_abs_err"] > 1e-5 * max(1.0, st_r.abs().max().item()):
+                emit(phase="parity_j", **row)
+                fail("parity J: the SSD state disagrees with its plain version")
+        emit(phase="parity_j", **row)
+        rows[run] = row
+        del params, calls, args, kern, plain
+        free()
+    return rows
+
+
+def path_j(dev):
+    """J1-J4 on the card, then J5's dry runs (the card idle) and their
+    records beside what J1-J4 measured."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    rows = {}
+    for name, fn in (("J1", path_j1), ("J2", path_j2), ("J4", path_j4)):
+        t = time.perf_counter()
+        rows[name] = fn(dev)
+        emit(phase=f"path_{name.lower()}_done", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    rows["parity"] = path_j_parity(dev)
+    emit(phase="parity_j_done", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    emit(phase="path_j5_start", at_s=t - T0)
+    dry_dir = tempfile.mkdtemp(prefix="repro_torch_dryrun_")
+    try:
+        dry = run_dryruns(torch.cuda.get_device_properties(0).total_memory
+                          if dev.type == "cuda" else 80e9, dry_dir)
+    finally:
+        shutil.rmtree(dry_dir, ignore_errors=True)
+    measured = {"J1": (rows["J1"]["s_per_step"][-1], rows["J1"]["peak_bytes"]),
+                "J2": (rows["J2"]["prefill_ms"] / 1e3, rows["J2"]["prefill_peak_bytes"]),
+                "J3": (rows["J2"]["decode_ms_per_token"] / 1e3, rows["J2"]["peak_bytes"])}
+    for run in ("J4a", "J4b", "J4c"):
+        r = rows["J4"][run]
+        measured[run] = (r["prefill_ms"] / 1e3, r["prefill_peak_bytes"])
+        measured[run + "-decode"] = (r["decode_ms_per_token"] / 1e3, r["peak_bytes"])
+    for name, rec in dry.items():
+        secs, peak = measured[name]
+        flops = rec.get("flops_band", rec["flops"])
+        emit(phase="path_j5", run=name, arch=rec["arch"], shape=rec["shape"], kind=rec["kind"],
+             reduced=rec.get("reduced"), flops_counted=rec["flops"], flops_kernel_route=flops,
+             param_bytes=rec["param_bytes"], state_bytes=rec.get("state_bytes"),
+             input_bytes=rec["input_bytes"], cache_bytes=rec["cache_bytes"],
+             resident_bytes=rec["resident_bytes"], fits_one_card=rec["fits_one_card"],
+             layout_8=rec["layout"], per_device_bytes_8=rec["per_device_bytes"],
+             measured_s=secs, measured_peak_bytes=peak,
+             bf16_peak_share=flops / (secs * BF16_FLOPS), trace_s=rec["trace_s"])
+    emit(phase="path_j5_done", at_s=time.perf_counter() - T0,
+         seconds=time.perf_counter() - t, records=len(dry))
+    return rows
+
+
 def main():
     try:
         import torch
@@ -3096,12 +3686,13 @@ def main():
             "ssd_tc_kernel path C": ssd_smem(128, 64, 64),
             "ssd_tc_kernel mamba2-1.3b": ssd_smem(128, 64, 128)}
     emit(phase="build", seconds=build_s, ptxas=ptxas, tc_dynamic_smem_bytes=smem)
-
     t = time.perf_counter()
     gossip = check_gossip(dev)
     pme_row, pme_fc1 = check_pme(dev)
     flash, flash_i3 = check_flash(dev)
-    ssd = check_ssd(dev)
+    check_flash_j2(dev)
+    flash_long = check_flash_long(dev)
+    ssd, ssd_n128 = check_ssd(dev)
     lane_rows = check_lanes(dev)
     emit(phase="kernels_checked", seconds=time.perf_counter() - t)
 
@@ -3159,6 +3750,13 @@ def main():
     t = time.perf_counter()
     _, i_gossip, i_flash = path_i(dev)
     emit(phase="path_i_done", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    j = path_j(dev)
+    emit(phase="path_j_done", seconds=time.perf_counter() - t)
+    tc = lambda r, k: r["prefill_launches"][k]["tensor_cores"]  # noqa: E731
+    j_gossip = j["J1"]["gossip_variant_launches"]["f32"]
+    j_flash = tc(j["J2"], "flash") + tc(j["J4"]["J4a"], "flash") + tc(j["J4"]["J4c"], "flash")
+    j_ssd = {run: tc(j["J4"][run], "ssd") for run in ("J4b", "J4c")}
     # path H's f32 launches (H1, H2 static and dynamic); those on lane-offset
     # tables (H1 and H2 at 5 lanes) are the f32_lanes variant's
     h_f32 = h1["gossip_variant_launches"]["f32"] + h_launches["f32"]
@@ -3167,7 +3765,7 @@ def main():
     bf16_launches = sum(r["gossip_launches"]["bf16"] for r in baselines.values())
     # each path's launches, read just after the path ran with the counts at 0
     f32_launches = (gossip_launches + e_launches["f32"] + f_launches["f32"] + g_launches
-                    + h_f32 + i_gossip)
+                    + h_f32 + i_gossip + j_gossip)
     bf16_launches += e_launches["bf16"] + f_launches["bf16"]
     pme_launches += e_launches["pme_average"] + f_launches["pme_average"] \
         + h_launches["pme_average"]
@@ -3209,6 +3807,9 @@ def main():
     # path I1's f32 launches (deepseek-v2-lite-16b; among the f32 launches),
     # timed at its largest leaf, the routed experts of its 2 MoE layers
     g32["variants"]["f32_path_i"] = variant(i_gossip, gossip["f32_path_i"])
+    # path J1's f32 launches (train_4k on path A's model; among the f32
+    # launches), timed at the same largest leaf as path A
+    g32["variants"]["f32_path_j"] = variant(j_gossip, gossip["f32"])
     pme = entry("pme_average", "src/repro_torch/csrc/pme_average.cu",
                 "src/repro/kernels/pme_average/kernel.py:46", pme_launches, pme_row)
     # path F's launches (F3 PaME on fc1, F4 on five ResNet-20 convs), timed at F3's fc1
@@ -3218,17 +3819,22 @@ def main():
                        "lanes": variant(h_launches["pme_average"], lane_rows["pme_lanes_h3"])}
     fa = entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention/kernel.py:78",
-               serve_launches["flash"] + i_flash, flash)
-    # top-level times are path C's shape; path I3's launches (qwen3-14b) at its own
+               serve_launches["flash"] + i_flash + j_flash, flash)
+    # top-level times are path C's shape; path I3's launches (qwen3-14b) at
+    # its own; path J's (J2 full causal at 32,768, J4a and J4c windowed at
+    # 524,288) at J4a's windowed attention, row 4w
     fa["variants"] = {"path_c": variant(serve_launches["flash"], flash),
-                      "path_i": variant(i_flash, flash_i3)}
-    kernels = [
-        g32,
-        pme,
-        fa,
-        entry("ssd_intra_chunk", "src/repro_torch/csrc/ssd_intra_chunk.cu",
-              "src/repro/kernels/ssd_scan/kernel.py:53", serve_launches["ssd"], ssd),
-    ]
+                      "path_i": variant(i_flash, flash_i3),
+                      "path_j": variant(j_flash, flash_long["4w"])}
+    sd = entry("ssd_intra_chunk", "src/repro_torch/csrc/ssd_intra_chunk.cu",
+               "src/repro/kernels/ssd_scan/kernel.py:53",
+               serve_launches["ssd"] + sum(j_ssd.values()), ssd)
+    # top-level times are path C's chunk (N = 64, row 5); J4b's launches at
+    # mamba2-1.3b's N = 128 (row 6), J4c's (zamba2-1.2b) at row 5's
+    sd["variants"] = {"path_c": variant(serve_launches["ssd"], ssd),
+                      "path_j4b_n128": variant(j_ssd["J4b"], ssd_n128),
+                      "path_j4c": variant(j_ssd["J4c"], ssd)}
+    kernels = [g32, pme, fa, sd]
     emit(phase="total", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,7 +4,7 @@ of the JAX package.
 Each config module exposes FULL (the exact published config) and SMOKE
 (reduced for tests: <= 2 layers, d_model <= 512, <= 4 experts), field for
 field as in JAX.  `get_config(name, variant)` is the one lookup the CLIs
-and tests use.
+and tests use; `shapes` holds the four input shapes and their policy.
 """
 from __future__ import annotations
 
@@ -57,3 +57,13 @@ def get_config(name: str, variant: str = "full") -> ModelConfig:
 
 def all_arch_names() -> List[str]:
     return list(ALIASES.keys())
+
+
+from repro_torch.configs.shapes import (  # noqa: E402  (after the registry it builds on)
+    INPUT_SHAPES,
+    LONG_CTX_WINDOW,
+    InputShape,
+    cache_capacity,
+    config_for_shape,
+    input_specs,
+)

@@ -16,7 +16,15 @@ from repro_torch.core import (
     scenarios,
     temporal,
 )
-from repro_torch.core.algorithms import BatchedAlgorithm, lane_finals
+from repro_torch.core.algorithms import (
+    Algorithm,
+    BatchedAlgorithm,
+    BoundAlgorithm,
+    get_algorithm,
+    lane_finals,
+    list_algorithms,
+    register,
+)
 from repro_torch.core.baselines import (
     BeerState,
     ChocoState,
@@ -39,7 +47,14 @@ from repro_torch.core.baselines import (
 from repro_torch.core.compression import Compressor, identity, one_bit, qsgd, rand_k, top_k
 from repro_torch.core.engine import run_batched
 from repro_torch.core.gossip import compressed_pme_average_pytree, systematic_offsets
-from repro_torch.core.mixing import Mixer, PaddedMixing, as_mixer, make_mixer, mix_padded
+from repro_torch.core.mixing import (
+    Mixer,
+    PaddedMixing,
+    as_mixer,
+    gather_terms,
+    make_mixer,
+    mix_padded,
+)
 from repro_torch.core.pame import (
     PaMEConfig,
     PaMEState,
@@ -51,6 +66,8 @@ from repro_torch.core.pame import (
     run_pame,
 )
 from repro_torch.core.pme import (
+    message_bits,
+    naive_average,
     pme_average,
     pme_average_pytree,
     pme_average_pytree_padded,
@@ -75,7 +92,9 @@ from repro_torch.core.topology import Topology, build_topology
 __all__ = [
     "algorithms", "baselines", "compression", "engine", "faults", "gossip", "lanes",
     "mixing", "pme", "scenarios", "temporal",
-    "BatchedAlgorithm", "lane_finals", "run_batched",
+    "Algorithm", "BatchedAlgorithm", "BoundAlgorithm", "get_algorithm", "lane_finals",
+    "list_algorithms", "register", "run_batched", "gather_terms", "message_bits",
+    "naive_average",
     "PaMEConfig", "PaMEState", "TopologyArrays", "make_pame_runner",
     "make_topology_arrays", "pame_init", "pame_step", "run_pame",
     "pme_average", "pme_average_pytree", "pme_average_pytree_padded",

@@ -42,20 +42,49 @@ A metric may be a scalar or a vector (the temporal path's per-step
 ``stale_hist``, a lane-batched step's [L] values); each comes back as a
 host array with one row per step.
 CUDA-graph capture of a chunk is later work.
+
+`setup_compilation_cache` is the persistent compilation cache: the port's
+compile step is ``nvcc`` building its CUDA kernels, so the cache is the
+directory their libraries go to.
 """
 from __future__ import annotations
 
+import os
+from pathlib import Path
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 __all__ = ["make_scan_runner", "run_scan_loop", "run_batched", "history_from",
-           "staleness_hist", "Donated", "DEFAULT_CHUNK_SIZE"]
+           "staleness_hist", "Donated", "DEFAULT_CHUNK_SIZE", "setup_compilation_cache"]
 
 DEFAULT_CHUNK_SIZE = 32
+
+
+def setup_compilation_cache(cache_dir: Optional[str] = None) -> Optional[str]:
+    """Build (and look up) the CUDA kernels' libraries in `cache_dir`.
+
+    A library's file name carries a hash of its source and headers, so a
+    kernel built once in the directory is loaded from it by any later
+    process, and an edited kernel is rebuilt beside the old one: the
+    directory may be shared between checkouts and deleted wholesale at any
+    time.  `cache_dir` defaults to the ``REPRO_COMPILE_CACHE`` environment
+    variable; when neither is set nothing changes (the libraries go to the
+    checkout's ``build/repro_torch_kernels/``) and None is returned.
+    Returns the directory configured.  A kernel already loaded in this
+    process stays loaded.
+    """
+    if cache_dir is None:
+        cache_dir = os.environ.get("REPRO_COMPILE_CACHE")
+    if not cache_dir:
+        return None
+    os.makedirs(cache_dir, exist_ok=True)
+    _build.BUILD_DIR = Path(cache_dir).resolve()
+    return cache_dir
 
 
 def history_from(metrics: dict, info: dict, keys: dict) -> dict:

@@ -38,10 +38,16 @@
 // ldmatrix.trans.  Rounding P to bf16 would cost up to 2^-9 of each weight,
 // some 20 bf16 ulps of the output's floored scale at S = 512 to 2048, so P
 // is split into bf16 hi + lo and P V takes two products (about 2^-18 of
-// each weight; 1.5x the products' operations).  A warp skips keys wholly
-// above its diagonal or before its window and masks only those that cross
-// either; keys and queries past S are zero-filled.  D = 64 fits 128
-// registers a thread, so two blocks (16 warps) share an SM, one block's
+// each weight; 1.5x the products' operations).  The tensor cores' f32
+// accumulation truncates what falls below the largest addend's exponent, so
+// an O fragment that took all S / 16 products as the mma's accumulator
+// drifted with S (1.65 floored bf16 ulps at S = 32,768 against the
+// rounding's 0.5): each sub-tile's products start from zero and meet O,
+// rescaled, in one f32 FMA that rounds to nearest (0.54 at every length;
+// tools/flash_accuracy.py).  A warp skips keys wholly above its diagonal
+// or before its window and masks only those that cross either; keys and
+// queries past S are zero-filled.  D = 64 fits 128 registers a thread
+// (with 8-24 bytes spilled), so two blocks (16 warps) share an SM, one block's
 // softmax overlapping the other's products.  What bounds it: the mma.sync
 // rate and the ldmatrix traffic of every warp reading whole K and V tiles
 // (wgmma with TMA would share them across a warpgroup), then the ex2 and
@@ -277,11 +283,14 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
   const int q_lo = qtile * BQ;
-  // offsets within one batch row fit 32 bits (S * H * D < 2^31, checked by
-  // the entry point)
+  // A batch row of q holds S * H * D elements, past 2^31 at long contexts
+  // (qwen3-14b's 524,288 x 40 x 128): the block's query tile and each K/V
+  // tile get a 64-bit base pointer, and offsets within a tile (< 128
+  // positions) stay 32-bit
   const int q_step = H * D, kv_step = KV * D;  // between positions
-  const bf16* qb = q + static_cast<int64_t>(b) * S * q_step + h * D;
-  bf16* ob = out + static_cast<int64_t>(b) * S * q_step + h * D;
+  const int64_t q_tile = (static_cast<int64_t>(b) * S + q_lo) * q_step + h * D;
+  const bf16* qt = q + q_tile;  // row q_lo of this head
+  bf16* ot = out + q_tile;
   const bf16* kb = k + static_cast<int64_t>(b) * S * kv_step + kvh * D;
   const bf16* vb = v + static_cast<int64_t>(b) * S * kv_step + kvh * D;
 
@@ -307,23 +316,26 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // K and V rows of tile `it` into stage it % kStages; keys past S read as 0
   auto load_tile = [&](int it) {
     const uint32_t dst = ld_dst + (it % kStages) * Sh::STAGE * kB;
-    const int j0 = k_begin + it * BK + ld_r;
+    const int j0 = k_begin + it * BK;  // the tile's first key, below S
+    const int64_t tile = static_cast<int64_t>(j0) * kv_step;
+    const bf16* kt = kb + tile;
+    const bf16* vt = vb + tile;
 #pragma unroll
     for (int u = 0; u < BK / RPP; ++u) {
-      const int j = j0 + u * RPP;
-      const bool in = j < S;
-      const int off = (in ? j : 0) * kv_step + ld_c;
-      cp_async16(dst + u * RPP * LD * kB, kb + off, in);
-      cp_async16(dst + (Sh::TILE + u * RPP * LD) * kB, vb + off, in);
+      const int r = ld_r + u * RPP;
+      const bool in = j0 + r < S;
+      const int off = (in ? r : 0) * kv_step + ld_c;
+      cp_async16(dst + u * RPP * LD * kB, kt + off, in);
+      cp_async16(dst + (Sh::TILE + u * RPP * LD) * kB, vt + off, in);
     }
   };
 
 #pragma unroll
   for (int u = 0; u < BQ / RPP; ++u) {
-    const int i = q_lo + ld_r + u * RPP;
-    const bool in = i < S;
+    const int r = ld_r + u * RPP;
+    const bool in = q_lo + r < S;
     cp_async16(ld_dst + ((kStages - 1) * Sh::STAGE + u * RPP * LD) * kB,
-               qb + (in ? i : 0) * q_step + ld_c, in);
+               qt + (in ? r : 0) * q_step + ld_c, in);
   }
   load_tile(0);
   cp_async_commit();
@@ -409,13 +421,6 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       l0 *= a0;
       l1 *= a1;
 #pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        o[n][0] *= a0;
-        o[n][1] *= a0;
-        o[n][2] *= a1;
-        o[n][3] *= a1;
-      }
-#pragma unroll
       for (int c = 0; c < NS; ++c) {
         s[c][0] = ex2(fmaf(s[c][0], scale_log2, -mc0));
         s[c][1] = ex2(fmaf(s[c][1], scale_log2, -mc0));
@@ -425,27 +430,43 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         l1 += s[c][2] + s[c][3];
       }
 
-      // O += P V with P = hi + lo (two bf16 products)
+      // P = hi + lo (two bf16 A fragments a 16 keys)
+      uint32_t ph[SUB / 16][4], pl[SUB / 16][4];
 #pragma unroll
       for (int kj = 0; kj < SUB / 16; ++kj) {
-        uint32_t ph[4], pl[4];
-        ph[0] = split(s[2 * kj][0], s[2 * kj][1]);
-        ph[1] = split(s[2 * kj][2], s[2 * kj][3]);
-        ph[2] = split(s[2 * kj + 1][0], s[2 * kj + 1][1]);
-        ph[3] = split(s[2 * kj + 1][2], s[2 * kj + 1][3]);
-        pl[0] = pack(s[2 * kj][0], s[2 * kj][1]);
-        pl[1] = pack(s[2 * kj][2], s[2 * kj][3]);
-        pl[2] = pack(s[2 * kj + 1][0], s[2 * kj + 1][1]);
-        pl[3] = pack(s[2 * kj + 1][2], s[2 * kj + 1][3]);
+        ph[kj][0] = split(s[2 * kj][0], s[2 * kj][1]);
+        ph[kj][1] = split(s[2 * kj][2], s[2 * kj][3]);
+        ph[kj][2] = split(s[2 * kj + 1][0], s[2 * kj + 1][1]);
+        ph[kj][3] = split(s[2 * kj + 1][2], s[2 * kj + 1][3]);
+        pl[kj][0] = pack(s[2 * kj][0], s[2 * kj][1]);
+        pl[kj][1] = pack(s[2 * kj][2], s[2 * kj][3]);
+        pl[kj][2] = pack(s[2 * kj + 1][0], s[2 * kj + 1][1]);
+        pl[kj][3] = pack(s[2 * kj + 1][2], s[2 * kj + 1][3]);
+      }
+      // O = a O + P V: each pair of O fragments takes this sub-tile's
+      // products from zero, then one f32 FMA (see the header)
 #pragma unroll
-        for (int dq = 0; dq < ND / 2; ++dq) {
+      for (int dq = 0; dq < ND / 2; ++dq) {
+        float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kj = 0; kj < SUB / 16; ++kj) {
           uint32_t r[4];
           ldmatrix_x4_trans(r, v_addr + (16 * kj * LD + 16 * dq) * kB);
-          mma(o[2 * dq], pl, r[0], r[1]);
-          mma(o[2 * dq], ph, r[0], r[1]);
-          mma(o[2 * dq + 1], pl, r[2], r[3]);
-          mma(o[2 * dq + 1], ph, r[2], r[3]);
+          mma(t0, pl[kj], r[0], r[1]);
+          mma(t0, ph[kj], r[0], r[1]);
+          mma(t1, pl[kj], r[2], r[3]);
+          mma(t1, ph[kj], r[2], r[3]);
         }
+        float* o0 = o[2 * dq];
+        float* o1 = o[2 * dq + 1];
+        o0[0] = fmaf(o0[0], a0, t0[0]);
+        o0[1] = fmaf(o0[1], a0, t0[1]);
+        o0[2] = fmaf(o0[2], a1, t0[2]);
+        o0[3] = fmaf(o0[3], a1, t0[3]);
+        o1[0] = fmaf(o1[0], a0, t1[0]);
+        o1[1] = fmaf(o1[1], a0, t1[1]);
+        o1[2] = fmaf(o1[2], a1, t1[2]);
+        o1[3] = fmaf(o1[3], a1, t1[3]);
       }
     }
   }
@@ -467,9 +488,9 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   __syncwarp();
   for (int e = lane; e < 16 * CH; e += 32) {
-    const int r = e / CH, c = e % CH, i = row_min + r;
-    if (i < S)
-      *reinterpret_cast<uint4*>(ob + i * q_step + c * 8) =
+    const int r = e / CH, c = e % CH;
+    if (row_min + r < S)
+      *reinterpret_cast<uint4*>(ot + (16 * warp + r) * q_step + c * 8) =
           *reinterpret_cast<const uint4*>(os + r * LD + c * 8);
   }
 }
@@ -500,8 +521,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
 
 // q, out [B, S, H, D]; k, v [B, S, KV, D]; all contiguous, of type `dtype`
 // (0 float32, 1 bfloat16).  `variant` 0 (cuda_cores) takes D in {8, 16, 32,
-// 64, 128, 256}; 1 (tensor_cores) takes bfloat16 with D in {64, 128} and
-// S * H * D < 2^31.  H a multiple of KV; window <= 0 means full causal.  Launches on `stream`,
+// 64, 128, 256}; 1 (tensor_cores) takes bfloat16 with D in {64, 128}.  H a
+// multiple of KV; window <= 0 means full causal.  Launches on `stream`,
 // allocates nothing, does not synchronise.  Returns cudaGetLastError()
 // (0 = launched); a variant that does not take the type or D is refused.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
@@ -512,8 +533,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   if (variant == 1) {
-    if (dtype != 1 || static_cast<int64_t>(S) * H * D > INT32_MAX)
-      return static_cast<int>(cudaErrorInvalidValue);
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
     switch (D) {
       case 64: return tc::launch<64>(q, k, v, out, B, S, H, KV, window, scale, s);
       case 128: return tc::launch<128>(q, k, v, out, B, S, H, KV, window, scale, s);

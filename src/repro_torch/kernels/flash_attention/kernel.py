@@ -73,9 +73,6 @@ def flash_attention_cuda(
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"unsupported types: q {q.dtype}, k {k.dtype}, v {v.dtype}")
     variant = flash_variant(q.dtype, d)
-    if variant == "tensor_cores" and s * h * d >= 2 ** 31:
-        raise ValueError(f"the tensor-core kernel indexes a batch row of q in 32 bits: "
-                         f"S * H * D = {s * h * d} must be below 2^31")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
     if window is not None and window < 1:

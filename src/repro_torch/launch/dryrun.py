@@ -1,0 +1,439 @@
+"""One-card dry run: every (arch x shape) step sized without allocating
+(port of `repro.launch.dryrun`).
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch stablelm-1.6b \\
+        --shape train_4k [--nodes 4] [--devices 8] [--device-bytes 80e9]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+
+The JAX dry run lowers and compiles each step for a TPU mesh and reads
+XLA's memory and cost analyses.  This one builds the same steps as eager
+PyTorch on fake tensors (`torch._subclasses.FakeTensorMode`: shapes and
+types, no storage) and counts their operations with
+`torch.utils.flop_counter.FlopCounterMode`:
+
+  * train: one PaME step (the dense exchange, Bernoulli masks, remat on)
+    of m = ``--nodes`` node models, all on the one card, at the shape's
+    global batch split over the m nodes;
+  * prefill: `prefill(params, cfg, batch, cache_capacity)`;
+  * decode: one `decode_step` on `input_specs`' cache.
+
+Each record holds the parameter and active-parameter counts; the bytes of
+the parameters, the node-stacked state, the inputs and the cache; the
+step's FLOPs; whether the resident bytes (parameters or state, inputs,
+cache) fit in the card's memory; and the (node, fsdp, model) layout of
+``--devices`` cards of this kind (`launch.mesh`) with what each would hold
+under `repro_torch.sharding`'s placements.  Kernels are reached through
+their plain versions on non-CUDA tensors, so masked attention counts whole
+[S, S] score blocks; a prefill record also gives the count with each
+GQA layer's attention cut to the causal (or window) band the flash kernel
+computes.  There are no collective bytes: one card has no collectives.
+
+The card's memory comes from ``torch.cuda.get_device_properties(0)``, or
+from ``--device-bytes`` (what a CPU run needs); with neither, the run
+raises.  The per-device parameter budget of the layout is half of it, as
+JAX's 16 GB chip gets an 8 GB budget.  Results accumulate in a JSON file
+(``--out``, default ``build/dryrun/dryrun.json`` at the repository root,
+git-ignored), keyed by arch, shape, cut and variant, so an interrupted
+sweep resumes.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch import sharding as shd
+from repro_torch.configs import all_arch_names, get_config
+from repro_torch.configs.shapes import (
+    INPUT_SHAPES,
+    InputShape,
+    cache_capacity,
+    config_for_shape,
+    input_specs,
+)
+from repro_torch.core.pame import PaMEConfig, PaMEState, make_topology_arrays, pame_step
+from repro_torch.core.topology import build_topology
+from repro_torch.launch.mesh import logical_layout
+from repro_torch.launch.train import lm_grad_fn
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import decode_step, init_cache, init_params, layer_groups, prefill
+from repro_torch.tree import tree_leaves, tree_map
+
+__all__ = ["abstract_params", "build_train", "train_state_specs", "probe_depths",
+           "VARIANTS", "band_pairs", "attention_flops", "step_specs", "step_bytes", "count_flops",
+           "run_combo", "results_path", "main"]
+
+FLOPS_NOTE = ("counted on the plain versions: masked attention counts whole [S, S] "
+              "score blocks")
+
+
+def _tree_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree)
+               if isinstance(x, torch.Tensor))
+
+
+def _meta_like(tree):
+    return tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta")
+                    if isinstance(x, torch.Tensor) else x, tree)
+
+
+def abstract_params(cfg: ModelConfig):
+    """`init_params`' tree as meta tensors (shapes and types), nothing
+    allocated: the counterpart of ``jax.eval_shape(init_params)``."""
+    with FakeTensorMode():
+        return _meta_like(init_params(0, cfg, device="cpu"))
+
+
+# ---------------------------------------------------------------------------
+# the steps sized
+# ---------------------------------------------------------------------------
+def build_train(cfg: ModelConfig, m: int, exchange: str = "dense"):
+    """One PaME step of m node models with the JAX dry run's settings (ring
+    topology, Bernoulli masks, every node exchanging at step 0)."""
+    topo = build_topology("ring", m) if m > 2 else build_topology("complete", max(m, 2))
+    pcfg = PaMEConfig(nu=0.5, p=0.2, gamma=1.001, sigma0=5.0, mask_mode="bernoulli",
+                      homogeneous_kappa=4, exchange=exchange)
+    topo_arrays = make_topology_arrays(topo, pcfg, device="cpu")
+    grad_fn = lm_grad_fn(cfg)
+
+    def step(state, batch):
+        return pame_step(state, batch, grad_fn, topo_arrays, pcfg)
+
+    return step
+
+
+def train_state_specs(cfg: ModelConfig, m: int) -> PaMEState:
+    """The node-stacked PaME state as meta tensors."""
+    stacked = tree_map(lambda s: torch.empty((m,) + tuple(s.shape), dtype=s.dtype,
+                                             device="meta"), abstract_params(cfg))
+    return PaMEState(params=stacked, sigma=torch.empty((m,), device="meta"), step=0, key=0)
+
+
+def _materialize(tree):
+    """Fake tensors (inside the active FakeTensorMode) for meta stand-ins."""
+    return tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype)
+                    if isinstance(x, torch.Tensor) else x, tree)
+
+
+def probe_depths(cfg: ModelConfig) -> tuple:
+    """Two reduced depths at full width, as JAX's dry run probes them (it
+    needs them to count a scanned layer; here every layer is counted, and
+    the probes give the cost of one more layer)."""
+    if cfg.arch_type == "hybrid":
+        return (cfg.attn_every, 2 * cfg.attn_every)
+    if cfg.arch_type == "moe":
+        fd = cfg.first_dense_layers
+        return (fd + 2, fd + 4)
+    return (2, 4)
+
+
+# named variants: model-config overrides, the PaME exchange mode and
+# placement-rule overrides (through sharding.RULE_OVERRIDES), as JAX's
+VARIANTS: Dict[str, Dict] = {
+    "baseline": {},
+    "compressed": {"exchange": "compressed"},
+    "remat_dots": {"remat_policy": "dots"},
+    "compressed+dots": {"exchange": "compressed", "remat_policy": "dots"},
+    "chunked2048": {"prefill_chunk": 2048},
+    "chunked512": {"prefill_chunk": 512},
+    "chunked512+dots": {"prefill_chunk": 512, "remat_policy": "dots"},
+    "embed_vocab_only": {"_rules": {"embed": ("model", None)}},
+    "embed_vocab_only+compressed": {
+        "_rules": {"embed": ("model", None)}, "exchange": "compressed",
+    },
+    "mamba_nosplit_shard": {
+        "_rules": {
+            "mamba/in_proj": ("fsdp", None),
+            "mamba/out_proj": (None, "fsdp"),
+            "mamba/conv_w": (None, None),
+            "mamba/conv_b": (None,),
+        }
+    },
+    "mamba_split_proj": {"ssm_split_proj": True},
+    "compressed_q8": {"exchange": "compressed_q8"},
+}
+
+
+def band_pairs(seq: int, window: Optional[int]) -> int:
+    """(query, key) pairs a causal attention over `seq` rows scores, each
+    row i seeing min(i + 1, window) keys (all i + 1 without a window)."""
+    w = min(window or seq, seq)
+    return w * (w + 1) // 2 + (seq - w) * w
+
+
+def attention_flops(cfg: ModelConfig, batch: int, seq: int) -> Optional[Dict[str, int]]:
+    """A prefill's GQA attention operations (q.k and p.v), counted over
+    whole [S, S] blocks ("full") and over the causal or window band the
+    flash kernel computes ("band"); None for MLA, which flash never runs."""
+    if cfg.use_mla or cfg.arch_type == "ssm":
+        return None
+    sites = sum(g.repeat * sum(k in ("attn", "shared_block") for k in g.pattern)
+                for g in layer_groups(cfg))
+    per_pair = 4 * batch * cfg.n_heads * cfg.head_dim
+    return {"full": sites * per_pair * seq * seq,
+            "band": sites * per_pair * band_pairs(seq, cfg.window)}
+
+
+# ---------------------------------------------------------------------------
+# one combo
+# ---------------------------------------------------------------------------
+def _per_device(cfg: ModelConfig, shape: InputShape, kind: str, layout: Dict[str, int]):
+    """What each device of `layout` holds for the real shape (placements
+    from `repro_torch.sharding`), or None when the layout has no node."""
+    if layout["node"] < 1:
+        return None
+    if kind == "train" and shape.kind != "train":
+        return None  # a train step exists at the train shape only
+    specs = step_specs(cfg, shape, kind, shape.global_batch, layout["node"])
+    stacked = kind == "train"
+    if stacked:
+        place = shd.state_shardings(specs["state"], layout)
+        out = {"state": shd.per_device_bytes(specs["state"].params, place.params, layout)
+               + shd.per_device_bytes(specs["state"].sigma, place.sigma, layout)}
+    else:
+        out = {"params": shd.per_device_bytes(
+            specs["params"], shd.params_shardings(specs["params"], layout, node_stacked=False),
+            layout)}
+    out["inputs"] = shd.per_device_bytes(
+        specs["inputs"], shd.batch_shardings(specs["inputs"], layout, node_stacked=stacked),
+        layout)
+    if specs["cache"] is not None:
+        out["cache"] = shd.per_device_bytes(specs["cache"],
+                                            shd.cache_shardings(specs["cache"], layout), layout)
+    out["total"] = sum(out.values())
+    return out
+
+
+def _resolve(arch: str, shape_name: str, *, variant: str = "baseline", remat: bool = True,
+             probe_layers: Optional[int] = None, kind: Optional[str] = None,
+             size: str = "full"):
+    """(base config, step config, shape, kind, exchange) of one combo; sets
+    the variant's placement overrides."""
+    shape = INPUT_SHAPES[shape_name]
+    kind = kind or shape.kind
+    base = get_config(arch, size)
+    cfg = config_for_shape(base, shape)
+    overrides = dict(VARIANTS[variant])
+    exchange = overrides.pop("exchange", "dense")
+    shd.RULE_OVERRIDES.clear()
+    shd.RULE_OVERRIDES.update(overrides.pop("_rules", {}))
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    if probe_layers is not None:
+        cfg = cfg.replace(n_layers=probe_layers, unroll=True)
+    if kind == "train" and remat:
+        cfg = cfg.replace(remat=True)
+    return base, cfg, shape, kind, exchange
+
+
+def step_specs(cfg: ModelConfig, shape: InputShape, kind: str, global_batch: int,
+               nodes: int) -> Dict[str, object]:
+    """The meta stand-ins a step of `kind` takes at `global_batch` (from
+    `input_specs`): "params" (train: the node-stacked "state"), "inputs"
+    and "cache" (a prefill's is the cache it returns)."""
+    run = InputShape(shape.name, shape.seq_len, global_batch, kind)
+    if kind == "train":
+        if global_batch % nodes:
+            raise ValueError(f"global batch {global_batch} does not split over {nodes} nodes")
+        return {"state": train_state_specs(cfg, nodes),
+                "inputs": input_specs(cfg, run, m_nodes=nodes), "cache": None}
+    specs = input_specs(cfg, run)
+    if kind == "prefill":
+        cache = init_cache(cfg, global_batch, cache_capacity(cfg, shape), device="meta")
+        return {"params": abstract_params(cfg), "inputs": specs, "cache": cache}
+    return {"params": abstract_params(cfg), "inputs": {"token": specs["token"]},
+            "cache": specs["cache"]}
+
+
+def step_bytes(specs: Dict[str, object]) -> Dict[str, int]:
+    """Bytes of each part of `step_specs`' stand-ins."""
+    out = {"input_bytes": _tree_bytes(specs["inputs"]),
+           "cache_bytes": _tree_bytes(specs["cache"]) if specs["cache"] is not None else 0}
+    if "state" in specs:
+        out["state_bytes"] = _tree_bytes(specs["state"])
+        out["param_bytes"] = _tree_bytes(specs["state"].params) // specs["state"].sigma.shape[0]
+    else:
+        out["param_bytes"] = _tree_bytes(specs["params"])
+    return out
+
+
+def count_flops(cfg: ModelConfig, shape: InputShape, kind: str, specs: Dict[str, object],
+                exchange: str = "dense") -> int:
+    """Operations of one step on fake tensors made from `specs`
+    (FlopCounterMode: matrix products and convolutions)."""
+    with FakeTensorMode():
+        if kind == "train":
+            state, batch = _materialize(specs["state"]), _materialize(specs["inputs"])
+            step = build_train(cfg, state.sigma.shape[0], exchange=exchange)
+            fn = lambda: step(state, batch)  # noqa: E731
+        elif kind == "prefill":
+            params, batch = _materialize(specs["params"]), _materialize(specs["inputs"])
+            cap = cache_capacity(cfg, shape)
+            fn = lambda: prefill(params, cfg, batch, cap)  # noqa: E731
+        else:
+            params, batch, cache = (_materialize(specs[k]) for k in ("params", "inputs", "cache"))
+            pos = shape.seq_len  # the token after a full cache
+            fn = lambda: decode_step(params, cfg, batch["token"], pos, cache)  # noqa: E731
+        with torch.inference_mode(kind != "train"), FlopCounterMode(display=False) as fc:
+            fn()
+    return int(fc.get_total_flops())
+
+
+def run_combo(
+    arch: str,
+    shape_name: str,
+    *,
+    device_bytes: float,
+    nodes: int = 4,
+    devices: int = 8,
+    remat: bool = True,
+    probe_layers: Optional[int] = None,
+    variant: str = "baseline",
+    batch: Optional[int] = None,
+    kind: Optional[str] = None,
+    size: str = "full",
+) -> Dict:
+    """Size one (arch x shape) step.  `batch` cuts the global batch (named
+    in the record's ``reduced``), `kind` runs another step than the
+    shape's own (a long_500k prefill), `size` picks the config ("smoke"
+    for tests)."""
+    base, cfg, shape, kind, exchange = _resolve(
+        arch, shape_name, variant=variant, remat=remat, probe_layers=probe_layers, kind=kind,
+        size=size)
+    # the layout follows the full-depth config, so that probes land on the
+    # layout they stand for; each node's replica is not split over cards
+    # (model axis 1): nothing here runs tensor-parallel
+    layout = logical_layout(config_for_shape(base, shape), devices, model_axis=1,
+                            param_budget=device_bytes / 2)
+    gb = batch or shape.global_batch
+    specs = step_specs(cfg, shape, kind, gb, nodes)
+    rec = {"arch": arch, "size": size, "shape": shape_name, "kind": kind, "variant": variant,
+           "probe_layers": probe_layers, "n_layers": cfg.n_layers, "seq_len": shape.seq_len,
+           "global_batch": gb, "window": cfg.window,
+           "param_count": base.param_count(), "active_param_count": base.active_param_count(),
+           **step_bytes(specs),
+           "tokens": gb * (1 if kind == "decode" else shape.seq_len)}
+    if kind == "train":
+        rec["m"] = nodes
+    else:
+        rec["capacity"] = cache_capacity(cfg, shape)
+    if gb != shape.global_batch:
+        rec["reduced"] = {"global_batch": [shape.global_batch, gb]}
+    t0 = time.perf_counter()
+    rec["flops"] = count_flops(cfg, shape, kind, specs, exchange)
+    rec["trace_s"] = time.perf_counter() - t0
+    rec["flops_note"] = FLOPS_NOTE
+    if kind == "prefill":
+        att = attention_flops(cfg, gb, shape.seq_len)
+        if att is not None:
+            rec["attention_flops"] = att
+            rec["flops_band"] = rec["flops"] - att["full"] + att["band"]
+    resident = (rec["state_bytes"] if kind == "train" else rec["param_bytes"]) \
+        + rec["input_bytes"] + rec["cache_bytes"]
+    rec.update(resident_bytes=resident, device_bytes=device_bytes,
+               fits_one_card=resident <= device_bytes)
+    rec["layout"] = dict(layout, devices=devices)
+    rec["per_device_bytes"] = _per_device(cfg, shape, kind, layout)
+    tag = f"L{probe_layers}" if probe_layers else "full"
+    print(f"[dryrun] {arch} x {shape_name} ({kind}, batch {gb}) [{tag}/{variant}] "
+          f"params={rec['param_bytes'] / 1e9:.2f}GB resident={resident / 1e9:.2f}GB "
+          f"fits={rec['fits_one_card']} flops={rec['flops']:.3e} "
+          f"layout@{devices}={layout} trace={rec['trace_s']:.1f}s", flush=True)
+    return rec
+
+
+def results_path() -> str:
+    root = Path(__file__).resolve().parents[3]
+    return str(root / "build" / "dryrun" / "dryrun.json")
+
+
+def card_bytes(device_bytes: Optional[float]) -> float:
+    """`device_bytes` if given, else the card's total memory; raises when
+    there is neither (no budget is guessed)."""
+    if device_bytes is not None:
+        return float(device_bytes)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device to read the memory of: pass --device-bytes")
+    return float(torch.cuda.get_device_properties(0).total_memory)
+
+
+def make_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None, help="arch id or 'all'")
+    ap.add_argument("--shape", default=None, help="shape name or 'all'")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--force", action="store_true", help="redo cached records")
+    ap.add_argument("--no-remat", action="store_true")
+    ap.add_argument("--probes", action="store_true",
+                    help="also size the two reduced-depth probes of each combo")
+    ap.add_argument("--variant", default="baseline", choices=list(VARIANTS))
+    ap.add_argument("--nodes", type=int, default=4,
+                    help="DFL nodes of a train step, all on the one card")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="cut the global batch to N (recorded under 'reduced')")
+    ap.add_argument("--kind", default=None, choices=["train", "prefill", "decode"],
+                    help="size this step instead of the shape's own")
+    ap.add_argument("--devices", type=int, default=8,
+                    help="cards of the per-device layout report")
+    ap.add_argument("--device-bytes", type=float, default=None,
+                    help="one card's memory (default: read from the card)")
+    ap.add_argument("--size", default="full", choices=["full", "smoke"],
+                    help="the configs' full or smoke variant")
+    ap.add_argument("--out", default=None, help="results JSON (default: build/dryrun/)")
+    return ap
+
+
+def main(argv=None) -> Dict[str, Dict]:
+    args = make_parser().parse_args(argv)
+    device_bytes = card_bytes(args.device_bytes)
+    archs = all_arch_names() if (args.all or args.arch in (None, "all")) else [args.arch]
+    shapes = list(INPUT_SHAPES) if (args.all or args.shape in (None, "all")) else [args.shape]
+    path = args.out or results_path()
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    results: Dict[str, Dict] = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            results = json.load(f)
+    failures = []
+    for arch in archs:
+        for shape in shapes:
+            depth_list = [None]
+            if args.probes:
+                depth_list += list(probe_depths(get_config(arch, args.size)))
+            for depth in depth_list:
+                key = "|".join(str(x) for x in (
+                    arch, args.size, shape, args.kind or INPUT_SHAPES[shape].kind,
+                    f"b{args.batch or INPUT_SHAPES[shape].global_batch}", f"m{args.nodes}",
+                    f"d{args.devices}", f"L{depth}" if depth else "full",
+                    args.variant))
+                if key in results and not args.force:
+                    print(f"[dryrun] skip cached {key}", flush=True)
+                    continue
+                try:
+                    results[key] = run_combo(
+                        arch, shape, device_bytes=device_bytes, nodes=args.nodes,
+                        devices=args.devices,
+                        remat=not args.no_remat, probe_layers=depth, variant=args.variant,
+                        batch=args.batch, kind=args.kind, size=args.size)
+                    with open(path, "w") as f:
+                        json.dump(results, f, indent=1)
+                except Exception as e:  # noqa: BLE001 - the sweep goes on
+                    failures.append((key, repr(e)[:500]))
+                    print(f"[dryrun] FAIL {key}: {e!r}", flush=True)
+    print(f"[dryrun] done: {len(results)} cached in {path}, {len(failures)} failures")
+    for k, e in failures:
+        print("  FAIL", k, e)
+    if failures:
+        raise SystemExit(1)
+    return results
+
+
+if __name__ == "__main__":
+    main()

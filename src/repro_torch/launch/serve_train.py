@@ -27,8 +27,9 @@ node's component's mean model instead of its own.
 
 The JAX CLI's flags, plus ``--device {cuda,cpu}`` (default ``cuda``;
 without a card the run raises instead of falling back) and ``--layers N``
-(the configuration at full width cut to N layers).  ``--compile-cache``
-raises "not yet ported".  What differs from JAX: the event clock draws
+(the configuration at full width cut to N layers).  ``--compile-cache
+DIR`` builds the CUDA kernels into DIR (`engine.setup_compilation_cache`).
+What differs from JAX: the event clock draws
 from the port's own generators (`serve.events`); every rebind builds the
 mixer, scenario arrays and gossip tables for the new m, and nothing keeps
 the old m's state; the parameter means the leave check and the heal's
@@ -350,8 +351,9 @@ def main(argv=None, observe=None):
     event with the state the run continues from (the chip smoke holds the
     catch-up against the checkpoint with it)."""
     args = make_parser().parse_args(argv)
-    if args.compile_cache is not None:
-        raise NotImplementedError("--compile-cache not yet ported to repro_torch")
+    cache_dir = engine.setup_compilation_cache(args.compile_cache)
+    if cache_dir:
+        print(f"[serve-train] compilation cache at {cache_dir}", flush=True)
     device = resolve_device(args.device)
 
     timeline = mb_mod.parse_chaos_spec(args.chaos, args.join_degree)

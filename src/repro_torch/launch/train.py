@@ -4,9 +4,11 @@
         --variant full --algo pame --nodes 4 --batch 4 --seq 128 --steps 3
 
 Same flags and log lines as the JAX CLI, plus ``--device {cuda,cpu}``
-(default ``cuda``; without a card the run raises instead of falling back)
-and ``--layers N`` (the configuration at full width, cut to N layers: what
-one card holds for the replicated fault variants of BEER and ANQ-NIDS).
+(default ``cuda``; without a card the run raises instead of falling back),
+``--layers N`` (the configuration at full width, cut to N layers: what
+one card holds for the replicated fault variants of BEER and ANQ-NIDS) and
+``--remat`` (each layer checkpointed: what 4096-token
+sequences need on one card, as the JAX dry run's train step runs).
 Every registered algorithm runs (``--algo pame``, ``dpsgd``, ``dfedsam``,
 ``choco``, ``beer``, ``anq_nids``; ``--lr`` and ``--rho`` reach the
 baselines), on the static network or under the JAX CLI's
@@ -21,8 +23,9 @@ every ``--ckpt-every`` steps and resumes from the newest intact step
 trains N seed replicas as one lane-batched run (`Algorithm.bind_batched`:
 lane s starts from key seed + 1 + s, the key an unbatched run of that seed
 gets) and logs the mean loss across lanes with its spread (``loss_std``)
-and the wire bits a lane; the compilation-cache flag raises "not yet
-ported".  Steps run
+and the wire bits a lane.  ``--compile-cache DIR`` builds the CUDA
+kernels into DIR and loads them from there (`engine.setup_compilation_cache`).
+Steps run
 through `repro_torch.core.engine` in ``--chunk``-step chunks with one host
 sync per chunk; gossip goes through the sparse neighbour exchange by
 default (``--mixing dense`` for the selection-matrix form), and per-step
@@ -60,11 +63,6 @@ from repro_torch.core.topology import build_topology
 from repro_torch.data.synthetic import SyntheticTokens
 from repro_torch.models.model import init_params, train_loss
 from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
-
-# flags whose non-default values select code the port does not have yet:
-# the compilation cache
-_NOT_PORTED = (("compile_cache", None),)
-
 
 def _hps_from_args(name: str, args):
     if name == "pame":
@@ -219,15 +217,12 @@ def dir_bytes(path: str) -> int:
 
 
 def build_everything(args):
-    for flag, default in _NOT_PORTED:
-        if getattr(args, flag) != default:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} not yet ported to repro_torch"
-            )
     device = resolve_device(args.device)
     cfg = get_config(args.arch, args.variant)
     if args.layers is not None:
         cfg = cfg.replace(n_layers=args.layers)
+    if args.remat:
+        cfg = cfg.replace(remat=True, remat_policy="full")
     if args.seq and cfg.arch_type == "vlm" and args.seq <= cfg.n_patches:
         raise ValueError(f"--seq must exceed n_patches ({cfg.n_patches}) for a vlm")
     m = args.nodes
@@ -259,6 +254,9 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the configuration's depth to N layers (full "
                          "width kept; default: the configuration's depth)")
+    ap.add_argument("--remat", action="store_true",
+                    help="checkpoint each layer of the training pass (the "
+                         "\"full\" policy; default: no remat)")
     ap.add_argument("--algo", default="pame", choices=list(list_algorithms()))
     ap.add_argument("--mixing", default="sparse", choices=["sparse", "dense"],
                     help="gossip contraction: padded neighbor gather vs dense")
@@ -339,7 +337,10 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=None,
                     help="log cadence in steps (chunk-aligned; default=chunk)")
-    ap.add_argument("--compile-cache", default=None, metavar="DIR")
+    ap.add_argument("--compile-cache", default=None, metavar="DIR",
+                    help="directory the CUDA kernels are built into and loaded "
+                         "from (default: $REPRO_COMPILE_CACHE; unset = the "
+                         "checkout's build/repro_torch_kernels/)")
     return ap
 
 
@@ -381,6 +382,9 @@ def main(argv=None) -> dict:
     each save's step, seconds and bytes, "restore": the resume's, or None}
     for callers such as the chip smoke."""
     args = make_parser().parse_args(argv)
+    cache_dir = engine.setup_compilation_cache(args.compile_cache)
+    if cache_dir:
+        print(f"[train] compilation cache at {cache_dir}", flush=True)
     cfg, bound, state, make_batch, n_params, params0 = build_everything(args)
     lanes = bound.lanes if args.seeds > 1 else None
     wire_per_step = bound.wire_bits_for(params0)

@@ -48,7 +48,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, embed_init, linear, rms_norm
 from repro_torch.models.mlp import mlp_apply, mlp_init
-from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["LayerGroup", "layer_groups", "init_params", "init_cache", "train_loss",
            "prefill", "decode_step"]
@@ -284,16 +284,22 @@ def _run_trunk_full(params: dict, cfg: ModelConfig, x, positions, want_cache: bo
     # remat pays off only where autograd keeps activations (not in prefill)
     remat = cfg.remat and not want_cache and torch.is_grad_enabled()
     for grp, gparams in zip(layer_groups(cfg), params["groups"]):
-        layers = _unbind_layers(gparams, grp.repeat)
-        ys = []
-        for lp in layers:
+        stacked = {}
+        for li, lp in enumerate(_unbind_layers(gparams, grp.repeat)):
             args = (x, lp, grp.pattern, shared, cfg, positions, want_cache, capacity)
             x, aux, entries = (_checkpointed(cfg, _layer_full, *args) if remat
                                else _layer_full(*args))
             if aux is not None:
                 aux_total = aux_total + aux
-            ys.append(entries)
-        caches_out.append(_stack(ys) if want_cache and ys[0] else {})
+            if want_cache and entries:
+                # each layer's caches go into the group's stacked buffers at
+                # once: the peak is the stacked caches plus one layer's
+                if not stacked:
+                    stacked = tree_map(
+                        lambda c: c.new_empty((grp.repeat,) + tuple(c.shape)), entries)
+                for dst, src in zip(tree_leaves(stacked), tree_leaves(entries)):
+                    dst[li].copy_(src)
+        caches_out.append(stacked)
     return x, caches_out, aux_total
 
 

@@ -125,21 +125,29 @@ def test_train_loss_and_grads_match_jax(smoke):
         np.testing.assert_allclose(to_np(g), np.asarray(w), atol=1e-5)
 
 
-def test_unported_surfaces_raise():
-    """What the port still does not carry raises instead of running: the
-    trainers' --compile-cache, and the modules of the JAX package's shape
-    policies, dry run, mesh and sharding (queue 1 item 6)."""
+def test_unported_surfaces_raise(tmp_path, monkeypatch, capsys):
+    """The surfaces this test once found refused now run: both trainers take
+    --compile-cache (the kernels' build directory) and the modules of the
+    JAX package's shape policies, dry run, mesh and sharding import."""
     import importlib
 
+    from repro_torch.kernels import _build
     from repro_torch.launch import serve_train, train
 
-    for main in (train.main, serve_train.main):
-        with pytest.raises(NotImplementedError, match="compile-cache"):
-            main(["--arch", "stablelm-1.6b", "--device", "cpu", "--compile-cache", "x"])
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)  # restored after the test
+    monkeypatch.delenv("REPRO_COMPILE_CACHE", raising=False)
+    small = ["--arch", "stablelm-1.6b", "--device", "cpu", "--layers", "1", "--nodes", "2",
+             "--batch", "1", "--seq", "8", "--steps", "1", "--chunk", "1"]
+    for main, tag, extra in ((train.main, "train", []),
+                             (serve_train.main, "serve-train",
+                              ["--prompt-len", "4", "--gen", "2", "--serve-batch", "1"])):
+        cache = tmp_path / tag
+        main(small + extra + ["--compile-cache", str(cache)])
+        assert f"[{tag}] compilation cache at {cache}" in capsys.readouterr().out
+        assert _build.BUILD_DIR == cache.resolve() and cache.is_dir()
     for name in ("repro_torch.configs.shapes", "repro_torch.launch.dryrun",
                  "repro_torch.launch.mesh", "repro_torch.sharding"):
-        with pytest.raises(ModuleNotFoundError):
-            importlib.import_module(name)
+        importlib.import_module(name)
 
 
 def test_kernel_flags_run_forward_and_refuse_grad(smoke):

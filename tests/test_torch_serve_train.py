@@ -196,8 +196,9 @@ def test_params_mean_and_comp_drift_match_jax(monkeypatch):
 
 
 def test_serve_train_refusals(monkeypatch):
-    with pytest.raises(NotImplementedError, match="compile-cache"):
-        sv.main(SERVE_ARGS + ["--compile-cache", "x"])
+    """Membership changes with crashes, and a CUDA run without a card, are
+    refused (--compile-cache, once refused here, runs:
+    test_torch_model.py::test_unported_surfaces_raise)."""
     with pytest.raises(ValueError, match="crash"):
         sv.main(SERVE_ARGS + ["--join", "2:1", "--crash", "0.1"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

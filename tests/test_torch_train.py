@@ -109,10 +109,18 @@ def test_cli_runs_each_baseline_on_cpu(algo, capsys):
 
 
 def test_cli_unported_flags_raise():
-    base = ["--arch", "stablelm-1.6b", "--device", "cpu"]
-    for extra in (["--compile-cache", "x"],):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            ttrain.main(base + extra)
+    """No flag of the JAX trainer is left unported (the last one refused,
+    --compile-cache, now parses like the rest); a flag the CLI lacks is
+    refused by the parser."""
+    from repro.launch import train as jtrain
+
+    ours = ttrain.make_parser()._option_string_actions
+    missing = [f for f in jtrain.make_parser()._option_string_actions if f not in ours]
+    assert missing == []
+    args = ttrain.make_parser().parse_args(["--arch", "x", "--compile-cache", "DIR"])
+    assert args.compile_cache == "DIR"
+    with pytest.raises(SystemExit):
+        ttrain.make_parser().parse_args(["--arch", "x", "--no-such-flag"])
 
 
 @pytest.mark.parametrize("algo,flags", [("pame", ["--kappa-lo", "2", "--kappa-hi", "2"]),
@@ -165,7 +173,8 @@ def test_port_imports_neither_jax_nor_repro():
     assert int(res.stdout.strip()) >= 54
 
 
-@pytest.mark.parametrize("example", ["quickstart_torch", "cnn_heterogeneity_torch"])
+@pytest.mark.parametrize("example", ["quickstart_torch", "cnn_heterogeneity_torch",
+                                     "train_dfl_lm_torch"])
 def test_port_examples_import_neither_jax_nor_repro(example):
     """Loading a port example (its imports, not its main) pulls in neither
     the JAX package nor jax."""
@@ -183,6 +192,28 @@ def test_port_examples_import_neither_jax_nor_repro(example):
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_train_dfl_lm_example_reports_as_jax(capsys):
+    """examples/train_dfl_lm_torch.py prints the JAX example's Eq.-(8)
+    volume report line for line and trains through the port's CLI."""
+    import importlib.util
+
+    argv = ["--steps", "2", "--nodes", "2", "--batch", "1", "--seq", "16", "--p", "0.3"]
+    path = os.path.join(os.path.dirname(SRC), "examples", "train_dfl_lm_torch.py")
+    spec = importlib.util.spec_from_file_location("train_dfl_lm_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = mod.main(argv + ["--device", "cpu"])
+    assert out["steps"] == 2 and np.isfinite(out["loss"]).all()
+    got = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[example]")]
+    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
+    res = subprocess.run([sys.executable, os.path.join(os.path.dirname(SRC), "examples",
+                                                       "train_dfl_lm.py"), *argv],
+                         capture_output=True, text=True, env=env, timeout=600)
+    assert res.returncode == 0, res.stderr[-2000:]
+    want = [ln for ln in res.stdout.splitlines() if ln.startswith("[example]")]
+    assert got == want and len(got) == 2
 
 
 DYNAMIC_FLAGS = {
