@@ -116,15 +116,24 @@ non-zero without the final result line:
      L = 5 seeds, 80 steps each: gossip launches a step equal at both,
      held-out accuracy of every lane's node-mean model at least 0.5,
      `lane_finals`, 5 profiled steps of each, then 10 steps of the same
-     grid under a dynamic network at L = 1 and 5 (each lane steps alone:
-     6·L gossip launches a step); H3 ResNet-20 under
+     grid under a dynamic network (H2dyn) at L = 1 and 5 (the lanes'
+     realizations folded into one step: 6 gossip launches a step at
+     both); H1dyn H1 with --edge-drop 0.2 --churn 0.1 (11 f32 launches a
+     step, as H1; its peak beside H1's); H3 ResNet-20 under
      Dirichlet(0.3) through `bind_batched(seeds=range(5), mixing="dense")`:
      5 PME-average launches a step, all with the lane axis, losses that
-     fall in every lane; parity phase H: one batched step of 2 lanes
+     fall in every lane; H4 H2's grid at L = 1 and 5 under a temporal
+     scenario with staleness 2 (PaME), message loss and crashes (CHOCO
+     with replicas) and bursty serving pacing (PaME), 10 steps each: 6
+     gossip launches a step at both lane counts, finite losses in every
+     lane; parity phase H: one batched step of 2 lanes
      through the kernels against each lane unbatched (0 ulps) for PaME
      sparse, PaME dense exact and D-PSGD bf16 at full width and 2 layers
      and for the CNN, the same step through the plain routes (phases 5 and
-     8's tolerance), and a NaN lane leaving the other bit-equal.  Phase 2
+     8's tolerance), and a NaN lane leaving the other bit-equal; and one
+     step of 3 CNN lanes under each network form (dynamic, temporal,
+     faults, pacing), each lane bit-equal to its seed's unbatched step,
+     the plain route within 1e-5, a NaN lane isolated.  Phase 2
      times the lane forms: the PME average's lane axis at [2, 4,
      276,824,064] bf16 and [5, 4, 36,864] f32, the gossip kernel on the
      lane-offset table at H1's embedding, [8, 205,520,896] f32;
@@ -149,7 +158,12 @@ non-zero without the final result line:
      start.  Phase 2 times the f32 gossip kernel at I1's largest leaf [4,
      369,098,752] and flash at I3's shape q [8, 2048, 40, 128] on 8 KV
      heads (against SDPA with its GQA flag);
- 16. path J: the four input shapes of `repro_torch.configs.shapes` at full
+ 16. path R: same seed, same bits, with no switch set by the script — F3's
+     and F4's PaME runs, I1 and H2dyn at 5 lanes, each run twice from one
+     seed: parameters equal leaf for leaf; the trainer at full width and
+     2 layers, 6 steps, against 3 steps, a checkpoint and a resume to 6:
+     the resumed state equal to the uninterrupted one;
+ 17. path J: the four input shapes of `repro_torch.configs.shapes` at full
      width and depth, batch the only cut (each record names it) — J1
      train_4k: the trainer CLI in a fresh process with --compile-cache
      (the gossip kernel must be built into that directory) and --remat,
@@ -177,7 +191,7 @@ non-zero without the final result line:
      attention [1, 524288, 40, 128] on 8 KV heads (row 4L, past 2^31
      elements a batch row), against the plain version run in blocks of
      4096 rows;
- 17. the kernel table line, then the result line.
+ 18. the kernel table line, then the result line.
 
 Exits non-zero with no result when no CUDA device is present, or when the
 port's sources are not beside this script.
@@ -2245,7 +2259,8 @@ def path_f(dev, data):
 
 @contextlib.contextmanager
 def _tf32_convs():
-    """The CNN's convolutions with cuDNN's TF32 allowed (the pin lifted)."""
+    """The CNN's convolutions with cuDNN's TF32 allowed (the TF32 pin
+    lifted; the scope's other pins kept)."""
     import torch
     from repro_torch.models import cnn
 
@@ -2253,12 +2268,9 @@ def _tf32_convs():
 
     @contextlib.contextmanager
     def allow():
-        prev = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = True
-        try:
+        with pin():
+            torch.backends.cudnn.allow_tf32 = True
             yield
-        finally:
-            torch.backends.cudnn.allow_tf32 = prev
 
     cnn._ieee_fp32 = allow
     try:
@@ -2267,23 +2279,12 @@ def _tf32_convs():
         cnn._ieee_fp32 = pin
 
 
-@contextlib.contextmanager
-def _deterministic_cudnn():
-    import torch
-
-    prev = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = prev
-
-
 def path_f_parity(dev, sizes=None):
     """One PaME step (dense exact exchange) and one D-PSGD step (sparse
     Mixer) of the CNN and of ResNet-20, from distinct node models with the
-    same injected draws, through the kernels and through `plain_routes()`,
-    cuDNN deterministic and IEEE fp32; then each model's forward on the card
+    same injected draws, through the kernels and through `plain_routes()`
+    (the convolutions' own scope pins cuDNN's deterministic algorithms and
+    IEEE fp32); then each model's forward on the card
     against the CPU forward, with the TF32 pin and without it.  Tolerances:
     PARITY_F_ULPS, PARITY_F_PME_ULPS, PARITY_F_RTOL.  `sizes` shrinks the
     batches (the CPU tests rehearse this phase)."""
@@ -2329,8 +2330,7 @@ def path_f_parity(dev, sizes=None):
                            for x in stacked]}
         outs = {}
         for route in ("kernel", "plain"):
-            with (plain_routes() if route == "plain" else contextlib.nullcontext()), \
-                    _deterministic_cudnn():
+            with plain_routes() if route == "plain" else contextlib.nullcontext():
                 state = pame.pame_init(3, tree_unflatten(treedef, stacked), M, cfg)
                 v_bar = pme.pme_average_pytree(None, state.params, draws["a"], cfg.p,
                                                mode="exact", masks=draws["masks"])
@@ -2695,8 +2695,8 @@ def path_h2(dev, ds=None, spec=FMNIST, steps=None):
     a leaf), held-out accuracy of every lane's node-mean model at least
     0.5, `lane_finals(hist, "loss")`, and 5 profiled steps of each.  Then
     the same grid under a dynamic network (H_SCENARIO) at L = 1 and L = 5:
-    there each lane steps on its own, so the exchange launches once a lane
-    a leaf (6·L a step), which the card must show."""
+    the lanes' realizations are folded too, so the exchange launches once
+    a leaf for all lanes (6 a step at both), which the card must show."""
     from repro_torch.core import algorithms as ALG
     from repro_torch.core import build_topology
     from repro_torch.core.scenarios import Scenario
@@ -2747,8 +2747,8 @@ def path_h2(dev, ds=None, spec=FMNIST, steps=None):
         t0 = _start(dev)
         state, h = ba.run(cnn_init(1, device=dev), M, task["batch_fn"], k, chunk_size=k)
         name = f"H2dyn-L{lanes}"
-        rows[name] = row = {"run": name, "lanes": lanes, "folded": False}
-        _finish(dev, t0, k, row, {"f32": 6 * lanes * k})
+        rows[name] = row = {"run": name, "lanes": lanes, "folded": lanes > 1}
+        _finish(dev, t0, k, row, {"f32": 6 * k})
         row.update(s_per_step_per_lane=row["s_per_step"] / lanes,
                    lane_final_loss=ALG.lane_finals(h, "loss").tolist(),
                    wire_bits_per_step=h["wire_bits_per_step"].tolist())
@@ -2800,11 +2800,114 @@ def path_h3(dev, ds=None, spec=CIFAR, steps=None, batch=F_BATCH):
     return {"H3": row}
 
 
+def h4_forms():
+    """H4's three network forms: (name, algorithm, its hyperparameters,
+    bind_batched's network argument)."""
+    from repro_torch.core import algorithms as ALG
+    from repro_torch.core.faults import FaultModel
+    from repro_torch.core.temporal import TemporalScenario
+    from repro_torch.serve.events import ServePacing, get_arrival
+
+    return (
+        ("temporal", "pame", ALG.PaMEHp(**EX3_CFG),
+         dict(scenario=TemporalScenario(name="stale", straggler=0.4, staleness=2,
+                                        burst_down=0.05, burst_up=0.3, seed=4))),
+        ("faults", "choco", ALG.ChocoHp(lr=0.05),
+         dict(faults=FaultModel(name="lossy_crashy", loss=0.1, crash=0.05, rejoin=0.5,
+                                seed=3))),
+        ("paced", "pame", ALG.PaMEHp(**EX3_CFG),
+         dict(pacing=ServePacing(get_arrival("bursty"), capacity=2, defer_threshold=3))),
+    )
+
+
+def path_h4(dev, ds=None, spec=FMNIST, steps=None):
+    """H2's CNN grid (label skew C = 7, complete graph, batch 32) at L = 1
+    and L = 5 seeds under a TemporalScenario with staleness D = 2 (PaME
+    sparse), a FaultModel with message loss and crashes (CHOCO with
+    per-receiver replicas) and a ServePacing with bursty arrivals (PaME
+    sparse), 10 steps each: every form's lanes folded into one step, so 6
+    f32 gossip launches a step (one a leaf: PaME's exchange, CHOCO's
+    replica mix) at both lane counts; a finite loss in every lane."""
+    import numpy as np
+    from repro_torch.core import algorithms as ALG
+    from repro_torch.core import build_topology
+    from repro_torch.data import label_skew_partition
+    from repro_torch.models.cnn import cnn_apply, cnn_init
+
+    steps = steps or H_STEPS
+    k = steps["dynamic"]
+    topo = build_topology("complete", M)
+    task = vision_task(dev, images(spec) if ds is None else ds,
+                       lambda y: label_skew_partition(y, M, 7, seed=0), cnn_apply)
+    rows = {}
+    for form, algo, hp, net in h4_forms():
+        for lanes in (1, H_SEEDS):
+            ba = ALG.get_algorithm(algo).bind_batched(
+                task["grad_fn"], topo, [hp], seeds=range(lanes), mixing="sparse", device=dev,
+                **net)
+            t0 = _start(dev)
+            state, h = ba.run(cnn_init(1, device=dev), M, task["batch_fn"], k, chunk_size=k)
+            name = f"H4-{form}-L{lanes}"
+            rows[name] = row = {"run": name, "form": form, "algo": algo, "lanes": lanes,
+                                "folded": lanes > 1}
+            _finish(dev, t0, k, row, {"f32": 6 * k})
+            row.update(s_per_step_per_lane=row["s_per_step"] / lanes,
+                       lane_final_loss=ALG.lane_finals(h, "loss").tolist(),
+                       wire_bits_per_step=h["wire_bits_per_step"].tolist())
+            for key in ("stale_nodes", "crashed_nodes", "dropped_msgs", "deferred_nodes"):
+                if key in h:
+                    row[f"{key}_total"] = np.asarray(h[key]).sum(axis=0).tolist()
+            emit(phase="path_h", **row)
+            if not all(math.isfinite(x) for x in row["lane_final_loss"]):
+                fail(f"path H ({name}): a lane's loss is not finite")
+            del state, ba
+        if rows[f"H4-{form}-L1"]["launches_per_step"] != \
+                rows[f"H4-{form}-L{H_SEEDS}"]["launches_per_step"]:
+            fail(f"path H4 ({form}): gossip launches a step differ between 1 and 5 lanes")
+    free()
+    return rows
+
+
+def path_h1dyn(dev, h1, layers=H1_LAYERS):
+    """H1 under a dynamic network: the trainer CLI with --seeds 2
+    --edge-drop 0.2 --churn 0.1 on path A's model at H1's depth, 3 steps.
+    The two lanes' realizations fold into one step, so the f32 gossip
+    kernel launches 11 times a step as in H1's static run; finite losses;
+    the peak within a few GB of H1's (`h1`, its row)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.gossip.kernel import gossip_gather
+    from repro_torch.launch import train
+
+    steps = 3
+    t0 = _start(dev)
+    out = train.main(model_args("pame") + ["--layers", str(layers)] + H1_ARGS
+                     + ["--edge-drop", "0.2", "--churn", "0.1", "--steps", str(steps),
+                        "--chunk", "1", "--device", "cuda"])
+    _sync(dev)
+    lanes = np.asarray(out["metrics"]["loss_mean"])
+    row = {"phase": "path_h1dyn", "steps": out["steps"], "lane_losses": lanes.tolist(),
+           "s_per_step": out["seconds"], "seconds": time.perf_counter() - t0,
+           "peak_bytes": torch.cuda.max_memory_allocated(), "layers": layers,
+           "h1_peak_bytes": h1["peak_bytes"],
+           "alive_nodes": out["metrics"].get("alive_nodes"),
+           "gossip_variant_launches": dict(gossip_gather.variant_launches)}
+    emit(**row)
+    if row["gossip_variant_launches"] != {"f32": 11 * steps, "bf16": 0}:
+        fail("path H1dyn: expected 11 f32 gossip launches a step for both lanes, as H1")
+    if lanes.shape != (steps, 2) or not np.isfinite(lanes).all():
+        fail("path H1dyn: the two lanes' losses must be finite")
+    if row["peak_bytes"] >= PEAK_LIMIT:
+        fail(f"path H1dyn: peak {row['peak_bytes']} B over {PEAK_LIMIT}")
+    free()
+    return row
+
+
 def path_h(dev, data):
-    """H2 and H3 (`data`: the futures of F3's and F4's image sets); the
+    """H2, H3 and H4 (`data`: the futures of F3's and F4's image sets); the
     launches of each kernel over them."""
     rows = {}
-    for fn, key in ((path_h2, "F3"), (path_h3, "F4")):
+    for fn, key in ((path_h2, "F3"), (path_h3, "F4"), (path_h4, "F3")):
         t = time.perf_counter()
         rows.update(fn(dev, data[key].result()))
         emit(phase=f"{fn.__name__}_done", seconds=time.perf_counter() - t)
@@ -2886,8 +2989,7 @@ def path_h_parity(dev, cfg=None, batch=4, seq=128, cnn_sizes=None):
             st = start(params)
             if poison:
                 tree_leaves(ba.params_of(st))[0][0, 1].view(-1)[0] = float("nan")
-            with (plain_routes() if route == "plain" else contextlib.nullcontext()), \
-                    _deterministic_cudnn():
+            with plain_routes() if route == "plain" else contextlib.nullcontext():
                 _reset_counts()
                 new, _ = ba.step(st, b)
                 _sync(dev)
@@ -2899,9 +3001,8 @@ def path_h_parity(dev, cfg=None, batch=4, seq=128, cnn_sizes=None):
         for lane, seed in enumerate(seeds):
             bound = ALG.get_algorithm(algo).bind(grad_fn, tp, hp, mixing=mixing_mode, device=dev)
             st = bound.init(seed, tree_unflatten(treedef, [x[lane].clone() for x in params]))
-            with _deterministic_cudnn():
-                new, _ = bound.step(st, b)
-                _sync(dev)
+            new, _ = bound.step(st, b)
+            _sync(dev)
             for gl, wl in zip(got, tree_leaves(bound.params_of(new))):
                 equal = equal and torch.equal(gl[lane], wl)
                 worst = max(worst, ulps_floored(gl[lane], wl,
@@ -2938,6 +3039,113 @@ def path_h_parity(dev, cfg=None, batch=4, seq=128, cnn_sizes=None):
                 else sum(M * x.numel() >= 1 << 17 for x in leaves))
         if dev.type == "cuda" and g_launches["f32"] + g_launches["bf16"] + p_launches != want:
             fail(f"path H parity ({name}): {want} exchange launches expected for both lanes")
+    results.update(path_h_parity_forms(dev, cnn_grad, cnn_batch))
+    return results
+
+
+def parity_forms():
+    """Parity phase H's network forms on the CNN: (case, algorithm, its
+    hyperparameters, bind's network argument).  The paced form's pacing
+    defers nodes from step 0 (queues past 1 request)."""
+    from repro_torch.core import algorithms as ALG
+    from repro_torch.core.scenarios import Scenario
+    from repro_torch.serve.events import ServePacing, get_arrival
+
+    forms = [("cnn-scenario", "pame", ALG.PaMEHp(**EX3_CFG), dict(scenario=Scenario(
+        **H_SCENARIO)))]
+    for form, algo, hp, net in h4_forms():
+        if form == "paced":
+            net = dict(pacing=ServePacing(get_arrival("rush"), capacity=2, defer_threshold=1))
+        forms.append((f"cnn-{form}", algo, hp, net))
+    return forms
+
+
+def path_h_parity_forms(dev, grad_fn, batch, seeds=(3, 4, 5)):
+    """One step of each network form (dynamic scenario, temporal with
+    staleness 2, faults with CHOCO's replicas, pacing) on 3 lanes of the
+    CNN with distinct node models: the folded step through the kernels
+    equals each lane's unbatched `bind(...).step` through the kernels bit
+    for bit (its seed folded into the network, fault and pace keys), with
+    no switch set for it; the same step through `plain_routes()` within
+    1e-5 of the scale (phase 12's f32 tolerance); a NaN in lane 0 leaving
+    lanes 1 and 2 bit-equal; one gossip launch a leaf for all lanes."""
+    import torch
+    from repro_torch.core import algorithms as ALG
+    from repro_torch.core import build_topology
+    from repro_torch.core.pme import fold_in
+    from repro_torch.kernels.gossip.kernel import gossip_gather
+    from repro_torch.models.cnn import cnn_init
+    from repro_torch.tree import tree_leaves
+
+    topo = build_topology("complete", M)
+    p0 = cnn_init(1, device=dev)
+    n_leaves = len(tree_leaves(p0))
+    results = {}
+    for name, algo, hp, net in parity_forms():
+        alg = ALG.get_algorithm(algo)
+        ba = alg.bind_batched(grad_fn, topo, [hp], seeds=list(seeds), mixing="sparse",
+                              device=dev, **net)
+        g = torch.Generator(device=dev).manual_seed(13)
+        noise = [0.01 * torch.randn(x.shape, generator=g, device=dev)
+                 for x in tree_leaves(ba.params_of(ba.init(p0, M, batch)))]
+
+        def start(bound_init, lane=None):
+            """A fresh state with the lanes' noise (lane `lane`'s only, for
+            an unbatched state) added to its parameters."""
+            st = bound_init()
+            with torch.no_grad():
+                for x, v in zip(tree_leaves(ba.params_of(st)), noise):
+                    x.add_(v if lane is None else v[lane])
+            return st
+
+        def batched(route="kernel", poison=False):
+            st = start(lambda: ba.init(p0, M, batch))
+            if poison:
+                tree_leaves(ba.params_of(st))[0][0, 1].view(-1)[0] = float("nan")
+            aux = ba.aux_init(st) if ba.carries_aux else None
+            with plain_routes() if route == "plain" else contextlib.nullcontext():
+                _reset_counts()
+                out = ba.step(st, batch, 0, aux) if ba.carries_aux else ba.step(st, batch, 0)
+                _sync(dev)
+            return ([x.clone() for x in tree_leaves(ba.params_of(out[0]))],
+                    dict(gossip_gather.variant_launches))
+
+        got, launches = batched()
+        equal, worst = True, 0.0
+        for lane, seed in enumerate(seeds):
+            b = alg.bind(grad_fn, topo, hp, mixing="sparse", device=dev, **net)
+            b.scen_arrays = b.scen_arrays._replace(key=fold_in(b.scen_arrays.key, seed))
+            if b.faulty:
+                b.fault_key = fold_in(int(b.faults.seed), seed)
+            if b.paced:
+                b.pace_key = fold_in(int(b.pacing.process.seed), seed)
+            st = start(lambda: b.init(seed, ALG.B.stack_params(p0, M), batch), lane)
+            aux = b.aux_init(st) if b.carries_aux else None
+            new = (b.step(st, batch, 0, aux) if b.carries_aux else b.step(st, batch, 0))[0]
+            _sync(dev)
+            for gl, wl in zip(got, tree_leaves(b.params_of(new))):
+                equal = equal and torch.equal(gl[lane], wl)
+                worst = max(worst, ulps_floored(gl[lane], wl, 23))
+            del st, new
+        plain, _ = batched("plain")
+        poisoned, _ = batched(poison=True)
+        row = {"case": name, "algo": algo, "lanes": len(seeds), "bit_equal": equal,
+               "batched_vs_unbatched_ulps": worst, "gossip_launches": launches,
+               "plain_rel_err": max(((a - c).abs().max() / c.abs().max().clamp(min=1e-30))
+                                    .item() for a, c in zip(got, plain)),
+               "nan_lane_isolated": all(torch.equal(a[lane], c[lane]) for a, c in
+                                        zip(poisoned, got) for lane in (1, 2))}
+        results[name] = row
+        emit(phase="parity_h", **row)
+        del got, plain, poisoned, ba
+        free()
+        if not equal or worst > PARITY_H_ULPS or row["plain_rel_err"] > PARITY_F_RTOL \
+                or not row["nan_lane_isolated"]:
+            fail(f"path H parity ({name}): folded and unbatched steps differ, the plain "
+                 "route is out of tolerance, or a NaN lane reached another")
+        if dev.type == "cuda" and launches != {"f32": n_leaves, "bf16": 0}:
+            fail(f"path H parity ({name}): {n_leaves} f32 gossip launches expected for "
+                 f"all lanes, got {launches}")
     return results
 
 
@@ -2964,19 +3172,6 @@ I4_SERVE = dict(prompt_len=256, gen=5, batch=2, seed=0)
 # qwen3-14b's chunked GQA route against the unchunked one (bf16 logits)
 I4_CHUNK = dict(prompt_len=1024, chunk=512, atol=2e-2)
 REMAT_POLICIES = (None, "full", "dots")
-
-
-@contextlib.contextmanager
-def _deterministic():
-    """Deterministic kernels (`index_add_` on the card sums in a fixed
-    order) for runs whose numbers must repeat exactly."""
-    import torch
-
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(False)
 
 
 def _n_leaves(arch, layers):
@@ -3010,8 +3205,9 @@ def path_i1(dev, variant="full", layers=I1_LAYERS, batch=4, seq=128, remat_batch
     losses, peak under 80 GB.  Then one node's train_loss and backward on
     remat_batch x remat_seq tokens (where activations, not the weights and
     gradients, set the peak) without remat and with the "full" and "dots"
-    policies: the three losses equal (deterministic kernels), whether the
-    gradients are equal too, each run's peak."""
+    policies: the three losses equal (the MoE layer and every other op on
+    the path sum in a fixed order), whether the gradients are equal too,
+    each run's peak."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.gossip.kernel import gossip_gather
@@ -3048,9 +3244,8 @@ def path_i1(dev, variant="full", layers=I1_LAYERS, batch=4, seq=128, remat_batch
     for policy in REMAT_POLICIES:
         c = cfg.replace(remat=policy is not None, remat_policy=policy or "full")
         t0 = _start(dev)
-        with _deterministic():
-            loss, grads = _loss_and_grads(params, c, b)
-            _sync(dev)
+        loss, grads = _loss_and_grads(params, c, b)
+        _sync(dev)
         r = {"loss": loss.item(), "seconds": time.perf_counter() - t0,
              "peak_bytes": torch.cuda.max_memory_allocated() if dev.type == "cuda" else None,
              "grads_finite": all(bool(torch.isfinite(g).all()) for g in grads),
@@ -3240,6 +3435,156 @@ def path_i(dev):
         emit(phase=f"path_{name.lower()}_done", seconds=time.perf_counter() - t)
     rows["I3"], flash_launches = rows["I3"]
     return rows, gossip_launches, flash_launches
+
+
+# ---------------------------------------------------------------------------
+# path R: same seed, same bits (the repeat phase and the resume on the card)
+# ---------------------------------------------------------------------------
+# the repeat phase's steps: F3's and F4's PaME runs, H2dyn at 5 lanes
+R_STEPS = dict(cnn=40, resnet=10, dynamic=10)
+# the resume: the trainer at full width and 2 layers, 6 steps, a
+# checkpoint at step 3
+RESUME_ARGS = model_args("pame") + ["--layers", "2", "--chunk", "1"]
+RESUME_STEPS, RESUME_AT = 6, 3
+
+
+def _host_leaves(tree):
+    import torch
+    from repro_torch.tree import tree_leaves
+
+    return [x.detach().cpu() for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+def _equal_leaves(want_host, tree) -> bool:
+    """Every tensor leaf of `tree` equal to the host copies `want_host`."""
+    import torch
+    from repro_torch.tree import tree_leaves
+
+    got = [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+    return len(got) == len(want_host) and all(
+        torch.equal(g.detach().cpu(), w) for g, w in zip(got, want_host))
+
+
+def path_repeat(dev, data, steps=None, i1_variant="full", i1_layers=I1_LAYERS):
+    """Same seed, same bits, through the normal entry points with no switch
+    set by this script: F3's PaME run (`run_pame`, the CNN's convolutions,
+    the PME-average kernel), F4's (ResNet-20), I1 (the trainer CLI on
+    deepseek-v2-lite-16b at 3 layers: MLA, MoE and the embedding's
+    backward, the gossip kernel) and H2dyn at 5 lanes (`bind_batched`
+    under H_SCENARIO, the folded exchange), each run twice from one seed:
+    the final parameters equal leaf for leaf (`torch.equal`).  Each run's
+    seconds a step; the launches of both runs of each (for the kernel
+    line).  `data`: the futures of F3's and F4's image sets."""
+    import torch
+    from repro_torch.core import PaMEConfig, build_topology, run_pame
+    from repro_torch.core import algorithms as ALG
+    from repro_torch.core.scenarios import Scenario
+    from repro_torch.data import dirichlet_partition, label_skew_partition
+    from repro_torch.launch import train
+    from repro_torch.models.cnn import cnn_apply, cnn_init, resnet20_apply, resnet20_init
+
+    steps = steps or R_STEPS
+    topo = build_topology("complete", M)
+    cfg = PaMEConfig(**EX3_CFG)
+
+    def vision(key, partition, apply_fn):
+        # a fresh task each run: its NodeBatcher starts from the same seed
+        return vision_task(dev, data[key].result(), partition, apply_fn)
+
+    def f3():
+        task = vision("F3", lambda y: label_skew_partition(y, M, 7, seed=0), cnn_apply)
+        return run_pame(0, cnn_init(1, device=dev), M, task["grad_fn"], task["batch_fn"],
+                        topo, cfg, num_steps=steps["cnn"], tol_std=0.0, device=dev)[0].params
+
+    def f4():
+        task = vision("F4", lambda y: dirichlet_partition(y, M, 0.3, seed=0), resnet20_apply)
+        return run_pame(0, resnet20_init(1, device=dev), M, task["grad_fn"],
+                        task["batch_fn"], topo, cfg, num_steps=steps["resnet"], tol_std=0.0,
+                        device=dev)[0].params
+
+    def i1():
+        return train.main(["--arch", I_LM, "--variant", i1_variant, "--algo", "pame",
+                           "--nodes", str(M), "--batch", "4", "--seq", "128", "--layers",
+                           str(i1_layers), "--steps", str(I_STEPS), "--chunk", "1",
+                           "--device", dev.type], return_state=True)["state"].params
+
+    def h2dyn():
+        task = vision("F3", lambda y: label_skew_partition(y, M, 7, seed=0), cnn_apply)
+        ba = ALG.get_algorithm("pame").bind_batched(
+            task["grad_fn"], topo, [ALG.PaMEHp(**EX3_CFG)], seeds=range(H_SEEDS),
+            mixing="sparse", scenario=Scenario(**H_SCENARIO), device=dev)
+        return ba.params_of(ba.run(cnn_init(1, device=dev), M, task["batch_fn"],
+                                   steps["dynamic"], chunk_size=steps["dynamic"])[0])
+
+    rows, launches = {}, {"f32": 0, "bf16": 0, "pme_average": 0}
+    for name, run, k in (("F3-pame", f3, steps["cnn"]), ("F4-pame", f4, steps["resnet"]),
+                         ("I1", i1, I_STEPS), (f"H2dyn-L{H_SEEDS}", h2dyn, steps["dynamic"])):
+        t0 = _start(dev)
+        first = _host_leaves(run())  # on the host: I1's state is 11.7 GB
+        _sync(dev)
+        t1 = time.perf_counter()
+        free()
+        second = run()
+        _sync(dev)
+        t2 = time.perf_counter()
+        got = _counts()
+        for key in launches:
+            launches[key] += got[key]
+        rows[name] = row = {"run": name, "steps": k, "equal": _equal_leaves(first, second),
+                            "leaves": len(first), "s_per_run": [t1 - t0, t2 - t1],
+                            "launches": got,
+                            "switches": [bool(torch.backends.cudnn.deterministic),
+                                         bool(torch.are_deterministic_algorithms_enabled())]}
+        emit(phase="path_repeat", **row)
+        del first, second
+        free()
+        if not row["equal"]:
+            fail(f"path R ({name}): two runs from one seed differ")
+        if any(row["switches"]):
+            fail(f"path R ({name}): a determinism switch is left on after the run")
+    return rows, launches
+
+
+def path_resume(dev, argv=RESUME_ARGS, steps=RESUME_STEPS, at=RESUME_AT):
+    """The trainer CLI (`argv`: path A's model at full width and 2 layers)
+    run for `steps` steps uninterrupted, and run to step `at` with a
+    checkpoint there and again to `steps` resuming from it: the resumed
+    run's final state equals the uninterrupted one's, tensor for tensor.
+    The save's and restore's seconds and bytes; the launches (for the
+    kernel line)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    t0 = _start(dev)
+    try:
+        whole = train.main(argv + ["--steps", str(steps), "--device", dev.type],
+                           return_state=True)
+        want = _host_leaves(whole["state"])
+        del whole
+        free()
+        first = train.main(argv + ["--steps", str(at), "--ckpt-dir", root, "--ckpt-every",
+                                   str(at), "--device", dev.type])
+        # a period past the run: the resumed run saves nothing more
+        second = train.main(argv + ["--steps", str(steps), "--ckpt-dir", root,
+                                    "--ckpt-every", str(10 * steps), "--device", dev.type],
+                            return_state=True)
+        _sync(dev)
+        row = {"phase": "path_resume", "steps": steps, "at": at, "start": second["start"],
+               "equal": _equal_leaves(want, second["state"]), "tensors": len(want),
+               "save": first["checkpoints"], "restore": second["restore"],
+               "seconds": time.perf_counter() - t0, "launches": _counts()}
+        del second
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit(**row)
+    free()
+    if row["start"] != at or not row["equal"]:
+        fail(f"path R (resume): the run resumed at {row['start']} (expected {at}) or its "
+             "state differs from the uninterrupted run's")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -3742,6 +4087,9 @@ def main():
     h1 = path_h1(dev)
     emit(phase="path_h1_done", seconds=time.perf_counter() - t)
     t = time.perf_counter()
+    h1dyn = path_h1dyn(dev, h1)
+    emit(phase="path_h1dyn_done", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
     h_rows, h_launches = path_h(dev, data)
     emit(phase="path_h_done", seconds=time.perf_counter() - t)
     t = time.perf_counter()
@@ -3751,24 +4099,32 @@ def main():
     _, i_gossip, i_flash = path_i(dev)
     emit(phase="path_i_done", seconds=time.perf_counter() - t)
     t = time.perf_counter()
+    _, r_launches = path_repeat(dev, data)
+    emit(phase="path_repeat_done", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    resume = path_resume(dev)
+    emit(phase="path_resume_done", seconds=time.perf_counter() - t)
+    r_launches = {k: v + resume["launches"][k] for k, v in r_launches.items()}
+    t = time.perf_counter()
     j = path_j(dev)
     emit(phase="path_j_done", seconds=time.perf_counter() - t)
     tc = lambda r, k: r["prefill_launches"][k]["tensor_cores"]  # noqa: E731
     j_gossip = j["J1"]["gossip_variant_launches"]["f32"]
     j_flash = tc(j["J2"], "flash") + tc(j["J4"]["J4a"], "flash") + tc(j["J4"]["J4c"], "flash")
     j_ssd = {run: tc(j["J4"][run], "ssd") for run in ("J4b", "J4c")}
-    # path H's f32 launches (H1, H2 static and dynamic); those on lane-offset
-    # tables (H1 and H2 at 5 lanes) are the f32_lanes variant's
-    h_f32 = h1["gossip_variant_launches"]["f32"] + h_launches["f32"]
-    h_folded = h1["gossip_variant_launches"]["f32"] + sum(
-        r["launches"]["f32"] for r in h_rows.values() if r["folded"])
+    # path H's f32 launches (H1, H1dyn, H2 static and dynamic, H4); those on
+    # lane-offset tables (H1, H1dyn, and H2, H2dyn and H4 at 5 lanes) are the
+    # f32_lanes variant's
+    h1_f32 = h1["gossip_variant_launches"]["f32"] + h1dyn["gossip_variant_launches"]["f32"]
+    h_f32 = h1_f32 + h_launches["f32"]
+    h_folded = h1_f32 + sum(r["launches"]["f32"] for r in h_rows.values() if r["folded"])
     bf16_launches = sum(r["gossip_launches"]["bf16"] for r in baselines.values())
     # each path's launches, read just after the path ran with the counts at 0
     f32_launches = (gossip_launches + e_launches["f32"] + f_launches["f32"] + g_launches
-                    + h_f32 + i_gossip + j_gossip)
+                    + h_f32 + i_gossip + j_gossip + r_launches["f32"])
     bf16_launches += e_launches["bf16"] + f_launches["bf16"]
     pme_launches += e_launches["pme_average"] + f_launches["pme_average"] \
-        + h_launches["pme_average"]
+        + h_launches["pme_average"] + r_launches["pme_average"]
 
     def entry(name, source, replaces, launches, row):
         e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3798,6 +4154,10 @@ def main():
     g32["variants"]["bf16_replicas"] = variant(rep_launches, gossip["bf16_replicas"])
     # path F's f32 launches (F1 race, F2, F3 D-PSGD and wide CNN), timed at F3's fc1
     g32["variants"]["f32_path_f"] = variant(f_launches["f32"], gossip["f32_fc1"])
+    # path R's f32 launches (the repeat phase's I1 and H2dyn runs, the
+    # resume's three trainer runs; among the f32 launches), timed at path
+    # A's largest leaf (the resume's model at 2 layers)
+    g32["variants"]["f32_path_r"] = variant(r_launches["f32"], gossip["f32"])
     # path G's f32 launches (G1 at full depth, G2 at 2 layers; among the f32
     # launches), timed at the largest training leaf on G1's grown 5-node graph
     g32["variants"]["f32_path_g"] = variant(g_launches, gossip["f32_grown"])
@@ -3814,6 +4174,9 @@ def main():
                 "src/repro/kernels/pme_average/kernel.py:46", pme_launches, pme_row)
     # path F's launches (F3 PaME on fc1, F4 on five ResNet-20 convs), timed at F3's fc1
     pme["variants"] = {"path_f": variant(f_launches["pme_average"], pme_fc1),
+                       # path R's launches (the repeat phase's F3 and F4
+                       # runs), timed at F3's fc1
+                       "path_r": variant(r_launches["pme_average"], pme_fc1),
                        # H3's launches, all with the lane axis, timed at H3's
                        # largest leaf over its 5 lanes
                        "lanes": variant(h_launches["pme_average"], lane_rows["pme_lanes_h3"])}

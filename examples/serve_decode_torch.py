@@ -7,11 +7,10 @@ batched greedy decode with ring-buffer KV caches.
 
 The port of ``examples/serve_decode.py``, with its flags plus ``--device``
 (default ``cuda``; without a card it raises instead of falling back).
-``--arch`` defaults to stablelm-1.6b rather than the JAX example's
-qwen3-14b, because the port does not carry qwen3-14b yet (it carries
-stablelm-1.6b, zamba2-1.2b and mamba2-1.3b); the smoke variant is served,
-as in the JAX example.  Tokens stay on the device until the last step, and
-the timings synchronise the card first.
+``--arch`` defaults to qwen3-14b, as in the JAX example, and takes any
+config of `repro_torch.configs`; the smoke variant is served, as in the
+JAX example.  Tokens stay on the device until the last step, and the
+timings synchronise the card first.
 """
 import argparse
 import time
@@ -27,7 +26,7 @@ from repro_torch.serve.serving import decode_greedy
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="stablelm-1.6b")
+    ap.add_argument("--arch", default="qwen3-14b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)

@@ -25,9 +25,11 @@ that round like a straggler.
 :meth:`Algorithm.bind_batched` runs S seeds × C configs of one algorithm
 as one lane-batched step (:class:`BatchedAlgorithm`, `core.lanes`): lane
 (s, c) reproduces the unbatched ``bind(hps_c)`` run under seed s bit for
-bit.  On a static network the lanes fold into the node axis and the
-exchange launches once a leaf for all of them; dynamic, temporal, fault
-and paced grids step lane by lane (their exchange launches once a lane).
+bit.  The lanes fold into the node axis and the exchange launches once a
+leaf for all of them, on a static network and under a dynamic, temporal,
+fault or paced one alike: there each lane draws its own network from its
+own keys on the host, and the folded realization drives one step of all
+lanes (`_NetworkSteps`, `core.scenarios.fold_arrays`).
 """
 from __future__ import annotations
 
@@ -309,58 +311,65 @@ def _n_coords(params) -> int:
     return sum(int(np.prod(tuple(x.shape[1:]))) for x in tree_leaves(params))
 
 
-class BoundAlgorithm:
-    """An Algorithm closed over (grad_fn, topology, hps, mixer).
+def _ring_of(aux):
+    """The staleness ring inside a carry (None without one)."""
+    if isinstance(aux, PacedCarry):
+        return None if aux.inner is None else aux.inner.ring
+    return aux.ring
 
-    Without a dynamic scenario, ``step(state, batch)`` is a plain closure
-    the engine runs.  A dynamic `Scenario` makes it ``step(state, batch,
-    k)``; a `TemporalScenario`, a `FaultModel` or a `ServePacing`
-    ``step(state, batch, k, aux) -> (state, metrics, aux)`` with the carry
-    of `aux_init`.  Every form takes ``draws=`` (keys "scenario",
-    "temporal", "faults", "pacing": the draws of `scenarios.sample_masks`,
-    `temporal.advance`, `faults.advance_faults` and `ServePacing.advance`;
-    "algo": the algorithm step's own draws), which is how the parity tests
-    feed it the JAX package's.
 
-    The realizations are built on the host (`core.scenarios`), so the
-    wrappers know which nodes are dropped or delayed without reading the
-    card: they copy a dropped node's rows aside before the step and put
-    them back after it, and substitute a delayed node's ring snapshot into
-    its rows of the parameter stack in place (the step consumes that
-    stack, as JAX's scan consumes its carry), keeping the fresh rows in
-    the ring's slot k mod D, which they overwrite first.
+def _with_ring(aux, ring):
+    """The carry with its staleness ring replaced."""
+    if isinstance(aux, PacedCarry):
+        return aux if aux.inner is None else aux._replace(inner=aux.inner._replace(ring=ring))
+    return aux._replace(ring=ring)
+
+
+def _fold_ring(r: torch.Tensor) -> torch.Tensor:
+    """A lane-batched ring leaf [L, D, m, ...] as [D, L·m, ...]: a view of
+    the storage `_unfold_ring` lays out (a copy after an engine select
+    rebuilt it)."""
+    return r.transpose(0, 1).reshape((r.shape[1], -1) + tuple(r.shape[3:]))
+
+
+def _unfold_ring(r: torch.Tensor, lanes: int) -> torch.Tensor:
+    """A [D, L·m, ...] ring leaf viewed lane first, [L, D, m, ...], as the
+    engine's lane-wise selects and restores expect every carry leaf."""
+    return r.view((r.shape[0], lanes, -1) + tuple(r.shape[2:])).transpose(0, 1)
+
+
+class _NetworkSteps:
+    """The step wrappers of a dynamic, temporal, fault or paced bind,
+    shared by `BoundAlgorithm` (one lane: a state over m rows) and
+    `BatchedAlgorithm` (L lanes folded over L·m rows).
+
+    What is drawn stays per lane, on the host: each lane's [m, d] masks
+    from its own key (`scenarios.sample_masks`), its Markov chains, its
+    fault carry and its event clock.  The realization they give is folded
+    over the state's rows (`scenarios.fold_arrays`), so the exchange, the
+    local steps, the dropped rows' freeze and restore, the delayed rows'
+    substitution and re-add, and the replica mix each touch the parameter
+    stack once for all lanes.  Per-lane metrics are scalars for one lane,
+    [L] for L.
+
+    The realizations are built on the host, so the wrappers know which
+    rows are dropped or delayed without reading the card: they copy a
+    dropped row aside before the step and put it back after it, and
+    substitute a delayed row's ring snapshot into the parameter stack in
+    place (the step consumes that stack, as JAX's scan consumes its carry),
+    keeping the fresh rows in the ring's slot k mod D, which they
+    overwrite first.
+
+    A class using it provides ``spec``, ``ctx``, ``scenario``, ``faults``,
+    ``pacing``, ``_mixing_mode``, ``_lanes`` (None for one lane, else L),
+    ``_lane_nets()`` (each lane's scenario arrays, fault key and pace key),
+    ``_arrays`` (the arrays over the state's rows, on the host) and
+    ``_arrays_dev`` (their copy on the run's device).
     """
-
-    def __init__(self, spec: Algorithm, ctx: AlgoContext, device: torch.device,
-                 scenario: Optional[AnyScenario] = None,
-                 scen_arrays: Optional[scen_mod.ScenarioArrays] = None,
-                 mixing_mode: str = "sparse",
-                 faults: Optional[flt_mod.FaultModel] = None,
-                 pacing: Optional[ServePacing] = None,
-                 fault_key: Optional[int] = None, pace_key: Optional[int] = None):
-        self.spec = spec
-        self.ctx = ctx
-        self.device = device
-        self.scenario = scenario
-        self.scen_arrays = scen_arrays
-        self._arrays_dev = None if scen_arrays is None else scen_arrays.to(device)
-        self._mixing_mode = mixing_mode
-        self.faults = faults
-        if faults is not None and fault_key is None:
-            fault_key = int(faults.seed)
-        self.fault_key = fault_key
-        self.pacing = pacing
-        if pacing is not None and pace_key is None:
-            pace_key = int(pacing.process.seed)
-        self.pace_key = pace_key
 
     @property
     def name(self) -> str:
         return self.spec.name
-
-    @property
-    def hps(self) -> object:
-        return self.ctx.hps
 
     @property
     def dynamic(self) -> bool:
@@ -390,75 +399,54 @@ class BoundAlgorithm:
     def params_of(self) -> Callable:
         return self.spec.params_of
 
-    def init(self, key: int, params_stacked, batch0=None):
-        if self.spec.needs_batch0 and batch0 is None:
-            raise ValueError(f"{self.name} needs batch0 at init")
-        if self.faulty and self.spec.rep_init is not None:
-            return self.spec.rep_init(key, params_stacked, self.ctx, batch0, self.scen_arrays)
-        return self.spec.init(key, params_stacked, self.ctx, batch0)
+    # -- per-lane carries ----------------------------------------------------
+    def _ring_depth(self) -> int:
+        if self.faulty:
+            return self.faults.max_delay
+        return self.scenario.staleness if self.temporal else 0
 
-    def aux_init(self, state, *, u: Optional[dict] = None):
-        """The initial carry: a `FaultCarry` for a fault bind, a
-        `TemporalCarry` (stationary Markov draws, the staleness ring seeded
-        with the state's parameters) for a temporal one, and for a paced
-        one a `PacedCarry` of a fresh event clock around the fault carry
-        (None without faults).  ``u`` injects the stationary draws."""
+    def _lane_carry(self, arrays, fault_key, pace_key, u=None):
+        """One lane's carry without its ring: the fault state, the chains'
+        state or the event clock around the fault state."""
         inner = None
         if self.faulty:
-            inner = flt_mod.fault_carry_init(self.faults, self.scen_arrays,
-                                             self.spec.params_of(state), self.fault_key, u=u)
+            inner = flt_mod.FaultCarry(flt_mod.fault_state_init(self.faults, arrays, fault_key,
+                                                                u=u), None)
         if self.paced:
-            return PacedCarry(events=self.pacing.init(self.scen_arrays.m, self.pace_key),
-                              inner=inner)
+            return PacedCarry(events=self.pacing.init(arrays.m, pace_key), inner=inner)
         if inner is not None:
             return inner
-        if not self.temporal:
-            raise TypeError(f"{self.name} is not bound to a TemporalScenario")
-        return temp_mod.temporal_carry_init(self.scenario, self.scen_arrays,
-                                            self.spec.params_of(state), u=u)
+        return temp_mod.TemporalCarry(temp_mod.temporal_state_init(self.scenario, arrays, u=u),
+                                      None)
 
-    def _ctx(self, mixer: Optional[Mixer] = None, extras: Optional[dict] = None,
-             draws: Optional[dict] = None) -> AlgoContext:
-        ex = dict(self.ctx.extras if extras is None else extras)
-        if draws and draws.get("algo") is not None:
-            ex["draws"] = draws["algo"]
-        return dataclasses.replace(self.ctx, mixer=self.ctx.mixer if mixer is None else mixer,
-                                   extras=ex)
+    # -- per-lane values -----------------------------------------------------
+    def _lane_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """A [rows, ...] tensor summed over each lane's rows: over all rows
+        for one lane, [L, ...] for L."""
+        if self._lanes is None:
+            return t.sum(dim=0)
+        return t.reshape((self._lanes, -1) + tuple(t.shape[1:])).sum(dim=1)
 
-    def step(self, state, batch, k: Optional[int] = None, aux=None, *,
-             draws: Optional[dict] = None):
-        draws = draws or {}
-        if not self.dynamic:
-            return self.spec.step(state, batch, self._ctx(draws=draws))
-        if k is None:
-            raise TypeError(
-                f"{self.name} is bound to scenario {self.scenario.name!r}: "
-                "step(state, batch, k) needs the global step index"
-            )
-        if self.carries_aux and aux is None:
-            what = ("PacedCarry" if self.paced else "FaultCarry" if self.faulty
-                    else "TemporalCarry")
-            raise TypeError(f"{self.name}: step(state, batch, k, aux) needs the {what} "
-                            "(see aux_init)")
-        if self.paced:
-            new_ev, busy, ev_metrics = self.pacing.advance(aux.events, int(k),
-                                                           u=draws.get("pacing"))
-            if self.faulty:
-                new_state, metrics, new_inner = self._fault_step(
-                    state, batch, int(k), aux.inner, draws, extra_straggler=busy)
-            else:
-                new_state, metrics = self._dynamic_step(state, batch, int(k), draws,
-                                                        extra_straggler=busy)
-                new_inner = None
-            metrics.update(ev_metrics)
-            return new_state, metrics, PacedCarry(new_ev, new_inner)
-        if self.faulty:
-            return self._fault_step(state, batch, int(k), aux, draws)
-        if self.temporal:
-            return self._temporal_step(state, batch, int(k), aux, draws)
-        return self._dynamic_step(state, batch, int(k), draws)
+    def _lane_stack(self, vals: list):
+        """Per-lane values: the one value for one lane, stacked [L] for L."""
+        if self._lanes is None:
+            return vals[0]
+        return torch.stack([torch.as_tensor(v) for v in vals])
 
-    # -- the wrappers' pieces ---------------------------------------------
+    def _folded(self, rs: list, fold: Callable):
+        return rs[0] if self._lanes is None else fold(rs)
+
+    def _step_ctx(self, mixer: Mixer, extras: dict, draws: list) -> AlgoContext:
+        """The step's context: its mixer and extras, and the algorithm's
+        own draws (each lane's ``draws[l]["algo"]``, folded for L lanes)."""
+        ex = dict(extras)
+        algo = (draws[0].get("algo") if self._lanes is None
+                else _fold_draws([d.get("algo") for d in draws]))
+        if algo is not None:
+            ex["draws"] = algo
+        return dataclasses.replace(self.ctx, mixer=mixer, extras=ex)
+
+    # -- the wrappers' pieces -----------------------------------------------
     def _mixer(self, r: scen_mod.Realization) -> Mixer:
         return scen_mod.scenario_mixer(self._arrays_dev, r, self._mixing_mode,
                                        impl=self.ctx.mixer.impl)
@@ -470,18 +458,19 @@ class BoundAlgorithm:
             eb = (self.spec.edge_bits(self.ctx.hps, _n_coords(self.spec.params_of(state)))
                   if self.spec.edge_bits else 0.0)
             metrics["wire_bits"] = r.directed_edges.to(torch.float32) * float(eb)
-        metrics["alive_nodes"] = r.alive.sum().to(torch.int32)
+        metrics["alive_nodes"] = self._lane_sum(r.alive).to(torch.int32)
         return metrics
 
     def _partition_metrics(self, k: int, new_state, metrics: dict) -> dict:
         """Within-component consensus and the between-component mean gap
         while the scenario schedules partition windows (nothing otherwise);
-        accumulated leaf by leaf."""
+        accumulated leaf by leaf, lane by lane."""
         if not getattr(self.scenario, "partitions", ()):
             return metrics
-        comp = scen_mod.active_components(self.scen_arrays, k)
+        comp = scen_mod.active_components(self._arrays, k)
         cc, gap = scen_mod.component_stats(
-            comp, tree_leaves(self.spec.params_of(new_state)), self.scenario.max_parts)
+            comp, tree_leaves(self.spec.params_of(new_state)), self.scenario.max_parts,
+            lanes=self._lanes)
         metrics["comp_consensus"] = cc
         metrics["comp_mean_gap"] = gap
         return metrics
@@ -492,42 +481,47 @@ class BoundAlgorithm:
     def _substitute_delayed(self, state, ring, k: int, delayed: torch.Tensor,
                             tau: torch.Tensor, d_max: int, need_shift: bool):
         """JAX's ``eff = ring_gather(ring, fresh, (k − τ) mod D, delayed)``
-        and ``ring_push(ring, fresh, k)``, moving only what differs: per
-        leaf, each delayed node's snapshot row is read (copied first when
-        it sits in slot k mod D, τ = D), the fresh stack is pushed into
-        slot k mod D, and the delayed rows of the parameter stack are
-        overwritten with their snapshots in place.  Returns (fresh, the
-        slot-k-mod-D views of the fresh parameters; shift, a `GradShift`
-        of fresh − delayed rows for the delayed nodes, when asked)."""
+        and ``ring_push(ring, fresh, k)``, moving only what differs, one
+        pass a leaf for every lane: the delayed rows' snapshots are
+        gathered (a copy, so a τ = D snapshot in slot k mod D survives the
+        push), the fresh stack is pushed into slot k mod D, and the delayed
+        rows of the parameter stack are overwritten with their snapshots in
+        place.  `delayed` and `tau` live on the host, so the rows are known
+        without reading the card; their indices go to the card in one
+        asynchronous copy a step.  Returns (fresh, the slot-k-mod-D views of
+        the fresh parameters; shift, a `GradShift` of fresh − delayed rows
+        for the delayed rows, when asked)."""
         push = k % d_max
         nodes = [int(i) for i in torch.nonzero(delayed.cpu()).flatten()]
-        slots = {i: (k - int(tau[i])) % d_max for i in nodes}
-        rows: dict = {i: [] for i in nodes}
-        params = self.spec.params_of(state)
+        leaves = tree_leaves(self.spec.params_of(state))
+        shifts, where = [], None
+        if nodes:
+            where = torch.tensor([nodes, [(k - int(tau[i])) % d_max for i in nodes]],
+                                 dtype=torch.int64).to(leaves[0].device, non_blocking=True)
         with torch.no_grad():
-            for x, r in zip(tree_leaves(params), tree_leaves(ring)):
-                eff = {i: (r[slots[i], i].clone() if slots[i] == push else r[slots[i], i])
-                       for i in nodes}
-                if need_shift:
-                    for i in nodes:
-                        rows[i].append(x[i] - eff[i])
+            for x, r in zip(leaves, tree_leaves(ring)):
+                if nodes:
+                    eff = r[where[1], where[0]]
+                    if need_shift:
+                        shifts.append(x[where[0]] - eff)
                 r[push].copy_(x)
-                for i in nodes:
-                    x[i].copy_(eff[i])
-                del eff
+                if nodes:
+                    x.index_copy_(0, where[0], eff)
+                    del eff
         fresh = tree_map(lambda r: r[push], ring)
-        return fresh, (B.GradShift(rows) if need_shift and nodes else None)
+        if not (need_shift and nodes):
+            return fresh, None
+        return fresh, B.GradShift.from_stacked(nodes, where[0], shifts)
 
     def _readd(self, new_state, shift: Optional["B.GradShift"]):
-        """Each delayed node re-adds its private innovation (fresh −
-        delayed) to its own row: p + (f − e), in place."""
+        """Each delayed row re-adds its private innovation (fresh −
+        delayed): p + (f − e), one pass a leaf."""
         if shift is None:
             return new_state
         leaves = tree_leaves(self.spec.params_of(new_state))
         with torch.no_grad():
-            for i, rows in shift.rows.items():
-                for p, d in zip(leaves, rows):
-                    p[i].add_(d.to(p.dtype))
+            for p, d in zip(leaves, shift.stacked):
+                p.index_copy_(0, shift.index, p[shift.index] + d.to(p.dtype))
         return new_state
 
     def _run_step(self, step_fn, state, batch, ctx_t, r, delayed, tau, d_max, ring, k):
@@ -548,85 +542,217 @@ class BoundAlgorithm:
         new_state = self._readd(new_state, shift)
         return scen_mod.restore_rows(frozen, new_state), metrics
 
-    # -- the three step wrappers ------------------------------------------
-    def _dynamic_step(self, state, batch, k: int, draws: dict,
-                      extra_straggler: Optional[torch.Tensor] = None):
-        """One step under the bound i.i.d. scenario: step k's realization,
-        its mixer in the context, dropped nodes' state restored, realized
-        edges charged on the wire.  ``extra_straggler`` (the pacing layer's
-        busy mask) ORs into the scenario's straggler draw before the weights
-        are built."""
-        edge_up, alive, straggler = scen_mod.sample_masks(
-            self.scenario, self.scen_arrays, k, u=draws.get("scenario"))
-        if extra_straggler is not None:
-            straggler = straggler | extra_straggler
-        r = scen_mod.realization_from_masks(self.scen_arrays, edge_up, alive, straggler)
-        ctx_t = self._ctx(self._mixer(r), {**self.ctx.extras, "realization": r}, draws)
+    def _lane_masks(self, k: int, draws: list, busy: Optional[list]) -> list:
+        """Each lane's step-k (edge_up, alive, straggler) masks from its own
+        key, its busy nodes (pacing) ORed into the stragglers."""
+        out = []
+        for lane, ((arrays, _, _), d) in enumerate(zip(self._lane_nets(), draws)):
+            edge_up, alive, straggler = scen_mod.sample_masks(self.scenario, arrays, k,
+                                                              u=d.get("scenario"))
+            if busy is not None:
+                straggler = straggler | busy[lane]
+            out.append((edge_up, alive, straggler))
+        return out
+
+    # -- the step wrappers ------------------------------------------------
+    def _net_step(self, state, batch, k: int, carries: list, ring, draws: list):
+        """One step of every lane under the bound network: ``carries`` holds
+        each lane's carry without its ring, ``ring`` the staleness ring
+        folded over the state's rows.  Returns (state, metrics, each lane's
+        new carry without its ring); the ring is updated in place."""
+        busy = events = None
+        inner = carries
+        if self.paced:
+            events = [self.pacing.advance(c.events, k, u=d.get("pacing"))
+                      for c, d in zip(carries, draws)]
+            busy = [b for _, b, _ in events]
+            inner = [c.inner for c in carries]
+        if self.faulty:
+            new_state, metrics, new_inner = self._fault_step(state, batch, k, inner, ring,
+                                                             draws, busy)
+        elif self.temporal:
+            new_state, metrics, new_inner = self._temporal_step(state, batch, k, inner, ring,
+                                                                draws)
+        else:
+            new_state, metrics = self._dynamic_step(state, batch, k, draws, busy)
+            new_inner = [None] * len(carries)
+        if not self.paced:
+            return new_state, metrics, new_inner
+        for key in events[0][2]:
+            metrics[key] = self._lane_stack([m[key] for _, _, m in events])
+        return new_state, metrics, [PacedCarry(e, i) for (e, _, _), i in zip(events, new_inner)]
+
+    def _dynamic_step(self, state, batch, k: int, draws: list, busy: Optional[list] = None):
+        """One step under the bound i.i.d. scenario: step k's realization
+        (each lane's masks, the weights built over all rows at once), its
+        mixer in the context, dropped nodes' state restored, realized edges
+        charged on the wire.  ``busy`` (the pacing layer's busy masks) ORs
+        into the straggler draws before the weights are built."""
+        masks = self._lane_masks(k, draws, busy)
+        r = scen_mod.realization_from_masks(self._arrays, *(torch.cat(m) for m in zip(*masks)))
+        ctx_t = self._step_ctx(self._mixer(r), {**self.ctx.extras, "realization": r}, draws)
         frozen = scen_mod.dropped_rows(r.alive, state)
         new_state, metrics = self.spec.step(state, batch, ctx_t)
         new_state = scen_mod.restore_rows(frozen, new_state)
         metrics = self._realized_metrics(r, state, metrics)
         return new_state, self._partition_metrics(k, new_state, metrics)
 
-    def _temporal_step(self, state, batch, k: int, aux: temp_mod.TemporalCarry,
-                       draws: dict):
-        """One step under the bound TemporalScenario: advance the chains,
-        realize the step with delayed stragglers participating through
-        their ring snapshots (message-only delay: their gradients are taken
-        at the fresh point through ``grad_shift``, and each re-adds its
-        innovation afterwards; PaME's dense exchange takes the fresh view
-        as ``fresh_params`` instead), then restore dropped nodes."""
-        new_ts, r, delayed, tau = temp_mod.advance(self.scenario, self.scen_arrays, aux.ts,
-                                                   k, u=draws.get("temporal"))
-        ctx_t = self._ctx(self._mixer(r), {**self.ctx.extras, "realization": r}, draws)
+    def _temporal_step(self, state, batch, k: int, carries: list, ring, draws: list):
+        """One step under the bound TemporalScenario: advance each lane's
+        chains, realize the step with delayed stragglers participating
+        through their ring snapshots (message-only delay: their gradients
+        are taken at the fresh point through ``grad_shift``, and each
+        re-adds its innovation afterwards; PaME's dense exchange takes the
+        fresh view as ``fresh_params`` instead), then restore dropped
+        nodes."""
+        adv = [temp_mod.advance(self.scenario, arrays, c.ts, k, u=d.get("temporal"))
+               for (arrays, _, _), c, d in zip(self._lane_nets(), carries, draws)]
+        r = self._folded([a[1] for a in adv], scen_mod.fold_realizations)
+        delayed, tau = (torch.cat([a[i] for a in adv]) for i in (2, 3))
+        ctx_t = self._step_ctx(self._mixer(r), {**self.ctx.extras, "realization": r}, draws)
         d_max = self.scenario.staleness
         new_state, metrics = self._run_step(self.spec.step, state, batch, ctx_t, r, delayed,
-                                            tau, d_max, aux.ring, k)
+                                            tau, d_max, ring, k)
         if d_max > 0:
             grid = torch.arange(d_max + 1, dtype=torch.int32)
-            metrics["stale_hist"] = ((tau[:, None] == grid[None, :])
-                                     & r.participating[:, None]).sum(dim=0).to(torch.float32)
-            metrics["stale_nodes"] = delayed.sum().to(torch.int32)
+            metrics["stale_hist"] = self._lane_sum(
+                (tau[:, None] == grid[None, :]) & r.participating[:, None]).to(torch.float32)
+            metrics["stale_nodes"] = self._lane_sum(delayed).to(torch.int32)
         metrics = self._realized_metrics(r, state, metrics)
-        return new_state, metrics, temp_mod.TemporalCarry(new_ts, aux.ring)
+        return new_state, metrics, [temp_mod.TemporalCarry(a[0], None) for a in adv]
 
-    def _fault_step(self, state, batch, k: int, aux: flt_mod.FaultCarry, draws: dict,
-                    extra_straggler: Optional[torch.Tensor] = None):
-        """One step under the bound FaultModel: the base scenario's masks
-        (a paced bind's busy nodes added to the stragglers), the fault
-        transition and per-direction losses, per-receiver renormalized
+    def _fault_step(self, state, batch, k: int, carries: list, ring, draws: list,
+                    busy: Optional[list] = None):
+        """One step under the bound FaultModel: each lane's base-scenario
+        masks (a paced bind's busy nodes added to the stragglers), fault
+        transition and per-direction losses, the per-receiver renormalized
         weights for direct parameter mixing, the replicated step
         (``rep_step``) where the algorithm has one, PaME's delivery masks,
         delayed delivery through the ring as on the temporal path, and
         crashed nodes frozen."""
         fm = self.faults
-        edge_up, alive, straggler = scen_mod.sample_masks(
-            self.scenario, self.scen_arrays, k, u=draws.get("scenario"))
-        if extra_straggler is not None:
-            straggler = straggler | extra_straggler
-        new_fs, fr = flt_mod.advance_faults(fm, self.scen_arrays, aux.fs, self.fault_key, k,
-                                            edge_up, alive, straggler, u=draws.get("faults"))
+        outs = [flt_mod.advance_faults(fm, arrays, c.fs, fault_key, k, *mk,
+                                       u=d.get("faults"))
+                for (arrays, fault_key, _), c, d, mk in zip(
+                    self._lane_nets(), carries, draws, self._lane_masks(k, draws, busy))]
+        fr = self._folded([o[1] for o in outs], flt_mod.fold_realizations)
         r = fr.base
         use_rep = self.spec.rep_step is not None
         extras = {**self.ctx.extras, "realization": r, "fault": fr,
-                  "fault_arrays": self.scen_arrays, "delivered": fr.recv_ok,
+                  "fault_arrays": self._arrays, "delivered": fr.recv_ok,
                   "repair": fm.repair}
         if use_rep:
             extras["innov_bits"] = float(self.spec.edge_bits(
                 self.ctx.hps, _n_coords(self.spec.params_of(state))))
-        ctx_t = self._ctx(self._mixer(r._replace(weights=fr.weights)), extras, draws)
+        ctx_t = self._step_ctx(self._mixer(r._replace(weights=fr.weights)), extras, draws)
         new_state, metrics = self._run_step(
             self.spec.rep_step if use_rep else self.spec.step, state, batch, ctx_t, r,
-            fr.delayed, fr.tau, fm.max_delay, aux.ring, k)
+            fr.delayed, fr.tau, fm.max_delay, ring, k)
         if fm.max_delay > 0:
-            metrics["stale_nodes"] = fr.delayed.sum().to(torch.int32)
+            metrics["stale_nodes"] = self._lane_sum(fr.delayed).to(torch.int32)
         metrics = self._realized_metrics(r, state, metrics)
         metrics = self._partition_metrics(k, new_state, metrics)
         metrics["col_defect"] = fr.col_defect
-        metrics["mean_drift"] = new_fs.drift
+        metrics["mean_drift"] = self._lane_stack([fs.drift for fs, _ in outs])
         metrics["dropped_msgs"] = fr.dropped.to(torch.float32)
-        metrics["crashed_nodes"] = new_fs.crashed.sum().to(torch.int32)
-        return new_state, metrics, flt_mod.FaultCarry(new_fs, aux.ring)
+        metrics["crashed_nodes"] = self._lane_stack([fs.crashed.sum().to(torch.int32)
+                                                     for fs, _ in outs])
+        return new_state, metrics, [flt_mod.FaultCarry(fs, None) for fs, _ in outs]
+
+
+class BoundAlgorithm(_NetworkSteps):
+    """An Algorithm closed over (grad_fn, topology, hps, mixer).
+
+    Without a dynamic scenario, ``step(state, batch)`` is a plain closure
+    the engine runs.  A dynamic `Scenario` makes it ``step(state, batch,
+    k)``; a `TemporalScenario`, a `FaultModel` or a `ServePacing`
+    ``step(state, batch, k, aux) -> (state, metrics, aux)`` with the carry
+    of `aux_init`.  Every form takes ``draws=`` (keys "scenario",
+    "temporal", "faults", "pacing": the draws of `scenarios.sample_masks`,
+    `temporal.advance`, `faults.advance_faults` and `ServePacing.advance`;
+    "algo": the algorithm step's own draws), which is how the parity tests
+    feed it the JAX package's.  The network steps are `_NetworkSteps`'
+    with one lane.
+    """
+
+    def __init__(self, spec: Algorithm, ctx: AlgoContext, device: torch.device,
+                 scenario: Optional[AnyScenario] = None,
+                 scen_arrays: Optional[scen_mod.ScenarioArrays] = None,
+                 mixing_mode: str = "sparse",
+                 faults: Optional[flt_mod.FaultModel] = None,
+                 pacing: Optional[ServePacing] = None,
+                 fault_key: Optional[int] = None, pace_key: Optional[int] = None):
+        self.spec = spec
+        self.ctx = ctx
+        self.device = device
+        self.scenario = scenario
+        self.scen_arrays = scen_arrays
+        self._arrays_dev = None if scen_arrays is None else scen_arrays.to(device)
+        self._mixing_mode = mixing_mode
+        self._lanes = None
+        self.faults = faults
+        if faults is not None and fault_key is None:
+            fault_key = int(faults.seed)
+        self.fault_key = fault_key
+        self.pacing = pacing
+        if pacing is not None and pace_key is None:
+            pace_key = int(pacing.process.seed)
+        self.pace_key = pace_key
+
+    @property
+    def hps(self) -> object:
+        return self.ctx.hps
+
+    @property
+    def _arrays(self) -> scen_mod.ScenarioArrays:
+        return self.scen_arrays
+
+    def _lane_nets(self) -> list:
+        return [(self.scen_arrays, self.fault_key, self.pace_key)]
+
+    def init(self, key: int, params_stacked, batch0=None):
+        if self.spec.needs_batch0 and batch0 is None:
+            raise ValueError(f"{self.name} needs batch0 at init")
+        if self.faulty and self.spec.rep_init is not None:
+            return self.spec.rep_init(key, params_stacked, self.ctx, batch0, self.scen_arrays)
+        return self.spec.init(key, params_stacked, self.ctx, batch0)
+
+    def aux_init(self, state, *, u: Optional[dict] = None):
+        """The initial carry: a `FaultCarry` for a fault bind, a
+        `TemporalCarry` (stationary Markov draws, the staleness ring seeded
+        with the state's parameters) for a temporal one, and for a paced
+        one a `PacedCarry` of a fresh event clock around the fault carry
+        (None without faults).  ``u`` injects the stationary draws."""
+        if not self.carries_aux:
+            raise TypeError(f"{self.name} is not bound to a TemporalScenario")
+        carry = self._lane_carry(self.scen_arrays, self.fault_key, self.pace_key, u)
+        return _with_ring(carry, temp_mod.ring_init(self.spec.params_of(state),
+                                                    self._ring_depth()))
+
+    def _ctx(self, draws: Optional[dict] = None) -> AlgoContext:
+        return self._step_ctx(self.ctx.mixer, self.ctx.extras, [draws or {}])
+
+    def step(self, state, batch, k: Optional[int] = None, aux=None, *,
+             draws: Optional[dict] = None):
+        draws = draws or {}
+        if not self.dynamic:
+            return self.spec.step(state, batch, self._ctx(draws))
+        if k is None:
+            raise TypeError(
+                f"{self.name} is bound to scenario {self.scenario.name!r}: "
+                "step(state, batch, k) needs the global step index"
+            )
+        if self.carries_aux and aux is None:
+            what = ("PacedCarry" if self.paced else "FaultCarry" if self.faulty
+                    else "TemporalCarry")
+            raise TypeError(f"{self.name}: step(state, batch, k, aux) needs the {what} "
+                            "(see aux_init)")
+        ring = None if aux is None else _ring_of(aux)
+        carry = None if aux is None else _with_ring(aux, None)
+        new_state, metrics, new = self._net_step(state, batch, int(k), [carry], ring, [draws])
+        if not self.carries_aux:
+            return new_state, metrics
+        return new_state, metrics, _with_ring(new[0], ring)
 
     # -- accounting and drivers -------------------------------------------
     def wire_bits(self, n: int) -> float:
@@ -762,7 +888,7 @@ def _fold_draws(per_lane: list) -> Optional[dict]:
     return out
 
 
-class BatchedAlgorithm:
+class BatchedAlgorithm(_NetworkSteps):
     """S seeds × C configs of one Algorithm as a single lane-batched step.
 
     Built by :meth:`Algorithm.bind_batched`.  State leaves are [L, m, ...]
@@ -773,14 +899,16 @@ class BatchedAlgorithm:
     ``draws=``: a list of L per-lane dicts in `BoundAlgorithm.step`'s
     format (how the parity tests feed each lane the reference's streams).
 
-    On a static network the step views the leaves as [L·m, ...] and runs
-    the algorithm once over them (`core.lanes`): per-lane keys, per-lane
-    values of the swept fields, each lane's config's topology arrays, and
-    a mixer over lane-offset tables, so each leaf's exchange is one launch
-    for all lanes.  Under a dynamic scenario, faults or pacing each lane
-    runs its own `BoundAlgorithm` step on its rows (its network, fault and
-    pace keys folded with its seed): bit for bit the same, but the
-    exchange launches once a lane.
+    The step views the leaves as [L·m, ...] and runs the algorithm once
+    over them (`core.lanes`): per-lane keys, per-lane values of the swept
+    fields, each lane's config's topology arrays, and a mixer over
+    lane-offset tables, so each leaf's exchange is one launch for all
+    lanes.  Under a dynamic scenario, a temporal one, faults or pacing the
+    same holds (`_NetworkSteps`): each lane draws its masks, chains, fault
+    carry and event clock from its own keys (its seed folded into the
+    network, fault and pace keys), and the realization they give is folded
+    over the L·m rows (`scenarios.fold_arrays`), with the staleness ring
+    as [D, L·m, ...] (the carry shows it lane first, [L, D, m, ...]).
 
     ``run``/``make_runner`` drive it through ``engine.make_scan_runner(
     lanes=L)``: per-lane stopping, [steps, L] metric buffers and per-lane
@@ -805,27 +933,9 @@ class BatchedAlgorithm:
         c, s_ = len(self.hps_list), len(self.seeds)
         self.lane_config = np.repeat(np.arange(c), s_)   # [L]
         self.lane_seed = np.asarray(self.seeds * c)      # [L]
-        self.scen_arrays = (None if scenario is None
-                            else scen_mod.make_scenario_arrays(topo, scenario))
-        if self.dynamic:
-            mixer = make_mixer(topo, mixing_mode, device=device)
-            self._bounds = []
-            for cfg, seed_ in zip(self.lane_config, self.lane_seed):
-                ctx = AlgoContext(grad_fn=grad_fn, topo=topo, hps=self.hps_list[cfg],
-                                  mixer=mixer, extras=extras_list[cfg])
-                # each seed's network, fault and request sample paths,
-                # shared across configs
-                arrays = self.scen_arrays._replace(key=fold_in(self.scen_arrays.key, seed_))
-                self._bounds.append(BoundAlgorithm(
-                    spec, ctx, device, scenario=scenario, scen_arrays=arrays,
-                    mixing_mode=mixing_mode, faults=faults, pacing=pacing,
-                    fault_key=None if faults is None else fold_in(int(faults.seed), seed_),
-                    pace_key=None if pacing is None else fold_in(int(pacing.process.seed),
-                                                                 seed_)))
-            self.ctx = self._bounds[0].ctx
-            return
-        # the static fold: per-lane values of the swept fields, each lane's
-        # config's setup arrays, the mixer's lane-offset tables
+        self._lanes = self.lanes
+        # per-lane values of the swept fields, each lane's config's setup
+        # arrays, the mixer's lane-offset tables
         hps = dataclasses.replace(self.hps_list[0], **{
             f: tuple(vals[cfg] for cfg in self.lane_config) for f, vals in swept.items()})
         extras = {}
@@ -839,39 +949,26 @@ class BatchedAlgorithm:
                                mixer=make_mixer(topo, mixing_mode, device=device,
                                                 lanes=self.lanes),
                                extras=extras)
+        self.scen_arrays = (None if scenario is None
+                            else scen_mod.make_scenario_arrays(topo, scenario))
+        if self.dynamic:
+            # each seed's network, fault and request sample paths, shared
+            # across configs; the tables folded over the lanes' rows
+            arrays = self.scen_arrays
+            self._nets = [(arrays._replace(key=fold_in(arrays.key, s)),
+                           None if faults is None else fold_in(int(faults.seed), s),
+                           None if pacing is None else fold_in(int(pacing.process.seed), s))
+                          for s in self.lane_seed]
+            self._arrays = scen_mod.fold_arrays(arrays, self.lanes)
+            self._arrays_dev = self._arrays.to(device)
 
     # -- grid geometry ------------------------------------------------------
-    @property
-    def name(self) -> str:
-        return self.spec.name
-
     @property
     def lanes(self) -> int:
         return len(self.hps_list) * len(self.seeds)
 
-    @property
-    def dynamic(self) -> bool:
-        return self.scenario is not None
-
-    @property
-    def temporal(self) -> bool:
-        return isinstance(self.scenario, temp_mod.TemporalScenario)
-
-    @property
-    def faulty(self) -> bool:
-        return self.faults is not None
-
-    @property
-    def paced(self) -> bool:
-        return self.pacing is not None
-
-    @property
-    def carries_aux(self) -> bool:
-        return self.temporal or self.faulty or self.paced
-
-    @property
-    def params_of(self) -> Callable:
-        return self.spec.params_of
+    def _lane_nets(self) -> list:
+        return self._nets
 
     # -- state and step -----------------------------------------------------
     def init(self, params0, m: int, batch0=None):
@@ -880,47 +977,48 @@ class BatchedAlgorithm:
         if self.spec.needs_batch0 and batch0 is None:
             raise ValueError(f"{self.name} needs batch0 at init")
         params0 = tree_map(lambda x: x.to(self.device), params0)
-        if self.dynamic:
-            return _stack_lanes([
-                b.init(int(s_), B.stack_params(params0, m), batch0)
-                for b, s_ in zip(self._bounds, self.lane_seed)])
         stacked = B.stack_params(params0, self.lanes * m)
-        state = self.spec.init(np.asarray(self.lane_seed, dtype=np.int64), stacked, self.ctx,
-                               batch0)
+        keys = np.asarray(self.lane_seed, dtype=np.int64)
+        if self.faulty and self.spec.rep_init is not None:
+            state = self.spec.rep_init(keys, stacked, self.ctx, batch0, self._arrays)
+        else:
+            state = self.spec.init(keys, stacked, self.ctx, batch0)
         return _unfold(state, self.lanes)
 
     def aux_init(self, state, *, u: Optional[list] = None):
-        """The lane-stacked auxiliary carry, each lane's from its own state
-        and keys; ``u`` injects each lane's stationary draws (a list)."""
+        """The lane-stacked auxiliary carry, each lane's from its own keys
+        and the staleness ring seeded with the state's parameters; ``u``
+        injects each lane's stationary draws (a list)."""
         if not self.carries_aux:
             raise TypeError(f"{self.name} carries no auxiliary state")
-        return _stack_lanes([
-            b.aux_init(_lane_of(state, lane), u=None if u is None else u[lane])
-            for lane, b in enumerate(self._bounds)])
+        aux = _stack_lanes([
+            self._lane_carry(arrays, fault_key, pace_key, None if u is None else u[lane])
+            for lane, (arrays, fault_key, pace_key) in enumerate(self._nets)])
+        ring = temp_mod.ring_init(_fold(self.spec.params_of(state)), self._ring_depth())
+        return _with_ring(aux, None if ring is None else tree_map(
+            lambda r: _unfold_ring(r, self.lanes), ring))
 
     def step(self, state, batch, k: Optional[int] = None, aux=None, *,
              draws: Optional[list] = None):
         """One step of every lane; the batch and the global step index are
         shared by the lanes."""
         if not self.dynamic:
-            ctx = self.ctx
-            algo = _fold_draws([d.get("algo") for d in draws] if draws else None)
-            if algo is not None:
-                ctx = dataclasses.replace(ctx, extras={**ctx.extras, "draws": algo})
+            ctx = self._step_ctx(self.ctx.mixer, self.ctx.extras, draws or [{}] * self.lanes)
             new_state, metrics = self.spec.step(_fold(state), batch, ctx)
             return _unfold(new_state, self.lanes), metrics
-        outs = []
-        for lane, b in enumerate(self._bounds):
-            args = (_lane_of(state, lane), batch, k)
-            if self.carries_aux:
-                args += (_lane_of(aux, lane),)
-            outs.append(b.step(*args, draws=None if draws is None else draws[lane]))
-        new_state = _stack_lanes([o[0] for o in outs])
-        metrics = {key: torch.stack([torch.as_tensor(o[1][key]) for o in outs])
-                   for key in outs[0][1]}
-        if self.carries_aux:
-            return new_state, metrics, _stack_lanes([o[2] for o in outs])
-        return new_state, metrics
+        draws = draws or [{}] * self.lanes
+        ring = None if aux is None else _ring_of(aux)
+        ring = None if ring is None else tree_map(_fold_ring, ring)
+        bare = None if aux is None else _with_ring(aux, None)
+        carries = [None if bare is None else _lane_of(bare, lane) for lane in range(self.lanes)]
+        new_state, metrics, new = self._net_step(_fold(state), batch, int(k), carries, ring,
+                                                 draws)
+        new_state = _unfold(new_state, self.lanes)
+        if not self.carries_aux:
+            return new_state, metrics
+        return new_state, metrics, _with_ring(_stack_lanes(new), None if ring is None else
+                                              tree_map(lambda r: _unfold_ring(r, self.lanes),
+                                                       ring))
 
     # -- accounting and drivers ---------------------------------------------
     def wire_bits(self, n: int) -> float:

@@ -97,10 +97,21 @@ class GradShift:
     """Per-node gradient-point shifts, JAX's ``grad_shift`` tree (fresh −
     delayed parameters) kept as the rows of the nodes it moves:
     ``rows[i]`` is node i's list of leaf rows in JAX leaf order; a node
-    without an entry is punctual (zero shift)."""
+    without an entry is punctual (zero shift).  `from_stacked` keeps the
+    moved rows of each leaf as one tensor as well (``index``, the rows'
+    indices on the leaves' device, and ``stacked``, one [n, ...] tensor a
+    leaf), and ``rows`` are views of it."""
 
     def __init__(self, rows: dict):
         self.rows = rows
+        self.index = self.stacked = None
+
+    @classmethod
+    def from_stacked(cls, nodes: Sequence[int], index: torch.Tensor,
+                     stacked: Sequence[torch.Tensor]) -> "GradShift":
+        shift = cls({i: [t[j] for t in stacked] for j, i in enumerate(nodes)})
+        shift.index, shift.stacked = index, list(stacked)
+        return shift
 
 
 def _as_shift(grad_shift, n_leaves: int) -> Optional[GradShift]:

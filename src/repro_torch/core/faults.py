@@ -38,6 +38,14 @@ surrogate): the state's own tensor, which `mix_replicated` contracts
 through the gossip kernel in place; the states' `hats` / `reps` (`h`,
 `h_reps`, `z`, `z_reps`) are views of it, JAX's fields.
 
+Lanes (`core.lanes`): each lane advances its own fault chain from its own
+key (`advance_faults` on its base arrays), `fold_realizations` stacks the
+lanes' outcomes over L·m rows, and the `rep_*` steps run on a folded
+state over folded arrays (`core.scenarios.fold_arrays`): a held leaf
+[L·m, d + 1, ...] is read as L·m·(d + 1) sender rows, so lane l's block
+starts at row l·m·(d + 1) and one gossip launch a leaf mixes every lane's
+replicas; the wire, repair and desync metrics come back [L].
+
 Randomness: JAX splits fold_in(key, k) four ways (loss, burst, crash,
 delay); the port draws from `fold_in(fold_in(seed, k), tag)` with tags 0–3
 in those roles and its stationary link draw from the JAX fold constant.
@@ -55,9 +63,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import baselines as B
+from repro_torch.core import lanes as LN
 from repro_torch.core.compression import Compressor
 from repro_torch.core.mixing import mix_replicated
 from repro_torch.core.pme import fold_in, message_bits
+from repro_torch.core import scenarios as scen_mod
 from repro_torch.core.scenarios import (
     Realization,
     ScenarioArrays,
@@ -79,6 +89,7 @@ __all__ = [
     "fault_state_init",
     "fault_carry_init",
     "advance_faults",
+    "fold_realizations",
     "fault_matrix",
     "RepChocoState", "rep_choco_init", "rep_choco_step",
     "RepBeerState", "rep_beer_init", "rep_beer_step",
@@ -261,6 +272,17 @@ def advance_faults(model: FaultModel, arrays: ScenarioArrays, fs: FaultState, ke
     return new_fs, fr
 
 
+def fold_realizations(frs) -> FaultRealization:
+    """L lanes' outcomes over their L·m rows: the base realizations folded
+    (`scenarios.fold_realizations`), the per-row masks, weights and delays
+    concatenated, ``dropped`` and ``col_defect`` [L]."""
+    return FaultRealization(
+        base=scen_mod.fold_realizations([fr.base for fr in frs]),
+        **{f: torch.cat([getattr(fr, f) for fr in frs])
+           for f in ("recv_ok", "weights", "delayed", "tau")},
+        **{f: torch.stack([getattr(fr, f) for fr in frs]) for f in ("dropped", "col_defect")})
+
+
 def fault_matrix(arrays: ScenarioArrays, fr: FaultRealization) -> torch.Tensor:
     """The faulted [m, m] matrix (row i = receiver i): row-stochastic,
     column-defective by the lost mass."""
@@ -307,15 +329,17 @@ def _deliver_stream(rep: torch.Tensor, q: torch.Tensor, own_new: torch.Tensor,
         rep[i, s].copy_(own_new[j])
 
 
-def _desync(arrays: ScenarioArrays, reps, own) -> torch.Tensor:
-    """Σ over real base links of ||replica − sender's surrogate||²."""
-    tot = torch.zeros((), dtype=torch.float32)
+def _desync(arrays: ScenarioArrays, reps, own, lanes: Optional[int] = None) -> torch.Tensor:
+    """Σ over real base links of ||replica − sender's surrogate||²; [L]
+    over folded arrays, each lane's links summed in its unbatched order."""
+    m = arrays.m // (lanes or 1)
+    tots = [torch.zeros((), dtype=torch.float32)] * (lanes or 1)
     links = _links(arrays, arrays.valid)
     for rep, o in zip(tree_leaves(reps), tree_leaves(own)):
-        tot = tot.to(rep.device)
+        tots = [t.to(rep.device) for t in tots]
         for i, s, j in links:
-            tot = tot + torch.sum((rep[i, s] - o[j]).to(torch.float32) ** 2)
-    return tot
+            tots[i // m] = tots[i // m] + torch.sum((rep[i, s] - o[j]).to(torch.float32) ** 2)
+    return tots[0] if lanes is None else torch.stack(tots)
 
 
 def _n_total(params_stacked) -> int:
@@ -323,22 +347,29 @@ def _n_total(params_stacked) -> int:
 
 
 def _link_traffic(arrays: ScenarioArrays, fr: FaultRealization, pending: torch.Tensor,
-                  repair: bool, innov_bits: float, repair_streams: int, n: int):
+                  repair: bool, innov_bits: float, repair_streams: int, n: int,
+                  lanes: Optional[int] = None):
     """(wire_bits, repair_bits, new pending): innovations charged on every
     realized non-pending directed link (lost or not), one full Eq.-(8)
     message per stream on every realized pending link; afterwards pending
-    is every real base link that did not deliver this round."""
+    is every real base link that did not deliver this round.  The bits
+    are [L] over folded arrays."""
     ea = fr.base.edge_alive
+
+    def count(mask):
+        return (mask.sum() if lanes is None
+                else mask.reshape(lanes, -1).sum(dim=1)).to(torch.float32)
+
     full = float(message_bits(n, n, 64)) * float(repair_streams)
     if repair:
-        n_repair = (pending & ea).sum().to(torch.float32)
-        n_normal = (ea & ~pending).sum().to(torch.float32)
+        n_repair = count(pending & ea)
+        n_normal = count(ea & ~pending)
         new_pending = arrays.valid.cpu() & ~fr.recv_ok
         repair_bits = full * n_repair
     else:
-        n_normal = ea.sum().to(torch.float32)
+        n_normal = count(ea)
         new_pending = pending
-        repair_bits = torch.zeros((), dtype=torch.float32)
+        repair_bits = torch.zeros(() if lanes is None else (lanes,), dtype=torch.float32)
     return float(innov_bits) * n_normal + repair_bits, repair_bits, new_pending
 
 
@@ -364,10 +395,13 @@ class RepChocoState(NamedTuple):
         return _replicas(self.held)
 
 
-def rep_choco_init(key: int, params_stacked, arrays: ScenarioArrays) -> RepChocoState:
+def rep_choco_init(key, params_stacked, arrays: ScenarioArrays) -> RepChocoState:
+    """A fresh replicated state; a per-lane key (int64 [L]) starts L lanes
+    folded over the rows of `arrays` (`scenarios.fold_arrays`)."""
     m, d = arrays.nbrs.shape
+    step, key = B._start(key)
     return RepChocoState(params_stacked, _held_zeros(params_stacked, d),
-                         torch.zeros((m, d), dtype=torch.bool), 0, int(key))
+                         torch.zeros((m, d), dtype=torch.bool), step, key)
 
 
 def rep_choco_step(state: RepChocoState, batch, grad_fn, lr: float, comp: Compressor,
@@ -380,13 +414,14 @@ def rep_choco_step(state: RepChocoState, batch, grad_fn, lr: float, comp: Compre
     x̂ += q; deliver q to the replicas; x += γ(mix(replicas, x̂) − x̂).
     ``draws={"q": [...]}`` (JAX tag 7)."""
     d = arrays.nbrs.shape[1]
-    key = fold_in(state.key, state.step)
+    lanes = LN.count(state.key)
+    key = LN.fold(state.key, state.step)
     xs, treedef = tree_flatten(state.params)
     held = tree_leaves(state.held)
     losses = B._grads_inplace(grad_fn, xs, treedef, batch, key, lr,
                               B._as_shift(grad_shift, len(xs)))
     w_off, self_w = _weights(fr, d, xs[0].device)
-    k_q = fold_in(key, 7)
+    k_q = LN.fold(key, 7)
     with torch.no_grad():
         for idx, (x, hr) in enumerate(zip(xs, held)):
             h = hr[:, -1]
@@ -395,15 +430,15 @@ def rep_choco_step(state: RepChocoState, batch, grad_fn, lr: float, comp: Compre
             _deliver_stream(hr[:, :-1], q, h, arrays, fr.recv_ok, state.pending, repair)
             del q
             mixed = mix_replicated(w_off, self_w, hr)
-            x.add_(mixed.sub_(h).mul_(gossip_gamma))
+            x.add_(LN.scale_(mixed.sub_(h), gossip_gamma, key))
             del mixed
     wire_bits, repair_bits, pending = _link_traffic(
-        arrays, fr, state.pending, repair, innov_bits, 1, _n_total(state.params))
+        arrays, fr, state.pending, repair, innov_bits, 1, _n_total(state.params), lanes)
     metrics = {
         "loss_mean": B._mean(losses, key),
         "wire_bits": wire_bits,
         "repair_bits": repair_bits,
-        "surrogate_desync": _desync(arrays, state.reps, state.hats),
+        "surrogate_desync": _desync(arrays, state.reps, state.hats, lanes),
     }
     return (RepChocoState(state.params, state.held, pending, state.step + 1, state.key),
             metrics)
@@ -437,13 +472,14 @@ class RepBeerState(NamedTuple):
         return _replicas(self.z_held)
 
 
-def rep_beer_init(key: int, params_stacked, batch0, grad_fn,
+def rep_beer_init(key, params_stacked, batch0, grad_fn,
                   arrays: ScenarioArrays) -> RepBeerState:
     m, d = arrays.nbrs.shape
-    g0 = B._stacked_grads(grad_fn, params_stacked, batch0, int(key))
+    step, key = B._start(key)
+    g0 = B._stacked_grads(grad_fn, params_stacked, batch0, key)
     return RepBeerState(params_stacked, _held_zeros(params_stacked, d), g0,
                         _held_zeros(params_stacked, d), tree_map(torch.clone, g0),
-                        torch.zeros((m, d), dtype=torch.bool), 0, int(key))
+                        torch.zeros((m, d), dtype=torch.bool), step, key)
 
 
 def rep_beer_step(state: RepBeerState, batch, grad_fn, lr: float, comp: Compressor,
@@ -459,18 +495,19 @@ def rep_beer_step(state: RepBeerState, batch, grad_fn, lr: float, comp: Compress
     message: one pending flag, a repair sends 2 full messages.
     ``draws={"h": [...], "z": [...]}`` (JAX tags 3 and 5)."""
     d = arrays.nbrs.shape[1]
-    key = fold_in(state.key, state.step)
+    lanes = LN.count(state.key)
+    key = LN.fold(state.key, state.step)
     xs, treedef = tree_flatten(state.params)
     hhs, gs, zhs, ps = (tree_leaves(t) for t in (
         state.h_held, state.g, state.z_held, state.prev_grad))
     shift = B._as_shift(grad_shift, len(xs))
     w_off, self_w = _weights(fr, d, xs[0].device)
-    k_h, k_z = fold_in(key, 3), fold_in(key, 5)
+    k_h, k_z = LN.fold(key, 3), LN.fold(key, 5)
     with torch.no_grad():
         for idx, (x, hh, g) in enumerate(zip(xs, hhs, gs)):
             h = hh[:, -1]
             mh = mix_replicated(w_off, self_w, hh).sub_(h)
-            x.add_(mh.mul_(gossip_gamma)).sub_(g * lr)
+            x.add_(LN.scale_(mh, gossip_gamma, key)).sub_(LN.scaled(g, lr, key))
             del mh
             qh = B._compressed_diff(comp, k_h, idx, x, h, B._draw(draws, "h", idx))
             h.add_(qh)
@@ -479,12 +516,13 @@ def rep_beer_step(state: RepBeerState, batch, grad_fn, lr: float, comp: Compress
         for zh, g, gp in zip(zhs, gs, ps):
             z = zh[:, -1]
             mz = mix_replicated(w_off, self_w, zh).sub_(z)
-            g.add_(mz.mul_(gossip_gamma)).sub_(gp)
+            g.add_(LN.scale_(mz, gossip_gamma, key)).sub_(gp)
             del mz
     losses = []
-    for i in range(xs[0].shape[0]):
+    rows, m = B._rows(xs, key)
+    for i in range(rows):
         loss, gn = B._node_grad(grad_fn, B._point([x[i] for x in xs], shift, i), treedef,
-                                batch, i, fold_in(key, i))
+                                batch, i % m, LN.node_key(key, i, m))
         losses.append(loss)
         with torch.no_grad():
             for g, gp, gi in zip(gs, ps, gn):
@@ -499,8 +537,9 @@ def rep_beer_step(state: RepBeerState, batch, grad_fn, lr: float, comp: Compress
             _deliver_stream(zh[:, :-1], qz, z, arrays, fr.recv_ok, state.pending, repair)
             del qz
     wire_bits, repair_bits, pending = _link_traffic(
-        arrays, fr, state.pending, repair, innov_bits, 2, _n_total(state.params))
-    desync = _desync(arrays, state.h_reps, state.h) + _desync(arrays, state.z_reps, state.z)
+        arrays, fr, state.pending, repair, innov_bits, 2, _n_total(state.params), lanes)
+    desync = (_desync(arrays, state.h_reps, state.h, lanes)
+              + _desync(arrays, state.z_reps, state.z, lanes))
     metrics = {"loss_mean": B._mean(losses, key), "wire_bits": wire_bits,
                "repair_bits": repair_bits, "surrogate_desync": desync}
     return (RepBeerState(state.params, state.h_held, state.g, state.z_held, state.prev_grad,
@@ -520,14 +559,15 @@ class RepNidsState(NamedTuple):
     key: int
 
 
-def rep_nids_init(key: int, params_stacked, arrays: ScenarioArrays) -> RepNidsState:
+def rep_nids_init(key, params_stacked, arrays: ScenarioArrays) -> RepNidsState:
     m, d = arrays.nbrs.shape
+    step, key = B._start(key)
     zeros = lambda: tree_map(torch.zeros_like, params_stacked)  # noqa: E731
     rep = lambda: tree_map(  # noqa: E731
         lambda x: torch.zeros((m, d) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device),
         params_stacked)
     return RepNidsState(params_stacked, zeros(), zeros(), zeros(), rep(), rep(),
-                        torch.zeros((m, d), dtype=torch.bool), 0, int(key))
+                        torch.zeros((m, d), dtype=torch.bool), step, key)
 
 
 def rep_nids_step(state: RepNidsState, batch, grad_fn, lr: float, comp: Compressor,
@@ -543,7 +583,8 @@ def rep_nids_step(state: RepNidsState, batch, grad_fn, lr: float, comp: Compress
     overwrite; x = z + (mix(½w_off, ½(1 + w_ii)) − v); c += z.
     ``draws={"q": [...]}`` (JAX tag 11)."""
     m, d = arrays.nbrs.shape
-    key = fold_in(state.key, state.step)
+    lanes = LN.count(state.key)
+    key = LN.fold(state.key, state.step)
     xs, treedef = tree_flatten(state.params)
     cs, hzs, hcs, zrs, crs = (tree_leaves(t) for t in (
         state.c, state.hat_z, state.hat_c, state.z_reps, state.c_reps))
@@ -552,7 +593,7 @@ def rep_nids_step(state: RepNidsState, batch, grad_fn, lr: float, comp: Compress
     w_off, self_w = _weights(fr, d, xs[0].device)
     w_half, self_half = 0.5 * w_off, 0.5 * (1.0 + self_w)
     fixed = _links(arrays, fr.recv_ok & state.pending) if repair else []
-    k_q = fold_in(key, 11)
+    k_q = LN.fold(key, 11)
     with torch.no_grad():
         for idx, (z, c, hz, hc, zr, cr) in enumerate(zip(xs, cs, hzs, hcs, zrs, crs)):
             rest = tuple(z.shape[1:])
@@ -575,9 +616,9 @@ def rep_nids_step(state: RepNidsState, batch, grad_fn, lr: float, comp: Compress
             z.add_(corr)
             del corr
     wire_bits, repair_bits, pending = _link_traffic(
-        arrays, fr, state.pending, repair, innov_bits, 2, _n_total(state.params))
-    desync = (_desync(arrays, state.z_reps, state.hat_z)
-              + _desync(arrays, state.c_reps, state.hat_c))
+        arrays, fr, state.pending, repair, innov_bits, 2, _n_total(state.params), lanes)
+    desync = (_desync(arrays, state.z_reps, state.hat_z, lanes)
+              + _desync(arrays, state.c_reps, state.hat_c, lanes))
     metrics = {"loss_mean": B._mean(losses, key), "wire_bits": wire_bits,
                "repair_bits": repair_bits, "surrogate_desync": desync}
     return (RepNidsState(state.params, state.c, state.hat_z, state.hat_c, state.z_reps,

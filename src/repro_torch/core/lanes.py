@@ -18,7 +18,9 @@ row r is node r % m of lane r // m.  What keeps the lanes apart:
     included, is offset by l·m (`offset_rows`, used by
     `core.mixing.fold_padded` and `core.pame.fold_topology_arrays`), so
     no lane reads another lane's rows — not even through a weight of 0.0,
-    which would carry a NaN across.
+    which would carry a NaN across.  A dynamic network's realization is
+    folded the same way (`core.scenarios.fold_arrays`), each lane's rows
+    drawn from its own keys.
 
 An unbatched state (int step and key) is one lane of all its rows, and
 every helper here then reduces to the unbatched arithmetic.

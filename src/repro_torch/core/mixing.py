@@ -46,8 +46,10 @@ slot of lane l's rows by l·m, padding slots included, so a padding slot
 repeats the receiver's own row in its own lane and a weight of 0.0 never
 multiplies another lane's value (a NaN in one lane stays there).  The
 tables are built once, with the mixer, and one launch a leaf covers all
-lanes.  The "matrix" mode contracts lane by lane with the [m, m] matrix;
-it never builds a block-diagonal [L·m, L·m] one.
+lanes.  The "matrix" mode contracts lane by lane with the [m, m] matrix
+(or, for a dynamic network's folded realization, lane l by its own
+[m, m] matrix, ``b`` [L, m, m]); it never builds a block-diagonal
+[L·m, L·m] one.
 
 Two helpers serve the temporal and fault paths:
 
@@ -259,7 +261,9 @@ def _dense_padded(bmat: torch.Tensor) -> PaddedMixing:
 
 def _einsum(mat: torch.Tensor, x: torch.Tensor, lanes: int = 1) -> torch.Tensor:
     """out_i = sum_j mat_ji x_j in x's type; with lanes, each lane's m rows
-    by the [m, m] `mat` on their own."""
+    by the [m, m] `mat` on their own, or by its own `mat[l]` ([L, m, m])."""
+    if mat.dim() == 3:
+        return torch.cat([_einsum(ml, xl) for ml, xl in zip(mat, x.chunk(mat.shape[0]))])
     if lanes == 1:
         return torch.einsum("ji,j...->i...", mat.to(x.dtype), x)
     return torch.cat([_einsum(mat, xl) for xl in x.chunk(lanes)])
@@ -269,7 +273,8 @@ def _einsum(mat: torch.Tensor, x: torch.Tensor, lanes: int = 1) -> torch.Tensor:
 class Mixer:
     """Gossip operator with interchangeable dense / sparse implementations.
 
-    `b` is the dense [m, m] matrix (reference and wire accounting), `pm` the
+    `b` is the dense [m, m] matrix ([L, m, m], one a lane, for a folded
+    realization; reference and wire accounting), `pm` the
     padded form the "dense" / "sparse" modes gather over, and `impl` the
     neighbour contraction ("slots" | "segsum" | "kernel" | None =
     `default_impl` for the tensors' device).  Every method takes a pytree
@@ -286,7 +291,8 @@ class Mixer:
 
     @property
     def m(self) -> int:
-        return self.pm.m if self.b is None else self.b.shape[0]
+        """Nodes of one lane's matrix (`b`), else rows of the table."""
+        return self.pm.m if self.b is None else self.b.shape[-1]
 
     def _eye(self) -> torch.Tensor:
         return torch.eye(self.m, dtype=self.b.dtype, device=self.b.device)
@@ -318,9 +324,9 @@ class Mixer:
         traffic moves through the lossy surrogates."""
         if self.mode == "matrix":
             a_tilde = 0.5 * (self._eye() + self.b)
-            diag = torch.diagonal(a_tilde)
-            off = a_tilde - torch.diag(diag)
-            diag = diag.repeat(self.lanes)
+            diag = torch.diagonal(a_tilde, dim1=-2, dim2=-1)
+            off = a_tilde - torch.diag_embed(diag)
+            diag = diag.reshape(-1) if diag.dim() == 2 else diag.repeat(self.lanes)
             return tree_map(lambda uh, ue: _einsum(off, uh, self.lanes) + ue * _bcast(diag, ue),
                             hats, u)
         sw = self.pm.self_weight  # B_ii

@@ -21,7 +21,11 @@ lane and the lane-offset tables of all of them), `pame_step` steps L lanes
 folded into [L·m, ...] leaves, the state's key, step and sigma per lane:
 each lane draws its selection and masks from its own key on its own m-node
 arrays, takes its own t_i, kappa_i and gamma, and reports its own metrics
-([L]); the exchange is one call a leaf for all lanes.
+([L]); the exchange is one call a leaf for all lanes.  On a dynamic
+network the realization, the self view and the delivery masks are folded
+over the same rows (`core.scenarios.fold_arrays`): each lane's receivers
+are gated by its own rows of the realization, and its realized wire bits
+come back [L].
 """
 from __future__ import annotations
 
@@ -205,15 +209,13 @@ def pame_step(
     its [L·m, ...] rows (key and step int64 [L], per-lane tuples for the
     swept floats of `cfg`); draws are then folded too (``sel``, ``masks``
     and ``offsets`` concatenated over the lanes' rows, ``a`` [L, m, m]),
-    and the metrics come back [L].  Dynamic networks take one lane a step
-    (`core.algorithms.BatchedAlgorithm` steps them lane by lane)."""
+    and the metrics come back [L].  A dynamic network's `realization`,
+    `self_params` and `delivered` are folded over the same L·m rows."""
     if param_shardings is not None:
         _not_ported("param_shardings")
     if cfg.exchange not in ("dense", "compressed", "compressed_q8"):
         raise ValueError(f"unknown exchange {cfg.exchange!r}")
     batched = isinstance(topo, LaneTopologyArrays)
-    if batched and not (realization is None and self_params is None and delivered is None):
-        raise NotImplementedError("a lane-batched PaME step takes a static network")
     lane_arrays = topo.lanes if batched else (topo,)
     n_lanes = len(lane_arrays)
     m = lane_arrays[0].nbrs.shape[0]
@@ -230,18 +232,21 @@ def pame_step(
         rate = cfg.p
 
     comm = [(st % ta.kappa) == 0 for st, ta in zip(steps, lane_arrays)]  # k in K_i
-    survivors = None
+    rows = LN.lane_slices(n_lanes * m, state.key)
+    survivors = [None] * n_lanes
     if realization is not None:
         # offline / straggling receivers skip the exchange; senders are
-        # filtered through the realized edge set
-        comm[0] = comm[0] & realization.participating.to(device)
-        survivors = realization.edge_alive.to(device)
+        # filtered through the realized edge set (each lane its own rows)
+        part, alive_edges = (realization.participating.to(device),
+                             realization.edge_alive.to(device))
+        comm = [c & part[sl] for c, sl in zip(comm, rows)]
+        survivors = [alive_edges[sl] for sl in rows]
 
     def lanewise(sample):
         """Each lane's selection from its own key, on its own m-node arrays."""
         return [sample(pme.make_generator(k, device), ta.nbrs, ta.valid, ta.t, c,
-                       survivors=survivors)
-                for k, ta, c in zip(LN.keys(k_sel), lane_arrays, comm)]
+                       survivors=sv)
+                for k, ta, c, sv in zip(LN.keys(k_sel), lane_arrays, comm, survivors)]
 
     if cfg.exchange == "dense" and cfg.mixing == "sparse":
         # padded neighbour exchange: the [m, m] selection matrix is never built
@@ -249,7 +254,7 @@ def pame_step(
         if sel is None:
             sel = torch.cat(lanewise(pme.sample_neighbor_selection_padded))
         sel = sel.to(device)
-        n_messages = sel.sum()
+        n_messages = sel.reshape(n_lanes, -1).sum(dim=1)
         if delivered is not None:
             sel = sel & delivered.to(device)
         v_bar = pme.pme_average_pytree_padded(
@@ -268,7 +273,7 @@ def pame_step(
             a = torch.stack(lanewise(pme.sample_neighbor_selection))
             a = a if batched else a[0]
         a = a.to(device)
-        n_messages = a.sum()
+        n_messages = a.reshape(n_lanes, -1).sum(dim=1)
         if cfg.exchange == "dense":
             v_bar = pme.pme_average_pytree(
                 k_mask, state.params, a, rate, mode=cfg.mask_mode,
@@ -308,7 +313,6 @@ def pame_step(
 
     # per lane: consensus error ||W - Pi||_F^2 (metric of Lemma 6) and the
     # penalty's growth sigma <- gamma * sigma
-    rows = LN.lane_slices(n_lanes * m, state.key)
     consensus = [sum(torch.sum((x[sl] - x[sl].mean(dim=0, keepdim=True)) ** 2).float()
                      for x in leaves) for sl in rows]
     sigma = [state.sigma[sl] * LN.lane_value(cfg.gamma, lane) for lane, sl in enumerate(rows)]
@@ -338,7 +342,8 @@ def pame_step(
         else:
             n_total = sum(sizes)
             bits = pme.message_bits(max(1, int(round(cfg.p * n_total))), n_total, value_bits)
-        metrics["wire_bits"] = n_messages.to(torch.float32) * float(bits)
+        wire = n_messages.to(torch.float32) * float(bits)
+        metrics["wire_bits"] = wire if batched else wire[0]
     return new_state, metrics
 
 

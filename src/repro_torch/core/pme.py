@@ -23,7 +23,9 @@ Lanes (`core.lanes`): the pytree-level functions also take one key per
 lane (an int64 ndarray [L]) over [L·m, ...] leaves, each lane's masks drawn from its own
 key for its own m rows; the dense exchange then takes an [L, m, m]
 selection, one [m, m] a lane, and sends a leaf of at least 2^17 elements
-a lane to the kernel's lane axis in one launch.
+a lane to the kernel's lane axis in one launch; a self view
+(``self_params``, the temporal and fault steps' fresh parameters) is
+folded like the leaves, and each lane fills from its own rows.
 """
 from __future__ import annotations
 
@@ -235,15 +237,14 @@ def pme_average_pytree(
     gives each leaf its own keep fraction.  `self_params` overrides the
     receiver's own view for the lambda = 0 fallback.  An [L, m, m]
     selection averages L lanes folded into the leaves' rows, each over its
-    own m rows (masks drawn lane by lane from an ndarray of keys); on the card
-    an exact-mode leaf of at least 2^17 elements a lane takes the kernel's
-    lane axis, one launch for all lanes.
+    own m rows (masks drawn lane by lane from an ndarray of keys, the
+    self view folded like the leaves); on the card an exact-mode leaf of
+    at least 2^17 elements a lane takes the kernel's lane axis, one launch
+    for all lanes.
     """
     leaves, treedef = tree_flatten(params)
     self_leaves = leaves if self_params is None else tree_flatten(self_params)[0]
     lanes = a.shape[0] if a.dim() == 3 else None
-    if lanes is not None and self_params is not None:
-        raise NotImplementedError("self_params takes one lane (an [m, m] selection)")
     rows = leaves[0].shape[0]
     m = rows // (lanes or 1)
     per_leaf = isinstance(p, (tuple, list))
@@ -276,8 +277,10 @@ def pme_average_pytree(
                     avg = pme_average_fused(flat.contiguous().view(lanes, m, n),
                                             mk.contiguous().view(lanes, m, n), a)
             elif lanes is not None:
-                avg = torch.cat([pme_average(w_l, mk_l, a_l) for w_l, mk_l, a_l in
-                                 zip(flat.chunk(lanes), mk.chunk(lanes), a)])
+                owns = ([None] * lanes if self_params is None
+                        else own.reshape(rows, -1).chunk(lanes))
+                avg = torch.cat([pme_average(w_l, mk_l, a_l, own=o_l) for w_l, mk_l, a_l, o_l in
+                                 zip(flat.chunk(lanes), mk.chunk(lanes), a, owns)])
             elif self_params is None:
                 avg = pme_average(flat, mk, a)
             else:

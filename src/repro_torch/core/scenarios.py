@@ -41,6 +41,19 @@ probabilities as JAX does (``uniform < p`` for Bernoulli draws).
 Sparse and dense scenario mixers agree to fp tolerance only (the
 neighbours-then-self layout is not the ascending order of
 `Topology.mixing_padded`), as in JAX.
+
+Lanes (`core.lanes`): `fold_arrays` stacks L copies of the base graph
+over L·m rows, every slot of lane l (padding and self slots included)
+offset by l·m, so that no lane's row reads another lane's, not even at
+weight 0 (0·NaN is NaN).  Each lane draws its own masks (`sample_masks`
+with its own key) and `realization_from_masks` builds the folded
+`Realization` from the concatenated masks in one pass (the arithmetic is
+row by row, so each lane's rows are bit for bit its unbatched ones), or
+`fold_realizations` stacks realizations built lane by lane.  A folded
+realization's ``directed_edges`` is [L]; `scenario_mixer`,
+`realization_matrix`, `dropped_rows` / `restore_rows` /
+`freeze_dropped`, `active_components` and `component_stats` (``lanes=``)
+take it.
 """
 from __future__ import annotations
 
@@ -50,7 +63,8 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.mixing import Mixer, PaddedMixing, _dense_padded
+from repro_torch.core import lanes as LN
+from repro_torch.core.mixing import Mixer, PaddedMixing, _dense_padded, fold_padded
 from repro_torch.core.pme import fold_in, make_generator
 from repro_torch.core.topology import Topology
 from repro_torch.tree import tree_flatten, tree_unflatten
@@ -64,6 +78,8 @@ __all__ = [
     "get_scenario",
     "list_scenarios",
     "make_scenario_arrays",
+    "fold_arrays",
+    "fold_realizations",
     "partition_components",
     "active_components",
     "component_stats",
@@ -188,9 +204,11 @@ class ScenarioArrays(NamedTuple):
     part_cut: Optional[torch.Tensor] = None     # [P, m, d] bool — cut edges
     part_bounds: Optional[Tuple[Tuple[int, int], ...]] = None  # (start, heal)
     part_comp: Optional[torch.Tensor] = None    # [P, m] int32 component ids
+    lanes: Optional[int] = None  # L for L lanes folded over L·m rows (`fold_arrays`)
 
     @property
     def m(self) -> int:
+        """Rows of the table: the nodes, or L·m for folded arrays."""
         return self.nbrs.shape[0]
 
     def to(self, device) -> "ScenarioArrays":
@@ -200,14 +218,35 @@ class ScenarioArrays(NamedTuple):
                              part_cut=mv(self.part_cut), part_comp=mv(self.part_comp))
 
 
+def fold_arrays(arrays: ScenarioArrays, lanes: int) -> ScenarioArrays:
+    """L copies of the base `arrays` over L·m rows: every slot of lane l,
+    padding and the self slot included, offset by l·m (`core.lanes`); the
+    masks and partition maps repeated lane by lane."""
+    rep = lambda t: None if t is None else t.repeat(lanes, 1)  # noqa: E731
+    part = lambda t: None if t is None else t.repeat(  # noqa: E731
+        (1, lanes) + (1,) * (t.dim() - 2))
+    return arrays._replace(
+        nbrs=LN.offset_rows([arrays.nbrs] * lanes), valid=rep(arrays.valid),
+        nbrs_full=LN.offset_rows([arrays.nbrs_full] * lanes), is_self=rep(arrays.is_self),
+        part_cut=part(arrays.part_cut), part_comp=part(arrays.part_comp), lanes=lanes)
+
+
 class Realization(NamedTuple):
-    """One step's network state (CPU tensors)."""
+    """One step's network state (CPU tensors).  Folded over L lanes
+    (`fold_arrays`), the rows are L·m and ``directed_edges`` is [L]."""
 
     edge_alive: torch.Tensor      # [m, d] bool — realized bidirectional edges
     alive: torch.Tensor           # [m] bool — node not dropped by churn
     participating: torch.Tensor   # [m] bool — alive and not a straggler
     weights: torch.Tensor         # [m, d+1] f32 — per-slot receive weights
     directed_edges: torch.Tensor  # int32 scalar — realized directed edges
+
+
+def fold_realizations(rs) -> Realization:
+    """L lanes' realizations as one over their L·m rows (lane l's rows
+    l·m ... l·m + m − 1), ``directed_edges`` [L]."""
+    return Realization(*(torch.cat(xs) for xs in list(zip(*rs))[:4]),
+                       directed_edges=torch.stack([r.directed_edges for r in rs]))
 
 
 def partition_components(topo: Topology, window: PartitionWindow) -> np.ndarray:
@@ -295,7 +334,8 @@ def realization_from_masks(arrays: ScenarioArrays, edge_up: torch.Tensor,
     w_ij = 1/(1 + max(d_i, d_j)) on realized edges over the realized
     degrees, the self slot takes the rest.  Symmetric mask and formula,
     so the matrix is symmetric and doubly stochastic; non-participants
-    self-loop with weight exactly 1."""
+    self-loop with weight exactly 1.  Over folded arrays the masks are
+    the lanes' concatenated ([L·m, d], [L·m]) and so is the result."""
     nbrs = arrays.nbrs.cpu()
     edge_up, alive, straggler = (t.cpu().bool() for t in (edge_up, alive, straggler))
     participating = alive & ~straggler
@@ -306,12 +346,14 @@ def realization_from_masks(arrays: ScenarioArrays, edge_up: torch.Tensor,
         torch.zeros((), dtype=torch.float32),
     ).to(torch.float32)
     self_w = 1.0 - _row_sum(w_off)
+    lanes = arrays.lanes
     return Realization(
         edge_alive=edge_alive,
         alive=alive,
         participating=participating,
         weights=torch.cat([w_off, self_w[:, None]], dim=1),
-        directed_edges=edge_alive.sum().to(torch.int32),
+        directed_edges=(edge_alive.sum() if lanes is None
+                        else edge_alive.reshape(lanes, -1).sum(dim=1)).to(torch.int32),
     )
 
 
@@ -382,8 +424,9 @@ def realize(scenario: Scenario, arrays: ScenarioArrays, k: int, *,
 
 
 def active_components(arrays: ScenarioArrays, k: int) -> torch.Tensor:
-    """Per-node component id at step k ([m] int32): zeros outside every
-    window, the open window's map inside one."""
+    """Per-node component id at step k ([m] int32, [L·m] over folded
+    arrays): zeros outside every window, the open window's map inside
+    one."""
     if arrays.part_bounds is not None:
         for p, (start, heal) in enumerate(arrays.part_bounds):
             if start <= int(k) < heal:
@@ -409,7 +452,8 @@ def _component_sums(comp: torch.Tensor, x: torch.Tensor, n_comp: int):
     return within, gap2, counts
 
 
-def component_stats(comp: torch.Tensor, x, n_comp: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def component_stats(comp: torch.Tensor, x, n_comp: int, lanes: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(comp_consensus, comp_mean_gap) of the node-stacked parameters:
     the mean over nodes of ||x_i − x̄_comp(i)||² (within-component
     disagreement) and the largest ||x̄_c − x̄_global||₂ over non-empty
@@ -417,8 +461,16 @@ def component_stats(comp: torch.Tensor, x, n_comp: int) -> Tuple[torch.Tensor, t
     as in JAX, or a list of [m, ...] leaves, whose sums are accumulated
     leaf by leaf and STATS_COLS columns at a time, so that neither a
     concatenated copy nor an f32 copy of a whole leaf is made (equal to the
-    concatenated form up to the order of the f32 additions)."""
+    concatenated form up to the order of the f32 additions).  With
+    ``lanes=L`` the leaves' rows are L lanes' ([L·m, ...], `comp` [L·m])
+    and each statistic comes back [L], each lane's as its unbatched run
+    computes it."""
     leaves = [x] if isinstance(x, torch.Tensor) else list(x)
+    if lanes is not None:
+        m = leaves[0].shape[0] // lanes
+        per = [component_stats(comp[sl], [leaf[sl] for leaf in leaves], n_comp)
+               for sl in (slice(lane * m, (lane + 1) * m) for lane in range(lanes))]
+        return torch.stack([c for c, _ in per]), torch.stack([g for _, g in per])
     m = leaves[0].shape[0]
     within = gap2 = counts = None
     for b in (blk for leaf in leaves
@@ -432,8 +484,17 @@ def component_stats(comp: torch.Tensor, x, n_comp: int) -> Tuple[torch.Tensor, t
 
 
 def realization_matrix(arrays: ScenarioArrays, r: Realization) -> torch.Tensor:
-    """The realized [m, m] matrix (row i = receiver i, CPU f32).  Padding
-    slots carry weight 0 and scatter onto the diagonal as no-ops."""
+    """The realized [m, m] matrix (row i = receiver i, CPU f32), [L, m, m]
+    for a folded realization.  Padding slots carry weight 0 and scatter
+    onto the diagonal as no-ops."""
+    if arrays.lanes is not None:
+        m = arrays.m // arrays.lanes
+        return torch.stack([
+            realization_matrix(arrays._replace(nbrs=arrays.nbrs[sl] - sl.start,
+                                               nbrs_full=arrays.nbrs_full[sl] - sl.start,
+                                               lanes=None),
+                               r._replace(weights=r.weights[sl]))
+            for sl in (slice(lane * m, (lane + 1) * m) for lane in range(arrays.lanes))])
     m = arrays.m
     rows = torch.arange(m)[:, None].expand(arrays.nbrs_full.shape)
     b = torch.zeros((m, m), dtype=torch.float32)
@@ -447,20 +508,28 @@ def scenario_mixer(arrays: ScenarioArrays, r: Realization, mode: str = "sparse",
     (pass `arrays.to(device)`; the weights follow).  "sparse" gathers over
     the padded neighbours-then-self slots through `mixing.gather_terms`
     (the gossip kernel on the card); "dense" / "matrix" build the [m, m]
-    realized matrix."""
+    realized matrix.  A folded realization gives a mixer over its L·m
+    rows: the lane-offset table (sparse, one launch a leaf for all
+    lanes), the lanes' [m, m] blocks side by side (dense), or each lane
+    contracted by its own [m, m] matrix (matrix)."""
     dev = arrays.nbrs.device
+    lanes = arrays.lanes or 1
     if mode == "sparse":
         # structural padding of the base table; the self slot is real
         pad = torch.cat([~arrays.valid, torch.zeros((arrays.m, 1), dtype=torch.bool,
                                                      device=dev)], dim=1)
         pm = PaddedMixing(arrays.nbrs_full, r.weights.to(dev, torch.float32),
                           arrays.is_self, pad)
-        return Mixer("sparse", None, pm, impl)
+        return Mixer("sparse", None, pm, impl, lanes)
     b = realization_matrix(arrays, r).to(dev)
     if mode == "dense":
-        return Mixer("dense", b, _dense_padded(b), impl)
+        if arrays.lanes is None:
+            return Mixer("dense", b, _dense_padded(b), impl)
+        pm = fold_padded(_dense_padded(b[0]), lanes)
+        pm = pm._replace(w=torch.cat([_dense_padded(bl).w for bl in b]))
+        return Mixer("dense", b, pm, impl, lanes)
     if mode == "matrix":
-        return Mixer("matrix", b)
+        return Mixer("matrix", b, lanes=lanes)
     raise ValueError(f"unknown scenario mixing mode {mode!r}")
 
 

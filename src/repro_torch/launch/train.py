@@ -22,7 +22,9 @@ every ``--ckpt-every`` steps and resumes from the newest intact step
 (`repro_torch.checkpoint`, the JAX package's format).  ``--seeds N``
 trains N seed replicas as one lane-batched run (`Algorithm.bind_batched`:
 lane s starts from key seed + 1 + s, the key an unbatched run of that seed
-gets) and logs the mean loss across lanes with its spread (``loss_std``)
+gets; under any of the network flags above, each lane draws its own
+network and the lanes still step as one, their exchange one launch a
+leaf) and logs the mean loss across lanes with its spread (``loss_std``)
 and the wire bits a lane.  ``--compile-cache DIR`` builds the CUDA
 kernels into DIR and loads them from there (`engine.setup_compilation_cache`).
 Steps run
@@ -374,13 +376,14 @@ def _resume(args, state, aux, carries_aux: bool):
         resumed_bits, record
 
 
-def main(argv=None) -> dict:
+def main(argv=None, *, return_state: bool = False) -> dict:
     """Run the CLI; returns {"loss": per-step mean loss, "seconds": wall
     seconds of each chunk, "steps": the step reached, "start": the step it
     resumed from (0 without a checkpoint), "metrics": every per-step metric
     by name, "staleness_hist": the run's histogram or None, "checkpoints":
     each save's step, seconds and bytes, "restore": the resume's, or None}
-    for callers such as the chip smoke."""
+    for callers such as the chip smoke; with ``return_state`` also "state",
+    the algorithm's final state (it stays on the device)."""
     args = make_parser().parse_args(argv)
     cache_dir = engine.setup_compilation_cache(args.compile_cache)
     if cache_dir:
@@ -486,6 +489,8 @@ def main(argv=None) -> dict:
         cells = " ".join(f"tau={t}:{int(c)}({c / total:.0%})" for t, c in enumerate(stale_hist))
         print(f"[train] staleness histogram (participant-steps): {cells}")
     print("[train] done")
+    if return_state:
+        out["state"] = state
     return out
 
 

@@ -20,6 +20,12 @@ Three details keep the port on the reference's numbers:
     bits.  The pin is scoped to each convolution (`_Conv2dIEEE`), not set
     for the process.
 
+The same scope pins cuDNN's deterministic algorithms with its autotuner
+off: cuDNN's default backward algorithms sum the weight gradient in an
+order that changes from run to run, so two runs from one seed drifted
+apart on the card.  With the pin they repeat bit for bit, as JAX's do, and
+nothing stays switched after a convolution returns.
+
 BatchNorm is GroupNorm, as in the reference (BN's running statistics break
 under non-IID data).
 """
@@ -37,13 +43,16 @@ __all__ = ["cnn_init", "cnn_apply", "resnet20_init", "resnet20_apply", "ce_loss"
 
 @contextlib.contextmanager
 def _ieee_fp32():
-    """cuDNN convolutions in IEEE fp32 (TF32 off) inside the block."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+    """cuDNN convolutions in IEEE fp32 (TF32 off), with deterministic
+    algorithms and the autotuner off, inside the block; the three flags
+    are what they were after it."""
+    cudnn = torch.backends.cudnn
+    prev = (cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark)
+    cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark = False, True, False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark = prev
 
 
 class _Conv2dIEEE(torch.autograd.Function):

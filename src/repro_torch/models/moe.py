@@ -10,10 +10,19 @@ JAX:
      buffer (a running count over the flattened (token, choice) order);
      choices past the capacity C = max(1, int(T k capacity_factor / E))
      are dropped, and the weights are not renormalised after the drop;
-  3. the tokens are scattered into [E, C, d] (`index_add`), the expert FFN
-     runs as batched matrix products, and the outputs are gathered back
-     and summed a token with their routing weights (`index_add`);
+  3. the tokens are scattered into [E, C, d], the expert FFN runs as
+     batched matrix products, and the outputs are gathered back and summed
+     a token with their routing weights;
   4. the shared experts run densely on every token.
+
+Every sum is taken in a fixed order, so a step repeats bit for bit on the
+card (JAX's does): a token's k weighted outputs are added choice by choice
+over a [T, k, d] view, the order of JAX's scatter-add on the CPU, instead
+of by an `index_add` (atomic adds on the card); each kept choice owns its
+buffer slot and the dropped ones go to a spare row, so the dispatch adds
+nothing twice; and a token is repeated for its k choices by an expand,
+whose backward sums over the k axis, instead of by an index gather, whose
+backward accumulates into repeated rows.
 
 The top k of the router's probabilities come from a stable descending
 sort: among equal probabilities the lower expert index comes first, as
@@ -81,18 +90,23 @@ def moe_apply(params: dict, cfg: ModelConfig, x: torch.Tensor
     keep = slot < capacity
     dest = expert_of * capacity + torch.clamp(slot, max=capacity - 1)
 
-    tok_of = torch.arange(t, device=x.device).repeat_interleave(k)
-    contrib = torch.where(keep[:, None], xf[tok_of], torch.zeros((), dtype=xf.dtype,
-                                                                 device=x.device))
-    buf = torch.zeros((e * capacity, d), dtype=xf.dtype, device=x.device).index_add(
-        0, dest, contrib).reshape(e, capacity, d)
+    # dispatch: kept choice (t, j) into its own slot of the [E·C + 1, d]
+    # buffer, a dropped one into the spare last row (cut off below)
+    spare = torch.full_like(dest, e * capacity)
+    contrib = xf[:, None, :].expand(t, k, d).reshape(t * k, d)
+    buf = torch.zeros((e * capacity + 1, d), dtype=xf.dtype, device=x.device).index_put(
+        (torch.where(keep, dest, spare),), contrib)[:-1].reshape(e, capacity, d)
 
     h = F.silu(torch.bmm(buf, params["w_gate"])) * torch.bmm(buf, params["w_up"])
     out_buf = torch.bmm(h, params["w_down"]).reshape(e * capacity, d)
 
+    # combine: a dropped choice reads a kept slot at weight 0 (a zero
+    # gradient there); the k terms are added choice by choice
     weight = torch.where(keep, top_p.reshape(t * k), 0.0)
-    y = torch.zeros((t, d), dtype=xf.dtype, device=x.device).index_add(
-        0, tok_of, out_buf[dest] * weight[:, None].to(xf.dtype))
+    terms = (out_buf[dest] * weight[:, None].to(xf.dtype)).reshape(t, k, d)
+    y = terms[:, 0]
+    for j in range(1, k):
+        y = y + terms[:, j]
 
     if cfg.n_shared_experts:
         sp = params["shared"]

@@ -342,12 +342,42 @@ def test_lane_finals():
 # ---------------------------------------------------------------------------
 # the exchange: one call a leaf for all lanes, no lane reads another
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("name,mixing_mode", [("pame", "sparse"), ("pame", "dense"),
-                                              ("dpsgd", "sparse"), ("beer", "sparse")])
-def test_exchange_calls_do_not_grow_with_lanes(name, mixing_mode, monkeypatch):
+def _form_kw(form):
+    """bind_batched's network arguments for a form of DYNAMIC ("static":
+    none)."""
+    return {} if form == "static" else DYNAMIC[form][1]
+
+
+def _steps(ba, state, batch, n):
+    """`n` steps of a batched bind from `state` (its carry made here):
+    (state, the last step's metrics)."""
+    aux = ba.aux_init(state) if ba.carries_aux else None
+    metrics = None
+    for k in range(n):
+        if ba.carries_aux:
+            state, metrics, aux = ba.step(state, batch, k, aux)
+        elif ba.dynamic:
+            state, metrics = ba.step(state, batch, k)
+        else:
+            state, metrics = ba.step(state, batch)
+    return state, metrics
+
+
+# the static cases keep their ids; each form of DYNAMIC on its algorithm
+EXCHANGE_CASES = [pytest.param(n, mm, "static", id=f"{n}-{mm}") for n, mm in
+                  (("pame", "sparse"), ("pame", "dense"), ("dpsgd", "sparse"),
+                   ("beer", "sparse"))] + [
+    pytest.param(DYNAMIC[form][0], "sparse", form, id=f"{DYNAMIC[form][0]}-{form}")
+    for form in sorted(DYNAMIC)]
+
+
+@pytest.mark.parametrize("name,mixing_mode,form", EXCHANGE_CASES)
+def test_exchange_calls_do_not_grow_with_lanes(name, mixing_mode, form, monkeypatch):
     """The count of exchange calls a step (the kernel routes' wrappers,
     forced on the CPU) is the same for 1 lane and for 8: the port's
-    counterpart of test_batched_sweep_traces_step_once."""
+    counterpart of test_batched_sweep_traces_step_once.  Under each
+    network form too: the lanes' realizations are folded, so the exchange
+    (CHOCO's replica mix under faults) is one call a leaf for all lanes."""
     from repro_torch.kernels.gossip import ops as gops
     from repro_torch.kernels.pme_average import ops as pops
 
@@ -367,33 +397,40 @@ def test_exchange_calls_do_not_grow_with_lanes(name, mixing_mode, monkeypatch):
     counts = {}
     for seeds in ([0], [0, 1, 2, 3, 4, 5, 6, 7]):
         ba = ALG.get_algorithm(name).bind_batched(gf, _topo(), [grids(ALG)[name][0]],
-                                                  seeds=seeds, mixing=mixing_mode, device="cpu")
+                                                  seeds=seeds, mixing=mixing_mode, device="cpu",
+                                                  **_form_kw(form))
         state = ba.init(params0, M, batch)
         calls.clear()
-        for k in range(3):
-            state, _ = ba.step(state, batch)
+        _steps(ba, state, batch, 3)
         counts[len(seeds)] = list(calls)
     assert counts[1] == counts[8] and len(counts[1]) == 3 * (4 if name == "beer" else 2)
 
 
-@pytest.mark.parametrize("name,mixing_mode", [("pame", "sparse"), ("pame", "dense"),
-                                              ("dpsgd", "sparse"), ("anq_nids", "sparse"),
-                                              ("choco", "dense")])
+NAN_CASES = [pytest.param(n, mm, "static", id=f"{n}-{mm}") for n, mm in
+             (("pame", "sparse"), ("pame", "dense"), ("dpsgd", "sparse"),
+              ("anq_nids", "sparse"), ("choco", "dense"))] + [
+    pytest.param(DYNAMIC[form][0], "sparse", form, id=f"{DYNAMIC[form][0]}-{form}")
+    for form in sorted(DYNAMIC)]
+
+
+@pytest.mark.parametrize("name,mixing_mode,form", NAN_CASES)
 @pytest.mark.parametrize("impl", ["slots", "segsum"])
-def test_nan_lane_leaves_other_lanes_bit_equal(name, mixing_mode, impl, monkeypatch):
-    """A lane poisoned with NaN changes no other lane's state or metrics."""
+def test_nan_lane_leaves_other_lanes_bit_equal(name, mixing_mode, form, impl, monkeypatch):
+    """A lane poisoned with NaN changes no other lane's state or metrics,
+    on a static network and under each network form (the folded
+    realization's tables, the staleness ring and the replica blocks keep
+    every lane to its rows)."""
     monkeypatch.setenv(mixing.ENV_VAR, impl)
     batch, grad_fn, _ = _linreg()
     ba = ALG.get_algorithm(name).bind_batched(grad_fn, _topo(), grids(ALG)[name],
-                                              seeds=[0, 1], mixing=mixing_mode, device="cpu")
+                                              seeds=[0, 1], mixing=mixing_mode, device="cpu",
+                                              **_form_kw(form))
     runs = []
     for poison in (False, True):
         state = ba.init(torch.zeros(N), M, batch)
         if poison:
             ba.params_of(state)[1, 3] = float("nan")
-        for _ in range(3):
-            state, metrics = ba.step(state, batch)
-        runs.append((state, metrics))
+        runs.append(_steps(ba, state, batch, 3))
     (clean, mc), (dirty, md) = runs
     assert torch.isnan(ba.params_of(dirty)[1]).any()
     for got, want in zip(tree_leaves(tuple(dirty)), tree_leaves(tuple(clean))):
@@ -403,6 +440,77 @@ def test_nan_lane_leaves_other_lanes_bit_equal(name, mixing_mode, impl, monkeypa
     for key in mc:
         for lane in (0, 2, 3):
             assert torch.equal(md[key][lane], mc[key][lane]), key
+
+
+def test_dynamic_grid_builds_no_per_lane_bind(monkeypatch):
+    """Under a scenario, faults or pacing, bind_batched builds no
+    BoundAlgorithm and its step runs none: one step of the algorithm over
+    the folded rows."""
+    built = []
+    monkeypatch.setattr(ALG.BoundAlgorithm, "__init__",
+                        lambda self, *a, **k: built.append(1) or None)
+    monkeypatch.setattr(ALG.BoundAlgorithm, "step", lambda *a, **k: built.append(2))
+    batch, grad_fn, _ = _linreg()
+    steps = []
+    real_step = ALG.get_algorithm("dpsgd").step
+    spec = dataclasses.replace(ALG.get_algorithm("dpsgd"),
+                               step=lambda st, b, ctx: steps.append(1) or real_step(st, b, ctx))
+    for form in sorted(DYNAMIC):
+        name, kw = DYNAMIC[form]
+        alg = spec if name == "dpsgd" else ALG.get_algorithm(name)
+        ba = alg.bind_batched(grad_fn, _topo(), grids(ALG)[name], seeds=[0, 1], device="cpu",
+                              **kw)
+        assert ba.dynamic and not hasattr(ba, "_bounds")
+        _steps(ba, ba.init(torch.zeros(N), M, batch), batch, 2)
+    assert not built
+    assert len(steps) == 2 * 2  # the scenario and paced grids: one step call a step
+
+
+def test_folded_realization_offsets_every_slot():
+    """`fold_arrays` offsets every slot of lane l by l·m, padding and self
+    slots included; the realization built from the lanes' masks over the
+    folded arrays equals each lane's own, row for row, with [L] directed
+    edges; the sparse mixer gathers over the offset table only."""
+    from repro_torch.core import scenarios as S
+
+    topo = build_topology("star", 5)  # leaves have one neighbour: padding slots
+    scen = Scenario(name="flaky", churn=0.2, edge_drop=0.3, straggler=0.2, seed=2)
+    base = S.make_scenario_arrays(topo, scen)
+    folded = S.fold_arrays(base, 3)
+    m, d = base.nbrs.shape
+    assert folded.lanes == 3 and folded.nbrs.shape == (3 * m, d)
+    assert bool((~base.valid).any())
+    for lane in range(3):
+        sl = slice(lane * m, (lane + 1) * m)
+        for got, want in ((folded.nbrs[sl], base.nbrs), (folded.nbrs_full[sl], base.nbrs_full)):
+            assert ((got >= lane * m) & (got < (lane + 1) * m)).all()
+            assert torch.equal(got - lane * m, want)
+        assert torch.equal(folded.valid[sl], base.valid)
+        assert torch.equal(folded.is_self[sl], base.is_self)
+    arrays = [base._replace(key=fold_in(base.key, s)) for s in (0, 1, 2)]
+    masks = [S.sample_masks(scen, a, 4) for a in arrays]
+    r = S.realization_from_masks(folded, *(torch.cat(x) for x in zip(*masks)))
+    rs = [S.realization_from_masks(a, *mk) for a, mk in zip(arrays, masks)]
+    assert r.directed_edges.shape == (3,)
+    for got, want in zip(r, S.fold_realizations(rs)):
+        assert torch.equal(got, want)
+    mixer = S.scenario_mixer(folded, r, "sparse")
+    assert torch.equal(mixer.pm.nbrs, folded.nbrs_full)
+    x = torch.randn(3 * m, 4)
+    x[m + 1] = float("nan")  # lane 1 only
+    out = mixer.mix(x)
+    assert torch.isfinite(out[:m]).all() and torch.isfinite(out[2 * m:]).all()
+    for lane, (a, rl) in enumerate(zip(arrays, rs)):
+        if lane == 1:
+            continue
+        want = S.scenario_mixer(a, rl, "sparse").mix(x[lane * m:(lane + 1) * m])
+        assert torch.equal(out[lane * m:(lane + 1) * m], want)
+    for mode in ("dense", "matrix"):
+        got = S.scenario_mixer(folded, r, mode).mix(x)
+        for lane in (0, 2):
+            want = S.scenario_mixer(arrays[lane], rs[lane], mode).mix(
+                x[lane * m:(lane + 1) * m])
+            assert torch.equal(got[lane * m:(lane + 1) * m], want), mode
 
 
 def test_fold_padded_offsets_every_slot():
@@ -586,10 +694,11 @@ def test_lanes_match_jax_bind_batched(name, form):
 
 
 def test_chip_smoke_path_h_rehearsal(capsys):
-    """`chip_smoke.py`'s path H (H2, H3) and parity phase H at tiny sizes
-    on the CPU: the lanes' accuracies and losses pass their checks, and the
-    parity phase's batched and unbatched steps coincide bit for bit, the
-    NaN lane stays in its lane (both routes are plain on the CPU)."""
+    """`chip_smoke.py`'s path H (H2, H3, H4) and parity phase H (its
+    network forms included) at tiny sizes on the CPU: the lanes'
+    accuracies and losses pass their checks, and the parity phase's
+    batched and unbatched steps coincide bit for bit, the NaN lane stays in
+    its lane (both routes are plain on the CPU)."""
     import importlib.util
     import os
 
@@ -609,9 +718,14 @@ def test_chip_smoke_path_h_rehearsal(capsys):
         1, cs.H_SEEDS]
     rows.update(cs.path_h3(cpu, spec=dict(cs.CIFAR, n=768), steps=steps, batch=8))
     assert len(rows["H3"]["lane_final_loss"]) == cs.H_SEEDS
+    rows.update(cs.path_h4(cpu, spec=dict(cs.FMNIST, n=1024), steps=steps))
+    for form in ("temporal", "faults", "paced"):
+        assert [len(rows[f"H4-{form}-L{n}"]["lane_final_loss"]) for n in (1, cs.H_SEEDS)] == [
+            1, cs.H_SEEDS]
     parity = cs.path_h_parity(cpu, cfg=get_config("stablelm-1.6b", "smoke").replace(n_layers=1),
                               batch=1, seq=16, cnn_sizes={"batch": 2})
-    assert set(parity) == {"pame-sparse", "pame-dense-exact", "dpsgd-bf16", "cnn-pame-sparse"}
+    assert set(parity) == {"pame-sparse", "pame-dense-exact", "dpsgd-bf16", "cnn-pame-sparse",
+                           "cnn-scenario", "cnn-temporal", "cnn-faults", "cnn-paced"}
     assert all(r["bit_equal"] and r["nan_lane_isolated"] for r in parity.values())
     out = capsys.readouterr().out
     assert '"phase": "parity_h"' in out and '"run": "H3"' in out

@@ -367,3 +367,140 @@ def test_model_kernel_routes_launch_once_per_site(dev):
         lp, _ = prefill(params, cfg, {"tokens": tok}, 70)
     assert torch.isfinite(lk).all()
     assert ((lk - lp).norm() / lp.norm()).item() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# same seed, same bits on the card (tests/test_torch_determinism.py's
+# counterparts), and folded network lanes through the kernels
+# ---------------------------------------------------------------------------
+def _cnn_task(dev, m=4, per_node=8):
+    from repro_torch.models import cnn
+    from repro_torch.tree import tree_flatten, tree_unflatten
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    batch = {"x": torch.randn((m, per_node, 28, 28, 1), generator=g, device=dev),
+             "y": torch.randint(0, 10, (m, per_node), generator=g, device=dev,
+                                dtype=torch.int32)}
+
+    def grad_fn(params, b, key):
+        leaves, td = tree_flatten(params)
+        loss = cnn.ce_loss(cnn.cnn_apply(params, b["x"]), b["y"])
+        return loss.detach(), tree_unflatten(td, list(torch.autograd.grad(loss, leaves)))
+
+    return batch, grad_fn
+
+
+def test_cnn_training_repeats_bit_for_bit(dev):
+    """PaME on the CNN (dense exact exchange: the PME-average kernel) and
+    D-PSGD (gossip kernel), each run twice from one seed with no switch
+    set by the caller: equal parameters, leaf for leaf."""
+    from repro_torch.core import algorithms as ALG
+    from repro_torch.core import build_topology, run_pame
+    from repro_torch.core.pame import PaMEConfig
+    from repro_torch.models import cnn
+    from repro_torch.tree import tree_leaves
+
+    batch, grad_fn = _cnn_task(dev)
+    topo = build_topology("complete", 4)
+    cfg = PaMEConfig(nu=0.5, p=0.3, gamma=1.01, sigma0=4.0)
+    runs = (lambda: run_pame(0, cnn.cnn_init(1, device=dev), 4, grad_fn, lambda k: batch,
+                             topo, cfg, num_steps=4, tol_std=0.0, device=dev)[0].params,
+            lambda: ALG.get_algorithm("dpsgd").bind(grad_fn, topo, ALG.DPSGDHp(lr=0.05),
+                                                    device=dev).run(
+                0, cnn.cnn_init(1, device=dev), 4, lambda k: batch, 4, tol_std=0.0)[0].params)
+    for run in runs:
+        a, b = run(), run()
+        assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    assert not torch.backends.cudnn.deterministic
+    assert not torch.are_deterministic_algorithms_enabled()
+
+
+def test_moe_and_embedding_backward_repeat(dev):
+    """The MoE layer's forward and backward, and the token embedding's
+    backward, twice on the same inputs: bit-equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config("deepseek-v2-lite-16b", "smoke").replace(capacity_factor=0.5)
+    from repro_torch.tree import tree_map
+
+    params = tree_map(lambda v: v.to(dev),
+                      moe.moe_init(torch.Generator().manual_seed(3), cfg, torch.float32))
+    x = torch.randn((4, 64, cfg.d_model), device=dev)
+    w = torch.randn(x.shape, device=dev)
+    emb = torch.randn((1000, 256), device=dev)
+    tok = torch.randint(0, 50, (8, 512), device=dev)  # many repeats of each row
+
+    def once():
+        from repro_torch.tree import tree_flatten, tree_unflatten
+
+        leaves, td = tree_flatten(params)
+        leaves = [v.clone().requires_grad_(True) for v in leaves]
+        xt = x.clone().requires_grad_(True)
+        y, _ = moe.moe_apply(tree_unflatten(td, leaves), cfg, xt)
+        g = torch.autograd.grad(torch.sum(y * w), leaves + [xt])
+        e = emb.clone().requires_grad_(True)
+        (ge,) = torch.autograd.grad(torch.sum(e[tok] * torch.arange(256.0, device=dev)), [e])
+        return [y.detach(), *g, ge]
+
+    a, b = once(), once()
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.parametrize("form", ["scenario", "temporal", "faults", "paced"])
+def test_folded_network_lanes_equal_unbatched(dev, form):
+    """A lane-batched step under each network form, on the card through the
+    gossip kernel, equals each lane's unbatched step bit for bit; one
+    exchange launch a leaf for all lanes."""
+    from repro_torch.core import algorithms as ALG
+    from repro_torch.core import build_topology
+    from repro_torch.core.faults import FaultModel
+    from repro_torch.core.pme import fold_in
+    from repro_torch.core.scenarios import Scenario
+    from repro_torch.core.temporal import TemporalScenario
+    from repro_torch.models import cnn
+    from repro_torch.serve.events import ArrivalProcess, ServePacing
+    from repro_torch.tree import tree_leaves
+
+    name, kw = {
+        "scenario": ("pame", dict(scenario=Scenario(name="f", churn=0.1, edge_drop=0.2, seed=5))),
+        "temporal": ("pame", dict(scenario=TemporalScenario(name="t", straggler=0.4,
+                                                            staleness=2, seed=4))),
+        "faults": ("choco", dict(faults=FaultModel(name="l", loss=0.2, crash=0.1, seed=3))),
+        "paced": ("dpsgd", dict(pacing=ServePacing(ArrivalProcess(
+            name="b", rate=0.5, burst_rate=6.0), capacity=2, defer_threshold=3))),
+    }[form]
+    hp = {"pame": ALG.PaMEHp(nu=0.5, p=0.3), "choco": ALG.ChocoHp(),
+          "dpsgd": ALG.DPSGDHp()}[name]
+    batch, grad_fn = _cnn_task(dev)
+    topo = build_topology("erdos_renyi", 4, p=0.7, seed=1)
+    seeds = [0, 1, 2]
+    alg = ALG.get_algorithm(name)
+    ba = alg.bind_batched(grad_fn, topo, [hp], seeds=seeds, device=dev, **kw)
+    state = ba.init(cnn.cnn_init(1, device=dev), 4, batch)
+    aux = ba.aux_init(state) if ba.carries_aux else None
+    before = dict(gkernel.gossip_gather.variant_launches)
+    for k in range(3):
+        if ba.carries_aux:
+            state, _, aux = ba.step(state, batch, k, aux)
+        else:
+            state, _ = ba.step(state, batch, k)
+    torch.cuda.synchronize()
+    launched = gkernel.gossip_gather.variant_launches["f32"] - before["f32"]
+    assert launched == 3 * len(tree_leaves(cnn.cnn_init(1)))
+    for lane, s in enumerate(seeds):
+        b = alg.bind(grad_fn, topo, hp, device=dev, **kw)
+        b.scen_arrays = b.scen_arrays._replace(key=fold_in(b.scen_arrays.key, s))
+        if b.faulty:
+            b.fault_key = fold_in(int(b.faults.seed), s)
+        if b.paced:
+            b.pace_key = fold_in(int(b.pacing.process.seed), s)
+        st = b.init(s, ALG.B.stack_params(cnn.cnn_init(1, device=dev), 4), batch)
+        ax = b.aux_init(st) if b.carries_aux else None
+        for k in range(3):
+            if b.carries_aux:
+                st, _, ax = b.step(st, batch, k, ax)
+            else:
+                st, _ = b.step(st, batch, k)
+        for got, want in zip(tree_leaves(ba.params_of(state)), tree_leaves(b.params_of(st))):
+            assert torch.equal(got[lane], want), (form, lane)

@@ -214,6 +214,7 @@ def test_serve_decode_example_runs_on_cpu():
         proc = subprocess.run(cmd + extra, capture_output=True, text=True, env=env, timeout=300)
         assert proc.returncode == 0, proc.stderr
         assert "[serve] decode 5 steps" in proc.stdout and "generated ids" in proc.stdout
+        assert "[serve] arch=qwen3-smoke" in proc.stdout  # qwen3-14b, the default
     proc = subprocess.run(cmd[:2], capture_output=True, text=True, env=env, timeout=300,
                           cwd=REPO)
     if not torch.cuda.is_available():

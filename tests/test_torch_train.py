@@ -123,13 +123,21 @@ def test_cli_unported_flags_raise():
         ttrain.make_parser().parse_args(["--arch", "x", "--no-such-flag"])
 
 
-@pytest.mark.parametrize("algo,flags", [("pame", ["--kappa-lo", "2", "--kappa-hi", "2"]),
-                                        ("dpsgd", ["--straggler", "0.3"])])
+KAPPA2 = ["--kappa-lo", "2", "--kappa-hi", "2"]
+
+
+@pytest.mark.parametrize("algo,flags", [
+    ("pame", KAPPA2), ("dpsgd", ["--straggler", "0.3"]),
+    ("pame", ["--edge-drop", "0.2", "--churn", "0.1"] + KAPPA2),
+    ("pame", ["--straggler", "0.4", "--staleness", "2"] + KAPPA2),
+    ("choco", ["--loss-rate", "0.2", "--crash", "0.05,0.5"])])
 def test_cli_seeds_run_lanes_on_cpu(algo, flags, capsys):
     """--seeds 2 trains two seed lanes in one run (lane s from key seed + 1
-    + s), logging the mean loss across lanes and its spread; each lane's
-    losses equal the single-seed run of its key (D-PSGD under stragglers:
-    the lane-by-lane dynamic path)."""
+    + s), logging the mean loss across lanes and its spread; on a static
+    network lane 0's losses equal the single-seed run of its key.  Under
+    the network flags (i.i.d. drops and churn, staleness, message loss and
+    crashes with CHOCO's replicas) the lanes' realizations fold into one
+    step, each lane drawing its network from its own key."""
     base = ["--arch", "stablelm-1.6b", "--variant", "smoke", "--nodes", "4", "--batch", "1",
             "--seq", "16", "--steps", "3", "--chunk", "2", "--device", "cpu", "--algo", algo]
     out = ttrain.main(base + flags + ["--seeds", "2"])
@@ -141,6 +149,7 @@ def test_cli_seeds_run_lanes_on_cpu(algo, flags, capsys):
     if algo == "pame":
         # the exchange at step 2 (kappa = 2) draws from each lane's key
         assert lanes[-1, 0] != lanes[-1, 1]
+    if flags == KAPPA2:
         # lane 0 starts from key seed + 1, the single-seed run's key
         single = ttrain.main(base + flags)
         np.testing.assert_array_equal(np.float32(single["loss"]), np.float32(lanes[:, 0]))
