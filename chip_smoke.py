@@ -23,7 +23,10 @@ non-zero without the final result line:
      shapes and at path C's [8, 2048, 32, 64] bf16; SSD intra-chunk on the
      JAX tests' shapes, on short-chunk and G > 1 bf16 shapes, at path C's
      [8, 16, 128, 64, 64] bf16 and at mamba2-1.3b's N = 128; gossip (f32)
-     and PME average at path F3's fc1 [4, 401,408].  Each row
+     and PME average at path F3's fc1 [4, 401,408]; the PME average's
+     receiver range (r = 1 and 2 of m = 4, what a rank of a sharded step
+     computes) at path B's largest leaf in bf16 and at F3's fc1 in f32,
+     equal to the square launch's rows and to its plain version.  Each row
      names the variant it launched (tensor_cores or cuda_cores).  Max
      error, kernel / plain / library times (CUDA events, median), the
      least time the card could take (bound) and the share of it reached;
@@ -179,11 +182,15 @@ non-zero without the final result line:
      positions; finite logits, prefill ms, decode ms a token, peaks under
      80 GB; parity phase J: J4a's flash call and J4b's SSD call as the
      models make them at 2 layers, full width and 8192 tokens, against the
-     plain versions with phase 2's tolerances; J5: the dry run's CLI
-     (`repro_torch.launch.dryrun`, the card's memory) on J1-J4's combos,
-     four processes at a time on the host after every timed path (the card
-     idle), each record's bytes and FLOPs beside the measured seconds and
-     peak.  Phase 2 holds flash at J2's shape [8, 32768, 32, 64], full
+     plain versions with phase 2's tolerances; J1-dry: the dry run's own
+     train step (`dryrun.build_train`, m = 4, remat) once on the card at
+     J1's batch, its max_memory_allocated; J5: the dry run's CLI
+     (`repro_torch.launch.dryrun`, the card's memory) on J1-J4's combos
+     (the prefills the card ran through flash and SSD with `--variant
+     kernels`), four processes at a time on the host after every timed
+     path (the card idle), each record's bytes, FLOPs, memory and (train)
+     collective bytes at 8 devices beside the measured seconds and peak:
+     the dry run's peak within 10% of the card's for J1-dry, J2 and J4a-c.  Phase 2 holds flash at J2's shape [8, 32768, 32, 64], full
      causal (row 4j: the last batch row whole and the last 4096 query rows
      of every batch row, against the plain version a block of query rows
      at a time), and at 524,288 tokens with a 4096-key window: J4a's
@@ -191,7 +198,16 @@ non-zero without the final result line:
      attention [1, 524288, 40, 128] on 8 KV heads (row 4L, past 2^31
      elements a batch row), against the plain version run in blocks of
      4096 rows;
- 18. the kernel table line, then the result line.
+ 18. path K (after path R, before path J): the sharded PaME step
+     (`pame_step(..., param_shardings=)`) in a process of its own, an NCCL
+     process group of one rank and a (1, 1, 1) mesh (`make_logical_mesh`),
+     path A's model at full width and depth on 4 nodes, node rows 0.01
+     apart: the dense exchange (PME average, 10 launches a step, each with
+     its receiver range in the sharded step), sparse (f32 gossip, 11),
+     compressed and compressed_q8 (no kernel), each sharded step
+     `torch.equal` to the unsharded one (state and loss_mean); seconds a
+     step, peaks and the collective wrapper's counts (one rank: 0 bytes);
+ 19. the kernel table line, then the result line.
 
 Exits non-zero with no result when no CUDA device is present, or when the
 port's sources are not beside this script.
@@ -556,6 +572,69 @@ def check_pme(dev):
     masks = pme.sample_coordinate_masks(g, M, FC1_N, round(0.3 * FC1_N))
     row_fc1 = case("path-f3-fc1", w, masks, a, reps=50)
     return row, row_fc1
+
+
+def check_pme_range(dev):
+    """The PME average's receiver range (every row sends, receivers r0 ...
+    r0 + r - 1, what a rank of a sharded step computes for its nodes)
+    against its plain version, at r = 1 (r0 = 1: a rank of node = 4) and
+    r = 2 (r0 = 2: of node = 2) of m = 4, at path B's largest leaf in bf16
+    (row 1r) and at F3's fc1 in f32 (row 1rf); phase 2's tolerances.  The
+    bound counts (m + r)·n reads of W (the senders, then the receivers'
+    own rows for the fill), m·n of the masks and r·n writes."""
+    import torch
+    from repro_torch.core import pme
+    from repro_torch.kernels.pme_average.kernel import pme_average_cuda
+    from repro_torch.kernels.pme_average.ref import pme_average_ref
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    rows = {}
+    for name, n, dtype, p, reps in (("1r", BIG_N, torch.bfloat16, 0.2, 5),
+                                    ("1rf", FC1_N, torch.float32, 0.3, 50)):
+        w = torch.randn((M, n), generator=g, device=dev).to(dtype)
+        masks = pme.sample_coordinate_masks(g, M, n, round(p * n))
+        a = ((torch.rand((M, M), generator=g, device=dev) < 0.6)
+             & ~torch.eye(M, dtype=torch.bool, device=dev)).float()
+        a[:, 1] = 0  # receiver 1 hears nobody: its own row is the fill
+        for r0, r in ((1, 1), (2, 2)):
+            got = pme_average_cuda(w, masks, a, receivers=(r0, r))
+            plain = pme_average_ref(w, masks.to(dtype), a, receivers=(r0, r))
+            square = pme_average_cuda(w, masks, a)
+            torch.cuda.synchronize()
+            err = (got.float() - plain.float()).abs().max().item()
+            if dtype == torch.float32:
+                tol = 1e-6 * max(1.0, plain.abs().max().item())
+                ok = err <= tol
+            else:
+                tol = "1 bf16 ulp"
+                ok = bf16_ulps(got, plain) <= 1.0
+            row = {"kernel": "pme_average", "case": f"receivers-{name}-r{r}", "m": M, "n": n,
+                   "r0": r0, "r": r, "dtype": str(dtype), "max_abs_err": err, "tol": tol,
+                   "square_rows_equal": bool(torch.equal(got, square[r0:r0 + r]))}
+            if not ok or not row["square_rows_equal"] or not torch.isfinite(got).all():
+                emit(**row)
+                fail(f"pme_average's receiver range disagrees ({row['case']})")
+            del square, plain
+            row["ms"] = time_ms(lambda: pme_average_cuda(w, masks, a, receivers=(r0, r)), reps)
+            row["plain_ms"] = time_ms(
+                lambda: pme_average_ref(w, masks, a, receivers=(r0, r)), reps)
+
+            def library():  # the einsum form over the receivers' columns
+                wm = torch.where(masks, w, 0)
+                at = a[:, r0:r0 + r].to(w.dtype)
+                agg = torch.einsum("jn,ji->in", wm, at)
+                cnt = torch.einsum("jn,ji->in", masks.to(w.dtype), at)
+                return torch.where(cnt > 0, agg / cnt.clamp(min=1), w[r0:r0 + r])
+
+            row["library_ms"] = time_ms(library, reps)
+            bytes_ = (M + r) * n * w.element_size() + M * n * masks.element_size() \
+                + r * n * w.element_size() + a.numel() * 4
+            row["bound_ms"], row["bound_by"] = bound(bytes_, 4 * M * r * n, F32_FLOPS)
+            emit(**row)
+            rows[f"{name}-r{r}"] = row
+        del w, masks, got
+        free()
+    return rows
 
 
 def check_lanes(dev):
@@ -1008,12 +1087,13 @@ def path_a():
     return launches
 
 
-def _task(dev, layers=None):
-    """Path A's model, graph and batch; `layers` cuts the depth."""
+def _task(dev, layers=None, variant="full"):
+    """Path A's model, graph and batch; `layers` cuts the depth (`variant`
+    "smoke" for the CPU rehearsals)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.train import make_lm_task
 
-    cfg = get_config("stablelm-1.6b", "full")
+    cfg = get_config("stablelm-1.6b", variant)
     if layers is not None:
         cfg = cfg.replace(n_layers=layers)
     return make_lm_task(cfg, M, 4, 128, 0, "erdos_renyi", dev)
@@ -1150,6 +1230,8 @@ def _reset_counts():
             fn.variant_launches = dict.fromkeys(fn.variant_launches, 0)
         if hasattr(fn, "lane_launches"):
             fn.lane_launches = 0
+        if hasattr(fn, "range_launches"):
+            fn.range_launches = 0
 
 
 def path_d():
@@ -3588,6 +3670,156 @@ def path_resume(dev, argv=RESUME_ARGS, steps=RESUME_STEPS, at=RESUME_AT):
 
 
 # ---------------------------------------------------------------------------
+# path K: the sharded PaME step over a (1, 1, 1) mesh of one NCCL rank
+# ---------------------------------------------------------------------------
+# the exchanges of path K: (name, PaMEConfig fields, kernel launches a step
+# of the unsharded and of the sharded step)
+K_EXCHANGES = (
+    ("dense", {}, {"pme_average": 10, "gossip_f32": 0}),
+    ("sparse", {"mixing": "sparse"}, {"pme_average": 0, "gossip_f32": 11}),
+    ("compressed", {"exchange": "compressed"}, {"pme_average": 0, "gossip_f32": 0}),
+    ("compressed_q8", {"exchange": "compressed_q8"}, {"pme_average": 0, "gossip_f32": 0}),
+)
+K_SCRIPT = "import sys, chip_smoke; chip_smoke.path_k_rank(*sys.argv[1:])"
+
+
+def path_k_rank(device_type="cuda", variant="full"):
+    """Path K's process: an NCCL process group of one rank (gloo on the
+    CPU), a (1, 1, 1) (node, fsdp, model) mesh (`make_logical_mesh`), path
+    A's model (stablelm-1.6b at full width and depth, 4 nodes, 4 x 128
+    tokens a node, node rows 0.01 apart); for each exchange one unsharded
+    `pame_step` and one sharded (`param_shardings=`), from the same state,
+    key and batch: the new state and loss_mean equal (`torch.equal`).
+    Prints one K_RESULT line."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch import sharding as shd
+    from repro_torch.core import pame
+    from repro_torch.kernels.gossip.kernel import gossip_gather
+    from repro_torch.kernels.pme_average.kernel import pme_average_cuda
+    from repro_torch.launch.mesh import make_logical_mesh
+    from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device_type)
+    card = dev.type == "cuda"
+    if not card:
+        # the CPU's multithreaded embedding backward sums in no fixed order
+        torch.set_num_threads(1)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl" if card else "gloo",
+                            init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1,
+                            **({"device_id": torch.device("cuda", 0)} if card else {}))
+    layout = {"node": 1, "fsdp": 1, "model": 1}
+    mesh = make_logical_mesh(device_type=device_type, layout=layout)
+    coord = shd.mesh_coords(mesh)
+    topo, params0, grad_fn, make_batch = _task(dev, variant=variant)
+    g = torch.Generator(device=dev).manual_seed(5)
+    leaves, treedef = tree_flatten(params0)
+    stacked = tree_unflatten(treedef, [
+        (x.unsqueeze(0) + 0.01 * torch.randn((M,) + tuple(x.shape), generator=g, device=dev))
+        .to(x.dtype) for x in leaves])
+    del params0, leaves
+    batch = make_batch(0)
+    rows = {}
+    try:
+        for name, fields, want in K_EXCHANGES:
+            cfg = pame.PaMEConfig(**fields)
+            ta = pame.make_topology_arrays(topo, cfg, seed=0, device=dev)
+            state = pame.pame_init(1, stacked, M, cfg)
+            out = {}
+            for how in ("unsharded", "sharded"):
+                sharded = None
+                st, b = state, batch
+                if how == "sharded":
+                    place = shd.state_shardings(state, layout)
+                    sharded = shd.MeshShardings(mesh, place.params)
+                    st = shd.shard_tree(state, place, layout, coord)
+                    b = {k: shd.cut(v, ("node",), layout, coord) for k, v in batch.items()}
+                _reset_counts()
+                shd.reset_collective_counts()
+                free()
+                if card:
+                    torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                new, metrics = pame.pame_step(st, b, grad_fn, ta, cfg, param_shardings=sharded)
+                _sync(dev)
+                out[how] = {"state": new, "loss": metrics["loss_mean"],
+                            "s": time.perf_counter() - t0,
+                            "peak_bytes": torch.cuda.max_memory_allocated() if card else 0,
+                            "launches": {"pme_average": pme_average_cuda.launches,
+                                         "pme_average_range": pme_average_cuda.range_launches,
+                                         "gossip_f32": gossip_gather.variant_launches["f32"],
+                                         "gossip_bf16": gossip_gather.variant_launches["bf16"]},
+                            "collectives": shd.collective_counts()}
+                del new, metrics, st, b
+            u, s = out["unsharded"], out["sharded"]
+            equal = all(torch.equal(x, y) for x, y in zip(
+                tree_leaves(u["state"].params), tree_leaves(s["state"].params))) \
+                and torch.equal(u["state"].sigma, s["state"].sigma) \
+                and torch.equal(u["loss"], s["loss"])
+            rows[name] = {"exchange": name, "bit_equal": bool(equal),
+                          "loss": float(s["loss"]), "finite": bool(torch.isfinite(s["loss"])),
+                          "s_step_sharded": s["s"], "s_step_unsharded": u["s"],
+                          "peak_bytes_sharded": s["peak_bytes"],
+                          "peak_bytes_unsharded": u["peak_bytes"],
+                          "launches_sharded": s["launches"], "launches_unsharded": u["launches"],
+                          "want_launches": want, "collectives": s["collectives"]}
+            del out, u, s, state
+            free()
+    finally:
+        dist.destroy_process_group()
+    print("K_RESULT " + json.dumps(rows), flush=True)
+
+
+def path_k(dev, variant="full"):
+    """Path K on the card: `path_k_rank` in a process of its own.  Each
+    exchange's sharded step must equal the unsharded one bit for bit and
+    launch what it does: the PME average 10 times a step (dense, every
+    sharded launch with its receiver range r0 = 0, r = m), the f32 gossip
+    kernel 11 times (sparse), neither kernel for the compressed exchanges
+    (on the CPU, no kernel at all).  One card cannot show a collective
+    between ranks (NCCL takes one rank a device); the wrapper's counts of
+    this rank's calls are recorded."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", K_SCRIPT, dev.type, variant],
+                         capture_output=True, text=True, env=_env(), cwd=HERE, timeout=600)
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("K_RESULT ")]
+    if res.returncode != 0 or not lines:
+        print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
+        fail(f"path K: the sharded step's process exited {res.returncode}")
+    rows = json.loads(lines[0][len("K_RESULT "):])
+    for name, fields, want in K_EXCHANGES:
+        if dev.type != "cuda":
+            want = dict.fromkeys(want, 0)
+        row = rows[name]
+        emit(phase="path_k", arch="stablelm-1.6b", nodes=M, layout=[1, 1, 1], **row)
+        su, sh = row["launches_unsharded"], row["launches_sharded"]
+        ok_launches = (su["pme_average"] == sh["pme_average"] == want["pme_average"]
+                       and sh["pme_average_range"] == want["pme_average"]
+                       and su["pme_average_range"] == 0
+                       and su["gossip_f32"] == sh["gossip_f32"] == want["gossip_f32"]
+                       and su["gossip_bf16"] == sh["gossip_bf16"] == 0)
+        if not (row["bit_equal"] and row["finite"] and ok_launches):
+            fail(f"path K ({name}): the sharded step is not the unsharded step bit for bit, "
+                 f"or launched other kernels than {want}")
+        if max(row["peak_bytes_sharded"], row["peak_bytes_unsharded"]) >= PEAK_LIMIT:
+            fail(f"path K ({name}): peak over {PEAK_LIMIT}")
+    emit(phase="path_k_done", seconds=time.perf_counter() - t0)
+    return {"pme_average": sum(r["launches_sharded"]["pme_average"]
+                               + r["launches_unsharded"]["pme_average"] for r in rows.values()),
+            "pme_average_range": sum(r["launches_sharded"]["pme_average_range"]
+                                     for r in rows.values()),
+            "f32": sum(r["launches_sharded"]["gossip_f32"] + r["launches_unsharded"]["gossip_f32"]
+                       for r in rows.values())}
+
+
+# ---------------------------------------------------------------------------
 # path J: the four input shapes (configs/shapes.py) at full width and depth
 # ---------------------------------------------------------------------------
 J_LONG, J_WINDOW = 524_288, 4096  # long_500k's sequence and window (configs/shapes.py)
@@ -3605,18 +3837,28 @@ J4 = (("J4a", "stablelm-1.6b", dict(use_flash=True)),
       ("J4c", "zamba2-1.2b", dict(use_flash=True, use_ssd_kernel=True)))
 # the dry run's combos of J1-J4 (J5), one CLI call each, the longest
 # traces (J4b's and J4c's 48 and 38 SSM layers at 524,288 tokens, J1's
-# backward) first
-J5 = (("J4b", ["--arch", "mamba2-1.3b", "--shape", "long_500k", "--kind", "prefill"]),
-      ("J4c", ["--arch", "zamba2-1.2b", "--shape", "long_500k", "--kind", "prefill"]),
+# backward and its sharded step at 8 fake ranks) first
+# backward) first.  The prefills the card ran through flash and SSD take the
+# kernels variant, whose memory trace follows those kernels' route (its
+# FLOPs are the baseline's: the FLOP trace stays on the plain versions)
+KERNELS = ["--variant", "kernels"]
+J5 = (("J4b", ["--arch", "mamba2-1.3b", "--shape", "long_500k", "--kind", "prefill", *KERNELS]),
+      ("J4c", ["--arch", "zamba2-1.2b", "--shape", "long_500k", "--kind", "prefill", *KERNELS]),
       ("J1", ["--arch", "stablelm-1.6b", "--shape", "train_4k", "--nodes", str(M),
               "--batch", str(M * J1_BATCH)]),
-      ("J2", ["--arch", "stablelm-1.6b", "--shape", "prefill_32k", "--batch", str(J2_BATCH)]),
+      ("J2", ["--arch", "stablelm-1.6b", "--shape", "prefill_32k", "--batch", str(J2_BATCH),
+              *KERNELS]),
       ("J3", ["--arch", "stablelm-1.6b", "--shape", "decode_32k", "--batch", str(J2_BATCH)]),
-      ("J4a", ["--arch", "stablelm-1.6b", "--shape", "long_500k", "--kind", "prefill"]),
+      ("J4a", ["--arch", "stablelm-1.6b", "--shape", "long_500k", "--kind", "prefill",
+               *KERNELS]),
       ("J4a-decode", ["--arch", "stablelm-1.6b", "--shape", "long_500k"]),
       ("J4b-decode", ["--arch", "mamba2-1.3b", "--shape", "long_500k"]),
       ("J4c-decode", ["--arch", "zamba2-1.2b", "--shape", "long_500k"]))
 J5_WORKERS = 4
+# the dry run's peak against the card's max_memory_allocated, by J5 combo
+# and the measured run it sizes: within this share either way
+J5_PEAK_TOL = 0.10
+J5_PEAK_RUNS = ("J1", "J2", "J4a", "J4b", "J4c")
 # the parity phase's sub-sequence (2 layers, full width)
 PARITY_J_SEQ = 8192
 
@@ -3727,6 +3969,54 @@ def path_j1(dev, batch=J1_BATCH, seq=4096, variant="full"):
         fail("path J1: no compilation-cache line, or a loss is not finite")
     if dev.type == "cuda" and row["peak_bytes"] >= PEAK_LIMIT:
         fail(f"path J1: peak {row['peak_bytes']} B over {PEAK_LIMIT}")
+    return row
+
+
+def path_j1_dry(dev, batch=J1_BATCH, seq=4096, variant="full"):
+    """J1-dry: the dry run's own train step (`dryrun.build_train`: PaME's
+    dense exchange with Bernoulli masks on a ring, m = 4, each layer
+    checkpointed) once on the card with real tensors at J1's batch,
+    stablelm-1.6b at full width and depth: its max_memory_allocated from
+    the state and batch in place, for J5 to hold the dry run's peak
+    against.  J1 itself runs the trainer's sparse step, another step."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import INPUT_SHAPES, config_for_shape, get_config
+    from repro_torch.core.pame import PaMEState
+    from repro_torch.launch.dryrun import build_train
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_map
+
+    cfg = config_for_shape(get_config("stablelm-1.6b", variant),
+                           INPUT_SHAPES["train_4k"]).replace(remat=True)
+    free()
+    params0 = init_params(0, cfg, device=dev)
+    stacked = tree_map(lambda x: x.unsqueeze(0).expand((M,) + tuple(x.shape)).contiguous(),
+                       params0)
+    del params0
+    state = PaMEState(params=stacked, sigma=torch.full((M,), 5.0, device=dev), step=0, key=0)
+    del stacked
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (M, batch, seq)).astype(np.int32), device=dev)
+    step = build_train(cfg, M, device=dev)
+    free()
+    card = dev.type == "cuda"
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() if card else None
+    t0 = time.perf_counter()
+    _, metrics = step(state, {"tokens": tokens})
+    _sync(dev)
+    row = {"phase": "path_j1_dry", "shape": "train_4k", "arch": "stablelm-1.6b", "nodes": M,
+           "batch": batch, "seq": seq, "remat": "full", "exchange": "dense bernoulli",
+           "seconds": time.perf_counter() - t0, "loss": float(metrics["loss_mean"]),
+           "argument_bytes": before,
+           "peak_bytes": torch.cuda.max_memory_allocated() if card else None}
+    del state, metrics, tokens
+    free()
+    emit(**row)
+    if not math.isfinite(row["loss"]) or (card and row["peak_bytes"] >= PEAK_LIMIT):
+        fail("path J1-dry: a loss is not finite or the peak is over the card")
     return row
 
 
@@ -3960,6 +4250,9 @@ def path_j(dev):
     rows["parity"] = path_j_parity(dev)
     emit(phase="parity_j_done", seconds=time.perf_counter() - t)
     t = time.perf_counter()
+    rows["J1-dry"] = path_j1_dry(dev)
+    emit(phase="path_j1_dry_done", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
     emit(phase="path_j5_start", at_s=t - T0)
     dry_dir = tempfile.mkdtemp(prefix="repro_torch_dryrun_")
     try:
@@ -3967,26 +4260,45 @@ def path_j(dev):
                           if dev.type == "cuda" else 80e9, dry_dir)
     finally:
         shutil.rmtree(dry_dir, ignore_errors=True)
-    measured = {"J1": (rows["J1"]["s_per_step"][-1], rows["J1"]["peak_bytes"]),
+    # J1's dry-run combo is the dry run's own step, which J1-dry ran on the
+    # card (J1 runs the trainer's sparse step); the others size the runs
+    measured = {"J1": (rows["J1-dry"]["seconds"], rows["J1-dry"]["peak_bytes"]),
                 "J2": (rows["J2"]["prefill_ms"] / 1e3, rows["J2"]["prefill_peak_bytes"]),
                 "J3": (rows["J2"]["decode_ms_per_token"] / 1e3, rows["J2"]["peak_bytes"])}
     for run in ("J4a", "J4b", "J4c"):
         r = rows["J4"][run]
         measured[run] = (r["prefill_ms"] / 1e3, r["prefill_peak_bytes"])
         measured[run + "-decode"] = (r["decode_ms_per_token"] / 1e3, r["peak_bytes"])
+    misses = []
     for name, rec in dry.items():
         secs, peak = measured[name]
         flops = rec.get("flops_band", rec["flops"])
+        dry_peak = rec["memory"]["peak_bytes"]
         emit(phase="path_j5", run=name, arch=rec["arch"], shape=rec["shape"], kind=rec["kind"],
-             reduced=rec.get("reduced"), flops_counted=rec["flops"], flops_kernel_route=flops,
-             param_bytes=rec["param_bytes"], state_bytes=rec.get("state_bytes"),
-             input_bytes=rec["input_bytes"], cache_bytes=rec["cache_bytes"],
-             resident_bytes=rec["resident_bytes"], fits_one_card=rec["fits_one_card"],
+             variant=rec["variant"], reduced=rec.get("reduced"), flops_counted=rec["flops"],
+             flops_kernel_route=flops, param_bytes=rec["param_bytes"],
+             state_bytes=rec.get("state_bytes"), input_bytes=rec["input_bytes"],
+             cache_bytes=rec["cache_bytes"], resident_bytes=rec["resident_bytes"],
+             memory=rec["memory"], fits_one_card=rec["fits_one_card"],
              layout_8=rec["layout"], per_device_bytes_8=rec["per_device_bytes"],
+             collective_bytes_8=rec["collective_bytes"],
+             collective_bytes_total_8=rec["collective_bytes_total"],
+             collective_calls_8=rec.get("collective_calls"),
+             collective_m=rec.get("collective_m"), collective_note=rec.get("collective_note"),
              measured_s=secs, measured_peak_bytes=peak,
-             bf16_peak_share=flops / (secs * BF16_FLOPS), trace_s=rec["trace_s"])
+             peak_ratio=dry_peak / peak if peak else None,
+             bf16_peak_share=flops / (secs * BF16_FLOPS), trace_s=rec["trace_s"],
+             mem_trace_s=rec["mem_trace_s"], collective_trace_s=rec.get("collective_trace_s"))
+        if name in J5_PEAK_RUNS and dev.type == "cuda" \
+                and abs(dry_peak / peak - 1) > J5_PEAK_TOL:
+            misses.append(f"{name}: dry run {dry_peak} B against the card's {peak} B")
     emit(phase="path_j5_done", at_s=time.perf_counter() - T0,
          seconds=time.perf_counter() - t, records=len(dry))
+    if misses:
+        fail(f"path J5: the dry run's peak is not within {J5_PEAK_TOL:.0%} of the card's:\n"
+             + "\n".join(misses))
+    if dry["J1"]["collective_bytes"] is None or dry["J2"]["collective_bytes"] is not None:
+        fail("path J5: the train combo has no collective bytes, or a prefill has some")
     return rows
 
 
@@ -4034,6 +4346,7 @@ def main():
     t = time.perf_counter()
     gossip = check_gossip(dev)
     pme_row, pme_fc1 = check_pme(dev)
+    pme_range = check_pme_range(dev)
     flash, flash_i3 = check_flash(dev)
     check_flash_j2(dev)
     flash_long = check_flash_long(dev)
@@ -4106,6 +4419,9 @@ def main():
     emit(phase="path_resume_done", seconds=time.perf_counter() - t)
     r_launches = {k: v + resume["launches"][k] for k, v in r_launches.items()}
     t = time.perf_counter()
+    k_launches = path_k(dev)
+    emit(phase="path_k_total", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
     j = path_j(dev)
     emit(phase="path_j_done", seconds=time.perf_counter() - t)
     tc = lambda r, k: r["prefill_launches"][k]["tensor_cores"]  # noqa: E731
@@ -4121,10 +4437,10 @@ def main():
     bf16_launches = sum(r["gossip_launches"]["bf16"] for r in baselines.values())
     # each path's launches, read just after the path ran with the counts at 0
     f32_launches = (gossip_launches + e_launches["f32"] + f_launches["f32"] + g_launches
-                    + h_f32 + i_gossip + j_gossip + r_launches["f32"])
+                    + h_f32 + i_gossip + j_gossip + r_launches["f32"] + k_launches["f32"])
     bf16_launches += e_launches["bf16"] + f_launches["bf16"]
     pme_launches += e_launches["pme_average"] + f_launches["pme_average"] \
-        + h_launches["pme_average"] + r_launches["pme_average"]
+        + h_launches["pme_average"] + r_launches["pme_average"] + k_launches["pme_average"]
 
     def entry(name, source, replaces, launches, row):
         e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4170,6 +4486,10 @@ def main():
     # path J1's f32 launches (train_4k on path A's model; among the f32
     # launches), timed at the same largest leaf as path A
     g32["variants"]["f32_path_j"] = variant(j_gossip, gossip["f32"])
+    # path K's f32 launches (the sparse exchange's unsharded and sharded
+    # steps, the sharded one over the gathered sender stack; among the f32
+    # launches), timed at path A's largest leaf
+    g32["variants"]["f32_path_k"] = variant(k_launches["f32"], gossip["f32"])
     pme = entry("pme_average", "src/repro_torch/csrc/pme_average.cu",
                 "src/repro/kernels/pme_average/kernel.py:46", pme_launches, pme_row)
     # path F's launches (F3 PaME on fc1, F4 on five ResNet-20 convs), timed at F3's fc1
@@ -4179,7 +4499,12 @@ def main():
                        "path_r": variant(r_launches["pme_average"], pme_fc1),
                        # H3's launches, all with the lane axis, timed at H3's
                        # largest leaf over its 5 lanes
-                       "lanes": variant(h_launches["pme_average"], lane_rows["pme_lanes_h3"])}
+                       "lanes": variant(h_launches["pme_average"], lane_rows["pme_lanes_h3"]),
+                       # path K's launches with a receiver range (the dense
+                       # exchange's sharded step), timed at row 1r (r = 1 of
+                       # 4; path K's one rank takes r = 4)
+                       "receivers": variant(k_launches["pme_average_range"],
+                                            pme_range["1r-r1"])}
     fa = entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention/kernel.py:78",
                serve_launches["flash"] + i_flash + j_flash, flash)

@@ -208,6 +208,7 @@ def make_scan_runner(
     step_takes_index: bool = False,
     carries_aux: bool = False,
     lanes: Optional[int] = None,
+    node_mean: Optional[Callable] = None,
 ) -> Callable[..., Tuple[object, dict, dict]]:
     """Build a reusable chunked driver.
 
@@ -232,11 +233,17 @@ def make_scan_runner(
     to each lane's node-mean parameters.  Metrics come back as [steps, L]
     (every dispatched step: the lanes' lengths are ``info["steps_run"]``,
     an [L] int array).
+
+    ``node_mean(params)`` replaces the node mean the objective is taken on:
+    a sharded step's state holds a rank's pieces, and its mean is gathered
+    whole over the ranks (`core.pame.make_pame_runner`), so that every rank
+    reads the same objective and its stop rule fires at the same step.
     """
 
     def objective(params):
         if lanes is None:
-            mean_params = tree_map(lambda x: x.mean(dim=0), params)
+            mean_params = (tree_map(lambda x: x.mean(dim=0), params) if node_mean is None
+                           else node_mean(params))
             return torch.as_tensor(objective_fn(mean_params)).float().reshape(())
         # lane by lane, the arithmetic of an unbatched run
         return torch.stack([

@@ -13,15 +13,28 @@ so the payload is one contiguous slab of n/k coordinates:
     per message, dequantised before averaging.
 
 Within a round coordinates move in blocks rather than as independent
-draws; across rounds every coordinate is exchanged at the same rate.  The
-JAX module also pins each payload's sharding over a device mesh; those
-arguments have no meaning on one card and are left out.  This exchange
-runs no Pallas kernel in JAX: its [m, m] × [m, n/k] contractions are
-`torch.einsum` here, in f32 as JAX's ``preferred_element_type`` asks.
+draws; across rounds every coordinate is exchanged at the same rate.  This
+exchange runs no Pallas kernel in JAX: its [m, m] × [m, n/k] contractions
+are `torch.einsum` here, in f32 as JAX's ``preferred_element_type`` asks.
+
+Sharded (``shardings=``, a `repro_torch.sharding.MeshShardings`), as JAX's
+module runs over a (node, fsdp, model) mesh: each rank holds its nodes'
+rows and its fsdp / model piece of every leaf.  A leaf is blocked along
+its first trailing axis that the placement leaves whole and that has at
+least min(k, 2) entries (JAX's rule: splitting a placed axis would move
+the whole leaf), and only the [m, n/k] payloads cross the wire: each
+rank all-gathers its piece of them over ``node`` (int8 and one f32 scale
+a message under q8, the scale the absmax over the whole payload, reduced
+over the ranks that hold its pieces).  Where every trailing axis is
+placed or too short, JAX blocks along axis 1 all the same; the port then
+gathers the rank's rows whole over fsdp and model first.  On leaves whose
+axis 1 is placed the sharded exchange blocks along another axis than the
+unsharded one, so the two differ once the nodes' rows differ (ROADMAP,
+queue 3): the port follows JAX's sharded exchange.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,52 +49,115 @@ def systematic_offsets(generator: torch.Generator, m: int, k: int) -> torch.Tens
     return torch.randint(0, k, (m,), generator=generator, device=generator.device)
 
 
+class _Wire(NamedTuple):
+    """The sharded exchange's wire for one leaf: this rank's receiver rows,
+    the mesh, and the axes its payload's pieces are spread over."""
+
+    loc: object             # sharding.Local
+    red_axes: Tuple[str, ...]
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        from repro_torch import sharding as shd
+
+        return shd.all_gather(x, self.loc.mesh, "node")
+
+    def absmax(self, scale: torch.Tensor) -> torch.Tensor:
+        from repro_torch import sharding as shd
+
+        return shd.all_reduce(scale, self.loc.mesh, self.red_axes, op="max")
+
+
 def _leaf_average(
-    leaf: torch.Tensor,     # [m, d1, ...rest]
+    leaf: torch.Tensor,     # [m, d1, ...rest] (sharded: this rank's [r, d1, ...rest])
     offsets: torch.Tensor,  # [m] int
     a: torch.Tensor,        # [m, m] selection, A[j, i] = j in N_i^k
     k: int,
     quantize_bits: int = 0,  # 8 -> int8 payloads (+1 f32 scale per message)
+    wire: Optional[_Wire] = None,  # sharded: the rows' payloads gathered over node
 ) -> torch.Tensor:
-    m = leaf.shape[0]
+    r = leaf.shape[0]
+    rows = slice(None) if wire is None else wire.loc.rows()
     if leaf.dim() == 1:  # [m] scalars-per-node: gossip densely (negligible)
-        sel = a.float()
+        sel = a[:, rows].float()
         cnt = sel.sum(dim=0)
-        agg = torch.einsum("j,ji->i", leaf.float(), sel)
+        sent = leaf if wire is None else wire.gather(leaf)
+        agg = torch.einsum("j,ji->i", sent.float(), sel)
         return torch.where(cnt > 0, agg / cnt.clamp(min=1.0), leaf).to(leaf.dtype)
     d1, rest = leaf.shape[1], tuple(leaf.shape[2:])
     kk = min(k, d1)
     pad = (-d1) % kk
     x = leaf
     if pad:
-        x = torch.cat([x, x.new_zeros((m, pad) + rest)], dim=1)
+        x = torch.cat([x, x.new_zeros((r, pad) + rest)], dim=1)
     b1 = (d1 + pad) // kk
-    classes = x.reshape((m, kk, b1) + rest)
+    classes = x.reshape((r, kk, b1) + rest)
     off = offsets.to(leaf.device).long().clamp(max=kk - 1)
-    payload = classes[torch.arange(m, device=leaf.device), off]  # [m, b1, *rest]
+    payload = classes[torch.arange(r, device=leaf.device), off[rows]]  # [r, b1, *rest]
     if quantize_bits == 8:
-        # int8 wire: per-sender absmax scale (one f32 per message)
+        # int8 wire: per-sender absmax scale (one f32 per message), over the
+        # whole payload (its pieces' maxima reduced over their ranks)
         pf = payload.float()
-        scale = pf.abs().amax(dim=tuple(range(1, pf.dim())), keepdim=True).clamp(min=1e-12)
+        scale = pf.abs().amax(dim=tuple(range(1, pf.dim())), keepdim=True)
+        if wire is not None:
+            wire.absmax(scale)
+        scale = scale.clamp(min=1e-12)
         q = torch.clamp(torch.round(pf / scale * 127.0), -127, 127).to(torch.int8)
+        del pf
+        if wire is not None:
+            q, scale = wire.gather(q), wire.gather(scale)
         payload = (q.float() * scale / 127.0).to(leaf.dtype)
-        del pf, q
+        del q
+    elif wire is not None:
+        payload = wire.gather(payload)  # [m, b1, *rest]: every sender's piece
+    m = payload.shape[0]
 
     onehot = torch.nn.functional.one_hot(off, kk).to(leaf.dtype)  # [m, kk]
-    af = a.to(leaf.dtype)
+    af = a.to(leaf.dtype)[:, rows]
     # every (receiver, class) pair at once: the class one-hot folded into the
-    # selection ([m, m, kk]) and ONE contraction over the sender axis; the
+    # selection ([m, r, kk]) and ONE contraction over the sender axis; the
     # 0/1 factors are exact in any float type, the sum runs in f32
     sel = (af[:, :, None] * onehot[:, None, :]).float()          # [j, i, c]
     agg = torch.einsum("jb,jic->icb", payload.reshape(m, -1).float(), sel)
     del payload
     cnt = torch.einsum("ji,jc->ic", af.float(), onehot.float())  # [i, c]
-    cnt_b = cnt.reshape((m, kk, 1) + (1,) * len(rest))
-    agg = agg.reshape((m, kk, b1) + rest).div_(cnt_b.clamp(min=1.0))
+    cnt_b = cnt.reshape((r, kk, 1) + (1,) * len(rest))
+    agg = agg.reshape((r, kk, b1) + rest).div_(cnt_b.clamp(min=1.0))
     avg = torch.where(cnt_b > 0, agg.to(leaf.dtype), classes)
     del agg
-    out = avg.reshape((m, d1 + pad) + rest)
+    out = avg.reshape((r, d1 + pad) + rest)
     return out[:, :d1].contiguous() if pad else out
+
+
+def _block_axis(whole, spec, k: int) -> int:
+    """JAX's block axis: the first trailing axis left whole by the
+    placement with at least min(k, 2) entries, else axis 1."""
+    spec = tuple(spec) + (None,) * (len(whole) - len(spec))
+    for cand in range(1, len(whole)):
+        if spec[cand] is None and whole[cand] >= min(k, 2):
+            return cand
+    return 1
+
+
+def _sharded_leaf(leaf, spec, offsets, a, k, quantize_bits, loc):
+    """One leaf of the sharded exchange on this rank's piece [r, ...],
+    blocked along JAX's axis moved to axis 1."""
+    from repro_torch import sharding as shd
+
+    spec = tuple(spec) + (None,) * (leaf.dim() - len(spec))
+    if leaf.dim() == 1:
+        return _leaf_average(leaf, offsets, a, k, quantize_bits, _Wire(loc, ()))
+    axis = _block_axis(shd.full_shape(leaf.shape, spec, loc.layout), spec, k)
+    if spec[axis] is not None:
+        # no trailing axis left whole: the rows gathered over fsdp and
+        # model, averaged whole and cut back to this rank's piece
+        full = shd.gather_dims(leaf, spec, loc.mesh, ("fsdp", "model"))
+        bare = (spec[0],) + (None,) * (leaf.dim() - 1)
+        return loc.cut_trailing(_sharded_leaf(full, bare, offsets, a, k, quantize_bits, loc),
+                                spec)
+    red_axes = tuple(name for e in spec[1:] for name in shd.spec_axes(e))
+    out = _leaf_average(leaf.movedim(axis, 1), offsets, a, k, quantize_bits,
+                        _Wire(loc, red_axes))
+    return out.movedim(1, axis).contiguous()
 
 
 def compressed_pme_average_pytree(
@@ -92,18 +168,30 @@ def compressed_pme_average_pytree(
     quantize_bits: int = 0,
     *,
     offsets: Optional[Sequence[torch.Tensor]] = None,  # per-leaf [m] draws
+    shardings=None,    # sharding.MeshShardings: params are this rank's pieces
 ):
     """Drop-in replacement for `pme.pme_average_pytree` (Bernoulli mode):
     leaf idx's offsets are drawn from fold_in(key, idx), or taken from
-    `offsets` in JAX leaf order."""
+    `offsets` in JAX leaf order.  With `shardings` the leaves are this
+    rank's pieces (see the module's docstring); the offsets are drawn for
+    all m nodes, as the unsharded exchange draws them."""
     k = max(2, int(round(1.0 / p)))
     leaves, treedef = tree_flatten(params)
+    loc = None
+    if shardings is not None:
+        from repro_torch import sharding as shd
+
+        loc = shd.local_view(shardings, params)
     out = []
     for idx, leaf in enumerate(leaves):
+        m = leaf.shape[0] if loc is None else loc.m
         if offsets is not None:
             off = offsets[idx]
         else:
-            off = systematic_offsets(
-                make_generator(fold_in(key, idx), leaf.device), leaf.shape[0], k)
-        out.append(_leaf_average(leaf, off, a.to(leaf.device), k, quantize_bits))
+            off = systematic_offsets(make_generator(fold_in(key, idx), leaf.device), m, k)
+        if loc is None:
+            out.append(_leaf_average(leaf, off, a.to(leaf.device), k, quantize_bits))
+        else:
+            out.append(_sharded_leaf(leaf, loc.specs[idx], off, a.to(leaf.device), k,
+                                     quantize_bits, loc))
     return tree_unflatten(treedef, out)

@@ -26,6 +26,26 @@ network the realization, the self view and the delivery masks are folded
 over the same rows (`core.scenarios.fold_arrays`): each lane's receivers
 are gated by its own rows of the realization, and its realized wire bits
 come back [L].
+
+Sharded (``param_shardings=``, a `repro_torch.sharding.MeshShardings` of
+`sharding.state_shardings(...).params` over a (node, fsdp, model) mesh,
+`launch.mesh.make_logical_mesh`): the state holds this rank's pieces —
+its nodes' rows ([m / node, ...] leaves and sigma) and its fsdp / model
+piece of every leaf — and the batch its nodes' whole sub-batches.  Every
+rank draws the step's selection, masks and offsets for all m nodes at the
+whole leaves' shapes (or takes the same injected draws) and keeps its
+part; the exchange gathers over ``node`` only (`core.pme`,
+`core.gossip`).  Each local node's leaves are then gathered whole over
+fsdp and model, its forward and backward run on them as the unsharded
+step runs them (gather before compute, as ZeRO-3 does: no
+tensor-parallel forward yet), and the rank keeps its piece of the
+update.  ``loss_mean`` is the mean of the gathered per-node losses and
+``consensus`` and ``sigma_mean`` are reduced over the ranks, so every
+rank reports the global values (and the engine's stop rule stops every
+rank at the same step).  The dense and sparse exchanges give the
+unsharded step's state bit for bit; the compressed ones follow JAX's
+sharded exchange.  Lanes, a dynamic network's realization, a self view
+and delivery masks are not taken with shardings (ROADMAP, later work).
 """
 from __future__ import annotations
 
@@ -36,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch import sharding as shd
 from repro_torch.core import engine, gossip, pme
 from repro_torch.core import lanes as LN
 from repro_torch.core.topology import Topology
@@ -174,6 +195,18 @@ def _not_ported(what: str):
     raise NotImplementedError(f"{what} not yet ported to repro_torch")
 
 
+def _refuse_sharded(batched, realization, self_params, delivered):
+    """What the sharded step leaves out raises (ROADMAP, queue 1: sharded
+    lanes and dynamic networks)."""
+    for what, given in (("lanes (LaneTopologyArrays)", batched),
+                        ("a dynamic network's realization", realization is not None),
+                        ("self_params", self_params is not None),
+                        ("delivered", delivered is not None)):
+        if given:
+            _not_ported(f"param_shardings with {what} (ROADMAP: sharded lanes and "
+                        f"dynamic networks)")
+
+
 def pame_step(
     state: PaMEState,
     batch,  # pytree, leaves [m, ...] (per-node sub-batches B_i^k)
@@ -211,11 +244,12 @@ def pame_step(
     and ``offsets`` concatenated over the lanes' rows, ``a`` [L, m, m]),
     and the metrics come back [L].  A dynamic network's `realization`,
     `self_params` and `delivered` are folded over the same L·m rows."""
-    if param_shardings is not None:
-        _not_ported("param_shardings")
     if cfg.exchange not in ("dense", "compressed", "compressed_q8"):
         raise ValueError(f"unknown exchange {cfg.exchange!r}")
     batched = isinstance(topo, LaneTopologyArrays)
+    sharded = param_shardings is not None
+    if sharded:
+        _refuse_sharded(batched, realization, self_params, delivered)
     lane_arrays = topo.lanes if batched else (topo,)
     n_lanes = len(lane_arrays)
     m = lane_arrays[0].nbrs.shape[0]
@@ -260,6 +294,7 @@ def pame_step(
         v_bar = pme.pme_average_pytree_padded(
             k_mask, state.params, topo.nbrs, sel, rate,
             mode=cfg.mask_mode, pad=~topo.valid, self_params=self_params, masks=masks,
+            shardings=param_shardings,
         )
     else:
         if delivered is not None:
@@ -277,7 +312,7 @@ def pame_step(
         if cfg.exchange == "dense":
             v_bar = pme.pme_average_pytree(
                 k_mask, state.params, a, rate, mode=cfg.mask_mode,
-                self_params=self_params, masks=masks,
+                self_params=self_params, masks=masks, shardings=param_shardings,
             )
         else:
             if self_params is not None:
@@ -286,7 +321,10 @@ def pame_step(
                     "compressed exchange path"
                 )
             v_bar = _compressed_exchange(k_mask, state.params, a if batched else a[None],
-                                         cfg, draws.get("offsets"))
+                                         cfg, draws.get("offsets"), param_shardings)
+    if sharded:
+        return _sharded_tail(state, batch, grad_fn, topo, cfg, v_bar, comm[0], k_data,
+                             param_shardings)
 
     # Per-node gradients at v_bar, one node at a time (not a vmap): at full
     # width this keeps a single node's activations alive.  v_bar is a fresh
@@ -347,9 +385,62 @@ def pame_step(
     return new_state, metrics
 
 
-def _compressed_exchange(k_mask, params, a, cfg: PaMEConfig, offsets):
+def _sharded_tail(state, batch, grad_fn, topo, cfg, v_bar, comm, k_data, shardings):
+    """The sharded step after its exchange: each local node's gradient on
+    its leaves gathered whole, this rank's piece of its update, and the
+    global metrics (see the module's docstring)."""
+    loc = shd.local_view(shardings, v_bar)
+    mesh, rows = loc.mesh, loc.rows()
+    stepsize = 1.0 / (state.sigma * topo.t[rows].float())
+    leaves, treedef = tree_flatten(v_bar)
+    batch_leaves, batch_def = tree_flatten(batch)
+    losses = []
+    for r in range(loc.r):
+        i = loc.r0 + r  # the node's index
+        whole = [shd.gather_dims(x[r:r + 1], spec, mesh, ("fsdp", "model"))[0]
+                 for x, spec in zip(leaves, loc.specs)]
+        p_i = tree_unflatten(treedef, [w.detach().requires_grad_(True) for w in whole])
+        b_i = tree_unflatten(batch_def, [b[r] for b in batch_leaves])
+        loss_i, g_i = grad_fn(p_i, b_i, pme.fold_in(k_data, i))
+        losses.append(loss_i.detach().float().reshape(()))
+        del p_i, whole
+        with torch.no_grad():
+            for x, g, spec in zip(leaves, tree_leaves(g_i), loc.specs):
+                # this rank's piece of w_i = v_i - g_i * (1 / (sigma_i t_i))
+                g = shd.cut(g, spec[1:], loc.layout, loc.coord)
+                x[r].sub_(g.to(x.dtype) * stepsize[r].to(x.dtype))
+        del g_i
+    # the global metrics: the gathered losses' mean (the unsharded step's
+    # arithmetic), consensus ||W - Pi||_F^2 over every rank's pieces, each
+    # counted once, in the leaf's type as the unsharded step takes it
+    loss_mean = shd.all_gather(torch.stack(losses), mesh, "node").mean()
+    consensus = torch.zeros((), dtype=torch.float32, device=topo.nbrs.device)
+    for x, spec in zip(leaves, loc.specs):
+        total = shd.all_reduce(x.sum(dim=0, dtype=torch.float32), mesh, ("node",))
+        if shd.owns(spec, loc.coord):
+            consensus += torch.sum((x - (total / loc.m).to(x.dtype)) ** 2).float()
+        del total
+    shd.all_reduce(consensus, mesh, shd.AXES)
+    sigma = state.sigma * cfg.gamma
+    new_state = PaMEState(params=v_bar, sigma=sigma, step=state.step + 1, key=state.key)
+    metrics = {
+        "loss_mean": loss_mean,
+        "consensus": consensus,
+        "comm_nodes": comm.sum(),
+        "sigma_mean": shd.all_gather(sigma, mesh, "node").mean(),
+    }
+    return new_state, metrics
+
+
+def _compressed_exchange(k_mask, params, a, cfg: PaMEConfig, offsets, shardings=None):
     """The compressed exchange lane by lane (it runs no kernel): lane l's
-    rows with its [m, m] selection a[l], its key and its offsets."""
+    rows with its [m, m] selection a[l], its key and its offsets; with
+    `shardings`, this rank's pieces of one lane."""
+    if shardings is not None:
+        return gossip.compressed_pme_average_pytree(
+            k_mask, params, a[0], cfg.p,
+            quantize_bits=8 if cfg.exchange == "compressed_q8" else 0, offsets=offsets,
+            shardings=shardings)
     leaves, treedef = tree_flatten(params)
     outs = []
     for lane, (key, sl) in enumerate(zip(LN.keys(k_mask),
@@ -393,26 +484,58 @@ def make_pame_runner(
 
     Returns ``run(key, params0, m, batch_fn, num_steps) -> (state,
     history)``.  ``draws_fn(step)``, when given, supplies each step's draws
-    (see `pame_step`) instead of the step's own sampling.
+    (see `pame_step`) instead of the step's own sampling.  With
+    `param_shardings` (a `repro_torch.sharding.MeshShardings`) every rank
+    calls ``run`` with the same whole ``params0`` and ``batch_fn`` (whole
+    [m, ...] batches): it keeps its pieces of the stacked parameters and
+    its nodes' sub-batches, steps the sharded `pame_step`, and gets back
+    its pieces of the state and the global history; the stop rule's
+    objective is taken on the node-mean parameters gathered whole, the
+    same on every rank.
     """
-    if param_shardings is not None:
-        _not_ported("param_shardings")
     dev = resolve_device(device)
     topo_arrays = make_topology_arrays(topo, cfg, seed=seed, device=dev)
+    sh = param_shardings
+
+    def local_batch(batch):
+        if sh is None:
+            return batch
+        layout, coord = shd.mesh_layout(sh.mesh), shd.mesh_coords(sh.mesh)
+        return tree_map(lambda b: shd.cut(b, ("node",), layout, coord), batch)
 
     def step_fn(state, batch):
         draws = draws_fn(state.step) if draws_fn is not None else None
-        return pame_step(state, _on(dev, batch), grad_fn, topo_arrays, cfg,
-                         draws=draws)
+        return pame_step(state, local_batch(_on(dev, batch)), grad_fn, topo_arrays, cfg,
+                         param_shardings=sh, draws=draws)
+
+    def node_mean(params):
+        # every node's piece gathered over "node", averaged, then made whole
+        mean = tree_map(lambda x: shd.all_gather(x, sh.mesh, "node").mean(dim=0, keepdim=True),
+                        params)
+        return tree_map(lambda x: x[0], shd.gather_tree(mean, sh, ("fsdp", "model")))
 
     runner = engine.make_scan_runner(
         step_fn, objective_fn=objective_fn, tol_std=tol_std, chunk_size=chunk_size,
+        node_mean=None if sh is None else node_mean,
     )
+
+    def stacked(params0, m):
+        if sh is None:
+            return _stack_params(_on(dev, params0), m)
+        # this rank's piece of each leaf, stacked for its own nodes only
+        layout, coord = shd.mesh_layout(sh.mesh), shd.mesh_coords(sh.mesh)
+        leaves, treedef = tree_flatten(_on(dev, params0))
+        r = m // layout["node"]
+        out = []
+        for x, spec in zip(leaves, shd.leaf_specs(params0, sh.specs)):
+            piece = shd.cut(x, spec[1:], layout, coord)
+            out.append(piece.unsqueeze(0).expand((r,) + tuple(piece.shape)).contiguous())
+        return tree_unflatten(treedef, out)
 
     def run(key, params0, m, batch_fn, num_steps):
         # the state is built here, so the runner owns it outright
         state, metrics, info = runner(
-            engine.Donated(pame_init(key, _stack_params(_on(dev, params0), m), m, cfg)),
+            engine.Donated(pame_init(key, stacked(params0, m), m, cfg)),
             batch_fn, num_steps)
         history = engine.history_from(metrics, info, {
             "loss": "loss_mean",

@@ -26,9 +26,22 @@ selection, one [m, m] a lane, and sends a leaf of at least 2^17 elements
 a lane to the kernel's lane axis in one launch; a self view
 (``self_params``, the temporal and fault steps' fresh parameters) is
 folded like the leaves, and each lane fills from its own rows.
+
+Sharded (``shardings=``, a `repro_torch.sharding.MeshShardings` over a
+(node, fsdp, model) mesh): each rank holds its nodes' rows and its fsdp /
+model piece of every leaf.  The masks are drawn at the whole leaf's shape
+and node count, as the unsharded exchange draws them (every rank draws
+the same ones), and each rank keeps its piece; it all-gathers its piece of
+the leaf over ``node`` (JAX's "m × shard_bytes" wire, `core.gossip`'s
+docstring) and averages for its own receivers only: the dense exchange
+through the kernel's receiver range (or the plain average over the
+selection's columns of those receivers), the padded one through its
+receivers' rows of the neighbour table over the gathered [m, ...] sender
+stack.  Every coordinate sees the unsharded arithmetic.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -219,6 +232,56 @@ def _draw_masks(gens, shape, p_i: float, mode: str) -> torch.Tensor:
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
+def _sharded_masks(mk, gens, whole, p_i: float, mode: str, spec, loc) -> torch.Tensor:
+    """A leaf's masks over all m senders, drawn (or injected) at the whole
+    leaf's shape as the unsharded exchange draws them, cut to this rank's
+    piece: [m, n_local] (exact) or [m, *local] (Bernoulli)."""
+    m, n = whole[0], math.prod(whole[1:])
+    if mk is None:
+        mk = _draw_masks(gens, (m, n) if mode == "exact" else tuple(whole), p_i, mode)
+    mk = loc.cut_trailing(mk.reshape(whole), spec)
+    return mk.reshape(m, -1) if mode == "exact" else mk
+
+
+def _pme_average_sharded(key, params, a, p, mode, masks, shardings):
+    """`pme_average_pytree` on this rank's pieces (see the module's
+    docstring): [m / node, ...] leaves in, the same out."""
+    from repro_torch import sharding as shd
+
+    leaves, treedef = tree_flatten(params)
+    loc = shd.local_view(shardings, params)
+    rows = loc.rows()
+    per_leaf = isinstance(p, (tuple, list))
+    impl = default_impl(a.device)
+    out = []
+    for idx, leaf in enumerate(leaves):
+        spec = loc.specs[idx]
+        whole = shd.full_shape(leaf.shape, spec, loc.layout)
+        mk, gens = _leaf_masks(masks, idx, key, leaf.device)
+        mk = _sharded_masks(mk, gens, whole, p[idx] if per_leaf else p, mode, spec, loc)
+        sent = shd.all_gather(leaf, loc.mesh, "node")  # every sender's piece [m, ...]
+        if mode == "exact":
+            flat = sent.reshape(loc.m, -1)
+            if impl == "kernel" and (env_impl() == "kernel"
+                                     or math.prod(whole) >= _KERNEL_MIN_ELEMS):
+                from repro_torch.kernels.pme_average.ops import (
+                    pme_average as pme_average_fused,
+                )
+
+                avg = pme_average_fused(flat.contiguous(), mk, a, receivers=(loc.r0, loc.r))
+            else:
+                avg = pme_average(flat, mk, a[:, rows], own=flat[rows])
+            out.append(avg.reshape(leaf.shape))
+        else:
+            mask_t = mk.to(leaf.dtype)
+            a_t = a[:, rows].to(leaf.dtype).float()
+            agg = torch.einsum("j...,ji->i...", (sent * mask_t).float(), a_t)
+            cnt = torch.einsum("j...,ji->i...", mask_t.float(), a_t)
+            out.append(_count_average(agg, cnt, leaf))
+        del sent, mk
+    return tree_unflatten(treedef, out)
+
+
 def pme_average_pytree(
     key,                     # int, or one key per lane (int64 ndarray [L])
     params,  # pytree with [m, ...] leaves ([L·m, ...] for L lanes)
@@ -228,6 +291,7 @@ def pme_average_pytree(
     self_params=None,
     *,
     masks: Optional[Sequence[torch.Tensor]] = None,  # per-leaf draws, JAX order
+    shardings=None,          # sharding.MeshShardings: params are this rank's pieces
 ):
     """Apply PME leaf-wise to a node-stacked parameter pytree.
 
@@ -240,8 +304,15 @@ def pme_average_pytree(
     own m rows (masks drawn lane by lane from an ndarray of keys, the
     self view folded like the leaves); on the card an exact-mode leaf of
     at least 2^17 elements a lane takes the kernel's lane axis, one launch
-    for all lanes.
+    for all lanes.  With `shardings` the leaves are this rank's pieces and
+    the masks (drawn or injected) the whole leaves' (see the module's
+    docstring); lanes and a self view are not taken there.
     """
+    if shardings is not None:
+        if self_params is not None or a.dim() == 3:
+            raise NotImplementedError("a sharded exchange takes no lanes and no self view "
+                                      "(ROADMAP, later work)")
+        return _pme_average_sharded(key, params, a, p, mode, masks, shardings)
     leaves, treedef = tree_flatten(params)
     self_leaves = leaves if self_params is None else tree_flatten(self_params)[0]
     lanes = a.shape[0] if a.dim() == 3 else None
@@ -341,6 +412,7 @@ def pme_average_pytree_padded(
     self_params=None,
     *,
     masks: Optional[Sequence[torch.Tensor]] = None,  # per-leaf draws, JAX order
+    shardings=None,          # sharding.MeshShardings: params are this rank's pieces
 ):
     """PME applied leaf-wise through the padded neighbour-exchange form.
 
@@ -352,7 +424,16 @@ def pme_average_pytree_padded(
     are dropped before the next leaf is drawn.  L lanes ride one call: the
     leaves' L·m rows, a lane-offset table (`core.mixing.fold_padded`'s
     layout) and one key a lane, so each leaf is one walk for all lanes.
+    With `shardings` the leaves are this rank's pieces: its receivers' rows
+    of the table walk the gathered [m, ...] sender stack (the kernel's
+    M >= m form), and the masks are the whole leaves' (see the module's
+    docstring).
     """
+    if shardings is not None:
+        if self_params is not None:
+            raise NotImplementedError("a sharded exchange takes no self view "
+                                      "(ROADMAP, later work)")
+        return _padded_sharded(key, params, nbrs, sel, p, mode, pad, impl, masks, shardings)
     leaves, treedef = tree_flatten(params)
     self_leaves = [None] * len(leaves) if self_params is None else tree_flatten(self_params)[0]
     sel_f = sel.float()
@@ -364,6 +445,40 @@ def pme_average_pytree_padded(
             nbrs, sel_f, leaf, self_leaves[idx], p[idx] if per_leaf else p,
             mode, mk, gens, pad, impl,
         ))
+    return tree_unflatten(treedef, out)
+
+
+def _padded_sharded(key, params, nbrs, sel, p, mode, pad, impl, masks, shardings):
+    """`pme_average_pytree_padded` on this rank's pieces."""
+    from repro_torch import sharding as shd
+
+    leaves, treedef = tree_flatten(params)
+    loc = shd.local_view(shardings, params)
+    rows = loc.rows()
+    nbrs_r, sel_r = nbrs[rows], sel.float()[rows]
+    pad_r = None if pad is None else pad[rows]
+    per_leaf = isinstance(p, (tuple, list))
+    out = []
+    for idx, leaf in enumerate(leaves):
+        spec = loc.specs[idx]
+        whole = shd.full_shape(leaf.shape, spec, loc.layout)
+        mk, gens = _leaf_masks(masks, idx, key, leaf.device)
+        mk = _sharded_masks(mk, gens, whole, p[idx] if per_leaf else p, mode, spec, loc)
+        sent = shd.all_gather(leaf, loc.mesh, "node")
+        if mode == "exact":
+            payload = torch.where(mk, sent.reshape(loc.m, -1), 0).float()
+            fallback = leaf.reshape(loc.r, -1)
+        else:
+            payload = (sent * mk.to(sent.dtype)).float()
+            fallback = leaf
+        del sent
+        mask_f = mk.float()
+        del mk
+        agg, cnt = gather_terms(
+            nbrs_r, [(sel_r, payload), (sel_r, mask_f)], pad=pad_r, impl=impl
+        )
+        del payload, mask_f
+        out.append(_count_average(agg, cnt, fallback).reshape(leaf.shape))
     return tree_unflatten(treedef, out)
 
 

@@ -12,6 +12,16 @@
 // computed in f32 and written in W's type (f32 or bf16).  M may be bool /
 // uint8 or W's own type.
 //
+// Receiver range: the senders are all m rows of W and M, the receivers r of
+// them starting at r0 (1 <= r, r0 + r <= m): out [r, n] holds receivers
+// r0 ... r0 + r - 1, their selection A[:, r0:r0 + r] and their lambda = 0
+// fill W[r0 + i].  A sharded step gives each rank the rows of its own
+// nodes: it gathers the m senders' slabs over the node axis and averages
+// for its r = m / node receivers alone.  The square call is r0 = 0, r = m.
+// What bounds the range form: bytes, (m + r) * n reads of W (the senders'
+// rows, then the r receivers' own rows for the fill, from L2 when they are
+// still there), m * n of the masks and r * n writes.
+//
 // Lanes: W, M and out may hold L independent lanes [L, m, n] and A [L, m, m]
 // (S seeds x C configs of one run batched together).  The grid's y axis is
 // the lane: block (x, l) reads and writes only lane l's rows, at lane l's
@@ -74,22 +84,22 @@ template <typename WT, typename MT, int V, int kRecvTile>
 __global__ void __launch_bounds__(kThreads)
 pme_average_kernel(const WT* __restrict__ w, const MT* __restrict__ mask,
                    const float* __restrict__ a, WT* __restrict__ out, int m,
-                   int64_t n) {
+                   int64_t n, int r0, int nr) {
   extern __shared__ float s_at[];  // [kRecvTile, m]: A^T rows of the tile
   // this block's lane
   const int64_t lane = blockIdx.y;
   w += lane * m * n;
   mask += lane * m * n;
-  out += lane * m * n;
+  out += lane * nr * n;
   a += lane * m * m;
   const int64_t l0 = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * V;
   const bool active = l0 < n;  // for V > 1 the launcher guarantees n % V == 0
-  for (int i0 = 0; i0 < m; i0 += kRecvTile) {
-    const int rt = min(kRecvTile, m - i0);
+  for (int i0 = 0; i0 < nr; i0 += kRecvTile) {
+    const int rt = min(kRecvTile, nr - i0);
     __syncthreads();
     for (int e = threadIdx.x; e < rt * m; e += kThreads) {
       const int r = e / m, j = e % m;
-      s_at[e] = a[static_cast<int64_t>(j) * m + i0 + r];
+      s_at[e] = a[static_cast<int64_t>(j) * m + r0 + i0 + r];
     }
     __syncthreads();
     if (!active) continue;
@@ -121,7 +131,7 @@ pme_average_kernel(const WT* __restrict__ w, const MT* __restrict__ mask,
       if (r < rt) {
         const int64_t off = static_cast<int64_t>(i0 + r) * n + l0;
         float own[V];
-        load<WT, V>(w + off, own);
+        load<WT, V>(w + static_cast<int64_t>(r0) * n + off, own);
         Pack<WT, V> pk;
 #pragma unroll
         for (int e = 0; e < V; ++e) {
@@ -136,7 +146,7 @@ pme_average_kernel(const WT* __restrict__ w, const MT* __restrict__ mask,
 
 template <typename WT, typename MT>
 int launch(const void* w, const void* mask, const float* a, void* out, int m,
-           int64_t n, int lanes, cudaStream_t s) {
+           int64_t n, int lanes, int r0, int nr, cudaStream_t s) {
   const size_t align = 4 * sizeof(WT);
   const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(w) % align == 0 &&
                    reinterpret_cast<uintptr_t>(out) % align == 0 &&
@@ -144,51 +154,61 @@ int launch(const void* w, const void* mask, const float* a, void* out, int m,
   const int v = vec ? 4 : 1;
   const int64_t blocks = (n / v + kThreads - 1) / kThreads;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  // a receiver tile of 4 rows when m <= 4 halves the accumulator registers
+  // a receiver tile of 4 rows when r <= 4 halves the accumulator registers
   // (more blocks resident per SM, more loads in flight)
-  const int rt = m <= 4 ? 4 : kMaxRecvTile;
+  const int rt = nr <= 4 ? 4 : kMaxRecvTile;
   const size_t smem = static_cast<size_t>(rt) * m * sizeof(float);
   const auto* wp = static_cast<const WT*>(w);
   const auto* mp = static_cast<const MT*>(mask);
   auto* op = static_cast<WT*>(out);
   const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(lanes));
   if (vec && rt == 4)
-    pme_average_kernel<WT, MT, 4, 4><<<grid, kThreads, smem, s>>>(wp, mp, a, op, m, n);
+    pme_average_kernel<WT, MT, 4, 4><<<grid, kThreads, smem, s>>>(wp, mp, a, op, m, n, r0, nr);
   else if (vec)
-    pme_average_kernel<WT, MT, 4, kMaxRecvTile><<<grid, kThreads, smem, s>>>(wp, mp, a, op, m, n);
+    pme_average_kernel<WT, MT, 4, kMaxRecvTile><<<grid, kThreads, smem, s>>>(wp, mp, a, op, m, n, r0, nr);
   else
-    pme_average_kernel<WT, MT, 1, kMaxRecvTile><<<grid, kThreads, smem, s>>>(wp, mp, a, op, m, n);
+    pme_average_kernel<WT, MT, 1, kMaxRecvTile><<<grid, kThreads, smem, s>>>(wp, mp, a, op, m, n, r0, nr);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename WT>
 int dispatch_mask(const void* w, const void* mask, const float* a, void* out,
-                  int m, int64_t n, int lanes, int mask_dtype, cudaStream_t s) {
+                  int m, int64_t n, int lanes, int r0, int nr, int mask_dtype,
+                  cudaStream_t s) {
   switch (mask_dtype) {
-    case 0: return launch<WT, float>(w, mask, a, out, m, n, lanes, s);
-    case 1: return launch<WT, __nv_bfloat16>(w, mask, a, out, m, n, lanes, s);
-    case 2: return launch<WT, uint8_t>(w, mask, a, out, m, n, lanes, s);
+    case 0: return launch<WT, float>(w, mask, a, out, m, n, lanes, r0, nr, s);
+    case 1: return launch<WT, __nv_bfloat16>(w, mask, a, out, m, n, lanes, r0, nr, s);
+    case 2: return launch<WT, uint8_t>(w, mask, a, out, m, n, lanes, r0, nr, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// w, out [lanes, m, n] of type w_dtype; mask [lanes, m, n] of type
-// mask_dtype; a [lanes, m, m] float32, row-major A[sender, receiver] per
-// lane.  Type codes: 0 float32, 1 bfloat16, 2 uint8 (bool).  Launches on
-// `stream`, allocates nothing, does not synchronise.  Returns
-// cudaGetLastError() (0 = launched).
-extern "C" int pme_average(const void* w, const void* mask, const float* a,
-                           void* out, int m, long long n, int lanes, int w_dtype,
-                           int mask_dtype, void* stream) {
-  if (m < 1 || n < 1 || lanes < 1 || lanes > 65535 ||
-      static_cast<size_t>(kMaxRecvTile) * m * sizeof(float) > 48 * 1024)
+// w [lanes, m, n] of type w_dtype; out [lanes, r, n] of the same type (the
+// receivers r0 ... r0 + r - 1); mask [lanes, m, n] of type mask_dtype; a
+// [lanes, m, m] float32, row-major A[sender, receiver] per lane.  Type
+// codes: 0 float32, 1 bfloat16, 2 uint8 (bool).  Launches on `stream`,
+// allocates nothing, does not synchronise.  Returns cudaGetLastError()
+// (0 = launched).
+extern "C" int pme_average_range(const void* w, const void* mask, const float* a,
+                                 void* out, int m, long long n, int lanes, int r0,
+                                 int r, int w_dtype, int mask_dtype, void* stream) {
+  if (m < 1 || n < 1 || lanes < 1 || lanes > 65535 || r < 1 || r0 < 0 ||
+      r0 + r > m || static_cast<size_t>(kMaxRecvTile) * m * sizeof(float) > 48 * 1024)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   switch (w_dtype) {
-    case 0: return dispatch_mask<float>(w, mask, a, out, m, n, lanes, mask_dtype, s);
-    case 1: return dispatch_mask<__nv_bfloat16>(w, mask, a, out, m, n, lanes, mask_dtype, s);
+    case 0: return dispatch_mask<float>(w, mask, a, out, m, n, lanes, r0, r, mask_dtype, s);
+    case 1:
+      return dispatch_mask<__nv_bfloat16>(w, mask, a, out, m, n, lanes, r0, r, mask_dtype, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The square call: every row a receiver (r0 = 0, r = m), out [lanes, m, n].
+extern "C" int pme_average(const void* w, const void* mask, const float* a,
+                           void* out, int m, long long n, int lanes, int w_dtype,
+                           int mask_dtype, void* stream) {
+  return pme_average_range(w, mask, a, out, m, n, lanes, 0, m, w_dtype, mask_dtype, stream);
 }

@@ -2,7 +2,9 @@
 
 Each follows the JAX package's split: ``kernel.py`` launches the CUDA
 source under ``csrc/`` (built at first use by `_build`), ``ref.py`` is the
-plain PyTorch version, ``ops.py`` picks by the tensors' device.
+plain PyTorch version, ``ops.py`` picks by the tensors' device
+(`fake_route`: the kernels' route on fake tensors, for the dry run's
+memory trace).
 """
 import torch
 

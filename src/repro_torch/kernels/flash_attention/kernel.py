@@ -15,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, fake_route
 
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the cuda_cores variant's
@@ -61,7 +61,10 @@ def flash_attention_cuda(
     window: Optional[int] = None,
 ) -> torch.Tensor:
     """Causal GQA attention, f32 online softmax, output in q's type."""
-    if not q.is_cuda:
+    fake = fake_route.active()
+    if fake:
+        fake_route.check(q, k, v)
+    elif not q.is_cuda:
         raise ValueError("flash_attention_cuda launches a CUDA kernel: pass CUDA tensors")
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"need q [B,S,H,D] and k, v [B,S,KV,D], got "
@@ -79,7 +82,7 @@ def flash_attention_cuda(
         raise ValueError(f"window must be >= 1, got {window}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
-    if q.numel() == 0:
+    if q.numel() == 0 or fake:
         return out
     rc = _bind()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, kv, d,

@@ -15,7 +15,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, fake_route
 
 MAX_TERMS = 8
 # operand type -> (variant name, the C entry point's dtype code)
@@ -48,7 +48,10 @@ def gossip_gather(
     `nbrs` must index its rows."""
     m, k = nbrs.shape
     g = ws.shape[0]
-    if not nbrs.is_cuda:
+    fake = fake_route.active()
+    if fake:
+        fake_route.check(nbrs, ws, *xs)
+    elif not nbrs.is_cuda:
         raise ValueError("gossip_gather launches a CUDA kernel: pass CUDA tensors")
     if nbrs.dtype != torch.int32 or ws.dtype != torch.float32:
         raise TypeError("gossip_gather needs int32 nbrs and float32 weights")
@@ -73,7 +76,7 @@ def gossip_gather(
             raise ValueError("operands and neighbour table on different devices")
     nbrs, ws = nbrs.contiguous(), ws.contiguous()
     outs = tuple(torch.empty((m, n), dtype=x.dtype, device=x.device) for x in xs)
-    if n == 0:
+    if n == 0 or fake:
         return outs
     fn = _bind()
     variant, code = VARIANTS[dtype]

@@ -19,8 +19,9 @@ by l·m (`core.mixing.fold_padded`) are one launch over L·m receiver rows,
 bit-equal to L single-lane launches.
 
 The device of the tensors decides: CPU tensors take the plain version
-(`ref.gather_terms_ref`), CUDA tensors launch the kernel or raise.  There
-is no fallback from the card to the plain version.
+(`ref.gather_terms_ref`), CUDA tensors launch the kernel or raise (inside
+the dry run's memory trace, `repro_torch.kernels.fake_route`, fake tensors
+take the kernel's route).  There is no fallback from the card to the plain version.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels import fake_route
 from repro_torch.kernels.gossip.kernel import gossip_gather
 from repro_torch.kernels.gossip.ref import gather_terms_ref
 
@@ -41,7 +43,7 @@ def gather_terms_kernel(
 ) -> Tuple[torch.Tensor, ...]:
     """out_t[i] = sum_slot w_t[i, slot] * x_t[nbrs[i, slot]] for every term,
     [m, ...] out of M >= m sender rows."""
-    if not nbrs.is_cuda:
+    if not nbrs.is_cuda and not fake_route.active():
         return gather_terms_ref(nbrs, terms, pad=pad)
     m = nbrs.shape[0]
     nbrs32 = nbrs.to(torch.int32)

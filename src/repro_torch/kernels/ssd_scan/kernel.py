@@ -15,7 +15,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, fake_route
 
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 128
@@ -79,7 +79,10 @@ def ssd_intra_chunk_cuda(
     rep: int,           # heads per group, H = G * rep
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(y [B,Nc,L,H,P] in xc's type, state [B,Nc,H,P,N] f32)."""
-    if not xc.is_cuda:
+    fake = fake_route.active()
+    if fake:
+        fake_route.check(xc, dtc, cum, bc, cc)
+    elif not xc.is_cuda:
         raise ValueError("ssd_intra_chunk_cuda launches a CUDA kernel: pass CUDA tensors")
     if xc.dim() != 5 or bc.dim() != 5 or cc.shape != bc.shape:
         raise ValueError(f"need xc [B,Nc,L,H,P] and bc, cc [B,Nc,L,G,N], got "
@@ -100,7 +103,7 @@ def ssd_intra_chunk_cuda(
     xc, dtc, cum, bc, cc = (t.contiguous() for t in (xc, dtc, cum, bc, cc))
     y = torch.empty_like(xc)
     state = torch.empty((b, nc, h, p, n), dtype=torch.float32, device=xc.device)
-    if xc.numel() == 0:
+    if xc.numel() == 0 or fake:
         return y, state
     rc = _bind()(
         xc.data_ptr(), dtc.data_ptr(), cum.data_ptr(), bc.data_ptr(), cc.data_ptr(),

@@ -19,14 +19,44 @@ types, no storage) and counts their operations with
 
 Each record holds the parameter and active-parameter counts; the bytes of
 the parameters, the node-stacked state, the inputs and the cache; the
-step's FLOPs; whether the resident bytes (parameters or state, inputs,
-cache) fit in the card's memory; and the (node, fsdp, model) layout of
-``--devices`` cards of this kind (`launch.mesh`) with what each would hold
-under `repro_torch.sharding`'s placements.  Kernels are reached through
-their plain versions on non-CUDA tensors, so masked attention counts whole
-[S, S] score blocks; a prefill record also gives the count with each
-GQA layer's attention cut to the causal (or window) band the flash kernel
-computes.  There are no collective bytes: one card has no collectives.
+step's FLOPs; its memory; whether it fits in the card's memory; the
+(node, fsdp, model) layout of ``--devices`` cards of this kind
+(`launch.mesh`, model axis 1) with what each would hold under
+`repro_torch.sharding`'s placements; and a train step's collective bytes
+over that layout.
+
+  * FLOPs: kernels are reached through their plain versions on non-CUDA
+    tensors, so masked attention counts whole [S, S] score blocks; a
+    prefill record also gives the count with each GQA layer's attention
+    cut to the causal (or window) band the flash kernel computes.
+  * ``memory``: the counterpart of JAX's ``compiled.memory_analysis()``,
+    from a second trace of the same fake-tensor step under
+    `torch.distributed._tools.mem_tracker.MemTracker`, with every kernel
+    wrapper on its kernel's route (`repro_torch.kernels.fake_route`: the
+    outputs and temporaries the launch would allocate, no [S, S] scores
+    where flash runs).  ``argument_bytes`` are the step's inputs (the
+    state or parameters, the batch, a decode's cache), ``output_bytes``
+    what it returns, ``peak_bytes`` the most bytes live at once and
+    ``temp_bytes`` = peak − argument bytes.  A trace sees what each op
+    returns but not the temporaries its CUDA code allocates inside the
+    launch; `CUDA_TEMPS` adds those that `tools/memory_probe.py` found on
+    the card (the plain attention's softmax backward, the loss's
+    logsumexp, a bf16 mean's f32 sums) at the moment the op runs.
+    ``code_bytes`` is None: no executable is compiled.  ``fits_one_card``
+    compares the peak with the card; ``resident_bytes`` stays beside it.  ``mem_trace_s`` is the
+    trace's host time.  The ``kernels`` variant sets ``use_flash`` and
+    ``use_ssd_kernel``, as the card's serving paths run (JAX's configs
+    and dry run leave both off; this variant is the port's own).
+  * ``collective_bytes``: JAX's record parses them from the partitioned
+    HLO (`parse_collective_bytes`); the port has no HLO.  A train record
+    runs the sharded PaME step (`core.pame`, ``param_shardings=``) as rank
+    0 of a world of ``--devices`` ranks under torch's fake process group,
+    on fake tensors, with m = the layout's node count (JAX's choice) and
+    the global batch split over them, and records what
+    `repro_torch.sharding`'s counted collectives received, by kind, per
+    device (`collective_bytes`, the counterpart of
+    `parse_collective_bytes`).  Prefill and decode records give None: the
+    port has no sharded serving step.
 
 The card's memory comes from ``torch.cuda.get_device_properties(0)``, or
 from ``--device-bytes`` (what a CPU run needs); with neither, the run
@@ -47,9 +77,11 @@ from typing import Dict, Optional
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch import sharding as shd
+from repro_torch.kernels import fake_route
 from repro_torch.configs import all_arch_names, get_config
 from repro_torch.configs.shapes import (
     INPUT_SHAPES,
@@ -60,7 +92,7 @@ from repro_torch.configs.shapes import (
 )
 from repro_torch.core.pame import PaMEConfig, PaMEState, make_topology_arrays, pame_step
 from repro_torch.core.topology import build_topology
-from repro_torch.launch.mesh import logical_layout
+from repro_torch.launch.mesh import logical_layout, make_logical_mesh
 from repro_torch.launch.train import lm_grad_fn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import decode_step, init_cache, init_params, layer_groups, prefill
@@ -68,10 +100,19 @@ from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["abstract_params", "build_train", "train_state_specs", "probe_depths",
            "VARIANTS", "band_pairs", "attention_flops", "step_specs", "step_bytes", "count_flops",
-           "run_combo", "results_path", "main"]
+           "trace_memory", "CUDA_TEMPS", "collective_bytes", "sharded_collectives", "run_combo",
+           "results_path", "ARTIFACTS", "main"]
 
 FLOPS_NOTE = ("counted on the plain versions: masked attention counts whole [S, S] "
               "score blocks")
+MEMORY_NOTE = ("live bytes of a trace on fake tensors (MemTracker) on the route each kernel "
+               "takes on the card, with CUDA_TEMPS' in-launch temporaries; code_bytes: no "
+               "counterpart, nothing is compiled")
+COLLECTIVE_NOTE = ("per device: what rank 0 of the sharded PaME step received, by kind "
+                   "(all-gather (g - 1) x its input, all-reduce 2 (g - 1) / g x its tensor)")
+NO_SHARDED_SERVING = "no sharded serving step in the port (ROADMAP): one card, no collectives"
+# the directory of the dry run's results (`results_path`), git-ignored
+ARTIFACTS = str(Path(__file__).resolve().parents[3] / "build" / "dryrun")
 
 
 def _tree_bytes(tree) -> int:
@@ -94,17 +135,21 @@ def abstract_params(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # the steps sized
 # ---------------------------------------------------------------------------
-def build_train(cfg: ModelConfig, m: int, exchange: str = "dense"):
+def build_train(cfg: ModelConfig, m: int, exchange: str = "dense", device="cpu",
+                param_shardings=None):
     """One PaME step of m node models with the JAX dry run's settings (ring
-    topology, Bernoulli masks, every node exchanging at step 0)."""
+    topology, Bernoulli masks, every node exchanging at step 0), on
+    `device`; sharded over `param_shardings` (a `sharding.MeshShardings`)
+    when it is given, as JAX's ``step(..., param_shardings=)``."""
     topo = build_topology("ring", m) if m > 2 else build_topology("complete", max(m, 2))
     pcfg = PaMEConfig(nu=0.5, p=0.2, gamma=1.001, sigma0=5.0, mask_mode="bernoulli",
                       homogeneous_kappa=4, exchange=exchange)
-    topo_arrays = make_topology_arrays(topo, pcfg, device="cpu")
+    topo_arrays = make_topology_arrays(topo, pcfg, device=device)
     grad_fn = lm_grad_fn(cfg)
 
     def step(state, batch):
-        return pame_step(state, batch, grad_fn, topo_arrays, pcfg)
+        return pame_step(state, batch, grad_fn, topo_arrays, pcfg,
+                         param_shardings=param_shardings)
 
     return step
 
@@ -158,6 +203,8 @@ VARIANTS: Dict[str, Dict] = {
     },
     "mamba_split_proj": {"ssm_split_proj": True},
     "compressed_q8": {"exchange": "compressed_q8"},
+    # the port's own: the kernels the card's serving paths run (flash and SSD)
+    "kernels": {"use_flash": True, "use_ssd_kernel": True},
 }
 
 
@@ -264,26 +311,146 @@ def step_bytes(specs: Dict[str, object]) -> Dict[str, int]:
     return out
 
 
+def _step_call(cfg: ModelConfig, shape: InputShape, kind: str, specs: Dict[str, object],
+               exchange: str):
+    """(arguments, fn): fake tensors made from `specs` (inside the active
+    FakeTensorMode) and the call of one step on them."""
+    if kind == "train":
+        state, batch = _materialize(specs["state"]), _materialize(specs["inputs"])
+        step = build_train(cfg, state.sigma.shape[0], exchange=exchange)
+        return (state, batch), lambda: step(state, batch)
+    if kind == "prefill":
+        params, batch = _materialize(specs["params"]), _materialize(specs["inputs"])
+        cap = cache_capacity(cfg, shape)
+        return (params, batch), lambda: prefill(params, cfg, batch, cap)
+    params, batch, cache = (_materialize(specs[k]) for k in ("params", "inputs", "cache"))
+    pos = shape.seq_len  # the token after a full cache
+    return (params, batch, cache), lambda: decode_step(params, cfg, batch["token"], pos, cache)
+
+
 def count_flops(cfg: ModelConfig, shape: InputShape, kind: str, specs: Dict[str, object],
                 exchange: str = "dense") -> int:
     """Operations of one step on fake tensors made from `specs`
     (FlopCounterMode: matrix products and convolutions)."""
     with FakeTensorMode():
-        if kind == "train":
-            state, batch = _materialize(specs["state"]), _materialize(specs["inputs"])
-            step = build_train(cfg, state.sigma.shape[0], exchange=exchange)
-            fn = lambda: step(state, batch)  # noqa: E731
-        elif kind == "prefill":
-            params, batch = _materialize(specs["params"]), _materialize(specs["inputs"])
-            cap = cache_capacity(cfg, shape)
-            fn = lambda: prefill(params, cfg, batch, cap)  # noqa: E731
-        else:
-            params, batch, cache = (_materialize(specs[k]) for k in ("params", "inputs", "cache"))
-            pos = shape.seq_len  # the token after a full cache
-            fn = lambda: decode_step(params, cfg, batch["token"], pos, cache)  # noqa: E731
+        _, fn = _step_call(cfg, shape, kind, specs, exchange)
         with torch.inference_mode(kind != "train"), FlopCounterMode(display=False) as fc:
             fn()
     return int(fc.get_total_flops())
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+# ops whose CUDA code holds a temporary beside its inputs and outputs while
+# it runs (`tools/memory_probe.py` on the card, torch 2.11): the bytes, from
+# the op's arguments and output
+CUDA_TEMPS = {
+    # softmax's backward: a buffer of its output's size
+    "aten._softmax_backward_data.default": lambda args, out: _nbytes(out),
+    # logsumexp: self - max(self), the input's size
+    "aten.logsumexp.default": lambda args, out: _nbytes(args[0]),
+    # the mean of a bf16 / f16 tensor: its sums in f32
+    "aten.mean.dim": lambda args, out: (out.numel() * 4
+                                        if args[0].dtype in (torch.bfloat16, torch.float16)
+                                        else 0),
+}
+
+
+class _CudaTemps(TorchDispatchMode):
+    """Inside a `MemTracker`: the most bytes live while an op of
+    `CUDA_TEMPS` runs, its temporary on top of what is live after it."""
+
+    def __init__(self, tracker):
+        super().__init__()
+        self.tracker = tracker
+        self.peak = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        rule = CUDA_TEMPS.get(str(func))
+        if rule is not None:
+            live = sum(snap["Total"] for snap in self.tracker.get_tracker_snapshot().values())
+            self.peak = max(self.peak, live + rule(args, out))
+        return out
+
+
+def _unique_bytes(tree) -> int:
+    """Bytes of the distinct storages under `tree`'s tensors."""
+    seen = {}
+    for x in tree_leaves(tree):
+        if isinstance(x, torch.Tensor):
+            st = x.untyped_storage()
+            seen[st._cdata] = st.nbytes()
+    return sum(seen.values())
+
+
+def trace_memory(cfg: ModelConfig, shape: InputShape, kind: str, specs: Dict[str, object],
+                 exchange: str = "dense") -> Dict[str, Optional[int]]:
+    """The step's memory (see the module's docstring): a trace on fake
+    tensors under `MemTracker`, each kernel wrapper on its kernel's route."""
+    from torch.distributed._tools.mem_tracker import MemTracker
+
+    with FakeTensorMode(), fake_route.kernel_route():
+        args, fn = _step_call(cfg, shape, kind, specs, exchange)
+        tracker = MemTracker()
+        tracker.track_external(*[x for x in tree_leaves(args) if isinstance(x, torch.Tensor)])
+        temps = _CudaTemps(tracker)
+        with torch.inference_mode(kind != "train"), tracker, temps:
+            out = fn()
+        peak = max(temps.peak, sum(snap["Total"]
+                                   for snap in tracker.get_tracker_snapshot("peak").values()))
+        argument = _unique_bytes(args)
+        output = _unique_bytes(out)
+        del out, args, fn, tracker
+    return {"argument_bytes": argument, "output_bytes": output,
+            "temp_bytes": peak - argument, "peak_bytes": peak, "code_bytes": None}
+
+
+def collective_bytes(counts: Dict[str, Dict[str, float]]) -> Dict[str, int]:
+    """The counterpart of JAX's ``parse_collective_bytes`` (which sums the
+    result bytes of each collective in XLA's partitioned HLO text, an
+    all-reduce twice): bytes by kind from `repro_torch.sharding`'s counted
+    collectives (`sharding.collective_counts()`), per device."""
+    return {kind: int(round(c["bytes"])) for kind, c in sorted(counts.items())}
+
+
+def sharded_collectives(cfg: ModelConfig, shape: InputShape, layout: Dict[str, int],
+                        global_batch: int, exchange: str = "dense") -> Dict[str, object]:
+    """One sharded PaME step over `layout` as rank 0 of a fake process
+    group of its size, on fake tensors: m = layout["node"] nodes, the
+    global batch split over them.  Returns the counts by kind and the
+    calls (see the module's docstring)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    world = layout["node"] * layout["fsdp"] * layout["model"]
+    m = layout["node"]
+    if dist.is_initialized():
+        raise RuntimeError("the collective trace needs a process without a process group")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    try:
+        mesh = make_logical_mesh(device_type="cpu", layout=layout)
+        specs = step_specs(cfg, shape, "train", global_batch, m)
+        place = shd.state_shardings(specs["state"], layout)
+        coord = shd.mesh_coords(mesh)
+        # the mesh's own index tensors are real (its groups are looked up
+        # inside the step); every tensor of the step is fake
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            state = shd.shard_tree(_materialize(specs["state"]), place, layout, coord)
+            batch = tree_map(lambda b: shd.cut(b, ("node",), layout, coord).contiguous(),
+                             _materialize(specs["inputs"]))
+            step = build_train(cfg, m, exchange=exchange,
+                               param_shardings=shd.MeshShardings(mesh, place.params))
+            shd.reset_collective_counts()
+            step(state, batch)
+            counts = shd.collective_counts()
+            del state, batch
+    finally:
+        dist.destroy_process_group()
+    return {"bytes": collective_bytes(counts),
+            "calls": {k: int(c["calls"]) for k, c in sorted(counts.items())}, "m": m}
 
 
 def run_combo(
@@ -335,23 +502,42 @@ def run_combo(
         if att is not None:
             rec["attention_flops"] = att
             rec["flops_band"] = rec["flops"] - att["full"] + att["band"]
+    t0 = time.perf_counter()
+    rec["memory"] = trace_memory(cfg, shape, kind, specs, exchange)
+    rec["mem_trace_s"] = time.perf_counter() - t0
+    rec["memory_note"] = MEMORY_NOTE
     resident = (rec["state_bytes"] if kind == "train" else rec["param_bytes"]) \
         + rec["input_bytes"] + rec["cache_bytes"]
     rec.update(resident_bytes=resident, device_bytes=device_bytes,
-               fits_one_card=resident <= device_bytes)
+               fits_one_card=rec["memory"]["peak_bytes"] <= device_bytes)
     rec["layout"] = dict(layout, devices=devices)
     rec["per_device_bytes"] = _per_device(cfg, shape, kind, layout)
+    rec["collective_bytes"] = rec["collective_bytes_total"] = None
+    if kind != "train":
+        rec["collective_note"] = NO_SHARDED_SERVING
+    elif layout["node"] < 1 or gb % layout["node"]:
+        rec["collective_note"] = f"the global batch {gb} does not split over the layout's nodes"
+    else:
+        t0 = time.perf_counter()
+        coll = sharded_collectives(cfg, shape, layout, gb, exchange)
+        rec.update(collective_bytes=coll["bytes"],
+                   collective_bytes_total=sum(coll["bytes"].values()),
+                   collective_calls=coll["calls"], collective_m=coll["m"],
+                   collective_trace_s=time.perf_counter() - t0,
+                   collective_note=COLLECTIVE_NOTE)
     tag = f"L{probe_layers}" if probe_layers else "full"
+    coll = rec["collective_bytes_total"]
     print(f"[dryrun] {arch} x {shape_name} ({kind}, batch {gb}) [{tag}/{variant}] "
           f"params={rec['param_bytes'] / 1e9:.2f}GB resident={resident / 1e9:.2f}GB "
+          f"peak={rec['memory']['peak_bytes'] / 1e9:.2f}GB "
           f"fits={rec['fits_one_card']} flops={rec['flops']:.3e} "
-          f"layout@{devices}={layout} trace={rec['trace_s']:.1f}s", flush=True)
+          f"layout@{devices}={layout} coll={'-' if coll is None else f'{coll:.3e}'} "
+          f"trace={rec['trace_s']:.1f}s mem_trace={rec['mem_trace_s']:.1f}s", flush=True)
     return rec
 
 
 def results_path() -> str:
-    root = Path(__file__).resolve().parents[3]
-    return str(root / "build" / "dryrun" / "dryrun.json")
+    return os.path.join(ARTIFACTS, "dryrun.json")
 
 
 def card_bytes(device_bytes: Optional[float]) -> float:

@@ -27,7 +27,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, dense_init, linear, rms_norm, rope_freqs
 
 __all__ = ["KVCache", "MLACache", "gqa_init", "gqa_apply", "gqa_decode", "mla_init",
-           "mla_apply", "mla_decode", "init_kv_cache", "init_mla_cache"]
+           "mla_apply", "mla_decode", "init_kv_cache", "init_mla_cache", "mask_is_plain"]
 
 NEG_INF = -1e30
 
@@ -144,7 +144,7 @@ def gqa_apply(
     b, s, _ = x.shape
     q, k, v = _qkv(params, cfg, x, positions)
     scale = cfg.head_dim ** -0.5
-    if cfg.use_flash:  # JAX's mask_is_plain always holds: the kernel masks itself
+    if cfg.use_flash and mask_is_plain(cfg, s):
         out = flash_ops.flash_attention(q, k, v, window=cfg.window)
     else:
         out = _chunked_grouped_attention(q, k, v, cfg.window, scale,
@@ -152,6 +152,12 @@ def gqa_apply(
     y = linear(out.reshape(b, s, -1), params["wo"])
     cache = _full_cache(KVCache, (k, v), positions, cache_capacity) if return_cache else None
     return y, cache
+
+
+def mask_is_plain(cfg: ModelConfig, s: int) -> bool:
+    """Whether flash can take a prefill of `s` rows: always, the kernel
+    handles the causal and window masks itself (as JAX's)."""
+    return True
 
 
 def gqa_decode(

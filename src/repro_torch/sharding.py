@@ -17,12 +17,35 @@ keyed on the last path part ("k", "v", "state", "conv", "positions") thus
 meet ".k" and do not fire, in JAX and here alike: cache leaves place only
 their batch dimension.
 
-Placements are data: nothing here moves a tensor.  `per_device_bytes`
-sums what each device of a layout would hold.
+`per_device_bytes` sums what each device of a layout would hold.
+
+From placements to local pieces (the sharded PaME step, `core.pame`):
+
+  * `MeshShardings` binds a placement tree to a
+    `torch.distributed.device_mesh.DeviceMesh` whose dims are named
+    ("node", "fsdp", "model") (`launch.mesh.make_logical_mesh`): the
+    counterpart of JAX's tree of ``NamedSharding``s;
+  * `cut` / `shard_tree` give a rank's piece of a leaf / a tree from its
+    mesh coordinate, a dimension placed over several axes jointly taking
+    JAX's order (the first axis named is the major one); `assemble` puts
+    the pieces of every rank back together, and `gather_tree` does the
+    same with collectives;
+  * `all_gather` and `all_reduce` are the only collectives the port
+    issues, plain `torch.distributed` calls on the mesh's groups (no
+    DTensor: the kernels take plain tensors).  They count, per kind, the
+    calls and the bytes each rank receives: an all-gather over g ranks
+    receives (g − 1) × its input; an all-reduce counts 2 × (g − 1) / g ×
+    its tensor, the ring's reduce-scatter and all-gather, which is JAX's
+    dry-run convention of counting an all-reduce twice
+    (`repro/launch/dryrun.py:77-79`) on the bytes that cross the wire.  A
+    group of one rank still issues its call and receives 0 bytes.
+    `collective_counts` reads the counts, `reset_collective_counts` sets
+    them to 0.
 """
 from __future__ import annotations
 
-from typing import Callable, Mapping, Tuple
+import math
+from typing import Callable, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -35,6 +58,26 @@ __all__ = [
     "state_shardings",
     "per_device_bytes",
     "RULE_OVERRIDES",
+    "MeshShardings",
+    "Local",
+    "local_view",
+    "leaf_specs",
+    "AXES",
+    "mesh_layout",
+    "mesh_coords",
+    "rank_coords",
+    "spec_axes",
+    "full_shape",
+    "cut",
+    "shard_tree",
+    "assemble",
+    "gather_dims",
+    "gather_tree",
+    "owns",
+    "all_gather",
+    "all_reduce",
+    "collective_counts",
+    "reset_collective_counts",
 ]
 
 Layout = Mapping[str, int]
@@ -225,14 +268,8 @@ def state_shardings(state_shapes, layout: Layout):
 def _placed(tree, placements):
     """(tensor, placement) pairs of `tree` and its placement tree, walked
     by `tree`'s structure (a placement is itself a tuple)."""
-    if isinstance(tree, dict):
-        for k in tree:
-            yield from _placed(tree[k], placements[k])
-    elif isinstance(tree, (list, tuple)):
-        for t, p in zip(tree, placements):
-            yield from _placed(t, p)
-    elif isinstance(tree, torch.Tensor):
-        yield tree, placements
+    leaves, specs, _ = _leaf_pairs(tree, placements)
+    return [(x, spec) for x, spec in zip(leaves, specs) if isinstance(x, torch.Tensor)]
 
 
 def per_device_bytes(tree, placements, layout: Layout) -> int:
@@ -248,3 +285,257 @@ def per_device_bytes(tree, placements, layout: Layout) -> int:
                     ways *= layout[name]
         total += leaf.numel() * leaf.element_size() // ways
     return total
+
+
+# ---------------------------------------------------------------------------
+# from placements to local pieces
+# ---------------------------------------------------------------------------
+AXES = ("node", "fsdp", "model")
+
+
+class MeshShardings(NamedTuple):
+    """A placement tree bound to a (node, fsdp, model) `DeviceMesh`."""
+
+    mesh: object   # torch.distributed.device_mesh.DeviceMesh
+    specs: object  # the tree of placements (e.g. `state_shardings(...).params`)
+
+
+class Local(NamedTuple):
+    """A rank's view of a node-stacked tree under `MeshShardings`: the mesh,
+    its layout and this rank's coordinate, each leaf's placement in JAX
+    leaf order, the node count m and the rows r0 ... r0 + r - 1 this rank
+    holds (its nodes)."""
+
+    mesh: object
+    layout: Dict[str, int]
+    coord: Dict[str, int]
+    specs: list
+    m: int
+    r0: int
+    r: int
+
+    def rows(self) -> slice:
+        return slice(self.r0, self.r0 + self.r)
+
+    def cut_trailing(self, x: torch.Tensor, spec: Placement) -> torch.Tensor:
+        """This rank's piece of an [m, ...] tensor of the whole leaf's shape
+        (all m rows kept: the senders' masks), contiguous."""
+        return cut(x, spec, self.layout, self.coord, skip=(0,)).contiguous()
+
+
+def local_view(shardings: "MeshShardings", tree) -> Local:
+    """The `Local` view of this rank's pieces `tree` (leaves [m / node, ...],
+    every leaf's dim 0 placed over "node")."""
+    leaves, specs, _ = _leaf_pairs(tree, shardings.specs)
+    layout, coord = mesh_layout(shardings.mesh), mesh_coords(shardings.mesh)
+    for spec in specs:
+        if not spec or spec[0] != "node" or any(
+                "node" in spec_axes(e) for e in spec[1:]):
+            raise ValueError(f"a node-stacked leaf must be placed over 'node' on dim 0 "
+                             f"alone, got {spec}")
+    r = leaves[0].shape[0]
+    return Local(shardings.mesh, layout, coord, specs, r * layout["node"],
+                 coord["node"] * r, r)
+
+
+def mesh_layout(mesh) -> Dict[str, int]:
+    """{"node", "fsdp", "model"} sizes of a mesh."""
+    return {name: int(size) for name, size in zip(mesh.mesh_dim_names, mesh.mesh.shape)}
+
+
+def mesh_coords(mesh) -> Dict[str, int]:
+    """This rank's coordinate on each named dim of the mesh."""
+    return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+
+
+def rank_coords(rank: int, layout: Layout) -> Dict[str, int]:
+    """The coordinate of `rank` in a row-major (node, fsdp, model) mesh of
+    `layout` (how ``init_device_mesh`` and JAX's ``devices.reshape`` lay
+    ranks out)."""
+    out = {}
+    for name in reversed(AXES):
+        rank, out[name] = divmod(rank, layout[name])
+    return {name: out[name] for name in AXES}
+
+
+def spec_axes(entry) -> Tuple[str, ...]:
+    """The axis names of one placement entry (None, a name or a tuple)."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def _ways(entry, layout: Layout) -> int:
+    return math.prod(layout[name] for name in spec_axes(entry))
+
+
+def _index(entry, layout: Layout, coord: Mapping[str, int]) -> int:
+    idx = 0
+    for name in spec_axes(entry):  # the first name is the major one
+        idx = idx * layout[name] + coord[name]
+    return idx
+
+
+def full_shape(shape, spec: Placement, layout: Layout) -> Tuple[int, ...]:
+    """The whole leaf's shape from a piece's shape and its placement."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(int(d) * _ways(e, layout) for d, e in zip(shape, spec))
+
+
+def cut(x: torch.Tensor, spec: Placement, layout: Layout, coord: Mapping[str, int],
+        skip: Sequence[int] = ()) -> torch.Tensor:
+    """The piece of the whole tensor `x` a rank at `coord` holds under
+    `spec` (a view), leaving the dims in `skip` whole."""
+    for dim, entry in enumerate(spec):
+        if dim in skip or entry is None:
+            continue
+        size = x.shape[dim] // _ways(entry, layout)
+        x = x.narrow(dim, _index(entry, layout, coord) * size, size)
+    return x
+
+
+def leaf_specs(tree, placements) -> list:
+    """Each leaf's placement in JAX leaf order, walked by `tree`'s structure."""
+    return list(_placed_specs(tree, placements))
+
+
+def _leaf_pairs(tree, placements):
+    """(leaves, placements) in JAX leaf order, and the treedef."""
+    from repro_torch.tree import tree_flatten
+
+    leaves, treedef = tree_flatten(tree)
+    return leaves, leaf_specs(tree, placements), treedef
+
+
+def _placed_specs(tree, placements):
+    """Each leaf's placement in JAX leaf order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _placed_specs(tree[k], placements[k])
+    elif isinstance(tree, (list, tuple)):
+        for t, p in zip(tree, placements):
+            yield from _placed_specs(t, p)
+    else:
+        yield placements
+
+
+def shard_tree(tree, placements, layout: Layout, coord: Mapping[str, int]):
+    """`tree` with each tensor leaf cut to the piece of the rank at `coord`
+    (a contiguous copy, so that a rank owns its piece); other leaves (a
+    step counter, a key) are kept."""
+    from repro_torch.tree import tree_unflatten
+
+    leaves, specs, treedef = _leaf_pairs(tree, placements)
+    return tree_unflatten(treedef, [
+        cut(x, spec, layout, coord).contiguous() if isinstance(x, torch.Tensor) else x
+        for x, spec in zip(leaves, specs)])
+
+
+def assemble(pieces: Sequence, placements, layout: Layout):
+    """The whole tree from every rank's piece (`pieces[rank]`, ranks in
+    row-major mesh order): the inverse of `shard_tree` over all ranks."""
+    from repro_torch.tree import tree_unflatten
+
+    flat = [_leaf_pairs(p, placements) for p in pieces]
+    leaves0, specs, treedef = flat[0]
+    out = []
+    for i, (x0, spec) in enumerate(zip(leaves0, specs)):
+        if not isinstance(x0, torch.Tensor):
+            out.append(x0)
+            continue
+        whole = x0.new_empty(full_shape(x0.shape, spec, layout))
+        for rank, (leaves, _, _) in enumerate(flat):
+            cut(whole, spec, layout, rank_coords(rank, layout)).copy_(leaves[i])
+        out.append(whole)
+    return tree_unflatten(treedef, out)
+
+
+def owns(spec: Placement, coord: Mapping[str, int]) -> bool:
+    """Whether the rank at `coord` is the one holder of its piece that a
+    sum over all ranks should count: coordinate 0 on every mesh axis the
+    placement does not split (its piece is replicated over those)."""
+    used = {name for entry in spec for name in spec_axes(entry)}
+    return all(coord.get(name, 0) == 0 for name in AXES if name not in used)
+
+
+# ---------------------------------------------------------------------------
+# collectives (counted)
+# ---------------------------------------------------------------------------
+_COUNTS: Dict[str, Dict[str, float]] = {}
+
+
+def reset_collective_counts() -> None:
+    _COUNTS.clear()
+
+
+def collective_counts() -> Dict[str, Dict[str, float]]:
+    """{kind: {"calls": n, "bytes": b}}: what this process issued and
+    received since the last reset (see the module's docstring)."""
+    return {kind: dict(c) for kind, c in _COUNTS.items()}
+
+
+def _count(kind: str, nbytes: float) -> None:
+    c = _COUNTS.setdefault(kind, {"calls": 0, "bytes": 0})
+    c["calls"] += 1
+    c["bytes"] += nbytes
+
+
+def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
+    """The pieces of `x` of every rank of the mesh's `axis` group, joined
+    along `dim` in the group's order."""
+    import torch.distributed as dist
+
+    group = mesh.get_group(axis)
+    g = dist.get_world_size(group)
+    x0 = x.movedim(dim, 0).contiguous()
+    out = x0.new_empty((g * x0.shape[0],) + tuple(x0.shape[1:]))
+    # all_gather_single is all_gather_into_tensor's newer name (torch >= 2.13)
+    gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    gather(out, x0, group=group)
+    _count("all_gather", (g - 1) * x0.numel() * x0.element_size())
+    return out.movedim(0, dim)
+
+
+def all_reduce(x: torch.Tensor, mesh, axes: Sequence[str], op: str = "sum") -> torch.Tensor:
+    """`x` reduced in place over the ranks of each of the mesh's `axes`
+    groups in turn ("sum" or "max")."""
+    import torch.distributed as dist
+
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    for axis in axes:
+        group = mesh.get_group(axis)
+        g = dist.get_world_size(group)
+        dist.all_reduce(x, op=red, group=group)
+        _count("all_reduce", 2 * (g - 1) / g * x.numel() * x.element_size())
+    return x
+
+
+def gather_dims(x: torch.Tensor, spec: Placement, mesh,
+                axes: Optional[Sequence[str]] = None) -> torch.Tensor:
+    """`x` (a rank's piece) gathered whole along every dim `spec` places
+    over `axes` (default all): a dim over several axes jointly is gathered
+    over its minor axis first, which rebuilds JAX's order."""
+    axes = AXES if axes is None else tuple(axes)
+    for dim, entry in enumerate(spec):
+        names = spec_axes(entry)
+        if not names:
+            continue
+        if any(n not in axes for n in names):
+            if any(n in axes for n in names):
+                raise ValueError(f"dim {dim} is placed over {names} jointly; gather all "
+                                 f"of them or none")
+            continue
+        for name in reversed(names):
+            x = all_gather(x, mesh, name, dim)
+    return x.contiguous()
+
+
+def gather_tree(tree, shardings: MeshShardings, axes: Optional[Sequence[str]] = None):
+    """`tree` (this rank's pieces) gathered whole over `axes` (default all)
+    by collectives on `shardings.mesh`: every rank gets the same tree."""
+    from repro_torch.tree import tree_unflatten
+
+    leaves, specs, treedef = _leaf_pairs(tree, shardings.specs)
+    return tree_unflatten(treedef, [
+        gather_dims(x, spec, shardings.mesh, axes) if isinstance(x, torch.Tensor) else x
+        for x, spec in zip(leaves, specs)])

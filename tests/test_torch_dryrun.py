@@ -117,6 +117,11 @@ def test_record_roundtrips_through_the_json_file(tmp_path, capsys):
                                                       "devices": 8}
     assert rec["per_device_bytes"]["total"] == sum(
         v for k, v in rec["per_device_bytes"].items() if k != "total")
+    # the memory record and the fit on its peak; a prefill has no collectives
+    assert rec["fits_one_card"] == (rec["memory"]["peak_bytes"] <= 8e10)
+    assert rec["memory"]["peak_bytes"] >= rec["resident_bytes"] - rec["cache_bytes"]
+    assert rec["mem_trace_s"] > 0 and rec["memory"]["code_bytes"] is None
+    assert rec["collective_bytes"] is None and "sharded serving" in rec["collective_note"]
     capsys.readouterr()
     assert dryrun.main(argv) == json.loads(out.read_text())
     assert f"skip cached {key}" in capsys.readouterr().out
@@ -153,3 +158,108 @@ def test_compilation_cache_points_the_kernel_builds(case, tmp_path, monkeypatch)
     else:
         assert target.parent == (tmp_path / case.replace("environment", "env")).resolve()
         assert target.name == default.name  # the same source hash, another directory
+
+
+def _small(kind="train", seq=64, batch=8):
+    from repro_torch.configs.shapes import InputShape
+
+    return InputShape(f"{kind}_small", seq, batch, kind)
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_memory_record_is_consistent(kind):
+    """Each step's memory trace: the peak holds at least the arguments,
+    temp = peak - argument bytes, the arguments are the step's inputs
+    (state or parameters, batch, a decode's cache) and code bytes have no
+    counterpart."""
+    cfg = get_config("stablelm-1.6b", "smoke").replace(remat=kind == "train")
+    shape = _small(kind, seq=64, batch=8 if kind == "train" else 2)
+    specs = dryrun.step_specs(cfg, shape, kind, shape.global_batch, M)
+    mem = dryrun.trace_memory(cfg, shape, kind, specs)
+    b = dryrun.step_bytes(specs)
+    args = {"train": b.get("state_bytes", 0) + b["input_bytes"],
+            "prefill": b["param_bytes"] + b["input_bytes"],
+            "decode": b["param_bytes"] + b["cache_bytes"] + b["input_bytes"]}[kind]
+    assert mem["argument_bytes"] == args
+    assert mem["peak_bytes"] >= mem["argument_bytes"]
+    assert mem["temp_bytes"] == mem["peak_bytes"] - mem["argument_bytes"] > 0
+    assert mem["output_bytes"] > 0 and mem["code_bytes"] is None
+
+
+def test_kernel_route_drops_the_plain_attentions_scores():
+    """A prefill with the `kernels` variant's flags traces flash's route:
+    no [S, S] f32 scores, so its peak is below the plain route's by at least
+    most of one layer's scores, and above the parameters and the cache."""
+    base = get_config("stablelm-1.6b", "smoke")
+    shape = _small("prefill", seq=2048, batch=2)
+    peaks = {}
+    for name, cfg in (("plain", base), ("kernels", base.replace(**dryrun.VARIANTS["kernels"]))):
+        specs = dryrun.step_specs(cfg, shape, "prefill", 2, M)
+        peaks[name] = dryrun.trace_memory(cfg, shape, "prefill", specs)["peak_bytes"]
+        floor = sum(dryrun.step_bytes(specs)[k] for k in ("param_bytes", "cache_bytes"))
+        assert peaks[name] > floor
+    scores = 2 * base.n_heads * 2048 * 2048 * 4
+    assert peaks["plain"] - peaks["kernels"] >= scores // 2
+
+
+@pytest.mark.parametrize("layout", [{"node": 8, "fsdp": 1, "model": 1},
+                                    {"node": 2, "fsdp": 4, "model": 1}])
+def test_collective_bytes_follow_the_placements(layout):
+    """The sharded step at 8 fake ranks: each rank all-gathers its piece of
+    every leaf over node ((node - 1) x its m / node rows' piece), each local
+    node's fsdp-placed leaves over fsdp before its gradient ((fsdp - 1) x
+    the row's piece), and the losses and sigma over node; all-reduces the
+    consensus sums (2 (g - 1) / g x the tensor)."""
+    from repro_torch import sharding as shd
+
+    cfg = get_config("stablelm-1.6b", "smoke").replace(remat=True)
+    shape = _small()
+    got = dryrun.sharded_collectives(cfg, shape, layout, shape.global_batch)
+    m, node, fsdp = layout["node"], layout["node"], layout["fsdp"]
+    r = m // node
+    specs = dryrun.step_specs(cfg, shape, "train", shape.global_batch, m)
+    place = shd.state_shardings(specs["state"], layout)
+    from repro_torch.tree import tree_leaves
+
+    gather = 2 * (node - 1) * r * 4  # the losses and sigma, f32
+    reduce = sum(2 * (g - 1) / g * 4 for g in layout.values())  # the consensus
+    for leaf, spec in zip(tree_leaves(specs["state"].params),
+                          shd.leaf_specs(specs["state"].params, place.params)):
+        ways = 1
+        for e in spec[1:]:
+            for name in shd.spec_axes(e):
+                ways *= layout[name]
+        row = leaf.numel() // m * leaf.element_size() // ways
+        gather += (node - 1) * r * row
+        if any("fsdp" in shd.spec_axes(e) for e in spec[1:]):
+            gather += r * (fsdp - 1) * row
+        reduce += 2 * (node - 1) / node * (leaf.numel() // m // ways) * 4
+    assert got["m"] == m
+    assert got["bytes"]["all_gather"] == gather
+    assert got["bytes"]["all_reduce"] == round(reduce)
+    if fsdp > 1:
+        assert any(any("fsdp" in shd.spec_axes(e) for e in s[1:])
+                   for s in shd.leaf_specs(specs["state"].params, place.params))
+
+
+def test_memory_trace_adds_the_cuda_temporaries():
+    """The temporaries CUDA code allocates inside a launch (`CUDA_TEMPS`,
+    from tools/memory_probe.py on the card) raise a bf16 train step's peak
+    by the plain attention's softmax backward buffer, [B, H, 1, S, S] f32,
+    which is live at the step's peak; a prefill has none of those ops."""
+    base = get_config("stablelm-1.6b", "smoke").replace(dtype="bfloat16")
+    peaks = {}
+    for kind, seq, batch in (("train", 512, 8), ("prefill", 512, 2)):
+        cfg = base.replace(remat=kind == "train")
+        shape = _small(kind, seq=seq, batch=batch)
+        specs = dryrun.step_specs(cfg, shape, kind, batch, M)
+        rules = dict(dryrun.CUDA_TEMPS)
+        try:
+            with_temps = dryrun.trace_memory(cfg, shape, kind, specs)["peak_bytes"]
+            dryrun.CUDA_TEMPS.clear()
+            without = dryrun.trace_memory(cfg, shape, kind, specs)["peak_bytes"]
+        finally:
+            dryrun.CUDA_TEMPS.update(rules)
+        peaks[kind] = with_temps - without
+    assert peaks["train"] == 8 // M * base.n_heads * 512 * 512 * 4
+    assert peaks["prefill"] == 0

@@ -65,6 +65,66 @@ def test_pme_average_ops_on_cpu_takes_plain_version():
     torch.testing.assert_close(out, pme_average_ref(tw, tm.float(), ta), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("m", [3, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pme_average_receiver_range_is_the_square_forms_rows(m, dtype):
+    """The plain receiver-range form (every row sends, receivers r0 ...
+    r0 + r - 1) equals the square form's rows bit for bit, for every r
+    and r0, at the trainer's node counts; the wrapper takes it on the
+    CPU."""
+    w, masks, a = _pme_inputs(m, 300, getattr(jnp, dtype), 7 + m)
+    a[:, 1] = 0  # receiver 1 hears nobody: its own row is the fill
+    tw, tm, ta = to_t(w), torch.as_tensor(masks).to(to_t(w).dtype), torch.as_tensor(a)
+    square = pme_average_ref(tw, tm, ta)
+    for r in range(1, m + 1):
+        for r0 in range(m - r + 1):
+            got = pme_average_ref(tw, tm, ta, receivers=(r0, r))
+            assert got.shape == (r, 300) and got.dtype == tw.dtype
+            assert torch.equal(got, square[r0:r0 + r])
+            assert torch.equal(pme_average(tw, torch.as_tensor(masks), ta, (r0, r)), got)
+    with pytest.raises(ValueError, match="receivers"):
+        pkernel.pme_average_cuda(tw, tm, ta, receivers=(m - 1, 2))
+
+
+def test_fake_kernel_route_shapes_and_refusals():
+    """Inside the dry run's kernel route each wrapper takes its kernel's
+    route on fake tensors: outputs of the kernel's shapes and types, no
+    launch counted; a real tensor there raises."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import fake_route
+
+    counts = (pkernel.pme_average_cuda.launches, fkernel.flash_attention_cuda.launches,
+              skernel.ssd_intra_chunk_cuda.launches, gkernel.gossip_gather.launches)
+    with FakeTensorMode(), fake_route.kernel_route():
+        w = torch.empty(4, 1000, dtype=torch.bfloat16)
+        out = pme_average(w, torch.empty(4, 1000, dtype=torch.bool), torch.empty(4, 4),
+                          receivers=(1, 2))
+        assert out.shape == (2, 1000) and out.dtype == torch.bfloat16
+        q = torch.empty(2, 256, 8, 64, dtype=torch.bfloat16)
+        kv = torch.empty(2, 256, 2, 64, dtype=torch.bfloat16)
+        o = flash_attention(q, kv, kv, window=128)
+        assert o.shape == q.shape and o.dtype == torch.bfloat16
+        y, st = ssd_intra_chunk(torch.empty(1, 2, 64, 4, 16, dtype=torch.bfloat16),
+                                torch.empty(1, 2, 64, 4), torch.empty(1, 2, 64, 4),
+                                torch.empty(1, 2, 64, 1, 32, dtype=torch.bfloat16),
+                                torch.empty(1, 2, 64, 1, 32, dtype=torch.bfloat16), 4)
+        assert y.shape == (1, 2, 64, 4, 16) and st.shape == (1, 2, 4, 16, 32)
+        assert st.dtype == torch.float32
+        nbrs = torch.zeros(3, 2, dtype=torch.int64)
+        x = torch.empty(5, 7, 3)
+        (g,) = gather_terms_kernel(nbrs, [(torch.ones(3, 2), x)])
+        assert g.shape == (3, 7, 3)
+    assert counts == (pkernel.pme_average_cuda.launches, fkernel.flash_attention_cuda.launches,
+                      skernel.ssd_intra_chunk_cuda.launches, gkernel.gossip_gather.launches)
+    with fake_route.kernel_route():
+        with pytest.raises(RuntimeError, match="fake tensors only"):
+            pkernel.pme_average_cuda(torch.zeros(2, 4), torch.zeros(2, 4), torch.zeros(2, 2))
+        with pytest.raises(RuntimeError, match="fake tensors only"):
+            flash_attention(torch.zeros(1, 8, 2, 64), torch.zeros(1, 8, 2, 64),
+                            torch.zeros(1, 8, 2, 64))
+
+
 def test_kernel_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         pkernel.pme_average_cuda(torch.zeros(2, 4), torch.zeros(2, 4), torch.zeros(2, 2))

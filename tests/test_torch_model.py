@@ -5,6 +5,8 @@ gradients, f32); so do every architecture's smoke variant (train_loss,
 gradients at atol 1e-4, prefill and greedy decode at atol 1e-5 with
 identical tokens), untied embeddings, and both remat policies against no
 remat (equal losses and gradients)."""
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -148,6 +150,14 @@ def test_unported_surfaces_raise(tmp_path, monkeypatch, capsys):
     for name in ("repro_torch.configs.shapes", "repro_torch.launch.dryrun",
                  "repro_torch.launch.mesh", "repro_torch.sharding"):
         importlib.import_module(name)
+    # the names a scan of JAX's modules found missing in the port
+    from repro_torch.launch import dryrun, mesh
+    from repro_torch.models import attention
+
+    assert attention.mask_is_plain(get_config("stablelm-1.6b", "smoke"), 4096) is True
+    assert callable(mesh.make_logical_mesh) and callable(mesh.make_production_mesh)
+    assert os.path.basename(dryrun.ARTIFACTS) == "dryrun"
+    assert callable(dryrun.collective_bytes)
 
 
 def test_kernel_flags_run_forward_and_refuse_grad(smoke):

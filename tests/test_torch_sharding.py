@@ -196,7 +196,9 @@ def test_tree_shardings_match_jax_in_subprocess(arch):
     same layouts: parameters, the node-stacked state, train / prefill /
     decode inputs and the decode cache (whose k / v / state rules meet
     ".k"-style paths and do not fire, in both); per-device bytes against
-    JAX's shard shapes; the dry run's probe depths and variants."""
+    JAX's shard shapes; the dry run's probe depths and variants (JAX's
+    all, plus the port's own "kernels" variant, which sets the kernel
+    flags the card's serving paths run)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     env.pop("XLA_FLAGS", None)
     res = subprocess.run([sys.executable, "-c", SUBPROCESS, arch], capture_output=True,
@@ -208,7 +210,9 @@ def test_tree_shardings_match_jax_in_subprocess(arch):
         lay = mesh.logical_layout(cfg, total, **V5E)
         assert [lay["node"], lay["fsdp"], lay["model"]] == want["logical"][kind]
     assert list(dryrun.probe_depths(cfg)) == want["probe_depths"]
-    assert json.loads(json.dumps(dryrun.VARIANTS)) == want["variants"]
+    variants = json.loads(json.dumps(dryrun.VARIANTS))
+    assert variants.pop("kernels") == {"use_flash": True, "use_ssd_kernel": True}
+    assert variants == want["variants"]
     params = dryrun.abstract_params(cfg)
     for dims, w in want["layouts"].items():
         layout = dict(zip(("node", "fsdp", "model"), json.loads(dims.replace("(", "[")
@@ -237,3 +241,76 @@ def test_tree_shardings_match_jax_in_subprocess(arch):
         assert shd.per_device_bytes(state.params, st.params, layout) == \
             w["bytes"]["state_params"], dims
         assert shd.per_device_bytes(decode["cache"], c_sh, layout) == w["bytes"]["cache"], dims
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "deepseek-v2-lite-16b"])
+def test_pieces_roundtrip_and_match_per_device_bytes(arch):
+    """A node-stacked smoke state cut into the 8 pieces of a 4 × 1 × 2 layout
+    (and of 2 × 2 × 2, where dims are placed over fsdp and model) and put
+    back together is the identity, and every rank's pieces hold what
+    `per_device_bytes` says a device holds."""
+    from repro_torch.core.pame import PaMEState
+    from repro_torch.models.model import init_params
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_config(arch, "smoke")
+    gen = torch.Generator().manual_seed(0)
+    params = tree_map(lambda x: torch.randn((4,) + tuple(x.shape), generator=gen).to(x.dtype),
+                      init_params(0, cfg, device="cpu"))
+    state = PaMEState(params=params, sigma=torch.arange(4.0), step=3, key=5)
+    for layout in ({"node": 4, "fsdp": 1, "model": 2}, {"node": 2, "fsdp": 2, "model": 2}):
+        place = shd.state_shardings(state, layout)
+        pieces = [shd.shard_tree(state, place, layout, shd.rank_coords(r, layout))
+                  for r in range(8)]
+        back = shd.assemble(pieces, place, layout)
+        assert back.step == 3 and back.key == 5
+        for a, b in zip(tree_leaves(back), tree_leaves(state)):
+            if isinstance(b, torch.Tensor):
+                assert torch.equal(a, b)
+        want = (shd.per_device_bytes(state.params, place.params, layout)
+                + shd.per_device_bytes(state.sigma, place.sigma, layout))
+        for piece in pieces:
+            got = sum(x.numel() * x.element_size() for x in tree_leaves(piece)
+                      if isinstance(x, torch.Tensor))
+            assert got == want
+        placed = [s for s in shd.leaf_specs(state.params, place.params) if s[0] == "node"]
+        assert placed and any(any(e is not None for e in s[1:]) for s in placed)
+
+
+def test_rank_coords_are_row_major():
+    layout = {"node": 4, "fsdp": 1, "model": 2}
+    assert [tuple(shd.rank_coords(r, layout).values()) for r in range(8)] == [
+        (n, 0, t) for n in range(4) for t in range(2)]
+    # a dim over two axes jointly: the first axis named is the major one
+    x = torch.arange(8.0)
+    lay = {"node": 2, "fsdp": 2, "model": 1}
+    got = [shd.cut(x, (("node", "fsdp"),), lay, shd.rank_coords(r, lay)).tolist()
+           for r in range(4)]
+    assert got == [[0.0, 1.0], [2.0, 3.0], [4.0, 5.0], [6.0, 7.0]]
+
+
+def test_meshes_over_a_fake_process_group():
+    """`make_logical_mesh` lays the group's ranks out as (node, fsdp, model)
+    from an explicit layout or from `logical_layout` of a config, and
+    `make_production_mesh` is the flat mesh of every rank (torch's fake
+    process group of 8 ranks stands in for 8 cards)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=3, world_size=8)
+    try:
+        lay = {"node": 4, "fsdp": 1, "model": 2}
+        m = mesh.make_logical_mesh(device_type="cpu", layout=lay)
+        assert m.mesh_dim_names == ("node", "fsdp", "model")
+        assert shd.mesh_layout(m) == lay and shd.mesh_coords(m) == shd.rank_coords(3, lay)
+        cfg = get_config("qwen3-14b")
+        m2 = mesh.make_logical_mesh(cfg, device_type="cpu", param_budget=4e10)
+        assert shd.mesh_layout(m2) == mesh.logical_layout(cfg, 8, model_axis=1,
+                                                          param_budget=4e10)
+        assert shd.mesh_layout(m2)["fsdp"] > 1
+        flat = mesh.make_production_mesh(device_type="cpu")
+        assert flat.mesh_dim_names == ("data",) and flat.size() == 8
+        with pytest.raises(ValueError, match="does not cover"):
+            mesh.make_logical_mesh(device_type="cpu", layout={"node": 2, "fsdp": 1, "model": 2})
+    finally:
+        dist.destroy_process_group()
