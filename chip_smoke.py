@@ -26,7 +26,8 @@ non-zero without the final result line:
      and PME average at path F3's fc1 [4, 401,408]; the PME average's
      receiver range (r = 1 and 2 of m = 4, what a rank of a sharded step
      computes) at path B's largest leaf in bf16 and at F3's fc1 in f32,
-     equal to the square launch's rows and to its plain version.  Each row
+     and at path K's r = m = 4 on path A's largest leaf in f32, equal to
+     the square launch's rows and to its plain version.  Each row
      names the variant it launched (tensor_cores or cuda_cores).  Max
      error, kernel / plain / library times (CUDA events, median), the
      least time the card could take (bound) and the share of it reached;
@@ -189,7 +190,9 @@ non-zero without the final result line:
      (the prefills the card ran through flash and SSD with `--variant
      kernels`), four processes at a time on the host after every timed
      path (the card idle), each record's bytes, FLOPs, memory and (train)
-     collective bytes at 8 devices beside the measured seconds and peak:
+     collective bytes at 8 devices (JAX's convention; by kind and by use:
+     the exchange, the gradient's gather, the metrics) beside the measured
+     seconds and peak:
      the dry run's peak within 10% of the card's for J1-dry, J2 and J4a-c.  Phase 2 holds flash at J2's shape [8, 32768, 32, 64], full
      causal (row 4j: the last batch row whole and the last 4096 query rows
      of every batch row, against the plain version a block of query rows
@@ -579,9 +582,12 @@ def check_pme_range(dev):
     r0 + r - 1, what a rank of a sharded step computes for its nodes)
     against its plain version, at r = 1 (r0 = 1: a rank of node = 4) and
     r = 2 (r0 = 2: of node = 2) of m = 4, at path B's largest leaf in bf16
-    (row 1r) and at F3's fc1 in f32 (row 1rf); phase 2's tolerances.  The
-    bound counts (m + r)·n reads of W (the senders, then the receivers'
-    own rows for the fill), m·n of the masks and r·n writes."""
+    (row 1r) and at F3's fc1 in f32 (row 1rf), and at path K's own launch,
+    r = m = 4 (r0 = 0: its one rank) on path A's largest leaf in f32 (row
+    1rk); phase 2's tolerances.  The bound counts what the function needs:
+    m·n reads of W and of the masks (the receivers' own rows are among
+    the senders' rows) and r·n writes; the kernel's second read of a
+    receiver's own row for the fill is its overhead."""
     import torch
     from repro_torch.core import pme
     from repro_torch.kernels.pme_average.kernel import pme_average_cuda
@@ -589,14 +595,17 @@ def check_pme_range(dev):
 
     g = torch.Generator(device=dev).manual_seed(11)
     rows = {}
-    for name, n, dtype, p, reps in (("1r", BIG_N, torch.bfloat16, 0.2, 5),
-                                    ("1rf", FC1_N, torch.float32, 0.3, 50)):
+    halves = ((1, 1), (2, 2))
+    for name, n, dtype, p, reps, ranges in (
+            ("1r", BIG_N, torch.bfloat16, 0.2, 5, halves),
+            ("1rf", FC1_N, torch.float32, 0.3, 50, halves),
+            ("1rk", BIG_N, torch.float32, 0.2, 5, ((0, M),))):
         w = torch.randn((M, n), generator=g, device=dev).to(dtype)
         masks = pme.sample_coordinate_masks(g, M, n, round(p * n))
         a = ((torch.rand((M, M), generator=g, device=dev) < 0.6)
              & ~torch.eye(M, dtype=torch.bool, device=dev)).float()
         a[:, 1] = 0  # receiver 1 hears nobody: its own row is the fill
-        for r0, r in ((1, 1), (2, 2)):
+        for r0, r in ranges:
             got = pme_average_cuda(w, masks, a, receivers=(r0, r))
             plain = pme_average_ref(w, masks.to(dtype), a, receivers=(r0, r))
             square = pme_average_cuda(w, masks, a)
@@ -627,7 +636,7 @@ def check_pme_range(dev):
                 return torch.where(cnt > 0, agg / cnt.clamp(min=1), w[r0:r0 + r])
 
             row["library_ms"] = time_ms(library, reps)
-            bytes_ = (M + r) * n * w.element_size() + M * n * masks.element_size() \
+            bytes_ = M * n * w.element_size() + M * n * masks.element_size() \
                 + r * n * w.element_size() + a.numel() * 4
             row["bound_ms"], row["bound_by"] = bound(bytes_, 4 * M * r * n, F32_FLOPS)
             emit(**row)
@@ -4283,6 +4292,7 @@ def path_j(dev):
              layout_8=rec["layout"], per_device_bytes_8=rec["per_device_bytes"],
              collective_bytes_8=rec["collective_bytes"],
              collective_bytes_total_8=rec["collective_bytes_total"],
+             collective_bytes_by_use_8=rec.get("collective_bytes_by_use"),
              collective_calls_8=rec.get("collective_calls"),
              collective_m=rec.get("collective_m"), collective_note=rec.get("collective_note"),
              measured_s=secs, measured_peak_bytes=peak,
@@ -4501,10 +4511,11 @@ def main():
                        # largest leaf over its 5 lanes
                        "lanes": variant(h_launches["pme_average"], lane_rows["pme_lanes_h3"]),
                        # path K's launches with a receiver range (the dense
-                       # exchange's sharded step), timed at row 1r (r = 1 of
-                       # 4; path K's one rank takes r = 4)
+                       # exchange's sharded step on its one rank), timed at
+                       # their own form, row 1rk: r = m = 4 of path A's
+                       # largest leaf in f32
                        "receivers": variant(k_launches["pme_average_range"],
-                                            pme_range["1r-r1"])}
+                                            pme_range["1rk-r4"])}
     fa = entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention/kernel.py:78",
                serve_launches["flash"] + i_flash + j_flash, flash)

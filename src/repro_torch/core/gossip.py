@@ -30,14 +30,17 @@ placed or too short, JAX blocks along axis 1 all the same; the port then
 gathers the rank's rows whole over fsdp and model first.  On leaves whose
 axis 1 is placed the sharded exchange blocks along another axis than the
 unsharded one, so the two differ once the nodes' rows differ (ROADMAP,
-queue 3): the port follows JAX's sharded exchange.
+queue 3): the port follows JAX's sharded exchange.  The unsharded
+exchange is the same body on `sharding.local_view(None, ...)` (every row a
+receiver, the gathers the identity), blocked along axis 1 as JAX's.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.core.pme import fold_in, make_generator
 from repro_torch.tree import tree_flatten, tree_unflatten
 
@@ -49,39 +52,26 @@ def systematic_offsets(generator: torch.Generator, m: int, k: int) -> torch.Tens
     return torch.randint(0, k, (m,), generator=generator, device=generator.device)
 
 
-class _Wire(NamedTuple):
-    """The sharded exchange's wire for one leaf: this rank's receiver rows,
-    the mesh, and the axes its payload's pieces are spread over."""
-
-    loc: object             # sharding.Local
-    red_axes: Tuple[str, ...]
-
-    def gather(self, x: torch.Tensor) -> torch.Tensor:
-        from repro_torch import sharding as shd
-
-        return shd.all_gather(x, self.loc.mesh, "node")
-
-    def absmax(self, scale: torch.Tensor) -> torch.Tensor:
-        from repro_torch import sharding as shd
-
-        return shd.all_reduce(scale, self.loc.mesh, self.red_axes, op="max")
-
-
 def _leaf_average(
-    leaf: torch.Tensor,     # [m, d1, ...rest] (sharded: this rank's [r, d1, ...rest])
+    leaf: torch.Tensor,     # this rank's rows [r, d1, ...rest] ([m, ...] unsharded)
     offsets: torch.Tensor,  # [m] int
     a: torch.Tensor,        # [m, m] selection, A[j, i] = j in N_i^k
     k: int,
     quantize_bits: int = 0,  # 8 -> int8 payloads (+1 f32 scale per message)
-    wire: Optional[_Wire] = None,  # sharded: the rows' payloads gathered over node
+    loc=None,               # sharding.Local: the receivers and the mesh (None: unsharded)
+    red_axes: Tuple[str, ...] = (),  # the axes the payload's pieces are spread over
 ) -> torch.Tensor:
     r = leaf.shape[0]
-    rows = slice(None) if wire is None else wire.loc.rows()
+    loc = shd.local_view(None, leaf) if loc is None else loc
+    rows = loc.rows()
+
+    def gather(x):  # every sender's piece, over node
+        return shd.all_gather(x, loc.mesh, "node", use="exchange")
+
     if leaf.dim() == 1:  # [m] scalars-per-node: gossip densely (negligible)
         sel = a[:, rows].float()
         cnt = sel.sum(dim=0)
-        sent = leaf if wire is None else wire.gather(leaf)
-        agg = torch.einsum("j,ji->i", sent.float(), sel)
+        agg = torch.einsum("j,ji->i", gather(leaf).float(), sel)
         return torch.where(cnt > 0, agg / cnt.clamp(min=1.0), leaf).to(leaf.dtype)
     d1, rest = leaf.shape[1], tuple(leaf.shape[2:])
     kk = min(k, d1)
@@ -98,17 +88,15 @@ def _leaf_average(
         # whole payload (its pieces' maxima reduced over their ranks)
         pf = payload.float()
         scale = pf.abs().amax(dim=tuple(range(1, pf.dim())), keepdim=True)
-        if wire is not None:
-            wire.absmax(scale)
+        shd.all_reduce(scale, loc.mesh, red_axes, op="max", use="exchange")
         scale = scale.clamp(min=1e-12)
         q = torch.clamp(torch.round(pf / scale * 127.0), -127, 127).to(torch.int8)
         del pf
-        if wire is not None:
-            q, scale = wire.gather(q), wire.gather(scale)
+        q, scale = gather(q), gather(scale)
         payload = (q.float() * scale / 127.0).to(leaf.dtype)
         del q
-    elif wire is not None:
-        payload = wire.gather(payload)  # [m, b1, *rest]: every sender's piece
+    else:
+        payload = gather(payload)  # [m, b1, *rest]: every sender's piece
     m = payload.shape[0]
 
     onehot = torch.nn.functional.one_hot(off, kk).to(leaf.dtype)  # [m, kk]
@@ -138,25 +126,25 @@ def _block_axis(whole, spec, k: int) -> int:
     return 1
 
 
-def _sharded_leaf(leaf, spec, offsets, a, k, quantize_bits, loc):
-    """One leaf of the sharded exchange on this rank's piece [r, ...],
-    blocked along JAX's axis moved to axis 1."""
-    from repro_torch import sharding as shd
-
-    spec = tuple(spec) + (None,) * (leaf.dim() - len(spec))
+def _piece_leaf(leaf, spec, offsets, a, k, quantize_bits, loc):
+    """One leaf of the exchange on this rank's piece [r, ...], blocked
+    along JAX's axis (axis 1 unsharded) moved to axis 1."""
     if leaf.dim() == 1:
-        return _leaf_average(leaf, offsets, a, k, quantize_bits, _Wire(loc, ()))
-    axis = _block_axis(shd.full_shape(leaf.shape, spec, loc.layout), spec, k)
+        return _leaf_average(leaf, offsets, a, k, quantize_bits, loc)
+    spec = tuple(spec) + (None,) * (leaf.dim() - len(spec))
+    axis = (_block_axis(shd.full_shape(leaf.shape, spec, loc.layout), spec, k)
+            if loc.sharded else 1)
     if spec[axis] is not None:
         # no trailing axis left whole: the rows gathered over fsdp and
         # model, averaged whole and cut back to this rank's piece
-        full = shd.gather_dims(leaf, spec, loc.mesh, ("fsdp", "model"))
+        full = shd.gather_dims(leaf, spec, loc.mesh, ("fsdp", "model"), use="exchange")
         bare = (spec[0],) + (None,) * (leaf.dim() - 1)
-        return loc.cut_trailing(_sharded_leaf(full, bare, offsets, a, k, quantize_bits, loc),
+        return loc.cut_trailing(_piece_leaf(full, bare, offsets, a, k, quantize_bits, loc),
                                 spec)
     red_axes = tuple(name for e in spec[1:] for name in shd.spec_axes(e))
-    out = _leaf_average(leaf.movedim(axis, 1), offsets, a, k, quantize_bits,
-                        _Wire(loc, red_axes))
+    if axis == 1:
+        return _leaf_average(leaf, offsets, a, k, quantize_bits, loc, red_axes)
+    out = _leaf_average(leaf.movedim(axis, 1), offsets, a, k, quantize_bits, loc, red_axes)
     return out.movedim(1, axis).contiguous()
 
 
@@ -177,21 +165,13 @@ def compressed_pme_average_pytree(
     all m nodes, as the unsharded exchange draws them."""
     k = max(2, int(round(1.0 / p)))
     leaves, treedef = tree_flatten(params)
-    loc = None
-    if shardings is not None:
-        from repro_torch import sharding as shd
-
-        loc = shd.local_view(shardings, params)
+    loc = shd.local_view(shardings, params)
     out = []
     for idx, leaf in enumerate(leaves):
-        m = leaf.shape[0] if loc is None else loc.m
         if offsets is not None:
             off = offsets[idx]
         else:
-            off = systematic_offsets(make_generator(fold_in(key, idx), leaf.device), m, k)
-        if loc is None:
-            out.append(_leaf_average(leaf, off, a.to(leaf.device), k, quantize_bits))
-        else:
-            out.append(_sharded_leaf(leaf, loc.specs[idx], off, a.to(leaf.device), k,
-                                     quantize_bits, loc))
+            off = systematic_offsets(make_generator(fold_in(key, idx), leaf.device), loc.m, k)
+        out.append(_piece_leaf(leaf, loc.specs[idx], off, a.to(leaf.device), k, quantize_bits,
+                               loc))
     return tree_unflatten(treedef, out)

@@ -322,38 +322,58 @@ def pame_step(
                 )
             v_bar = _compressed_exchange(k_mask, state.params, a if batched else a[None],
                                          cfg, draws.get("offsets"), param_shardings)
-    if sharded:
-        return _sharded_tail(state, batch, grad_fn, topo, cfg, v_bar, comm[0], k_data,
-                             param_shardings)
 
     # Per-node gradients at v_bar, one node at a time (not a vmap): at full
     # width this keeps a single node's activations alive.  v_bar is a fresh
     # tensor from the exchange, so node i's local step updates its rows in
     # place once node i's gradient is taken — the other nodes' gradients
-    # read only their own rows.  Row r is node r % m of lane r // m.
-    stepsize = 1.0 / (state.sigma * topo.t.float())
+    # read only their own rows.  Row r0 + r is node (r0 + r) % m of lane
+    # (r0 + r) // m.  Sharded, a node's leaves are gathered whole over fsdp
+    # and model first and the rank keeps its piece of the update; the
+    # batch holds the rank's own nodes (unsharded, the view's collectives
+    # are the identity and its cuts the whole tensor).
+    loc = shd.local_view(param_shardings, v_bar)
+    stepsize = 1.0 / (state.sigma * topo.t[loc.rows()].float())
     leaves, treedef = tree_flatten(v_bar)
     batch_leaves, batch_def = tree_flatten(batch)
     losses = []
-    for r in range(n_lanes * m):
-        lane, i = divmod(r, m)
-        p_i = tree_unflatten(treedef, [x[r].detach().requires_grad_(True) for x in leaves])
-        b_i = tree_unflatten(batch_def, [b[i] for b in batch_leaves])
+    for r in range(loc.r):
+        lane, i = divmod(loc.r0 + r, m)
+        whole = [shd.gather_dims(x[r:r + 1], spec, loc.mesh, ("fsdp", "model"),
+                                 use="gradient")[0] for x, spec in zip(leaves, loc.specs)]
+        p_i = tree_unflatten(treedef, [w.detach().requires_grad_(True) for w in whole])
+        b_i = tree_unflatten(batch_def, [b[i - loc.r0] for b in batch_leaves])
         loss_i, g_i = grad_fn(p_i, b_i, pme.fold_in(LN.lane_key(k_data, lane), i))
         losses.append(loss_i.detach().float().reshape(()))
+        del p_i, whole
         with torch.no_grad():
-            for x, g in zip(leaves, tree_leaves(g_i)):
+            for x, g, spec in zip(leaves, tree_leaves(g_i), loc.specs):
                 # w_i = v_i - g_i * (1 / (sigma_i t_i)), the step cast to
-                # the leaf's type before the multiply
+                # the leaf's type before the multiply (this rank's piece)
+                g = shd.cut(g, spec[1:], loc.layout, loc.coord)
                 x[r].sub_(g.to(x.dtype) * stepsize[r].to(x.dtype))
-        del p_i, g_i
+        del g_i
     new_params = v_bar
 
-    # per lane: consensus error ||W - Pi||_F^2 (metric of Lemma 6) and the
-    # penalty's growth sigma <- gamma * sigma
-    consensus = [sum(torch.sum((x[sl] - x[sl].mean(dim=0, keepdim=True)) ** 2).float()
-                     for x in leaves) for sl in rows]
-    sigma = [state.sigma[sl] * LN.lane_value(cfg.gamma, lane) for lane, sl in enumerate(rows)]
+    # per lane, over every rank's rows: the losses' mean, the consensus
+    # error ||W - Pi||_F^2 (metric of Lemma 6; each piece counted once, the
+    # node mean from an f32 sum in the leaf's type) and the penalty's
+    # growth sigma <- gamma * sigma
+    mesh = loc.mesh
+    losses = shd.all_gather(torch.stack(losses), mesh, "node", use="metrics")
+    lane_rows = LN.lane_slices(loc.r, state.key)
+    consensus = []
+    for sl in lane_rows:
+        c = torch.zeros((), dtype=torch.float32, device=device)
+        for x, spec in zip(leaves, loc.specs):
+            mean = shd.all_reduce(x[sl].sum(dim=0, keepdim=True, dtype=torch.float32), mesh,
+                                  ("node",), use="metrics").div_(m)
+            if shd.owns(spec, loc.coord):
+                c += torch.sum((x[sl] - mean.to(x.dtype)) ** 2).float()
+            del mean
+        consensus.append(shd.all_reduce(c, mesh, shd.AXES, use="metrics"))
+    sigma = [state.sigma[sl] * LN.lane_value(cfg.gamma, lane)
+             for lane, sl in enumerate(lane_rows)]
     new_state = PaMEState(
         params=new_params,
         sigma=torch.cat(sigma) if batched else sigma[0],
@@ -364,7 +384,7 @@ def pame_step(
         "loss_mean": LN.lane_mean(losses, state.key),
         "consensus": consensus,
         "comm_nodes": [c.sum() for c in comm],
-        "sigma_mean": [sg.mean() for sg in sigma],
+        "sigma_mean": [shd.all_gather(sg, mesh, "node", use="metrics").mean() for sg in sigma],
     }
     for name in ("consensus", "comm_nodes", "sigma_mean"):
         metrics[name] = torch.stack(metrics[name]) if batched else metrics[name][0]
@@ -385,71 +405,23 @@ def pame_step(
     return new_state, metrics
 
 
-def _sharded_tail(state, batch, grad_fn, topo, cfg, v_bar, comm, k_data, shardings):
-    """The sharded step after its exchange: each local node's gradient on
-    its leaves gathered whole, this rank's piece of its update, and the
-    global metrics (see the module's docstring)."""
-    loc = shd.local_view(shardings, v_bar)
-    mesh, rows = loc.mesh, loc.rows()
-    stepsize = 1.0 / (state.sigma * topo.t[rows].float())
-    leaves, treedef = tree_flatten(v_bar)
-    batch_leaves, batch_def = tree_flatten(batch)
-    losses = []
-    for r in range(loc.r):
-        i = loc.r0 + r  # the node's index
-        whole = [shd.gather_dims(x[r:r + 1], spec, mesh, ("fsdp", "model"))[0]
-                 for x, spec in zip(leaves, loc.specs)]
-        p_i = tree_unflatten(treedef, [w.detach().requires_grad_(True) for w in whole])
-        b_i = tree_unflatten(batch_def, [b[r] for b in batch_leaves])
-        loss_i, g_i = grad_fn(p_i, b_i, pme.fold_in(k_data, i))
-        losses.append(loss_i.detach().float().reshape(()))
-        del p_i, whole
-        with torch.no_grad():
-            for x, g, spec in zip(leaves, tree_leaves(g_i), loc.specs):
-                # this rank's piece of w_i = v_i - g_i * (1 / (sigma_i t_i))
-                g = shd.cut(g, spec[1:], loc.layout, loc.coord)
-                x[r].sub_(g.to(x.dtype) * stepsize[r].to(x.dtype))
-        del g_i
-    # the global metrics: the gathered losses' mean (the unsharded step's
-    # arithmetic), consensus ||W - Pi||_F^2 over every rank's pieces, each
-    # counted once, in the leaf's type as the unsharded step takes it
-    loss_mean = shd.all_gather(torch.stack(losses), mesh, "node").mean()
-    consensus = torch.zeros((), dtype=torch.float32, device=topo.nbrs.device)
-    for x, spec in zip(leaves, loc.specs):
-        total = shd.all_reduce(x.sum(dim=0, dtype=torch.float32), mesh, ("node",))
-        if shd.owns(spec, loc.coord):
-            consensus += torch.sum((x - (total / loc.m).to(x.dtype)) ** 2).float()
-        del total
-    shd.all_reduce(consensus, mesh, shd.AXES)
-    sigma = state.sigma * cfg.gamma
-    new_state = PaMEState(params=v_bar, sigma=sigma, step=state.step + 1, key=state.key)
-    metrics = {
-        "loss_mean": loss_mean,
-        "consensus": consensus,
-        "comm_nodes": comm.sum(),
-        "sigma_mean": shd.all_gather(sigma, mesh, "node").mean(),
-    }
-    return new_state, metrics
-
-
 def _compressed_exchange(k_mask, params, a, cfg: PaMEConfig, offsets, shardings=None):
     """The compressed exchange lane by lane (it runs no kernel): lane l's
     rows with its [m, m] selection a[l], its key and its offsets; with
-    `shardings`, this rank's pieces of one lane."""
-    if shardings is not None:
-        return gossip.compressed_pme_average_pytree(
-            k_mask, params, a[0], cfg.p,
-            quantize_bits=8 if cfg.exchange == "compressed_q8" else 0, offsets=offsets,
-            shardings=shardings)
+    `shardings`, this rank's pieces of its one lane (the offsets all m
+    nodes')."""
     leaves, treedef = tree_flatten(params)
+    lanes = LN.lane_slices(leaves[0].shape[0], k_mask)
     outs = []
-    for lane, (key, sl) in enumerate(zip(LN.keys(k_mask),
-                                         LN.lane_slices(leaves[0].shape[0], k_mask))):
-        part = tree_unflatten(treedef, [x[sl] for x in leaves])
-        offs = None if offsets is None else [o[sl] for o in offsets]
+    for lane, (key, sl) in enumerate(zip(LN.keys(k_mask), lanes)):
+        part, offs = params, offsets
+        if len(lanes) > 1:
+            part = tree_unflatten(treedef, [x[sl] for x in leaves])
+            offs = None if offsets is None else [o[sl] for o in offsets]
         outs.append(tree_leaves(gossip.compressed_pme_average_pytree(
             key, part, a[lane], cfg.p,
-            quantize_bits=8 if cfg.exchange == "compressed_q8" else 0, offsets=offs)))
+            quantize_bits=8 if cfg.exchange == "compressed_q8" else 0, offsets=offs,
+            shardings=shardings)))
     if len(outs) == 1:
         return tree_unflatten(treedef, outs[0])
     return tree_unflatten(treedef, [torch.cat(xs) for xs in zip(*outs)])
@@ -510,9 +482,10 @@ def make_pame_runner(
 
     def node_mean(params):
         # every node's piece gathered over "node", averaged, then made whole
-        mean = tree_map(lambda x: shd.all_gather(x, sh.mesh, "node").mean(dim=0, keepdim=True),
-                        params)
-        return tree_map(lambda x: x[0], shd.gather_tree(mean, sh, ("fsdp", "model")))
+        mean = tree_map(lambda x: shd.all_gather(x, sh.mesh, "node", use="objective")
+                        .mean(dim=0, keepdim=True), params)
+        return tree_map(lambda x: x[0], shd.gather_tree(mean, sh, ("fsdp", "model"),
+                                                        use="objective"))
 
     runner = engine.make_scan_runner(
         step_fn, objective_fn=objective_fn, tol_std=tol_std, chunk_size=chunk_size,

@@ -37,7 +37,9 @@ docstring) and averages for its own receivers only: the dense exchange
 through the kernel's receiver range (or the plain average over the
 selection's columns of those receivers), the padded one through its
 receivers' rows of the neighbour table over the gathered [m, ...] sender
-stack.  Every coordinate sees the unsharded arithmetic.
+stack.  Every coordinate sees the unsharded arithmetic.  The unsharded
+exchange is the same body on `sharding.local_view(None, ...)`: every row
+a receiver, the gathers the identity.
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.core import lanes as LN
 from repro_torch.core.mixing import default_impl, env_impl, gather_terms
 from repro_torch.tree import tree_flatten, tree_unflatten
@@ -232,8 +235,8 @@ def _draw_masks(gens, shape, p_i: float, mode: str) -> torch.Tensor:
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
-def _sharded_masks(mk, gens, whole, p_i: float, mode: str, spec, loc) -> torch.Tensor:
-    """A leaf's masks over all m senders, drawn (or injected) at the whole
+def _piece_masks(mk, gens, whole, p_i: float, mode: str, spec, loc) -> torch.Tensor:
+    """A leaf's masks over all senders, drawn (or injected) at the whole
     leaf's shape as the unsharded exchange draws them, cut to this rank's
     piece: [m, n_local] (exact) or [m, *local] (Bernoulli)."""
     m, n = whole[0], math.prod(whole[1:])
@@ -241,45 +244,6 @@ def _sharded_masks(mk, gens, whole, p_i: float, mode: str, spec, loc) -> torch.T
         mk = _draw_masks(gens, (m, n) if mode == "exact" else tuple(whole), p_i, mode)
     mk = loc.cut_trailing(mk.reshape(whole), spec)
     return mk.reshape(m, -1) if mode == "exact" else mk
-
-
-def _pme_average_sharded(key, params, a, p, mode, masks, shardings):
-    """`pme_average_pytree` on this rank's pieces (see the module's
-    docstring): [m / node, ...] leaves in, the same out."""
-    from repro_torch import sharding as shd
-
-    leaves, treedef = tree_flatten(params)
-    loc = shd.local_view(shardings, params)
-    rows = loc.rows()
-    per_leaf = isinstance(p, (tuple, list))
-    impl = default_impl(a.device)
-    out = []
-    for idx, leaf in enumerate(leaves):
-        spec = loc.specs[idx]
-        whole = shd.full_shape(leaf.shape, spec, loc.layout)
-        mk, gens = _leaf_masks(masks, idx, key, leaf.device)
-        mk = _sharded_masks(mk, gens, whole, p[idx] if per_leaf else p, mode, spec, loc)
-        sent = shd.all_gather(leaf, loc.mesh, "node")  # every sender's piece [m, ...]
-        if mode == "exact":
-            flat = sent.reshape(loc.m, -1)
-            if impl == "kernel" and (env_impl() == "kernel"
-                                     or math.prod(whole) >= _KERNEL_MIN_ELEMS):
-                from repro_torch.kernels.pme_average.ops import (
-                    pme_average as pme_average_fused,
-                )
-
-                avg = pme_average_fused(flat.contiguous(), mk, a, receivers=(loc.r0, loc.r))
-            else:
-                avg = pme_average(flat, mk, a[:, rows], own=flat[rows])
-            out.append(avg.reshape(leaf.shape))
-        else:
-            mask_t = mk.to(leaf.dtype)
-            a_t = a[:, rows].to(leaf.dtype).float()
-            agg = torch.einsum("j...,ji->i...", (sent * mask_t).float(), a_t)
-            cnt = torch.einsum("j...,ji->i...", mask_t.float(), a_t)
-            out.append(_count_average(agg, cnt, leaf))
-        del sent, mk
-    return tree_unflatten(treedef, out)
 
 
 def pme_average_pytree(
@@ -308,88 +272,83 @@ def pme_average_pytree(
     the masks (drawn or injected) the whole leaves' (see the module's
     docstring); lanes and a self view are not taken there.
     """
-    if shardings is not None:
-        if self_params is not None or a.dim() == 3:
-            raise NotImplementedError("a sharded exchange takes no lanes and no self view "
-                                      "(ROADMAP, later work)")
-        return _pme_average_sharded(key, params, a, p, mode, masks, shardings)
+    loc = shd.local_view(shardings, params)
+    if loc.sharded and (self_params is not None or a.dim() == 3):
+        raise NotImplementedError("a sharded exchange takes no lanes and no self view "
+                                  "(ROADMAP, later work)")
     leaves, treedef = tree_flatten(params)
     self_leaves = leaves if self_params is None else tree_flatten(self_params)[0]
     lanes = a.shape[0] if a.dim() == 3 else None
-    rows = leaves[0].shape[0]
-    m = rows // (lanes or 1)
+    rows = loc.rows()  # this rank's receivers (every row unsharded)
+    m = loc.m // (lanes or 1)  # nodes a lane
     per_leaf = isinstance(p, (tuple, list))
     impl = default_impl(a.device)
     out = []
     for idx, leaf in enumerate(leaves):
-        p_i = p[idx] if per_leaf else p
+        spec = loc.specs[idx]
+        whole = shd.full_shape(leaf.shape, spec, loc.layout)
         mk, gens = _leaf_masks(masks, idx, key, leaf.device)
-        own = self_leaves[idx]
+        mk = _piece_masks(mk, gens, whole, p[idx] if per_leaf else p, mode, spec, loc)
+        sent = shd.all_gather(leaf, loc.mesh, "node", use="exchange")  # every sender's piece
+        own = self_leaves[idx]  # the receivers' own view
         if mode == "exact":
-            flat = leaf.reshape(rows, -1)
+            flat = sent.reshape(loc.m, -1)
             n = flat.shape[1]
-            if mk is None:
-                mk = _draw_masks(gens, (rows, n), p_i, mode)
-            mk = mk.reshape(rows, n)
             if self_params is None and impl == "kernel" and (
-                env_impl() == "kernel" or m * n >= _KERNEL_MIN_ELEMS
+                env_impl() == "kernel" or m * math.prod(whole[1:]) >= _KERNEL_MIN_ELEMS
             ):
                 # hot path: the fused kernel (one read of W and the masks,
-                # one write; all lanes in one launch).  It takes the
-                # fallback from W itself, so a self-view override stays on
-                # the plain average.
+                # one write; all lanes in one launch; a rank's receivers
+                # alone when sharded).  It takes the fallback from W
+                # itself, so a self-view override stays on the plain average.
                 from repro_torch.kernels.pme_average.ops import (
                     pme_average as pme_average_fused,
                 )
 
-                if lanes is None:
-                    avg = pme_average_fused(flat.contiguous(), mk, a)
-                else:
+                if lanes is not None:
                     avg = pme_average_fused(flat.contiguous().view(lanes, m, n),
                                             mk.contiguous().view(lanes, m, n), a)
+                else:
+                    avg = pme_average_fused(flat.contiguous(), mk, a, receivers=(
+                        (loc.r0, loc.r) if loc.sharded else None))
             elif lanes is not None:
                 owns = ([None] * lanes if self_params is None
-                        else own.reshape(rows, -1).chunk(lanes))
+                        else own.reshape(loc.m, -1).chunk(lanes))
                 avg = torch.cat([pme_average(w_l, mk_l, a_l, own=o_l) for w_l, mk_l, a_l, o_l in
                                  zip(flat.chunk(lanes), mk.chunk(lanes), a, owns)])
-            elif self_params is None:
-                avg = pme_average(flat, mk, a)
             else:
-                avg = pme_average(flat, mk, a, own=own.reshape(m, -1))
+                avg = pme_average(flat, mk, a[:, rows], own=own.reshape(loc.r, -1))
             out.append(avg.reshape(leaf.shape))
         else:
-            if mk is None:
-                mk = _draw_masks(gens, tuple(leaf.shape), p_i, mode)
             # operands in the leaf's type, accumulation in f32 (JAX's
             # preferred_element_type=f32); 0/1 factors are exact in bf16
-            mask_t = mk.reshape(leaf.shape).to(leaf.dtype)
+            mask_t = mk.to(leaf.dtype)
             sel = [a] if lanes is None else list(a)
             parts = []
-            for x, mt, ow, a_l in zip(leaf.chunk(len(sel)), mask_t.chunk(len(sel)),
+            for x, mt, ow, a_l in zip(sent.chunk(len(sel)), mask_t.chunk(len(sel)),
                                       own.chunk(len(sel)), sel):
-                a_t = a_l.to(leaf.dtype).float()
+                a_t = a_l[:, rows].to(leaf.dtype).float()
                 agg = torch.einsum("j...,ji->i...", (x * mt).float(), a_t)
                 cnt = torch.einsum("j...,ji->i...", mt.float(), a_t)
                 parts.append(_count_average(agg, cnt, ow))
             out.append(parts[0] if lanes is None else torch.cat(parts))
+        del sent, mk
     return tree_unflatten(treedef, out)
 
 
-def _padded_leaf(nbrs, sel_f, leaf, own, p_i, mode, mk, gens, pad, impl):
-    m = nbrs.shape[0]
+def _padded_leaf(nbrs, sel_f, leaf, own, p_i, mode, mk, gens, pad, impl, spec, loc):
+    """One leaf of the padded exchange: `nbrs`, `sel_f` and `pad` are this
+    rank's receivers' rows, walking every sender's piece of the leaf."""
+    mk = _piece_masks(mk, gens, shd.full_shape(leaf.shape, spec, loc.layout), p_i, mode,
+                      spec, loc)
+    sent = shd.all_gather(leaf, loc.mesh, "node", use="exchange")
     if mode == "exact":
-        flat = leaf.reshape(m, -1)
-        n = flat.shape[1]
-        if mk is None:
-            mk = _draw_masks(gens, (m, n), p_i, mode)
-        mk = mk.reshape(m, n)
-        payload = torch.where(mk, flat, 0).float()
+        payload = torch.where(mk, sent.reshape(loc.m, -1), 0).float()
+        flat = leaf.reshape(loc.r, -1)
     else:
+        payload = (sent * mk.to(sent.dtype)).float()
         flat = leaf
-        if mk is None:
-            mk = _draw_masks(gens, tuple(leaf.shape), p_i, mode)
-        mk = mk.reshape(leaf.shape)
-        payload = (flat * mk.to(flat.dtype)).float()
+    del sent
     mask_f = mk.float()
     del mk
     agg, cnt = gather_terms(
@@ -429,56 +388,23 @@ def pme_average_pytree_padded(
     M >= m form), and the masks are the whole leaves' (see the module's
     docstring).
     """
-    if shardings is not None:
-        if self_params is not None:
-            raise NotImplementedError("a sharded exchange takes no self view "
-                                      "(ROADMAP, later work)")
-        return _padded_sharded(key, params, nbrs, sel, p, mode, pad, impl, masks, shardings)
+    loc = shd.local_view(shardings, params)
+    if loc.sharded and self_params is not None:
+        raise NotImplementedError("a sharded exchange takes no self view "
+                                  "(ROADMAP, later work)")
     leaves, treedef = tree_flatten(params)
     self_leaves = [None] * len(leaves) if self_params is None else tree_flatten(self_params)[0]
-    sel_f = sel.float()
-    per_leaf = isinstance(p, (tuple, list))
-    out = []
-    for idx, leaf in enumerate(leaves):
-        mk, gens = _leaf_masks(masks, idx, key, leaf.device)
-        out.append(_padded_leaf(
-            nbrs, sel_f, leaf, self_leaves[idx], p[idx] if per_leaf else p,
-            mode, mk, gens, pad, impl,
-        ))
-    return tree_unflatten(treedef, out)
-
-
-def _padded_sharded(key, params, nbrs, sel, p, mode, pad, impl, masks, shardings):
-    """`pme_average_pytree_padded` on this rank's pieces."""
-    from repro_torch import sharding as shd
-
-    leaves, treedef = tree_flatten(params)
-    loc = shd.local_view(shardings, params)
-    rows = loc.rows()
+    rows = loc.rows()  # this rank's receivers (every row unsharded)
     nbrs_r, sel_r = nbrs[rows], sel.float()[rows]
     pad_r = None if pad is None else pad[rows]
     per_leaf = isinstance(p, (tuple, list))
     out = []
     for idx, leaf in enumerate(leaves):
-        spec = loc.specs[idx]
-        whole = shd.full_shape(leaf.shape, spec, loc.layout)
         mk, gens = _leaf_masks(masks, idx, key, leaf.device)
-        mk = _sharded_masks(mk, gens, whole, p[idx] if per_leaf else p, mode, spec, loc)
-        sent = shd.all_gather(leaf, loc.mesh, "node")
-        if mode == "exact":
-            payload = torch.where(mk, sent.reshape(loc.m, -1), 0).float()
-            fallback = leaf.reshape(loc.r, -1)
-        else:
-            payload = (sent * mk.to(sent.dtype)).float()
-            fallback = leaf
-        del sent
-        mask_f = mk.float()
-        del mk
-        agg, cnt = gather_terms(
-            nbrs_r, [(sel_r, payload), (sel_r, mask_f)], pad=pad_r, impl=impl
-        )
-        del payload, mask_f
-        out.append(_count_average(agg, cnt, fallback).reshape(leaf.shape))
+        out.append(_padded_leaf(
+            nbrs_r, sel_r, leaf, self_leaves[idx], p[idx] if per_leaf else p,
+            mode, mk, gens, pad_r, impl, loc.specs[idx], loc,
+        ))
     return tree_unflatten(treedef, out)
 
 

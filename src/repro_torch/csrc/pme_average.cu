@@ -18,9 +18,10 @@
 // fill W[r0 + i].  A sharded step gives each rank the rows of its own
 // nodes: it gathers the m senders' slabs over the node axis and averages
 // for its r = m / node receivers alone.  The square call is r0 = 0, r = m.
-// What bounds the range form: bytes, (m + r) * n reads of W (the senders'
-// rows, then the r receivers' own rows for the fill, from L2 when they are
-// still there), m * n of the masks and r * n writes.
+// What bounds the range form: bytes, m * n reads of W and of the masks
+// (the receivers' own rows are among the senders' rows) and r * n writes.
+// The kernel reads a receiver's own row a second time for the fill (from
+// L2 when it is still there): that read is its overhead, not the bound's.
 //
 // Lanes: W, M and out may hold L independent lanes [L, m, n] and A [L, m, m]
 // (S seeds x C configs of one run batched together).  The grid's y axis is

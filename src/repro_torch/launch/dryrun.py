@@ -53,9 +53,11 @@ over that layout.
     0 of a world of ``--devices`` ranks under torch's fake process group,
     on fake tensors, with m = the layout's node count (JAX's choice) and
     the global batch split over them, and records what
-    `repro_torch.sharding`'s counted collectives received, by kind, per
-    device (`collective_bytes`, the counterpart of
-    `parse_collective_bytes`).  Prefill and decode records give None: the
+    `repro_torch.sharding`'s counted collectives moved, by kind, per
+    device, with JAX's convention (`collective_bytes`, the counterpart of
+    `parse_collective_bytes`), and the same bytes by use
+    (``collective_bytes_by_use``: the exchange, the gradient's gather, the
+    metrics).  Prefill and decode records give None: the
     port has no sharded serving step.
 
 The card's memory comes from ``torch.cuda.get_device_properties(0)``, or
@@ -108,8 +110,9 @@ FLOPS_NOTE = ("counted on the plain versions: masked attention counts whole [S, 
 MEMORY_NOTE = ("live bytes of a trace on fake tensors (MemTracker) on the route each kernel "
                "takes on the card, with CUDA_TEMPS' in-launch temporaries; code_bytes: no "
                "counterpart, nothing is compiled")
-COLLECTIVE_NOTE = ("per device: what rank 0 of the sharded PaME step received, by kind "
-                   "(all-gather (g - 1) x its input, all-reduce 2 (g - 1) / g x its tensor)")
+COLLECTIVE_NOTE = ("per device: rank 0 of the sharded PaME step, by kind, with JAX's "
+                   "convention (an all-gather counts its result, g x its input; an all-reduce "
+                   "2 x its tensor); collective_bytes_by_use splits them by what they carry")
 NO_SHARDED_SERVING = "no sharded serving step in the port (ROADMAP): one card, no collectives"
 # the directory of the dry run's results (`results_path`), git-ignored
 ARTIFACTS = str(Path(__file__).resolve().parents[3] / "build" / "dryrun")
@@ -420,8 +423,8 @@ def sharded_collectives(cfg: ModelConfig, shape: InputShape, layout: Dict[str, i
                         global_batch: int, exchange: str = "dense") -> Dict[str, object]:
     """One sharded PaME step over `layout` as rank 0 of a fake process
     group of its size, on fake tensors: m = layout["node"] nodes, the
-    global batch split over them.  Returns the counts by kind and the
-    calls (see the module's docstring)."""
+    global batch split over them.  Returns the bytes by kind and by use,
+    and the calls (see the module's docstring)."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
@@ -450,6 +453,8 @@ def sharded_collectives(cfg: ModelConfig, shape: InputShape, layout: Dict[str, i
     finally:
         dist.destroy_process_group()
     return {"bytes": collective_bytes(counts),
+            "by_use": {k: {u: int(round(b)) for u, b in sorted(c["by_use"].items())}
+                       for k, c in sorted(counts.items())},
             "calls": {k: int(c["calls"]) for k, c in sorted(counts.items())}, "m": m}
 
 
@@ -522,6 +527,7 @@ def run_combo(
         coll = sharded_collectives(cfg, shape, layout, gb, exchange)
         rec.update(collective_bytes=coll["bytes"],
                    collective_bytes_total=sum(coll["bytes"].values()),
+                   collective_bytes_by_use=coll["by_use"],
                    collective_calls=coll["calls"], collective_m=coll["m"],
                    collective_trace_s=time.perf_counter() - t0,
                    collective_note=COLLECTIVE_NOTE)

@@ -33,14 +33,19 @@ From placements to local pieces (the sharded PaME step, `core.pame`):
   * `all_gather` and `all_reduce` are the only collectives the port
     issues, plain `torch.distributed` calls on the mesh's groups (no
     DTensor: the kernels take plain tensors).  They count, per kind, the
-    calls and the bytes each rank receives: an all-gather over g ranks
-    receives (g − 1) × its input; an all-reduce counts 2 × (g − 1) / g ×
-    its tensor, the ring's reduce-scatter and all-gather, which is JAX's
-    dry-run convention of counting an all-reduce twice
-    (`repro/launch/dryrun.py:77-79`) on the bytes that cross the wire.  A
-    group of one rank still issues its call and receives 0 bytes.
+    calls and the bytes with JAX's dry-run convention
+    (``parse_collective_bytes``, `repro/launch/dryrun.py:78-88`, the
+    result shape's bytes a device): an all-gather over g ranks counts its
+    result, g × its input; an all-reduce 2 × its tensor.  A group of one
+    rank still issues its call and counts 0 bytes, as XLA emits no
+    collective over one device.  Each call is also counted under its use
+    (``use=``: "exchange", "gradient", "metrics", "objective"), so that a
+    record shows what the metrics cost beside the exchange.
     `collective_counts` reads the counts, `reset_collective_counts` sets
     them to 0.
+  * `local_view(None, tree)` is the unsharded step's view: one rank
+    holding every row whole, the collectives on it (``mesh`` None) the
+    identity.  The exchanges and the step take one body for both.
 """
 from __future__ import annotations
 
@@ -304,7 +309,8 @@ class Local(NamedTuple):
     """A rank's view of a node-stacked tree under `MeshShardings`: the mesh,
     its layout and this rank's coordinate, each leaf's placement in JAX
     leaf order, the node count m and the rows r0 ... r0 + r - 1 this rank
-    holds (its nodes)."""
+    holds (its nodes).  Unsharded (`local_view(None, tree)`) the mesh is
+    None, every placement None and r0 = 0, r = m: every row, whole."""
 
     mesh: object
     layout: Dict[str, int]
@@ -313,6 +319,10 @@ class Local(NamedTuple):
     m: int
     r0: int
     r: int
+
+    @property
+    def sharded(self) -> bool:
+        return self.mesh is not None
 
     def rows(self) -> slice:
         return slice(self.r0, self.r0 + self.r)
@@ -323,9 +333,17 @@ class Local(NamedTuple):
         return cut(x, spec, self.layout, self.coord, skip=(0,)).contiguous()
 
 
-def local_view(shardings: "MeshShardings", tree) -> Local:
+def local_view(shardings: Optional["MeshShardings"], tree) -> Local:
     """The `Local` view of this rank's pieces `tree` (leaves [m / node, ...],
-    every leaf's dim 0 placed over "node")."""
+    every leaf's dim 0 placed over "node"); with `shardings` None, the
+    unsharded view of the whole tree."""
+    if shardings is None:
+        from repro_torch.tree import tree_leaves
+
+        leaves = tree_leaves(tree)
+        m = leaves[0].shape[0]
+        return Local(None, dict.fromkeys(AXES, 1), dict.fromkeys(AXES, 0),
+                     [(None,) * x.dim() for x in leaves], m, 0, m)
     leaves, specs, _ = _leaf_pairs(tree, shardings.specs)
     layout, coord = mesh_layout(shardings.mesh), mesh_coords(shardings.mesh)
     for spec in specs:
@@ -461,28 +479,33 @@ def owns(spec: Placement, coord: Mapping[str, int]) -> bool:
 # ---------------------------------------------------------------------------
 # collectives (counted)
 # ---------------------------------------------------------------------------
-_COUNTS: Dict[str, Dict[str, float]] = {}
+_COUNTS: Dict[str, Dict[str, object]] = {}
 
 
 def reset_collective_counts() -> None:
     _COUNTS.clear()
 
 
-def collective_counts() -> Dict[str, Dict[str, float]]:
-    """{kind: {"calls": n, "bytes": b}}: what this process issued and
-    received since the last reset (see the module's docstring)."""
-    return {kind: dict(c) for kind, c in _COUNTS.items()}
+def collective_counts() -> Dict[str, Dict[str, object]]:
+    """{kind: {"calls": n, "bytes": b, "by_use": {use: b}}}: what this
+    process issued since the last reset (see the module's docstring)."""
+    return {kind: dict(c, by_use=dict(c["by_use"])) for kind, c in _COUNTS.items()}
 
 
-def _count(kind: str, nbytes: float) -> None:
-    c = _COUNTS.setdefault(kind, {"calls": 0, "bytes": 0})
+def _count(kind: str, use: str, g: int, nbytes: float) -> None:
+    c = _COUNTS.setdefault(kind, {"calls": 0, "bytes": 0, "by_use": {}})
+    nbytes = nbytes if g > 1 else 0
     c["calls"] += 1
     c["bytes"] += nbytes
+    c["by_use"][use] = c["by_use"].get(use, 0) + nbytes
 
 
-def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
+def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0, *,
+               use: str = "other") -> torch.Tensor:
     """The pieces of `x` of every rank of the mesh's `axis` group, joined
-    along `dim` in the group's order."""
+    along `dim` in the group's order (`x` itself when `mesh` is None)."""
+    if mesh is None:
+        return x
     import torch.distributed as dist
 
     group = mesh.get_group(axis)
@@ -492,13 +515,16 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
     # all_gather_single is all_gather_into_tensor's newer name (torch >= 2.13)
     gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
     gather(out, x0, group=group)
-    _count("all_gather", (g - 1) * x0.numel() * x0.element_size())
+    _count("all_gather", use, g, out.numel() * out.element_size())
     return out.movedim(0, dim)
 
 
-def all_reduce(x: torch.Tensor, mesh, axes: Sequence[str], op: str = "sum") -> torch.Tensor:
+def all_reduce(x: torch.Tensor, mesh, axes: Sequence[str], op: str = "sum", *,
+               use: str = "other") -> torch.Tensor:
     """`x` reduced in place over the ranks of each of the mesh's `axes`
-    groups in turn ("sum" or "max")."""
+    groups in turn ("sum" or "max"); `x` as it is when `mesh` is None."""
+    if mesh is None:
+        return x
     import torch.distributed as dist
 
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
@@ -506,12 +532,12 @@ def all_reduce(x: torch.Tensor, mesh, axes: Sequence[str], op: str = "sum") -> t
         group = mesh.get_group(axis)
         g = dist.get_world_size(group)
         dist.all_reduce(x, op=red, group=group)
-        _count("all_reduce", 2 * (g - 1) / g * x.numel() * x.element_size())
+        _count("all_reduce", use, g, 2 * x.numel() * x.element_size())
     return x
 
 
 def gather_dims(x: torch.Tensor, spec: Placement, mesh,
-                axes: Optional[Sequence[str]] = None) -> torch.Tensor:
+                axes: Optional[Sequence[str]] = None, *, use: str = "other") -> torch.Tensor:
     """`x` (a rank's piece) gathered whole along every dim `spec` places
     over `axes` (default all): a dim over several axes jointly is gathered
     over its minor axis first, which rebuilds JAX's order."""
@@ -526,16 +552,17 @@ def gather_dims(x: torch.Tensor, spec: Placement, mesh,
                                  f"of them or none")
             continue
         for name in reversed(names):
-            x = all_gather(x, mesh, name, dim)
+            x = all_gather(x, mesh, name, dim, use=use)
     return x.contiguous()
 
 
-def gather_tree(tree, shardings: MeshShardings, axes: Optional[Sequence[str]] = None):
+def gather_tree(tree, shardings: MeshShardings, axes: Optional[Sequence[str]] = None, *,
+                use: str = "other"):
     """`tree` (this rank's pieces) gathered whole over `axes` (default all)
     by collectives on `shardings.mesh`: every rank gets the same tree."""
     from repro_torch.tree import tree_unflatten
 
     leaves, specs, treedef = _leaf_pairs(tree, shardings.specs)
     return tree_unflatten(treedef, [
-        gather_dims(x, spec, shardings.mesh, axes) if isinstance(x, torch.Tensor) else x
+        gather_dims(x, spec, shardings.mesh, axes, use=use) if isinstance(x, torch.Tensor) else x
         for x, spec in zip(leaves, specs)])

@@ -205,11 +205,15 @@ def test_kernel_route_drops_the_plain_attentions_scores():
 @pytest.mark.parametrize("layout", [{"node": 8, "fsdp": 1, "model": 1},
                                     {"node": 2, "fsdp": 4, "model": 1}])
 def test_collective_bytes_follow_the_placements(layout):
-    """The sharded step at 8 fake ranks: each rank all-gathers its piece of
-    every leaf over node ((node - 1) x its m / node rows' piece), each local
-    node's fsdp-placed leaves over fsdp before its gradient ((fsdp - 1) x
-    the row's piece), and the losses and sigma over node; all-reduces the
-    consensus sums (2 (g - 1) / g x the tensor)."""
+    """The sharded step at 8 fake ranks, with JAX's convention (an
+    all-gather counts its result, an all-reduce twice its tensor, a group
+    of one rank nothing): each rank all-gathers its piece of every leaf
+    over node (node x its m / node rows' piece), each local node's
+    fsdp-placed leaves over fsdp before its gradient (fsdp x the row's
+    piece), and the losses and sigma over node; it all-reduces the
+    consensus sums (2 x the f32 node sum of its piece, then 2 x 4 bytes
+    over each axis of more than one rank).  Each byte is counted under its
+    use."""
     from repro_torch import sharding as shd
 
     cfg = get_config("stablelm-1.6b", "smoke").replace(remat=True)
@@ -221,8 +225,9 @@ def test_collective_bytes_follow_the_placements(layout):
     place = shd.state_shardings(specs["state"], layout)
     from repro_torch.tree import tree_leaves
 
-    gather = 2 * (node - 1) * r * 4  # the losses and sigma, f32
-    reduce = sum(2 * (g - 1) / g * 4 for g in layout.values())  # the consensus
+    exchange = gradient = 0
+    gather_metrics = 2 * node * r * 4  # the losses and sigma, f32
+    reduce = sum(2 * 4 for g in layout.values() if g > 1)  # the consensus scalar
     for leaf, spec in zip(tree_leaves(specs["state"].params),
                           shd.leaf_specs(specs["state"].params, place.params)):
         ways = 1
@@ -230,16 +235,19 @@ def test_collective_bytes_follow_the_placements(layout):
             for name in shd.spec_axes(e):
                 ways *= layout[name]
         row = leaf.numel() // m * leaf.element_size() // ways
-        gather += (node - 1) * r * row
+        exchange += node * r * row
         if any("fsdp" in shd.spec_axes(e) for e in spec[1:]):
-            gather += r * (fsdp - 1) * row
-        reduce += 2 * (node - 1) / node * (leaf.numel() // m // ways) * 4
+            gradient += r * fsdp * row
+        reduce += 2 * (leaf.numel() // m // ways) * 4
     assert got["m"] == m
-    assert got["bytes"]["all_gather"] == gather
-    assert got["bytes"]["all_reduce"] == round(reduce)
+    assert got["bytes"]["all_gather"] == exchange + gradient + gather_metrics
+    assert got["bytes"]["all_reduce"] == reduce
+    assert got["by_use"]["all_gather"] == {
+        u: b for u, b in (("exchange", exchange), ("gradient", gradient),
+                          ("metrics", gather_metrics)) if b or u != "gradient"}
+    assert got["by_use"]["all_reduce"] == {"metrics": reduce}
     if fsdp > 1:
-        assert any(any("fsdp" in shd.spec_axes(e) for e in s[1:])
-                   for s in shd.leaf_specs(specs["state"].params, place.params))
+        assert gradient > 0
 
 
 def test_memory_trace_adds_the_cuda_temporaries():
