@@ -20,9 +20,11 @@ non-zero without the final result line:
      rows, each bit-equal to the f32 slots chain rounded to its type);
      flash attention on the JAX tests'
      sweep (f32, bf16), on ragged, windowed, D = 128 and 40/8 GQA bf16
-     shapes and at path C's [8, 2048, 32, 64] bf16; SSD intra-chunk on the
-     JAX tests' shapes, on short-chunk and G > 1 bf16 shapes, at path C's
-     [8, 16, 128, 64, 64] bf16 and at mamba2-1.3b's N = 128; gossip (f32)
+     shapes, at path C's [8, 2048, 32, 64] bf16 and at path L2's half of
+     the heads ([8, 2048, 16, 64]; qwen3-14b's 20 on 4 KV heads, D = 128);
+     SSD intra-chunk on the JAX tests' shapes, on short-chunk and G > 1
+     bf16 shapes, at path C's [8, 16, 128, 64, 64] bf16, at path L2's 32
+     heads and at mamba2-1.3b's N = 128; gossip (f32)
      and PME average at path F3's fc1 [4, 401,408]; the PME average's
      receiver range (r = 1 and 2 of m = 4, what a rank of a sharded step
      computes) at path B's largest leaf in bf16 and at F3's fc1 in f32,
@@ -188,7 +190,7 @@ non-zero without the final result line:
      J1's batch, its max_memory_allocated; J5: the dry run's CLI
      (`repro_torch.launch.dryrun`, the card's memory) on J1-J4's combos
      (the prefills the card ran through flash and SSD with `--variant
-     kernels`), four processes at a time on the host after every timed
+     kernels`), eight processes at a time on the host after every timed
      path (the card idle), each record's bytes, FLOPs, memory and (train)
      collective bytes at 8 devices (JAX's convention; by kind and by use:
      the exchange, the gradient's gather, the metrics) beside the measured
@@ -210,7 +212,39 @@ non-zero without the final result line:
      compressed and compressed_q8 (no kernel), each sharded step
      `torch.equal` to the unsharded one (state and loss_mean); seconds a
      step, peaks and the collective wrapper's counts (one rank: 0 bytes);
- 19. the kernel table line, then the result line.
+ 19. path L (after path K, before path J): sharded serving
+     (`prefill` / `decode_step` / `ServeLoop` with ``shardings=``,
+     `sharding.serving_shardings`), a prefill of 8 x 2048-token prompts and
+     greedy decode steps (31 in L1, 7 in L2).  L1: in a process of its
+     own, an NCCL process group of one rank and a (1, 1, 1) mesh,
+     zamba2-1.2b and stablelm-1.6b
+     at full width and depth with flash and SSD: the sharded prefill's
+     logits, the tokens, every decode step's logits and the caches
+     `torch.equal` to the unsharded run's, flash 7 and SSD 38 launches a
+     prefill (stablelm-1.6b: flash 24), prefill ms and decode ms a token.
+     L2: two processes sharing the card, a gloo process group over CUDA
+     tensors and a (1, 1, 2) mesh, zamba2-1.2b at full depth and
+     qwen3-14b at full width and 10 layers: each rank draws the whole
+     parameters from seed 0 in turn and keeps its pieces, and launches
+     flash (and SSD) on its half of the heads; the parent first runs the
+     unsharded bf16 prefill and greedy decode, and the unsharded f32
+     prefill and decode (plain route) fed the bf16 run's tokens, at the
+     same weights, 8 tokens generated; the ranks' decode steps are fed
+     those tokens too.  Held, over bf16's own distance from f32 (by the
+     largest difference and by the relative L2 norm): the split prefill's
+     and decode steps' logits at most L2_ERROR_RATIO (1.25) from the
+     unsharded bf16 logits (measured: about 1, the bf16 partial sums'
+     rounding); a third prefill with the row-parallel partial sums taken
+     and reduced in f32 at most L2_F32_RATIO (1.0); a fourth with one
+     wrong head (two heads' `attn/wo` rows swapped on rank 1) more than
+     L2_ERROR_RATIO.  Recorded beside it the argmaxes' agreement with
+     the unsharded tokens, each rank's peak beside the dry run's
+     per-device peak of the same step (`dryrun.sharded_serving`), and the
+     collective calls and bytes by use.  J5 then also sizes prefill_32k,
+     decode_32k and long_500k of every arch at the dry run's layout of 8
+     devices with a model axis of 8 (`j5_t8_arch`: per-device memory and
+     collective bytes);
+ 20. the kernel table line, then the result line.
 
 Exits non-zero with no result when no CUDA device is present, or when the
 port's sources are not beside this script.
@@ -862,7 +896,14 @@ def check_flash(dev):
     # path I3's shape: qwen3-14b's 8 x 2048-token prefill, 40 heads on 8 KV heads
     row_i3 = case("path-i3", 8, 2048, 40, 8, 128, None, torch.bfloat16, reps=10)
     free()
-    return row, row_i3
+    # path L2's shapes: a rank's half of zamba2-1.2b's and of qwen3-14b's heads
+    rows_l2 = {"path-l2-zamba2": case("path-l2-zamba2", 8, 2048, 16, 16, 64, None,
+                                      torch.bfloat16, reps=10)}
+    free()
+    rows_l2["path-l2-qwen3"] = case("path-l2-qwen3", 8, 2048, 20, 4, 128, None, torch.bfloat16,
+                                    reps=10)
+    free()
+    return row, row_i3, rows_l2
 
 
 def check_ssd(dev):
@@ -918,7 +959,10 @@ def check_ssd(dev):
     # mamba2-1.3b's chunk: the same heads with a 128-wide state (path J4b's)
     row_n128 = case("mamba2-1.3b-n128", 8, 16, 128, 64, 64, 1, 128, torch.bfloat16, reps=10)
     free()
-    return row, row_n128
+    # path L2's chunk: a rank's half of zamba2-1.2b's heads
+    row_l2 = case("path-l2-zamba2", 8, 16, 128, 32, 64, 1, 64, torch.bfloat16, reps=10)
+    free()
+    return row, row_n128, row_l2
 
 
 def windowed_plain(q, k, v, window):
@@ -3829,6 +3873,493 @@ def path_k(dev, variant="full"):
 
 
 # ---------------------------------------------------------------------------
+# path L: sharded serving over a (node, fsdp, model) mesh
+# ---------------------------------------------------------------------------
+L1_ARCHS = ("zamba2-1.2b", "stablelm-1.6b")
+# L2: (arch, depth; None for the full depth)
+L2_RUNS = (("zamba2-1.2b", None), ("qwen3-14b", 10))
+# the phase-2 row timing each L2 arch's launches: (the parent's whole
+# heads, a rank's half)
+L2_ROWS = {"zamba2-1.2b": ("path-c", "path-l2-zamba2"), "qwen3-14b": ("path-i3", "path-l2-qwen3")}
+# L2's prompts: path C's, 8 generated (through gloo, zamba2-1.2b regathers
+# its fused in_proj each token: 1.5-1.8 s a token on an H100 80GB HBM3 at
+# 700 W, PERF.md)
+L2_SERVE = dict(SERVE, gen=8)
+# L2's bound: the split run's logits (the prefill's, and the decode steps'
+# fed the unsharded run's tokens) at most this many times as far from the
+# unsharded bf16 logits as those are from the f32 logits, by the largest
+# difference and by the relative L2 norm.  The row-parallel partial sums
+# are rounded to bf16 before they are summed (XLA's partitioned dot does
+# the same), and that adds about as much as bf16's own error: 0.99 and
+# 1.13 (largest), 1.02 and 1.04 (norm) for the prefills of zamba2-1.2b
+# and qwen3-14b on an H100 80GB HBM3 at 700 W (PERF.md); their decode
+# steps 0.91-0.99.  Two more prefills place it: the partial sums taken and
+# reduced in f32 (0.58-0.85, held at L2_F32_RATIO: no more error than
+# bf16's own) and one wrong head (two heads' rows of one `attn/wo` swapped
+# on rank 1: 10-24), which must exceed it
+L2_ERROR_RATIO = 1.25
+L2_F32_RATIO = 1.0
+# the CPU rehearsal's prompts (tests/test_torch_sharded_serving.py)
+L_SMOKE_SERVE = dict(prompt_len=16, gen=4, batch=4, seed=0)
+L_SCRIPT = "import sys, chip_smoke; chip_smoke.{}(*sys.argv[1:])"
+
+
+def _l_config(arch, variant, layers=None):
+    """Path L's config: flash and SSD on, bf16 (the smoke configs are f32)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch, variant).replace(use_flash=True, use_ssd_kernel=True,
+                                            dtype="bfloat16")
+    return cfg.replace(n_layers=layers) if layers else cfg
+
+
+def _l_serve(variant, serve=SERVE):
+    return serve if variant == "full" else L_SMOKE_SERVE
+
+
+def _sites(cfg):
+    """(flash launches, SSD launches) of one prefill of `cfg`."""
+    from repro_torch.models.model import layer_groups
+
+    count = lambda kinds: sum(g.repeat * sum(k in kinds for k in g.pattern)  # noqa: E731
+                              for g in layer_groups(cfg))
+    return count(("attn", "shared_block")), count(("mamba",))
+
+
+def _serve_run(dev, cfg, params, loop, shardings=None, forced=None):
+    """One prefill of `loop`'s next prompts (this rank's rows under
+    `shardings`) and ``loop.gen - 1`` greedy decode steps
+    (`serve.decode_greedy`; with `forced`, a [B, gen] token matrix, each
+    step is fed its token instead of the last argmax): the prefill logits,
+    each step's logits, the tokens (the argmaxes), the caches, prefill ms,
+    decode ms a token and the kernels' launches in the prefill."""
+    import torch
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.serve.serving import decode_greedy
+
+    batch = loop.make_batch()
+    _reset_counts()
+    logits = []
+    with torch.inference_mode():
+        _sync(dev)
+        t0 = time.perf_counter()
+        lg, caches = prefill(params, cfg, batch, loop.capacity, shardings=shardings)
+        tok = torch.argmax(lg, -1).to(torch.int32)
+        _sync(dev)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: sum(v.values()) for k, v in _kernel_counts().items()}
+        logits.append(lg)
+
+        start = loop.prompt_len + loop.offset
+
+        def dc(p, t, pos, c):
+            if forced is not None:
+                t = forced[:, pos - start]
+            out, c = decode_step(p, cfg, t, pos, c, shardings=shardings)
+            logits.append(out)
+            return out, c
+
+        t0 = time.perf_counter()
+        tokens = decode_greedy(dc, params, tok, caches, loop.prompt_len, loop.gen, loop.offset)
+        _sync(dev)
+        decode_s = time.perf_counter() - t0
+    return {"logits": logits, "tokens": tokens, "caches": caches, "prefill_ms": prefill_ms,
+            "decode_ms_per_token": decode_s * 1e3 / (loop.gen - 1), "launches": launches}
+
+
+def _pg(device_type, rank, world, port):
+    """The default process group: NCCL on the card for one rank, gloo over
+    CUDA tensors for two ranks sharing it (NCCL takes one rank a device),
+    gloo on the CPU."""
+    import torch
+    import torch.distributed as dist
+
+    card = device_type == "cuda"
+    backend = ("nccl" if world == 1 else "cuda:gloo,cpu:gloo") if card else "gloo"
+    kw = {"device_id": torch.device("cuda", 0)} if card and world == 1 else {}
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, **kw)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def path_l1_rank(device_type="cuda", variant="full"):
+    """Path L1's process: one rank, a (1, 1, 1) mesh; for each of L1_ARCHS
+    the unsharded serving run, the sharded one on the rank's pieces
+    (`shard_tree`, here whole copies) and the unsharded one again (its
+    times; the first carries the process's warm-up).  Prints one
+    L1_RESULT line."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import sharding as shd
+    from repro_torch.launch.mesh import make_logical_mesh
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeLoop
+    from repro_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device_type)
+    if dev.type != "cuda":
+        torch.set_num_threads(1)
+    _pg(device_type, 0, 1, _free_port())
+    layout = {"node": 1, "fsdp": 1, "model": 1}
+    mesh = make_logical_mesh(device_type=device_type, layout=layout)
+    rows = {}
+    try:
+        for arch in L1_ARCHS:
+            cfg = _l_config(arch, variant)
+            params = init_params(0, cfg, device=dev)
+            sh = shd.serving_shardings(mesh, params)
+            mine = shd.shard_tree(params, sh.params, layout, shd.mesh_coords(mesh))
+            serve = _l_serve(variant)
+            runs = {}
+            for how, p, shardings in (("unsharded", params, None), ("sharded", mine, sh),
+                                      ("unsharded_again", params, None)):
+                shd.reset_collective_counts()
+                runs[how] = _serve_run(dev, cfg, p, ServeLoop(cfg, device=dev, **serve),
+                                       shardings)
+                runs[how]["collectives"] = shd.collective_counts()
+            u, s = runs["unsharded"], runs["sharded"]
+            equal = (len(u["logits"]) == len(s["logits"])
+                     and all(torch.equal(a, b) for a, b in zip(u["logits"], s["logits"]))
+                     and torch.equal(u["tokens"], s["tokens"])
+                     and all(torch.equal(a, b) for a, b in zip(tree_leaves(u["caches"]),
+                                                               tree_leaves(s["caches"]))))
+            finite = all(bool(torch.isfinite(x).all()) for x in s["logits"])
+            rows[arch] = {
+                "arch": arch, "layers": cfg.n_layers, "bit_equal": bool(equal),
+                "finite": finite, "token_shape": list(s["tokens"].shape),
+                "sites": _sites(cfg), "collectives": s["collectives"],
+                **{f"{k}_{how}": runs[how][k] for how in runs
+                   for k in ("prefill_ms", "decode_ms_per_token", "launches")}}
+            del runs, u, s, params, mine
+            free()
+    finally:
+        dist.destroy_process_group()
+    print("L1_RESULT " + json.dumps(rows), flush=True)
+
+
+@contextlib.contextmanager
+def _f32_partials():
+    """Inside: every row-parallel product (`layers.row_linear`, as the
+    attention, MLP and Mamba blocks call it) takes its partial product in
+    f32, all-reduces it in f32 and rounds the sum once (L2's diagnostic
+    prefill; the program rounds each partial to the activations' type and
+    sums in that type, as XLA's partitioned dot does)."""
+    import torch
+    from repro_torch import sharding as shd
+    from repro_torch.models import attention, layers, mlp, ssm
+
+    plain = layers.row_linear
+
+    def f32_row_linear(x, w, sv, k, x_lo=0):
+        if w.shape[0] == k:
+            return plain(x, w, sv, k, x_lo)
+        lo, hi = sv.span(w, 0, k)
+        part = torch.matmul(x.narrow(-1, lo - x_lo, hi - lo).float(), w.float())
+        return shd.all_reduce(part, sv.mesh, ("model",), use="activations").to(x.dtype)
+
+    mods = (attention, mlp, ssm)
+    for mod in mods:
+        mod.row_linear = f32_row_linear
+    try:
+        yield
+    finally:
+        for mod in mods:
+            mod.row_linear = plain
+
+
+@contextlib.contextmanager
+def _wrong_head(params, cfg, planted):
+    """Inside, where `planted`: the rows of the first two heads of the first
+    `attn/wo` piece of `params` (its first layer) swapped, so that two heads'
+    outputs go through each other's projection; swapped back after."""
+    def find(tree):
+        if isinstance(tree, dict):
+            if "wo" in tree:
+                return tree["wo"]
+            tree = list(tree.values())
+        for sub in tree if isinstance(tree, (list, tuple)) else ():
+            found = find(sub)
+            if found is not None:
+                return found
+        return None
+
+    hd = cfg.head_dim
+    wo = find(params)
+    wo = wo[0] if wo.dim() == 3 else wo
+
+    def swap():
+        if planted:
+            first = wo[:hd].clone()
+            wo[:hd].copy_(wo[hd:2 * hd])
+            wo[hd:2 * hd].copy_(first)
+
+    swap()
+    try:
+        yield
+    finally:
+        swap()
+
+
+def _diffs(got, ref):
+    """(largest |got - ref|, |got - ref| / |ref| in the L2 norm) over the
+    logits of a run's steps (lists of [B, vocab] f32)."""
+    import torch
+
+    got, ref = torch.stack(got), torch.stack(ref)
+    return (got - ref).abs().max().item(), ((got - ref).norm() / ref.norm()).item()
+
+
+def path_l2_rank(rank, ref_path, device_type="cuda", variant="full", port="0"):
+    """Path L2's process `rank` of two: a (1, 1, 2) mesh; for each of
+    L2_RUNS the whole parameters drawn from seed 0 one rank at a time, this
+    rank's pieces kept, the sharded serving run of `ServeLoop`'s prompts
+    fed the parent's tokens (`ref_path`), and two more sharded prefills:
+    the partial sums reduced in f32 (`_f32_partials`) and one wrong head
+    (`_wrong_head`, on rank 1).  Prints one L2_RESULT line: per run the
+    prefill's and the decode steps' logits' distances from the parent's
+    unsharded bf16 logits (and the two prefills'), the argmaxes'
+    agreement with the parent's tokens, its peak, launches, heads and
+    collectives."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import sharding as shd
+    from repro_torch.launch.mesh import make_logical_mesh
+    from repro_torch.models import init_params, prefill
+    from repro_torch.serve import ServeLoop
+
+    rank, world = int(rank), 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device_type)
+    card = dev.type == "cuda"
+    if not card:
+        torch.set_num_threads(1)
+    _pg(device_type, rank, world, int(port))
+    layout = {"node": 1, "fsdp": 1, "model": world}
+    mesh = make_logical_mesh(device_type=device_type, layout=layout)
+    coord = shd.mesh_coords(mesh)
+    refs = torch.load(ref_path)
+    rows = {}
+    try:
+        for arch, layers in L2_RUNS:
+            cfg = _l_config(arch, variant, layers)
+            for turn in range(world):  # one whole draw on the card at a time
+                if turn == rank:
+                    params = init_params(0, cfg, device=dev)
+                    sh = shd.serving_shardings(mesh, params)
+                    mine = shd.shard_tree(params, sh.params, layout, coord)
+                    del params
+                    free()
+                dist.barrier()
+            if card:
+                torch.cuda.reset_peak_memory_stats()
+            shd.reset_collective_counts()
+            ref = refs[arch]
+            serve = _l_serve(variant, L2_SERVE)
+            r = _serve_run(dev, cfg, mine, ServeLoop(cfg, device=dev, **serve), sh,
+                           forced=ref["tokens"].to(dev))
+            counts, gathered = shd.collective_counts(), shd.gathered_over_model()
+            peak = torch.cuda.max_memory_allocated() if card else None
+            logits = [x.float().cpu() for x in r["logits"]]
+            extra = {}
+            loop = ServeLoop(cfg, device=dev, **serve)
+            batch = loop.make_batch()  # the same prompts
+            for name, scope in (("f32_partials", _f32_partials()),
+                                ("wrong_head", _wrong_head(mine, cfg, rank == 1))):
+                with torch.inference_mode(), scope:
+                    lg = prefill(mine, cfg, batch, loop.capacity, shardings=sh)[0]
+                extra[name] = _diffs([lg.float().cpu()], ref["bf16"][:1])
+                del lg
+            prefill_d = _diffs(logits[:1], ref["bf16"][:1])
+            decode_d = _diffs(logits[1:], ref["bf16"][1:])
+            rows[arch] = {
+                "arch": arch, "layers": cfg.n_layers, "rank": rank,
+                "heads": shd.serve_view(sh).heads(cfg.n_heads),
+                "ssd_heads": shd.serve_view(sh).heads(cfg.ssm_heads) if _sites(cfg)[1] else None,
+                "max_abs_vs_bf16": prefill_d[0], "rel_vs_bf16": prefill_d[1],
+                "decode_max_abs_vs_bf16": decode_d[0], "decode_rel_vs_bf16": decode_d[1],
+                "f32_partials_max_abs_vs_bf16": extra["f32_partials"][0],
+                "f32_partials_rel_vs_bf16": extra["f32_partials"][1],
+                "wrong_head_max_abs_vs_bf16": extra["wrong_head"][0],
+                "wrong_head_rel_vs_bf16": extra["wrong_head"][1],
+                "token_agree": (r["tokens"].cpu() == ref["tokens"]).float().mean().item(),
+                "finite": all(bool(torch.isfinite(x).all()) for x in r["logits"]),
+                "token_shape": list(r["tokens"].shape), "peak_bytes": peak,
+                "prefill_ms": r["prefill_ms"], "decode_ms_per_token": r["decode_ms_per_token"],
+                "launches": r["launches"], "sites": _sites(cfg),
+                "collectives": counts, "gathered_over_model": gathered}
+            del r, mine, sh, logits
+            free()
+    finally:
+        dist.destroy_process_group()
+    print("L2_RESULT " + json.dumps(rows), flush=True)
+
+
+def _l_children(dev, script, argvs, timeout):
+    """Run `script` once a list of arguments in `argvs`, all at once; the
+    lines each printed that start with its result tag."""
+    procs = [subprocess.Popen([sys.executable, "-c", L_SCRIPT.format(script), *argv],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              env=_env(), cwd=HERE) for argv in argvs]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=timeout))
+    finally:  # no rank outlives the path
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    tag = {"path_l1_rank": "L1_RESULT ", "path_l2_rank": "L2_RESULT "}[script]
+    results = []
+    for proc, (out, err) in zip(procs, outs):
+        lines = [ln for ln in out.splitlines() if ln.startswith(tag)]
+        if proc.returncode != 0 or not lines:
+            print(out[-4000:], err[-4000:], file=sys.stderr)
+            fail(f"path L: {script} exited {proc.returncode}")
+        results.append(json.loads(lines[0][len(tag):]))
+    return results
+
+
+def path_l1(dev, variant="full"):
+    """Path L1 on the card: `path_l1_rank` in a process of its own.  The
+    sharded run must equal the unsharded one bit for bit and launch flash
+    and SSD as often a prefill (on the CPU: no launch)."""
+    (rows,) = _l_children(dev, "path_l1_rank", [[dev.type, variant]], 900)
+    launches = {"flash": 0, "ssd": 0}  # all at path C's shape (row 4 / row 5)
+    for arch, row in rows.items():
+        emit(phase="path_l1", layout=[1, 1, 1], **row)
+        flash, ssd = row["sites"] if dev.type == "cuda" else (0, 0)
+        want = {"flash": flash, "ssd": ssd}
+        if not (row["bit_equal"] and row["finite"]
+                and row["launches_sharded"] == row["launches_unsharded"] == want):
+            fail(f"path L1 ({arch}): the sharded serving run is not the unsharded one bit for "
+                 f"bit, or launched {row['launches_sharded']} against {want} a prefill")
+        for k in launches:
+            launches[k] += sum(row[f"launches_{how}"][k]
+                               for how in ("unsharded", "sharded", "unsharded_again"))
+    return launches
+
+
+def path_l2(dev, variant="full", ratio=L2_ERROR_RATIO):
+    """Path L2: the parent's unsharded references, then two ranks on a
+    (1, 1, 2) mesh (see the module's docstring), then the dry run's
+    per-device peak of the same step.  Held, by the largest difference and
+    by the relative L2 norm from the unsharded bf16 logits, over bf16's own
+    distance from the f32 logits: the split prefill's and its decode
+    steps' (fed the unsharded run's tokens; f32 decode fed them too) at
+    most `ratio` (`L2_ERROR_RATIO` on the card; the CPU rehearsal's smoke
+    widths put both at a bf16 ulp or two of the logits, and it passes
+    1.5), the prefill with the partial sums reduced in f32 at most
+    `L2_F32_RATIO`, and the prefill with one wrong head more than `ratio`."""
+    import tempfile
+
+    import torch
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeLoop
+    from repro_torch.tree import tree_map
+
+    serve = _l_serve(variant, L2_SERVE)
+    refs = {}
+    # launches by the phase-2 row of their shape (L2_ROWS)
+    launches = {row: {"flash": 0, "ssd": 0} for rows in L2_ROWS.values() for row in rows}
+    for arch, layers in L2_RUNS:
+        cfg = _l_config(arch, variant, layers)
+        params = init_params(0, cfg, device=dev)
+        u = _serve_run(dev, cfg, params, ServeLoop(cfg, device=dev, **serve))
+        for k in ("flash", "ssd"):
+            launches[L2_ROWS[arch][0]][k] += u["launches"][k]
+        with torch.inference_mode():
+            p32 = tree_map(lambda x: x.float(), params)
+        del params
+        free()
+        cfg32 = cfg.replace(dtype="float32", use_flash=False, use_ssd_kernel=False)
+        r32 = _serve_run(dev, cfg32, p32, ServeLoop(cfg32, device=dev, **serve),
+                         forced=u["tokens"])
+        refs[arch] = {"bf16": [x.float().cpu() for x in u["logits"]],
+                      "f32": [x.cpu() for x in r32["logits"]],
+                      "tokens": u["tokens"].cpu(), "prefill_ms": u["prefill_ms"],
+                      "decode_ms_per_token": u["decode_ms_per_token"]}
+        del u, p32, r32
+        free()
+    with tempfile.TemporaryDirectory(prefix="repro_torch_l2_") as tmp:
+        ref_path = os.path.join(tmp, "refs.pt")
+        torch.save(refs, ref_path)
+        port = str(_free_port())
+        ranks = _l_children(dev, "path_l2_rank",
+                            [[str(r), ref_path, dev.type, variant, port] for r in range(2)], 900)
+    for arch, layers in L2_RUNS:
+        cfg = _l_config(arch, variant, layers)
+        ref = refs[arch]
+        bf16_err, bf16_rel = _diffs(ref["bf16"][:1], ref["f32"][:1])
+        bf16_dec_err, bf16_dec_rel = _diffs(ref["bf16"][1:], ref["f32"][1:])
+        shape = InputShape("L2", serve["prompt_len"], serve["batch"], "prefill")
+        t0 = time.perf_counter()
+        dry = dryrun.sharded_serving(cfg, shape, "prefill", {"node": 1, "fsdp": 1, "model": 2},
+                                     serve["batch"])
+        dry_s = time.perf_counter() - t0
+        for rows in ranks:
+            row = rows[arch]
+            ratios = {
+                "max_abs_ratio": row["max_abs_vs_bf16"] / bf16_err,
+                "rel_ratio": row["rel_vs_bf16"] / bf16_rel,
+                "decode_max_abs_ratio": row["decode_max_abs_vs_bf16"] / bf16_dec_err,
+                "decode_rel_ratio": row["decode_rel_vs_bf16"] / bf16_dec_rel,
+                "f32_partials_max_abs_ratio": row["f32_partials_max_abs_vs_bf16"] / bf16_err,
+                "f32_partials_rel_ratio": row["f32_partials_rel_vs_bf16"] / bf16_rel,
+                "wrong_head_max_abs_ratio": row["wrong_head_max_abs_vs_bf16"] / bf16_err,
+                "wrong_head_rel_ratio": row["wrong_head_rel_vs_bf16"] / bf16_rel}
+            emit(phase="path_l2", layout=[1, 1, 2], bf16_vs_f32=bf16_err,
+                 bf16_rel_vs_f32=bf16_rel, bf16_decode_vs_f32=bf16_dec_err,
+                 bf16_decode_rel_vs_f32=bf16_dec_rel, ratio=ratio, f32_ratio=L2_F32_RATIO,
+                 **ratios, unsharded_prefill_ms=ref["prefill_ms"],
+                 unsharded_decode_ms_per_token=ref["decode_ms_per_token"],
+                 dry_per_device_peak_bytes=dry["per_device_memory"]["peak_bytes"],
+                 dry_collective_bytes_by_use=dry["by_use"], dry_trace_s=dry_s, **row)
+            flash, ssd = row["sites"] if dev.type == "cuda" else (0, 0)
+            if row["launches"] != {"flash": flash, "ssd": ssd} or not row["finite"] \
+                    or row["token_shape"] != [serve["batch"], serve["gen"]]:
+                fail(f"path L2 ({arch}, rank {row['rank']}): launches {row['launches']} "
+                     f"against {(flash, ssd)} a prefill, or non-finite logits")
+            held = (max(ratios[k] for k in ("max_abs_ratio", "rel_ratio", "decode_max_abs_ratio",
+                                            "decode_rel_ratio")) <= ratio
+                    and max(ratios["f32_partials_max_abs_ratio"],
+                            ratios["f32_partials_rel_ratio"]) <= L2_F32_RATIO
+                    and min(ratios["wrong_head_max_abs_ratio"],
+                            ratios["wrong_head_rel_ratio"]) > ratio)
+            if not held:
+                fail(f"path L2 ({arch}, rank {row['rank']}): over bf16's own distance from "
+                     f"f32, the split run is {ratios}: the prefill and decode must be at most "
+                     f"{ratio}, the f32 partial sums at most {L2_F32_RATIO} and the wrong head "
+                     f"more than {ratio}")
+            for k in ("flash", "ssd"):
+                launches[L2_ROWS[arch][1]][k] += row["launches"][k]
+    return launches
+
+
+def path_l(dev, variant="full", ratio=L2_ERROR_RATIO):
+    """Paths L1 and L2; the flash and SSD launches of both, by the phase-2
+    row of their shape."""
+    t0 = time.perf_counter()
+    l1 = path_l1(dev, variant)
+    emit(phase="path_l1_done", seconds=time.perf_counter() - t0)
+    t1 = time.perf_counter()
+    l2 = path_l2(dev, variant, ratio)
+    emit(phase="path_l2_done", seconds=time.perf_counter() - t1)
+    l2["path-c"] = {k: l1[k] + l2["path-c"][k] for k in l1}
+    return l2
+
+
+# ---------------------------------------------------------------------------
 # path J: the four input shapes (configs/shapes.py) at full width and depth
 # ---------------------------------------------------------------------------
 J_LONG, J_WINDOW = 524_288, 4096  # long_500k's sequence and window (configs/shapes.py)
@@ -3863,7 +4394,12 @@ J5 = (("J4b", ["--arch", "mamba2-1.3b", "--shape", "long_500k", "--kind", "prefi
       ("J4a-decode", ["--arch", "stablelm-1.6b", "--shape", "long_500k"]),
       ("J4b-decode", ["--arch", "mamba2-1.3b", "--shape", "long_500k"]),
       ("J4c-decode", ["--arch", "zamba2-1.2b", "--shape", "long_500k"]))
-J5_WORKERS = 4
+# J5's sharded serving records (`j5_t8_arch`): every arch's prefill_32k,
+# decode_32k and long_500k at 8 devices with a model axis of 8, one process
+# an arch
+J5_T8_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
+J5_T8_SCRIPT = "import sys, chip_smoke; chip_smoke.j5_t8_arch(sys.argv[1:])"
+J5_WORKERS = 8
 # the dry run's peak against the card's max_memory_allocated, by J5 combo
 # and the measured run it sizes: within this share either way
 J5_PEAK_TOL = 0.10
@@ -3891,7 +4427,7 @@ def _env():
 
 
 def run_dryruns(device_bytes, out_dir, combos=J5):
-    """J5: the dry run's CLI on J1-J4's combos, J5_WORKERS processes at a
+    """J5: the dry run's CLI on its combos, J5_WORKERS processes at a
     time on the host.  It runs after every timed path, so that its CPU-heavy
     tracing overlaps none of them (the dry run allocates nothing and never
     touches the card: the card's memory is passed in).  Returns the records
@@ -3902,8 +4438,9 @@ def run_dryruns(device_bytes, out_dir, combos=J5):
     t_end = time.perf_counter() + timeout
 
     def run(name, argv):
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
-               "--device-bytes", str(device_bytes),
+        # a combo runs the dry run's CLI, or a script given as ["-c", ...]
+        cmd = [sys.executable, *(() if argv[0] == "-c" else ("-m", "repro_torch.launch.dryrun")),
+               *argv, "--device-bytes", str(device_bytes),
                "--out", os.path.join(out_dir, f"{name}.json")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                 text=True, env=_env(), cwd=HERE)
@@ -3932,9 +4469,54 @@ def run_dryruns(device_bytes, out_dir, combos=J5):
     recs = {}
     for name, _ in combos:
         with open(os.path.join(out_dir, f"{name}.json")) as f:
-            (rec,) = json.load(f).values()
-        recs[name] = rec
+            found = list(json.load(f).values())
+        if len(found) == 1:
+            recs[name] = found[0]
+        else:  # one record a shape
+            recs.update({f"{name}-{rec['shape']}": rec for rec in found})
     return recs
+
+
+def j5_t8_combos():
+    """J5's sharded serving combos, one an arch: (name, arguments)."""
+    from repro_torch.configs import all_arch_names
+
+    return tuple((f"T8-{arch}", ["-c", J5_T8_SCRIPT, "--arch", arch])
+                 for arch in all_arch_names())
+
+
+def j5_t8_arch(argv):
+    """One arch's J5 sharded serving records, written as the dry run's
+    ``--out`` file ({shape: record}): for each of J5_T8_SHAPES, the step of
+    the shape's own kind and batch at the layout the dry run gives
+    ``--devices 8 --model-axis 8``, through `dryrun.sharded_serving` (its
+    collective bytes, the leaves gathered over `model`, one rank's peak)."""
+    import argparse
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import INPUT_SHAPES, config_for_shape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import logical_layout
+
+    ap = argparse.ArgumentParser()
+    for flag in ("--arch", "--out"):
+        ap.add_argument(flag, required=True)
+    ap.add_argument("--device-bytes", type=float, required=True)
+    ap.add_argument("--size", default="full")
+    args = ap.parse_args(argv)
+    base = get_config(args.arch, args.size)
+    recs = {}
+    for name in J5_T8_SHAPES:
+        shape = INPUT_SHAPES[name]
+        cfg = config_for_shape(base, shape)
+        layout = logical_layout(cfg, 8, model_axis=8, param_budget=args.device_bytes / 2)
+        t0 = time.perf_counter()
+        rec = dryrun.sharded_serving(cfg, shape, shape.kind, layout, shape.global_batch)
+        recs[name] = dict(rec, arch=args.arch, shape=name, kind=shape.kind,
+                          global_batch=shape.global_batch, layout=dict(layout, devices=8),
+                          trace_s=time.perf_counter() - t0)
+    with open(args.out, "w") as f:
+        json.dump(recs, f)
 
 
 def path_j1(dev, batch=J1_BATCH, seq=4096, variant="full"):
@@ -4266,7 +4848,8 @@ def path_j(dev):
     dry_dir = tempfile.mkdtemp(prefix="repro_torch_dryrun_")
     try:
         dry = run_dryruns(torch.cuda.get_device_properties(0).total_memory
-                          if dev.type == "cuda" else 80e9, dry_dir)
+                          if dev.type == "cuda" else 80e9, dry_dir,
+                          J5[:2] + j5_t8_combos() + J5[2:])
     finally:
         shutil.rmtree(dry_dir, ignore_errors=True)
     # J1's dry-run combo is the dry run's own step, which J1-dry ran on the
@@ -4280,6 +4863,13 @@ def path_j(dev):
         measured[run + "-decode"] = (r["decode_ms_per_token"] / 1e3, r["peak_bytes"])
     misses = []
     for name, rec in dry.items():
+        if name.startswith("T8-"):
+            emit(phase="path_j5_t8", run=name, arch=rec["arch"], shape=rec["shape"],
+                 kind=rec["kind"], global_batch=rec["global_batch"], layout=rec["layout"],
+                 per_device_memory=rec["per_device_memory"], collective_bytes=rec["bytes"],
+                 collective_bytes_by_use=rec["by_use"], collective_calls=rec["calls"],
+                 gathered_over_model=rec["gathered_over_model"], trace_s=rec["trace_s"])
+            continue
         secs, peak = measured[name]
         flops = rec.get("flops_band", rec["flops"])
         dry_peak = rec["memory"]["peak_bytes"]
@@ -4307,8 +4897,12 @@ def path_j(dev):
     if misses:
         fail(f"path J5: the dry run's peak is not within {J5_PEAK_TOL:.0%} of the card's:\n"
              + "\n".join(misses))
-    if dry["J1"]["collective_bytes"] is None or dry["J2"]["collective_bytes"] is not None:
-        fail("path J5: the train combo has no collective bytes, or a prefill has some")
+    if any(rec["collective_bytes"] is None for name, rec in dry.items()
+           if not name.startswith("T8-")):
+        fail("path J5: a record has no collective bytes")
+    if any(rec["bytes"]["all_reduce"] <= 0 for name, rec in dry.items()
+           if name.startswith("T8-")):
+        fail("path J5: a sharded serving record at a model axis of 8 all-reduced nothing")
     return rows
 
 
@@ -4357,10 +4951,10 @@ def main():
     gossip = check_gossip(dev)
     pme_row, pme_fc1 = check_pme(dev)
     pme_range = check_pme_range(dev)
-    flash, flash_i3 = check_flash(dev)
+    flash, flash_i3, flash_l2 = check_flash(dev)
     check_flash_j2(dev)
     flash_long = check_flash_long(dev)
-    ssd, ssd_n128 = check_ssd(dev)
+    ssd, ssd_n128, ssd_l2 = check_ssd(dev)
     lane_rows = check_lanes(dev)
     emit(phase="kernels_checked", seconds=time.perf_counter() - t)
 
@@ -4431,6 +5025,9 @@ def main():
     t = time.perf_counter()
     k_launches = path_k(dev)
     emit(phase="path_k_total", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    l_launches = path_l(dev)
+    emit(phase="path_l_done", seconds=time.perf_counter() - t)
     t = time.perf_counter()
     j = path_j(dev)
     emit(phase="path_j_done", seconds=time.perf_counter() - t)
@@ -4516,23 +5113,36 @@ def main():
                        # largest leaf in f32
                        "receivers": variant(k_launches["pme_average_range"],
                                             pme_range["1rk-r4"])}
+    l_flash = {row: n["flash"] for row, n in l_launches.items()}
+    l_ssd = {row: n["ssd"] for row, n in l_launches.items()}
     fa = entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention/kernel.py:78",
-               serve_launches["flash"] + i_flash + j_flash, flash)
+               serve_launches["flash"] + i_flash + j_flash + sum(l_flash.values()), flash)
     # top-level times are path C's shape; path I3's launches (qwen3-14b) at
     # its own; path J's (J2 full causal at 32,768, J4a and J4c windowed at
-    # 524,288) at J4a's windowed attention, row 4w
+    # 524,288) at J4a's windowed attention, row 4w; path L's whole-head
+    # launches (L1, L2's unsharded references) at path C's and I3's shapes,
+    # a rank's half of the heads at L2's own (rows 4h, 4qh)
     fa["variants"] = {"path_c": variant(serve_launches["flash"], flash),
                       "path_i": variant(i_flash, flash_i3),
-                      "path_j": variant(j_flash, flash_long["4w"])}
+                      "path_j": variant(j_flash, flash_long["4w"]),
+                      "path_l": variant(l_flash["path-c"], flash),
+                      "path_l_i3": variant(l_flash["path-i3"], flash_i3),
+                      "path_l2_zamba2": variant(l_flash["path-l2-zamba2"],
+                                                flash_l2["path-l2-zamba2"]),
+                      "path_l2_qwen3": variant(l_flash["path-l2-qwen3"],
+                                               flash_l2["path-l2-qwen3"])}
     sd = entry("ssd_intra_chunk", "src/repro_torch/csrc/ssd_intra_chunk.cu",
                "src/repro/kernels/ssd_scan/kernel.py:53",
-               serve_launches["ssd"] + sum(j_ssd.values()), ssd)
+               serve_launches["ssd"] + sum(j_ssd.values()) + sum(l_ssd.values()), ssd)
     # top-level times are path C's chunk (N = 64, row 5); J4b's launches at
-    # mamba2-1.3b's N = 128 (row 6), J4c's (zamba2-1.2b) at row 5's
+    # mamba2-1.3b's N = 128 (row 6), J4c's (zamba2-1.2b) at row 5's, path
+    # L's whole-head launches at row 5's, a rank's half at L2's own (row 5h)
     sd["variants"] = {"path_c": variant(serve_launches["ssd"], ssd),
                       "path_j4b_n128": variant(j_ssd["J4b"], ssd_n128),
-                      "path_j4c": variant(j_ssd["J4c"], ssd)}
+                      "path_j4c": variant(j_ssd["J4c"], ssd),
+                      "path_l": variant(l_ssd["path-c"], ssd),
+                      "path_l2_zamba2": variant(l_ssd["path-l2-zamba2"], ssd_l2)}
     kernels = [g32, pme, fa, sd]
     emit(phase="total", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

@@ -2,7 +2,7 @@
 (port of `repro.launch.dryrun`).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch stablelm-1.6b \\
-        --shape train_4k [--nodes 4] [--devices 8] [--device-bytes 80e9]
+        --shape train_4k [--nodes 4] [--devices 8] [--model-axis 1] [--device-bytes 80e9]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
 
 The JAX dry run lowers and compiles each step for a TPU mesh and reads
@@ -21,9 +21,11 @@ Each record holds the parameter and active-parameter counts; the bytes of
 the parameters, the node-stacked state, the inputs and the cache; the
 step's FLOPs; its memory; whether it fits in the card's memory; the
 (node, fsdp, model) layout of ``--devices`` cards of this kind
-(`launch.mesh`, model axis 1) with what each would hold under
-`repro_torch.sharding`'s placements; and a train step's collective bytes
-over that layout.
+(`launch.mesh`, model axis ``--model-axis``, default 1: the port's choice
+for an 80 GB card, where JAX's `make_logical_mesh` reads its TPU pod's
+``MODEL_AXIS`` of 16) with what each would hold under
+`repro_torch.sharding`'s placements; and the step's collective bytes over
+that layout.
 
   * FLOPs: kernels are reached through their plain versions on non-CUDA
     tensors, so masked attention counts whole [S, S] score blocks; a
@@ -57,8 +59,15 @@ over that layout.
     device, with JAX's convention (`collective_bytes`, the counterpart of
     `parse_collective_bytes`), and the same bytes by use
     (``collective_bytes_by_use``: the exchange, the gradient's gather, the
-    metrics).  Prefill and decode records give None: the
-    port has no sharded serving step.
+    metrics).  A prefill or decode record runs the sharded serving step
+    (`prefill` / `decode_step` with ``shardings=``, `sharding.
+    serving_shardings` at the layout) the same way, with the step's own
+    global batch: its collective bytes by kind and by use ("weights": the
+    per-layer gathers over fsdp and the fallback gathers over model;
+    "activations", "embed", "logits", "cache", "routing"), the leaves it gathered over
+    `model` (``gathered_over_model``) and ``per_device_memory``, one rank's
+    memory from a `MemTracker` trace of that step (on the kernels' route, as
+    ``memory``).
 
 The card's memory comes from ``torch.cuda.get_device_properties(0)``, or
 from ``--device-bytes`` (what a CPU run needs); with neither, the run
@@ -102,8 +111,8 @@ from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["abstract_params", "build_train", "train_state_specs", "probe_depths",
            "VARIANTS", "band_pairs", "attention_flops", "step_specs", "step_bytes", "count_flops",
-           "trace_memory", "CUDA_TEMPS", "collective_bytes", "sharded_collectives", "run_combo",
-           "results_path", "ARTIFACTS", "main"]
+           "trace_memory", "CUDA_TEMPS", "collective_bytes", "sharded_collectives",
+           "sharded_serving", "run_combo", "results_path", "ARTIFACTS", "main"]
 
 FLOPS_NOTE = ("counted on the plain versions: masked attention counts whole [S, S] "
               "score blocks")
@@ -113,7 +122,10 @@ MEMORY_NOTE = ("live bytes of a trace on fake tensors (MemTracker) on the route 
 COLLECTIVE_NOTE = ("per device: rank 0 of the sharded PaME step, by kind, with JAX's "
                    "convention (an all-gather counts its result, g x its input; an all-reduce "
                    "2 x its tensor); collective_bytes_by_use splits them by what they carry")
-NO_SHARDED_SERVING = "no sharded serving step in the port (ROADMAP): one card, no collectives"
+SERVING_NOTE = ("per device: rank 0 of the sharded serving step, by kind and by use, with "
+                "JAX's convention; gathered_over_model lists the leaves whose pieces do not "
+                "line up with the heads, columns or experts a rank computes; "
+                "per_device_memory is that rank's trace")
 # the directory of the dry run's results (`results_path`), git-ignored
 ARTIFACTS = str(Path(__file__).resolve().parents[3] / "build" / "dryrun")
 
@@ -393,20 +405,27 @@ def trace_memory(cfg: ModelConfig, shape: InputShape, kind: str, specs: Dict[str
                  exchange: str = "dense") -> Dict[str, Optional[int]]:
     """The step's memory (see the module's docstring): a trace on fake
     tensors under `MemTracker`, each kernel wrapper on its kernel's route."""
-    from torch.distributed._tools.mem_tracker import MemTracker
-
     with FakeTensorMode(), fake_route.kernel_route():
         args, fn = _step_call(cfg, shape, kind, specs, exchange)
-        tracker = MemTracker()
-        tracker.track_external(*[x for x in tree_leaves(args) if isinstance(x, torch.Tensor)])
-        temps = _CudaTemps(tracker)
-        with torch.inference_mode(kind != "train"), tracker, temps:
-            out = fn()
-        peak = max(temps.peak, sum(snap["Total"]
-                                   for snap in tracker.get_tracker_snapshot("peak").values()))
-        argument = _unique_bytes(args)
-        output = _unique_bytes(out)
-        del out, args, fn, tracker
+        return _traced(args, fn, kind != "train")
+
+
+def _traced(args, fn, inference: bool) -> Dict[str, Optional[int]]:
+    """The memory of ``fn()`` (inside the caller's fake-tensor mode) whose
+    inputs are `args`: `MemTracker`'s peak, or more where an op of
+    `CUDA_TEMPS` runs."""
+    from torch.distributed._tools.mem_tracker import MemTracker
+
+    tracker = MemTracker()
+    tracker.track_external(*[x for x in tree_leaves(args) if isinstance(x, torch.Tensor)])
+    temps = _CudaTemps(tracker)
+    with torch.inference_mode(inference), tracker, temps:
+        out = fn()
+    peak = max(temps.peak, sum(snap["Total"]
+                               for snap in tracker.get_tracker_snapshot("peak").values()))
+    argument = _unique_bytes(args)
+    output = _unique_bytes(out)
+    del out, args, fn, tracker
     return {"argument_bytes": argument, "output_bytes": output,
             "temp_bytes": peak - argument, "peak_bytes": peak, "code_bytes": None}
 
@@ -417,6 +436,17 @@ def collective_bytes(counts: Dict[str, Dict[str, float]]) -> Dict[str, int]:
     all-reduce twice): bytes by kind from `repro_torch.sharding`'s counted
     collectives (`sharding.collective_counts()`), per device."""
     return {kind: int(round(c["bytes"])) for kind, c in sorted(counts.items())}
+
+
+def _counted(counts: Dict[str, Dict[str, object]]) -> Dict[str, object]:
+    """Bytes by kind (both kinds, 0 where none was issued), by use, and the
+    calls, from `sharding.collective_counts()`."""
+    counts = {kind: counts.get(kind, {"calls": 0, "bytes": 0, "by_use": {}})
+              for kind in ("all_gather", "all_reduce")}
+    return {"bytes": collective_bytes(counts),
+            "by_use": {k: {u: int(round(b)) for u, b in sorted(c["by_use"].items())}
+                       for k, c in sorted(counts.items())},
+            "calls": {k: int(c["calls"]) for k, c in sorted(counts.items())}}
 
 
 def sharded_collectives(cfg: ModelConfig, shape: InputShape, layout: Dict[str, int],
@@ -452,10 +482,52 @@ def sharded_collectives(cfg: ModelConfig, shape: InputShape, layout: Dict[str, i
             del state, batch
     finally:
         dist.destroy_process_group()
-    return {"bytes": collective_bytes(counts),
-            "by_use": {k: {u: int(round(b)) for u, b in sorted(c["by_use"].items())}
-                       for k, c in sorted(counts.items())},
-            "calls": {k: int(c["calls"]) for k, c in sorted(counts.items())}, "m": m}
+    return dict(_counted(counts), m=m)
+
+
+def sharded_serving(cfg: ModelConfig, shape: InputShape, kind: str, layout: Dict[str, int],
+                    global_batch: int) -> Dict[str, object]:
+    """One sharded prefill or decode step over `layout` as rank 0 of a fake
+    process group of its size, on fake tensors with every kernel wrapper on
+    its kernel's route: the rank's pieces of the parameters
+    (`sharding.serving_shardings`), its rows of the batch and of the
+    caches.  Returns the collective bytes by kind and by use, the calls,
+    the leaves gathered over `model` and the rank's memory (see the
+    module's docstring)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    world = layout["node"] * layout["fsdp"] * layout["model"]
+    if dist.is_initialized():
+        raise RuntimeError("the collective trace needs a process without a process group")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    try:
+        mesh = make_logical_mesh(device_type="cpu", layout=layout)
+        coord = shd.mesh_coords(mesh)
+        specs = step_specs(cfg, shape, kind, global_batch, layout["node"])
+        # the mesh's own index tensors are real; every tensor of the step is fake
+        with FakeTensorMode(allow_non_fake_inputs=True), fake_route.kernel_route():
+            params, inputs, cache = (_materialize(specs[k]) for k in ("params", "inputs",
+                                                                      "cache"))
+            sh = shd.serving_shardings(mesh, params, inputs, cache)
+            params = shd.shard_tree(params, sh.params, layout, coord)
+            inputs = shd.shard_tree(inputs, sh.batch, layout, coord)
+            if kind == "prefill":
+                cap = cache_capacity(cfg, shape)
+                args = (params, inputs)
+                fn = lambda: prefill(params, cfg, inputs, cap, shardings=sh)  # noqa: E731
+            else:
+                cache = shd.shard_tree(cache, sh.caches, layout, coord)
+                args = (params, inputs, cache)
+                fn = lambda: decode_step(params, cfg, inputs["token"], shape.seq_len,  # noqa: E731
+                                         cache, shardings=sh)
+            shd.reset_collective_counts()
+            memory = _traced(args, fn, True)
+            counts, gathered = shd.collective_counts(), shd.gathered_over_model()
+            del params, inputs, cache, args, fn
+    finally:
+        dist.destroy_process_group()
+    return dict(_counted(counts), gathered_over_model=gathered, per_device_memory=memory)
 
 
 def run_combo(
@@ -471,18 +543,18 @@ def run_combo(
     batch: Optional[int] = None,
     kind: Optional[str] = None,
     size: str = "full",
+    model_axis: int = 1,
 ) -> Dict:
     """Size one (arch x shape) step.  `batch` cuts the global batch (named
     in the record's ``reduced``), `kind` runs another step than the
     shape's own (a long_500k prefill), `size` picks the config ("smoke"
-    for tests)."""
+    for tests), `model_axis` the layout's tensor-parallel width."""
     base, cfg, shape, kind, exchange = _resolve(
         arch, shape_name, variant=variant, remat=remat, probe_layers=probe_layers, kind=kind,
         size=size)
     # the layout follows the full-depth config, so that probes land on the
-    # layout they stand for; each node's replica is not split over cards
-    # (model axis 1): nothing here runs tensor-parallel
-    layout = logical_layout(config_for_shape(base, shape), devices, model_axis=1,
+    # layout they stand for
+    layout = logical_layout(config_for_shape(base, shape), devices, model_axis=model_axis,
                             param_budget=device_bytes / 2)
     gb = batch or shape.global_batch
     specs = step_specs(cfg, shape, kind, gb, nodes)
@@ -518,9 +590,18 @@ def run_combo(
     rec["layout"] = dict(layout, devices=devices)
     rec["per_device_bytes"] = _per_device(cfg, shape, kind, layout)
     rec["collective_bytes"] = rec["collective_bytes_total"] = None
-    if kind != "train":
-        rec["collective_note"] = NO_SHARDED_SERVING
-    elif layout["node"] < 1 or gb % layout["node"]:
+    if layout["node"] < 1:
+        rec["collective_note"] = f"{devices} devices do not hold a model axis of {model_axis}"
+    elif kind != "train":
+        t0 = time.perf_counter()
+        coll = sharded_serving(cfg, shape, kind, layout, gb)
+        rec.update(collective_bytes=coll["bytes"],
+                   collective_bytes_total=sum(coll["bytes"].values()),
+                   collective_bytes_by_use=coll["by_use"], collective_calls=coll["calls"],
+                   gathered_over_model=coll["gathered_over_model"],
+                   per_device_memory=coll["per_device_memory"],
+                   collective_trace_s=time.perf_counter() - t0, collective_note=SERVING_NOTE)
+    elif gb % layout["node"]:
         rec["collective_note"] = f"the global batch {gb} does not split over the layout's nodes"
     else:
         t0 = time.perf_counter()
@@ -533,11 +614,13 @@ def run_combo(
                    collective_note=COLLECTIVE_NOTE)
     tag = f"L{probe_layers}" if probe_layers else "full"
     coll = rec["collective_bytes_total"]
+    dev_peak = rec.get("per_device_memory", {}).get("peak_bytes")
     print(f"[dryrun] {arch} x {shape_name} ({kind}, batch {gb}) [{tag}/{variant}] "
           f"params={rec['param_bytes'] / 1e9:.2f}GB resident={resident / 1e9:.2f}GB "
           f"peak={rec['memory']['peak_bytes'] / 1e9:.2f}GB "
           f"fits={rec['fits_one_card']} flops={rec['flops']:.3e} "
           f"layout@{devices}={layout} coll={'-' if coll is None else f'{coll:.3e}'} "
+          f"peak@device={'-' if dev_peak is None else f'{dev_peak / 1e9:.2f}GB'} "
           f"trace={rec['trace_s']:.1f}s mem_trace={rec['mem_trace_s']:.1f}s", flush=True)
     return rec
 
@@ -574,6 +657,8 @@ def make_parser() -> argparse.ArgumentParser:
                     help="size this step instead of the shape's own")
     ap.add_argument("--devices", type=int, default=8,
                     help="cards of the per-device layout report")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="the layout's tensor-parallel width (JAX's MODEL_AXIS)")
     ap.add_argument("--device-bytes", type=float, default=None,
                     help="one card's memory (default: read from the card)")
     ap.add_argument("--size", default="full", choices=["full", "smoke"],
@@ -603,8 +688,8 @@ def main(argv=None) -> Dict[str, Dict]:
                 key = "|".join(str(x) for x in (
                     arch, args.size, shape, args.kind or INPUT_SHAPES[shape].kind,
                     f"b{args.batch or INPUT_SHAPES[shape].global_batch}", f"m{args.nodes}",
-                    f"d{args.devices}", f"L{depth}" if depth else "full",
-                    args.variant))
+                    f"d{args.devices}", f"t{args.model_axis}",
+                    f"L{depth}" if depth else "full", args.variant))
                 if key in results and not args.force:
                     print(f"[dryrun] skip cached {key}", flush=True)
                     continue
@@ -613,7 +698,8 @@ def main(argv=None) -> Dict[str, Dict]:
                         arch, shape, device_bytes=device_bytes, nodes=args.nodes,
                         devices=args.devices,
                         remat=not args.no_remat, probe_layers=depth, variant=args.variant,
-                        batch=args.batch, kind=args.kind, size=args.size)
+                        batch=args.batch, kind=args.kind, size=args.size,
+                        model_axis=args.model_axis)
                     with open(path, "w") as f:
                         json.dump(results, f, indent=1)
                 except Exception as e:  # noqa: BLE001 - the sweep goes on

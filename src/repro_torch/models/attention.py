@@ -15,6 +15,18 @@ the compressed c_kv and k_rope streams, and the per-head expansions W_uk
 and W_uv fold into the query and the output (DeepSeek-V2, Sec. 2.1).  The
 plain attention is written with `torch.einsum`, as the JAX package leaves
 it to XLA.
+
+Sharded serving (a `repro_torch.sharding.Serve` view ``sv``; unsharded, the
+view of one rank and every piece whole): each rank computes its H / t
+query heads (all H, replicated, where t does not divide H) and the K / V
+heads they read: its KV / t where t divides KV, else every K / V head
+computed replicated and its groups selected.  ``wq`` / ``wk`` / ``wv``
+(MLA: ``w_uq`` / ``w_uk`` / ``w_uv``) are column-parallel on those heads,
+gathered over `model` where their pieces are cut inside a head;
+``wo`` is row-parallel, its partial outputs summed over `model`.  A rank's
+new K / V rows are gathered over `model` into its whole cache
+(``use="cache"``), and attention reads the rank's own heads from it.  MLA's
+``w_dq`` and ``w_dkv`` and its latent cache are whole on every rank.
 """
 from __future__ import annotations
 
@@ -22,14 +34,17 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, dense_init, linear, rms_norm, rope_freqs
+from repro_torch.models.layers import (apply_rope, dense_init, linear, rms_norm, rope_freqs,
+                                      row_linear)
 
 __all__ = ["KVCache", "MLACache", "gqa_init", "gqa_apply", "gqa_decode", "mla_init",
            "mla_apply", "mla_decode", "init_kv_cache", "init_mla_cache", "mask_is_plain"]
 
 NEG_INF = -1e30
+_UNSHARDED = shd.serve_view(None)
 
 
 class KVCache(NamedTuple):
@@ -58,12 +73,49 @@ def gqa_init(generator: torch.Generator, cfg: ModelConfig, dtype) -> dict:
     return p
 
 
-def _qkv(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+class _Heads(NamedTuple):
+    """A rank's query heads [h_lo, h_hi) and the K / V heads [kv_lo,
+    kv_hi) it computes (all KV where t does not divide KV)."""
+
+    h_lo: int
+    h_hi: int
+    kv_lo: int
+    kv_hi: int
+
+
+def _gqa_heads(cfg: ModelConfig, sv) -> _Heads:
+    h_lo, h_hi = sv.heads(cfg.n_heads)
+    if (h_lo, h_hi) == (0, cfg.n_heads):
+        return _Heads(0, cfg.n_heads, 0, cfg.n_kv_heads)
+    return _Heads(h_lo, h_hi, *sv.heads(cfg.n_kv_heads))
+
+
+def _kv_for(k: torch.Tensor, hs: _Heads, cfg: ModelConfig) -> torch.Tensor:
+    """The K / V heads [B, T, *, hd] the rank's query heads read, grouped
+    evenly over them (query head j reads K / V head j // (H / KV)): a
+    slice of `k` (holding heads kv_lo ... kv_hi - 1), or one K / V head a
+    query head where the groups do not fall evenly."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    lo, hi = hs.h_lo // g, (hs.h_hi - 1) // g + 1
+    if (lo, hi) == (hs.kv_lo, hs.kv_hi):
+        return k
+    n = hs.h_hi - hs.h_lo
+    if hi - lo == 1 or (hs.h_lo % g == 0 and n % g == 0):
+        return k[:, :, lo - hs.kv_lo: hi - hs.kv_lo]
+    idx = torch.arange(hs.h_lo, hs.h_hi, device=k.device) // g - hs.kv_lo
+    return k.index_select(2, idx)
+
+
+def _qkv(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, sv,
+         hs: _Heads):
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = linear(x, params["wq"]).reshape(b, s, h, hd)
-    k = linear(x, params["wk"]).reshape(b, s, kv, hd)
-    v = linear(x, params["wv"]).reshape(b, s, kv, hd)
+    q = linear(x, sv.part(params["wq"], 1, h * hd, hs.h_lo * hd, hs.h_hi * hd, "attn/wq"))
+    k = linear(x, sv.part(params["wk"], 1, kv * hd, hs.kv_lo * hd, hs.kv_hi * hd, "attn/wk"))
+    v = linear(x, sv.part(params["wv"], 1, kv * hd, hs.kv_lo * hd, hs.kv_hi * hd, "attn/wv"))
+    q = q.reshape(b, s, hs.h_hi - hs.h_lo, hd)
+    k = k.reshape(b, s, hs.kv_hi - hs.kv_lo, hd)
+    v = v.reshape(b, s, hs.kv_hi - hs.kv_lo, hd)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
@@ -137,20 +189,30 @@ def gqa_apply(
     positions: torch.Tensor,  # [S]
     return_cache: bool = False,
     cache_capacity: Optional[int] = None,
+    sv=None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Full-sequence causal attention (train / prefill).  With
     `return_cache`, also the KV cache of capacity `cache_capacity` (default
-    S) holding the last min(S, capacity) positions."""
+    S) holding the last min(S, capacity) positions (whole over `model`
+    under a sharded view `sv`)."""
     b, s, _ = x.shape
-    q, k, v = _qkv(params, cfg, x, positions)
+    sv = sv or _UNSHARDED
+    hs = _gqa_heads(cfg, sv)
+    q, k, v = _qkv(params, cfg, x, positions, sv, hs)
+    ka, va = _kv_for(k, hs, cfg), _kv_for(v, hs, cfg)
     scale = cfg.head_dim ** -0.5
     if cfg.use_flash and mask_is_plain(cfg, s):
-        out = flash_ops.flash_attention(q, k, v, window=cfg.window)
+        out = flash_ops.flash_attention(q, ka, va, window=cfg.window)
     else:
-        out = _chunked_grouped_attention(q, k, v, cfg.window, scale,
+        out = _chunked_grouped_attention(q, ka, va, cfg.window, scale,
                                          cfg.prefill_chunk if _chunked(cfg, s) else s)
-    y = linear(out.reshape(b, s, -1), params["wo"])
-    cache = _full_cache(KVCache, (k, v), positions, cache_capacity) if return_cache else None
+    del ka, va
+    hd = cfg.head_dim
+    y = row_linear(out.reshape(b, s, -1), params["wo"], sv, cfg.n_heads * hd, hs.h_lo * hd)
+    cache = None
+    if return_cache:
+        k, v = (sv.cat(u, 2, "cache") if u.shape[2] < cfg.n_kv_heads else u for u in (k, v))
+        cache = _full_cache(KVCache, (k, v), positions, cache_capacity)
     return y, cache
 
 
@@ -166,22 +228,29 @@ def gqa_decode(
     x: torch.Tensor,  # [B, 1, d]
     pos: int,         # position of the new token
     cache: KVCache,
+    sv=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One token against the ring-buffer cache.  Writes the new key, value
-    and position into `cache` in place (slot pos % C) and returns it."""
+    and position into `cache` in place (slot pos % C) and returns it; under
+    a sharded view `sv` the cache is whole over `model` and the rank's new
+    K / V heads are gathered into it."""
     b = x.shape[0]
     cap = cache.k.shape[1]
-    q, k, v = _qkv(params, cfg, x, torch.tensor([pos], device=x.device))
+    sv = sv or _UNSHARDED
+    hs = _gqa_heads(cfg, sv)
+    q, k, v = _qkv(params, cfg, x, torch.tensor([pos], device=x.device), sv, hs)
     slot = pos % cap
-    cache.k[:, slot] = k[:, 0]
-    cache.v[:, slot] = v[:, 0]
+    cache.k[:, slot] = sv.cat(k[:, 0], 1, "cache") if k.shape[2] < cfg.n_kv_heads else k[:, 0]
+    cache.v[:, slot] = sv.cat(v[:, 0], 1, "cache") if v.shape[2] < cfg.n_kv_heads else v[:, 0]
     cache.positions[slot] = pos
     valid = (cache.positions >= 0) & (cache.positions <= pos)
     if cfg.window is not None:
         valid &= (pos - cache.positions) < cfg.window
-    out = _grouped_attention(q, cache.k, cache.v, valid[None, None, :].expand(b, 1, cap),
-                             cfg.head_dim ** -0.5)
-    y = linear(out.reshape(b, 1, -1), params["wo"])
+    mine = _Heads(hs.h_lo, hs.h_hi, 0, cfg.n_kv_heads)
+    out = _grouped_attention(q, _kv_for(cache.k, mine, cfg), _kv_for(cache.v, mine, cfg),
+                             valid[None, None, :].expand(b, 1, cap), cfg.head_dim ** -0.5)
+    hd = cfg.head_dim
+    y = row_linear(out.reshape(b, 1, -1), params["wo"], sv, cfg.n_heads * hd, hs.h_lo * hd)
     return y, cache
 
 
@@ -224,11 +293,14 @@ def mla_init(generator: torch.Generator, cfg: ModelConfig, dtype) -> dict:
     return p
 
 
-def _mla_q(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+def _mla_q(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, sv,
+           h_lo: int, h_hi: int):
     b, s, _ = x.shape
     h, nope, rope_hd = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
     cq = rms_norm(linear(x, params["w_dq"]), params["q_norm"]) if cfg.q_lora else x
-    q = linear(cq, params["w_uq"]).reshape(b, s, h, nope + rope_hd)
+    w = nope + rope_hd
+    q = linear(cq, sv.part(params["w_uq"], 1, h * w, h_lo * w, h_hi * w, "attn/w_uq"))
+    q = q.reshape(b, s, h_hi - h_lo, w)
     cos, sin = rope_freqs(positions, rope_hd, cfg.rope_theta)
     return q[..., :nope], apply_rope(q[..., nope:], cos[None], sin[None])
 
@@ -247,15 +319,21 @@ def mla_apply(
     positions: torch.Tensor,  # [S]
     return_cache: bool = False,
     cache_capacity: Optional[int] = None,
+    sv=None,
 ) -> Tuple[torch.Tensor, Optional[MLACache]]:
     """Full-sequence MLA with the per-head expansion (train / prefill), in
-    query chunks of ``cfg.prefill_chunk`` as GQA chunks them."""
+    query chunks of ``cfg.prefill_chunk`` as GQA chunks them; under a
+    sharded view `sv`, on the rank's heads."""
     b, s, _ = x.shape
+    sv = sv or _UNSHARDED
     h, nope, v_hd = cfg.n_heads, cfg.head_dim, cfg.v_head_dim
-    q_nope, q_rope = _mla_q(params, cfg, x, positions)
+    h_lo, h_hi = sv.heads(h)
+    q_nope, q_rope = _mla_q(params, cfg, x, positions, sv, h_lo, h_hi)
     c_kv, k_rope = _mla_ckv(params, cfg, x, positions)
-    k_nope = linear(c_kv, params["w_uk"]).reshape(b, s, h, nope)
-    v = linear(c_kv, params["w_uv"]).reshape(b, s, h, v_hd)
+    k_nope = linear(c_kv, sv.part(params["w_uk"], 1, h * nope, h_lo * nope, h_hi * nope,
+                                  "attn/w_uk")).reshape(b, s, h_hi - h_lo, nope)
+    v = linear(c_kv, sv.part(params["w_uv"], 1, h * v_hd, h_lo * v_hd, h_hi * v_hd,
+                             "attn/w_uv")).reshape(b, s, h_hi - h_lo, v_hd)
     scale = (nope + cfg.rope_head_dim) ** -0.5
 
     def attend(qn, qr, rows):  # qn [B, C, H, nope], rows [C]
@@ -270,7 +348,7 @@ def mla_apply(
                    torch.arange(lo, lo + chunk, device=x.device))
             for lo in range(0, s, chunk)]
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
-    y = linear(out.reshape(b, s, -1), params["wo"])
+    y = row_linear(out.reshape(b, s, -1), params["wo"], sv, h * v_hd, h_lo * v_hd)
     cache = (_full_cache(MLACache, (c_kv, k_rope), positions, cache_capacity)
              if return_cache else None)
     return y, cache
@@ -282,15 +360,20 @@ def mla_decode(
     x: torch.Tensor,  # [B, 1, d]
     pos: int,         # position of the new token
     cache: MLACache,
+    sv=None,
 ) -> Tuple[torch.Tensor, MLACache]:
     """Absorbed-form decode: scores against the compressed cache.  Writes
     the new c_kv, k_rope and position into `cache` in place (slot pos % C)
-    and returns it."""
+    and returns it; under a sharded view `sv`, on the rank's heads (the
+    latent cache is whole on every rank)."""
     b = x.shape[0]
+    sv = sv or _UNSHARDED
     h, nope, v_hd = cfg.n_heads, cfg.head_dim, cfg.v_head_dim
+    h_lo, h_hi = sv.heads(h)
+    hn = h_hi - h_lo
     cap = cache.c_kv.shape[1]
     p = torch.tensor([pos], device=x.device)
-    q_nope, q_rope = _mla_q(params, cfg, x, p)  # [B, 1, H, *]
+    q_nope, q_rope = _mla_q(params, cfg, x, p, sv, h_lo, h_hi)  # [B, 1, H, *]
     c_new, kr_new = _mla_ckv(params, cfg, x, p)
     slot = pos % cap
     cache.c_kv[:, slot] = c_new[:, 0]
@@ -300,7 +383,8 @@ def mla_decode(
     if cfg.window is not None:
         valid &= (pos - cache.positions) < cfg.window
     # absorb W_uk into the query: q_eff[b, h, c] = q_nope . W_uk[c, h, :]
-    w_uk = params["w_uk"].reshape(cfg.kv_lora, h, nope)
+    w_uk = sv.part(params["w_uk"], 1, h * nope, h_lo * nope, h_hi * nope,
+                   "attn/w_uk").reshape(cfg.kv_lora, hn, nope)
     q_eff = torch.einsum("bshn,chn->bshc", q_nope, w_uk)[:, 0]  # [B, H, kv_lora]
     scale = (nope + cfg.rope_head_dim) ** -0.5
     scores = (torch.einsum("bhc,btc->bht", q_eff, cache.c_kv)
@@ -308,6 +392,7 @@ def mla_decode(
     scores = torch.where(valid[None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(cache.c_kv.dtype)
     ctx = torch.einsum("bht,btc->bhc", probs, cache.c_kv)  # the compressed context
-    w_uv = params["w_uv"].reshape(cfg.kv_lora, h, v_hd)
-    out = torch.einsum("bhc,chv->bhv", ctx, w_uv).reshape(b, 1, h * v_hd)
-    return linear(out, params["wo"]), cache
+    w_uv = sv.part(params["w_uv"], 1, h * v_hd, h_lo * v_hd, h_hi * v_hd,
+                   "attn/w_uv").reshape(cfg.kv_lora, hn, v_hd)
+    out = torch.einsum("bhc,chv->bhv", ctx, w_uv).reshape(b, 1, hn * v_hd)
+    return row_linear(out, params["wo"], sv, h * v_hd, h_lo * v_hd), cache

@@ -1,12 +1,21 @@
 """Shared primitives: norms, rope, initializers, projections (port of
-`repro.models.layers`).  Linear weights are [d_in, d_out], as in JAX."""
+`repro.models.layers`).  Linear weights are [d_in, d_out], as in JAX.
+
+The tensor-parallel forms act on a rank's pieces under a
+`repro_torch.sharding.Serve` view (``sv``; unsharded, every piece whole and
+each of them the plain form): a column-parallel product is `linear` on the
+rank's columns (`Serve.part`); `row_linear` multiplies the rank's rows of
+a weight and sums the partial outputs over `model`; `vocab_embed` and
+`vocab_logits` are the embedding's lookup and the output projection on the
+rank's slice of the vocabulary."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["rms_norm", "dense_init", "embed_init", "rope_freqs", "apply_rope", "linear"]
+__all__ = ["rms_norm", "dense_init", "embed_init", "rope_freqs", "apply_rope", "linear",
+           "row_linear", "vocab_embed", "vocab_logits"]
 
 
 # rows a norm takes at a time outside autograd: its f32 temporaries are then
@@ -48,6 +57,51 @@ def embed_init(generator: torch.Generator, vocab: int, d: int, dtype) -> torch.T
 
 def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w)
+
+
+def row_linear(x: torch.Tensor, w: torch.Tensor, sv, k: int, x_lo: int = 0) -> torch.Tensor:
+    """x @ W for a weight W [k, n] whose rows may be split over `model`:
+    `w` is this rank's piece of W, `x` [..., j] holds the input's columns
+    x_lo ... x_lo + j - 1 (all k when it is whole).  A whole W takes the
+    whole input; a piece takes the input's matching columns, and the
+    partial products are summed over `model` in their own type
+    (``use="activations"``), as XLA's partitioned dot does."""
+    if w.shape[0] == k:
+        if x.shape[-1] != k:
+            raise ValueError(f"a whole [{k}, n] weight needs the whole input, got "
+                             f"{x.shape[-1]} columns")
+        return linear(x, w)
+    lo, hi = sv.span(w, 0, k)
+    if lo < x_lo or hi > x_lo + x.shape[-1]:
+        raise ValueError(f"the input's columns [{x_lo}, {x_lo + x.shape[-1]}) do not hold "
+                         f"the weight's rows [{lo}, {hi})")
+    if (lo, hi) != (x_lo, x_lo + x.shape[-1]):
+        x = x.narrow(-1, lo - x_lo, hi - lo)
+    return sv.psum(linear(x, w))
+
+
+def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, sv, vocab: int) -> torch.Tensor:
+    """``table[tokens]`` for an embedding [vocab, d] whose rows may be split
+    over `model`: a rank's slice gives its own tokens' rows and zeros
+    elsewhere, summed over `model` (``use="embed"``; a sum of one row and
+    zeros, exact in any type)."""
+    tokens = tokens.long()
+    if table.shape[0] == vocab:
+        return table[tokens]
+    lo, hi = sv.span(table, 0, vocab)
+    local = tokens - lo
+    inside = (local >= 0) & (local < hi - lo)
+    x = torch.where(inside[..., None], table[local.clamp(0, hi - lo - 1)],
+                    torch.zeros((), dtype=table.dtype, device=table.device))
+    return sv.psum(x, "embed")
+
+
+def vocab_logits(x: torch.Tensor, head: torch.Tensor, sv, vocab: int) -> torch.Tensor:
+    """``x @ head`` in f32 for an output projection [d, vocab] whose
+    columns may be split over `model`: each rank's slice of the logits,
+    gathered over `model` into the whole vocabulary (``use="logits"``)."""
+    logits = torch.matmul(x, head).float()
+    return logits if head.shape[1] == vocab else sv.cat(logits, -1, "logits")
 
 
 def rope_freqs(positions: torch.Tensor, dim: int, theta: float):

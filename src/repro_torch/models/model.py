@@ -31,6 +31,18 @@ per-group dicts keyed ``"{i}_{kind}"`` whose `KVCache` / `MLACache` /
 `SSMCache` leaves are stacked over repeat (mlp and moe blocks carry none).
 The trunk is a Python loop over layers (JAX scans); each leaf is split
 with `unbind`, whose backward stacks the gradients once.
+
+`prefill` and `decode_step` take ``shardings=`` (a
+`repro_torch.sharding.ServingShardings`): the parameters are this rank's
+pieces (`sharding.shard_tree` under ``shardings.params``), the batch its
+rows and the caches its rows, whole over `model`.  Each layer's leaves are
+gathered over `fsdp` just before the layer runs and dropped after it (the
+shared block of a hybrid at each of its sites), and every block runs
+tensor-parallel over `model` on the rank's heads, columns and experts
+(`models.attention`, `mlp`, `ssm`, `moe`); the embedding is vocab-parallel
+and the logits' vocab slices are gathered into the whole [B, vocab] f32
+logits on every rank.  Unsharded (``shardings=None``) the same body runs
+on `sharding.serve_view(None)`: one rank, every collective the identity.
 """
 from __future__ import annotations
 
@@ -42,11 +54,13 @@ import torch
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch import resolve_device
+from repro_torch import sharding as shd
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dense_init, embed_init, linear, rms_norm
+from repro_torch.models.layers import (dense_init, embed_init, linear, rms_norm, vocab_embed,
+                                      vocab_logits)
 from repro_torch.models.mlp import mlp_apply, mlp_init
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
@@ -183,49 +197,62 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, device=None) -> list
 # ---------------------------------------------------------------------------
 # block application
 # ---------------------------------------------------------------------------
+_UNSHARDED = shd.serve_view(None)
+
+
+def _shared(shared, sv):
+    """The hybrid's shared block at one of its sites: (its leaves gathered
+    over fsdp, the view inside it)."""
+    return sv.weights(shared, sv.sub("shared_block")), sv.at("shared_block")
+
+
 def _apply_block_full(kind: str, bp: Optional[dict], shared: Optional[dict],
-                      cfg: ModelConfig, x, positions, want_cache: bool, capacity: int):
+                      cfg: ModelConfig, x, positions, want_cache: bool, capacity: int,
+                      sv=_UNSHARDED):
     """Full sequence (train / prefill).  Returns (x, cache or None, MoE aux
     loss or None)."""
     if kind in ("attn", "mla"):
         apply = attn.gqa_apply if kind == "attn" else attn.mla_apply
         h, cache = apply(bp["attn"], cfg, rms_norm(x, bp["ln"]), positions,
-                         return_cache=want_cache, cache_capacity=capacity)
+                         return_cache=want_cache, cache_capacity=capacity, sv=sv)
         return x + h, cache, None
     if kind == "mlp":
-        return x + mlp_apply(bp["mlp"], rms_norm(x, bp["ln"])), None, None
+        return x + mlp_apply(bp["mlp"], rms_norm(x, bp["ln"]), sv, cfg.d_ff), None, None
     if kind == "moe":
-        h, aux = moe_mod.moe_apply(bp["moe"], cfg, rms_norm(x, bp["ln"]))
+        h, aux = moe_mod.moe_apply(bp["moe"], cfg, rms_norm(x, bp["ln"]), sv)
         return x + h, None, aux
     if kind == "mamba":
         h, cache = ssm_mod.mamba_apply(bp["mamba"], cfg, rms_norm(x, bp["ln"]),
-                                       return_cache=want_cache)
+                                       return_cache=want_cache, sv=sv)
         return x + h, cache, None
     if kind == "shared_block":
+        shared, sv = _shared(shared, sv)
         h, cache = attn.gqa_apply(shared["attn"], cfg, rms_norm(x, shared["ln1"]), positions,
-                                  return_cache=want_cache, cache_capacity=capacity)
+                                  return_cache=want_cache, cache_capacity=capacity, sv=sv)
         x = x + h
-        return x + mlp_apply(shared["mlp"], rms_norm(x, shared["ln2"])), cache, None
+        return x + mlp_apply(shared["mlp"], rms_norm(x, shared["ln2"]), sv, cfg.d_ff), cache, None
     raise ValueError(kind)
 
 
 def _apply_block_decode(kind: str, bp: Optional[dict], shared: Optional[dict],
-                        cfg: ModelConfig, x, pos: int, cache):
+                        cfg: ModelConfig, x, pos: int, cache, sv=_UNSHARDED):
     if kind in ("attn", "mla"):
         decode = attn.gqa_decode if kind == "attn" else attn.mla_decode
-        h, _ = decode(bp["attn"], cfg, rms_norm(x, bp["ln"]), pos, cache)
+        h, _ = decode(bp["attn"], cfg, rms_norm(x, bp["ln"]), pos, cache, sv=sv)
         return x + h
     if kind == "mlp":
-        return x + mlp_apply(bp["mlp"], rms_norm(x, bp["ln"]))
+        return x + mlp_apply(bp["mlp"], rms_norm(x, bp["ln"]), sv, cfg.d_ff)
     if kind == "moe":
-        return x + moe_mod.moe_apply(bp["moe"], cfg, rms_norm(x, bp["ln"]))[0]
+        return x + moe_mod.moe_apply(bp["moe"], cfg, rms_norm(x, bp["ln"]), sv)[0]
     if kind == "mamba":
-        h, _ = ssm_mod.mamba_decode(bp["mamba"], cfg, rms_norm(x, bp["ln"]), cache)
+        h, _ = ssm_mod.mamba_decode(bp["mamba"], cfg, rms_norm(x, bp["ln"]), cache, sv=sv)
         return x + h
     if kind == "shared_block":
-        h, _ = attn.gqa_decode(shared["attn"], cfg, rms_norm(x, shared["ln1"]), pos, cache)
+        shared, sv = _shared(shared, sv)
+        h, _ = attn.gqa_decode(shared["attn"], cfg, rms_norm(x, shared["ln1"]), pos, cache,
+                               sv=sv)
         x = x + h
-        return x + mlp_apply(shared["mlp"], rms_norm(x, shared["ln2"]))
+        return x + mlp_apply(shared["mlp"], rms_norm(x, shared["ln2"]), sv, cfg.d_ff)
     raise ValueError(kind)
 
 
@@ -259,15 +286,30 @@ def _unbind_layers(tree, repeat: int) -> list:
     return [tree_unflatten(treedef, [u[li] for u in per_leaf]) for li in range(repeat)]
 
 
+def _layers(gparams, gi: int, repeat: int, sv):
+    """Each layer's tree of group `gi` in turn, its leaves gathered over
+    fsdp just before it is handed out (unsharded: `_unbind_layers`' views;
+    the caller drops a layer's tree before it asks for the next)."""
+    if not sv.sharded:
+        yield from _unbind_layers(gparams, repeat)
+        return
+    leaves, treedef = tree_flatten(gparams)
+    per_leaf = [leaf.unbind(0) for leaf in leaves]
+    specs = sv.sub("groups", gi)
+    for li in range(repeat):
+        yield sv.weights(tree_unflatten(treedef, [u[li] for u in per_leaf]), specs, skip=1)
+
+
 def _layer_full(x, lp: dict, pattern: Tuple[str, ...], shared: Optional[dict],
-                cfg: ModelConfig, positions, want_cache: bool, capacity: int):
+                cfg: ModelConfig, positions, want_cache: bool, capacity: int,
+                sv=_UNSHARDED, gi: int = 0):
     """One layer's blocks over the full sequence: (x, the moe block's aux
     loss or None, the layer's caches by block key)."""
     entries, aux = {}, None
     for i, kind in enumerate(pattern):
         key = f"{i}_{kind}"
         x, cache, a = _apply_block_full(kind, lp.get(key), shared, cfg, x, positions,
-                                        want_cache, capacity)
+                                        want_cache, capacity, sv.at(f"groups/{gi}/{key}"))
         if cache is not None:
             entries[key] = cache
         if a is not None:
@@ -276,19 +318,20 @@ def _layer_full(x, lp: dict, pattern: Tuple[str, ...], shared: Optional[dict],
 
 
 def _run_trunk_full(params: dict, cfg: ModelConfig, x, positions, want_cache: bool,
-                    capacity: int):
+                    capacity: int, sv=_UNSHARDED):
     """Returns (x, caches, aux): aux sums the MoE layers' aux losses (f32)."""
     shared = params.get("shared_block")
     caches_out = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     # remat pays off only where autograd keeps activations (not in prefill)
     remat = cfg.remat and not want_cache and torch.is_grad_enabled()
-    for grp, gparams in zip(layer_groups(cfg), params["groups"]):
+    for gi, (grp, gparams) in enumerate(zip(layer_groups(cfg), params["groups"])):
         stacked = {}
-        for li, lp in enumerate(_unbind_layers(gparams, grp.repeat)):
-            args = (x, lp, grp.pattern, shared, cfg, positions, want_cache, capacity)
+        for li, lp in enumerate(_layers(gparams, gi, grp.repeat, sv)):
+            args = (x, lp, grp.pattern, shared, cfg, positions, want_cache, capacity, sv, gi)
             x, aux, entries = (_checkpointed(cfg, _layer_full, *args) if remat
                                else _layer_full(*args))
+            del lp, args
             if aux is not None:
                 aux_total = aux_total + aux
             if want_cache and entries:
@@ -303,31 +346,41 @@ def _run_trunk_full(params: dict, cfg: ModelConfig, x, positions, want_cache: bo
     return x, caches_out, aux_total
 
 
-def _run_trunk_decode(params: dict, cfg: ModelConfig, x, pos: int, caches: list):
+def _run_trunk_decode(params: dict, cfg: ModelConfig, x, pos: int, caches: list,
+                      sv=_UNSHARDED):
     shared = params.get("shared_block")
-    for grp, gparams, gcache in zip(layer_groups(cfg), params["groups"], caches):
-        for lp, lc in zip(_unbind_layers(gparams, grp.repeat),
+    for gi, (grp, gparams, gcache) in enumerate(zip(layer_groups(cfg), params["groups"],
+                                                    caches)):
+        for lp, lc in zip(_layers(gparams, gi, grp.repeat, sv),
                           _unbind_layers(gcache, grp.repeat)):
             for i, kind in enumerate(grp.pattern):
                 key = f"{i}_{kind}"
-                x = _apply_block_decode(kind, lp.get(key), shared, cfg, x, pos, lc.get(key))
+                x = _apply_block_decode(kind, lp.get(key), shared, cfg, x, pos, lc.get(key),
+                                        sv.at(f"groups/{gi}/{key}"))
+            del lp
     return x
 
 
-def _embed_inputs(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+def _whole(params: dict, name: str, sv) -> torch.Tensor:
+    """A top-level leaf gathered over fsdp (the embedding's vocab rows stay
+    the rank's slice under a sharded view)."""
+    return sv.weights(params[name], sv.sub(name))
+
+
+def _embed_inputs(params: dict, cfg: ModelConfig, batch: dict, sv=_UNSHARDED) -> torch.Tensor:
     """Token embeddings; for vlm, the projected patch embeddings
     (``batch["patch_embeds"]`` [B, n_patches, vision_dim]) before them."""
-    x = params["embed"][batch["tokens"].long()]
+    x = vocab_embed(_whole(params, "embed", sv), batch["tokens"], sv, cfg.vocab)
     if cfg.arch_type == "vlm":
-        vis = linear(batch["patch_embeds"].to(x.dtype), params["vision_proj"])
+        vis = linear(batch["patch_embeds"].to(x.dtype), _whole(params, "vision_proj", sv))
         x = torch.cat([vis, x], dim=1)
     return x
 
 
-def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor, sv=_UNSHARDED) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"])
-    head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    return torch.matmul(x, head).float()
+    head = _whole(params, "embed", sv).t() if cfg.tie_embeddings else _whole(params, "lm_head", sv)
+    return vocab_logits(x, head, sv, cfg.vocab)
 
 
 # ---------------------------------------------------------------------------
@@ -350,19 +403,26 @@ def train_loss(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     return torch.mean(logz - gold) + aux
 
 
-def prefill(params: dict, cfg: ModelConfig, batch: dict, capacity: int):
-    """Returns (last-position logits [B, vocab] f32, caches)."""
-    x = _embed_inputs(params, cfg, batch)
+def prefill(params: dict, cfg: ModelConfig, batch: dict, capacity: int, shardings=None):
+    """Returns (last-position logits [B, vocab] f32, caches).  With
+    `shardings` (a `sharding.ServingShardings`), `params` are this rank's
+    pieces and `batch` its rows; the logits are whole over the vocabulary
+    and the caches hold the rank's rows, whole over `model`."""
+    sv = shd.serve_view(shardings)
+    x = _embed_inputs(params, cfg, batch, sv)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, caches, _ = _run_trunk_full(params, cfg, x, positions, True, capacity)
-    return _logits(params, cfg, x[:, -1:])[:, 0], caches
+    x, caches, _ = _run_trunk_full(params, cfg, x, positions, True, capacity, sv)
+    return _logits(params, cfg, x[:, -1:], sv)[:, 0], caches
 
 
-def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor, pos: int, caches: list):
+def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor, pos: int, caches: list,
+                shardings=None):
     """token [B] int, pos the new token's position (after a vlm's patches)
     -> (logits [B, vocab] f32, caches).  Writes the new cache entries (KV,
     MLA latents, SSM states) into `caches` in place (no copy of the caches
-    per token) and returns the same list."""
-    x = params["embed"][token.long()][:, None]  # [B, 1, d]
-    x = _run_trunk_decode(params, cfg, x, int(pos), caches)
-    return _logits(params, cfg, x)[:, 0], caches
+    per token) and returns the same list.  With `shardings`, on this rank's
+    pieces and rows, as `prefill`."""
+    sv = shd.serve_view(shardings)
+    x = vocab_embed(_whole(params, "embed", sv), token, sv, cfg.vocab)[:, None]  # [B, 1, d]
+    x = _run_trunk_decode(params, cfg, x, int(pos), caches, sv)
+    return _logits(params, cfg, x, sv)[:, 0], caches

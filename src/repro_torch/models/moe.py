@@ -29,6 +29,21 @@ sort: among equal probabilities the lower expert index comes first, as
 `jax.lax.top_k` returns them (`torch.topk` promises no order for ties).
 Aux losses, in f32: the switch-style load balance (routed choices counted
 before the drop) and the router z-loss.
+
+Sharded serving (a `repro_torch.sharding.Serve` view ``sv``): the routed
+experts are expert-parallel over `model`.  The router is whole and every
+rank routes the tokens of its rows.  The capacity and the slots are the
+whole batch's, as in the unsharded layer: C is taken from the batch's
+token count, and a choice's slot also counts the choices of the ranks that
+hold earlier rows (their per-expert counts gathered over the rows' axes,
+``use="routing"``), so the same choices are kept and dropped.  Each rank
+runs its E / t experts on its own tokens' slots of their [C, d] buffers
+(the other ranks' slots stay zero) and adds its kept choices' weighted
+outputs; the partial outputs are summed over `model`
+(``use="activations"``).  The aux losses are the rank's rows' (serving
+drops them).  The shared experts are the tensor-parallel MLP
+(`mlp.mlp_apply`).  Unsharded, the same body runs on
+`sharding.serve_view(None)`.
 """
 from __future__ import annotations
 
@@ -37,10 +52,14 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as shd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, linear
+from repro_torch.models.mlp import mlp_apply
 
 __all__ = ["moe_init", "moe_apply", "moe_capacity"]
+
+_UNSHARDED = shd.serve_view(None)
 
 
 def moe_init(generator: torch.Generator, cfg: ModelConfig, dtype) -> dict:
@@ -67,9 +86,11 @@ def moe_capacity(cfg: ModelConfig, tokens: int) -> int:
     return max(1, int(tokens * cfg.moe_top_k * cfg.capacity_factor / cfg.n_experts))
 
 
-def moe_apply(params: dict, cfg: ModelConfig, x: torch.Tensor
+def moe_apply(params: dict, cfg: ModelConfig, x: torch.Tensor, sv=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, d] -> (y [B, S, d], aux loss f32 scalar)."""
+    """x: [B, S, d] -> (y [B, S, d], aux loss f32 scalar); under a sharded
+    view `sv`, the rank's rows and experts (see the module's docstring)."""
+    sv = sv or _UNSHARDED
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.moe_top_k
@@ -81,36 +102,49 @@ def moe_apply(params: dict, cfg: ModelConfig, x: torch.Tensor
     top_p, top_i = top_p[:, :k], top_i[:, :k]  # [T, K]
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
 
-    capacity = moe_capacity(cfg, t)
     # slot of each (token, choice) within its expert buffer: the number of
-    # earlier choices routed to the same expert
+    # earlier choices of the batch routed to the same expert, those of the
+    # ranks holding earlier rows first; the capacity is the batch's
     expert_of = top_i.reshape(t * k)
     flat_oh = F.one_hot(expert_of, e)  # [T*K, E]
-    slot = (torch.cumsum(flat_oh, dim=0) - flat_oh).gather(1, expert_of[:, None])[:, 0]
-    keep = slot < capacity
-    dest = expert_of * capacity + torch.clamp(slot, max=capacity - 1)
+    before, pieces = sv.rows_before(flat_oh.sum(dim=0))
+    capacity = moe_capacity(cfg, t * pieces)
+    slot = (torch.cumsum(flat_oh, dim=0) - flat_oh + before).gather(
+        1, expert_of[:, None])[:, 0]
+    # this rank's experts [e_lo, e_hi) and the choices routed to them
+    e_lo, e_hi = sv.span(params["w_down"], 0, e)
+    n_e = e_hi - e_lo
+    mine = (expert_of >= e_lo) & (expert_of < e_hi)
+    keep = (slot < capacity) & mine
+    local = torch.where(mine, expert_of - e_lo, 0)
+    dest = local * capacity + torch.clamp(slot, max=capacity - 1)
 
-    # dispatch: kept choice (t, j) into its own slot of the [E·C + 1, d]
-    # buffer, a dropped one into the spare last row (cut off below)
-    spare = torch.full_like(dest, e * capacity)
+    # dispatch: kept choice (t, j) into its own slot of the rank's
+    # [E_r·C + 1, d] buffer, any other into the spare last row (cut off)
+    spare = torch.full_like(dest, n_e * capacity)
     contrib = xf[:, None, :].expand(t, k, d).reshape(t * k, d)
-    buf = torch.zeros((e * capacity + 1, d), dtype=xf.dtype, device=x.device).index_put(
-        (torch.where(keep, dest, spare),), contrib)[:-1].reshape(e, capacity, d)
+    buf = torch.zeros((n_e * capacity + 1, d), dtype=xf.dtype, device=x.device).index_put(
+        (torch.where(keep, dest, spare),), contrib)[:-1].reshape(n_e, capacity, d)
 
-    h = F.silu(torch.bmm(buf, params["w_gate"])) * torch.bmm(buf, params["w_up"])
-    out_buf = torch.bmm(h, params["w_down"]).reshape(e * capacity, d)
+    w_gate, w_up = (sv.part(params[name], 0, e, e_lo, e_hi, f"moe/{name}")
+                    for name in ("w_gate", "w_up"))
+    h = F.silu(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up)
+    out_buf = torch.bmm(h, params["w_down"]).reshape(n_e * capacity, d)
+    del buf, h
 
-    # combine: a dropped choice reads a kept slot at weight 0 (a zero
-    # gradient there); the k terms are added choice by choice
+    # combine: a choice not kept here (dropped, or routed to another rank's
+    # expert) reads a slot at weight 0 (a zero gradient there); the k terms
+    # are added choice by choice
     weight = torch.where(keep, top_p.reshape(t * k), 0.0)
     terms = (out_buf[dest] * weight[:, None].to(xf.dtype)).reshape(t, k, d)
     y = terms[:, 0]
     for j in range(1, k):
         y = y + terms[:, j]
+    y = sv.psum(y)
 
     if cfg.n_shared_experts:
-        sp = params["shared"]
-        y = y + linear(F.silu(linear(xf, sp["w_gate"])) * linear(xf, sp["w_up"]), sp["w_down"])
+        y = y + mlp_apply(params["shared"], xf, sv, cfg.n_shared_experts * cfg.d_ff_expert,
+                          "moe/shared")
 
     # aux losses, in f32
     me = probs.mean(dim=0)  # mean router probability

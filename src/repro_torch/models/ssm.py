@@ -15,6 +15,22 @@ the O(1) recurrence h <- h exp(dt A) + dt B (x) x, y = C.h + D x.
 
 dtypes follow JAX: ``A_log``, ``D`` and ``dt_bias`` are f32 leaves in any
 model, dt is f32 after softplus and the recurrent state is f32.
+
+Sharded serving (a `repro_torch.sharding.Serve` view ``sv``; unsharded, the
+view of one rank and every piece whole): each rank runs the SSD on its H / t
+heads (all H where t does not divide H, or where its heads do not cover
+whole B / C groups or lie in one).  The fused ``in_proj`` and its conv
+(``conv_w``, ``conv_b``) are split over `model` in column blocks that do
+not line up with z / xBC / dt, so they are gathered over `model` and the
+projection and conv computed replicated, the rank taking its heads from
+the result; the split projections (``ssm_split_proj``) shard head-aligned:
+``in_z`` / ``in_x`` / ``in_dt`` and the x conv column-parallel, B and C
+replicated.  ``dt_bias``, ``A_log``, ``D`` and ``norm`` have no rule and
+are whole.  The gated RMSNorm over the whole d_inner sums its squares over
+`model` before it scales (``use="activations"``); ``out_proj`` is
+row-parallel.  A rank's final state, and its x rows of the conv window
+(split projections), are gathered over `model` into its whole cache
+(``use="cache"``).
 """
 from __future__ import annotations
 
@@ -24,12 +40,15 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as shd
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dense_init, linear, rms_norm
+from repro_torch.models.layers import dense_init, linear, rms_norm, row_linear
 
 __all__ = ["SSMCache", "mamba_init", "mamba_apply", "mamba_decode", "init_ssm_cache"]
+
+_UNSHARDED = shd.serve_view(None)
 
 
 class SSMCache(NamedTuple):
@@ -182,24 +201,99 @@ def _ssd_chunked(
     return y[:, :s], final_state
 
 
-def _project(params: dict, cfg: ModelConfig, x: torch.Tensor):
-    """Returns (z, xs [B,S,H,P], b_ [B,S,G,N], c_, dt_raw, xbc_preconv)."""
+class _Heads(NamedTuple):
+    """A rank's SSD heads [h_lo, h_hi) and the B / C groups [g_lo, g_hi)
+    they read (rep heads a group)."""
+
+    h_lo: int
+    h_hi: int
+    g_lo: int
+    g_hi: int
+
+    @property
+    def rep(self) -> int:
+        return (self.h_hi - self.h_lo) // (self.g_hi - self.g_lo)
+
+
+def _ssm_heads(cfg: ModelConfig, sv) -> _Heads:
+    h, g = cfg.ssm_heads, cfg.ssm_groups
+    rep = h // g
+    lo, hi = sv.heads(h)
+    g_lo, g_hi = lo // rep, (hi - 1) // rep + 1
+    if (hi - lo) % (g_hi - g_lo) == 0 and (g_hi - g_lo == 1 or lo % rep == 0):
+        return _Heads(lo, hi, g_lo, g_hi)
+    return _Heads(0, h, 0, g)
+
+
+def _project(params: dict, cfg: ModelConfig, x: torch.Tensor, sv, hs: _Heads):
+    """Returns (z, xs [B,S,h,P], b_ [B,S,g,N], c_, dt_raw, xbc_preconv) on
+    the rank's h heads and g groups; xbc_preconv is whole over `model`
+    (the cache's conv window) except the split projections' x part, which
+    is the rank's (`_whole_xbc` gathers it)."""
+    p = cfg.ssm_head_dim
+    di, gn, n = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state, cfg.ssm_state
+    bsz, s, _ = x.shape
     if cfg.ssm_split_proj:
-        bsz, s, _ = x.shape
-        g, n = cfg.ssm_groups, cfg.ssm_state
-        raw = {c: linear(x, params[f"in_{c}"]) for c in ("x", "B", "C")}
-        conv = {c: _causal_conv(cfg, raw[c], params[f"conv_{c}_w"], params[f"conv_{c}_b"])
-                for c in raw}
+        lo, hi = hs.h_lo * p, hs.h_hi * p
+        w = {"x": sv.part(params["in_x"], 1, di, lo, hi, "mamba/in_x"),
+             "B": params["in_B"], "C": params["in_C"]}
+        cw = {"x": sv.part(params["conv_x_w"], 1, di, lo, hi, "mamba/conv_x_w"),
+              "B": params["conv_B_w"], "C": params["conv_C_w"]}
+        cb = {"x": sv.part(params["conv_x_b"], 0, di, lo, hi, "mamba/conv_x_b"),
+              "B": params["conv_B_b"], "C": params["conv_C_b"]}
+        raw = {c: linear(x, w[c]) for c in ("x", "B", "C")}
+        conv = {c: _causal_conv(cfg, raw[c], cw[c], cb[c]) for c in raw}
         xbc = torch.cat([raw["x"], raw["B"], raw["C"]], dim=-1)  # the cache's layout
-        return (linear(x, params["in_z"]),
-                conv["x"].reshape(bsz, s, cfg.ssm_heads, cfg.ssm_head_dim),
-                conv["B"].reshape(bsz, s, g, n), conv["C"].reshape(bsz, s, g, n),
-                linear(x, params["in_dt"]), xbc)
-    proj = linear(x, params["in_proj"])
+        gsl = slice(hs.g_lo * n, hs.g_hi * n)
+        ng = hs.g_hi - hs.g_lo
+        return (linear(x, sv.part(params["in_z"], 1, di, lo, hi, "mamba/in_z")),
+                conv["x"].reshape(bsz, s, hs.h_hi - hs.h_lo, p),
+                conv["B"][..., gsl].reshape(bsz, s, ng, n),
+                conv["C"][..., gsl].reshape(bsz, s, ng, n),
+                linear(x, sv.part(params["in_dt"], 1, cfg.ssm_heads, hs.h_lo, hs.h_hi,
+                                  "mamba/in_dt")), xbc)
+    width = 2 * di + 2 * gn + cfg.ssm_heads
+    proj = linear(x, sv.part(params["in_proj"], 1, width, 0, width, "mamba/in_proj"))
     z, xbc, dt_raw = _split_proj(cfg, proj)
-    xbc_conv = _causal_conv(cfg, xbc, params["conv_w"], params["conv_b"])
+    cd = cfg.conv_dim
+    xbc_conv = _causal_conv(cfg, xbc, sv.part(params["conv_w"], 1, cd, 0, cd, "mamba/conv_w"),
+                            sv.part(params["conv_b"], 0, cd, 0, cd, "mamba/conv_b"))
     xs, b_, c_ = _split_xbc(cfg, xbc_conv)
-    return z, xs, b_, c_, dt_raw, xbc
+    return _own_heads(cfg, hs, z, xs, b_, c_, dt_raw) + (xbc,)
+
+
+def _own_heads(cfg: ModelConfig, hs: _Heads, z, xs, b_, c_, dt_raw):
+    """The rank's heads and groups of whole z / xs / B / C / dt (the
+    tensors themselves when it computes all of them)."""
+    if (hs.h_lo, hs.h_hi) == (0, cfg.ssm_heads):
+        return z, xs, b_, c_, dt_raw
+    p = cfg.ssm_head_dim
+    return (z[..., hs.h_lo * p: hs.h_hi * p], xs[..., hs.h_lo: hs.h_hi, :].contiguous(),
+            b_[..., hs.g_lo: hs.g_hi, :], c_[..., hs.g_lo: hs.g_hi, :],
+            dt_raw[..., hs.h_lo: hs.h_hi])
+
+
+def _gated_norm(cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor, norm: torch.Tensor, sv,
+                hs: _Heads, eps: float = 1e-6) -> torch.Tensor:
+    """rms_norm(y * silu(z)) over the whole d_inner.  On a rank's heads the
+    sum of squares is summed over `model` first (in f32), then each rank
+    scales its own columns: the same function as the whole norm."""
+    if y.shape[-1] == cfg.d_inner:
+        return rms_norm(y * F.silu(z), norm, eps)
+    g = (y * F.silu(z)).float()
+    ss = sv.psum(torch.sum(g * g, dim=-1, keepdim=True), "activations")
+    p = cfg.ssm_head_dim
+    out = g * torch.rsqrt(ss / cfg.d_inner + eps)
+    return (out * norm[hs.h_lo * p: hs.h_hi * p].float()).to(y.dtype)
+
+
+def _whole_xbc(cfg: ModelConfig, xbc: torch.Tensor, sv) -> torch.Tensor:
+    """The conv window's rows [..., conv_dim] whole over `model`: the split
+    projections' x part is the rank's, gathered (``use="cache"``)."""
+    if xbc.shape[-1] == cfg.conv_dim:
+        return xbc
+    nx = xbc.shape[-1] - 2 * cfg.ssm_groups * cfg.ssm_state
+    return torch.cat([sv.cat(xbc[..., :nx].contiguous(), -1, "cache"), xbc[..., nx:]], dim=-1)
 
 
 def mamba_apply(
@@ -207,22 +301,32 @@ def mamba_apply(
     cfg: ModelConfig,
     x: torch.Tensor,  # [B, S, d]
     return_cache: bool = False,
+    sv=None,
 ) -> Tuple[torch.Tensor, Optional[SSMCache]]:
+    """The block over a full sequence; under a sharded view `sv`, the SSD on
+    the rank's heads and the cache whole over `model`."""
     bsz, s, _ = x.shape
-    z, xs, b_, c_, dt_raw, xbc = _project(params, cfg, x)
-    dt = F.softplus(dt_raw.float() + params["dt_bias"][None, None])
-    a = -torch.exp(params["A_log"])
+    sv = sv or _UNSHARDED
+    hs = _ssm_heads(cfg, sv)
+    z, xs, b_, c_, dt_raw, xbc = _project(params, cfg, x, sv, hs)
+    sl = slice(hs.h_lo, hs.h_hi)
+    dt = F.softplus(dt_raw.float() + params["dt_bias"][sl][None, None])
+    a = -torch.exp(params["A_log"][sl])
     y, final_state = _ssd_chunked(cfg, xs, dt, a, b_, c_)
-    y = y + xs * params["D"][None, None, :, None].to(xs.dtype)
-    y = y.reshape(bsz, s, cfg.d_inner)
-    y = rms_norm(y * F.silu(z), params["norm"])
-    out = linear(y, params["out_proj"])
+    y = y + xs * params["D"][sl][None, None, :, None].to(xs.dtype)
+    y = y.reshape(bsz, s, -1)
+    y = _gated_norm(cfg, y, z, params["norm"], sv, hs)
+    p = cfg.ssm_head_dim
+    out = row_linear(y, params["out_proj"], sv, cfg.d_inner, hs.h_lo * p)
     cache = None
     if return_cache:
         # the last d_conv - 1 pre-conv inputs (zeros before the first), a
         # copy: a view would keep the whole [B, S, conv_dim] input alive
         tail = cfg.d_conv - 1
-        conv_tail = F.pad(xbc[:, -tail:], (0, 0, max(0, tail - s), 0)).clone()
+        conv_tail = F.pad(_whole_xbc(cfg, xbc[:, -tail:], sv),
+                          (0, 0, max(0, tail - s), 0)).clone()
+        if final_state.shape[1] < cfg.ssm_heads:
+            final_state = sv.cat(final_state, 1, "cache")
         cache = SSMCache(conv=conv_tail, state=final_state)
     return out, cache
 
@@ -232,41 +336,71 @@ def mamba_decode(
     cfg: ModelConfig,
     x: torch.Tensor,  # [B, 1, d]
     cache: SSMCache,
+    sv=None,
 ) -> Tuple[torch.Tensor, SSMCache]:
     """One token.  Updates `cache` (the conv window and the state) in place
-    and returns it."""
+    and returns it; under a sharded view `sv` the rank updates its heads of
+    the state and gathers them into the whole cache."""
     bsz = x.shape[0]
+    sv = sv or _UNSHARDED
+    hs = _ssm_heads(cfg, sv)
+    p, n = cfg.ssm_head_dim, cfg.ssm_state
     if cfg.ssm_split_proj:
         di, gn = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
-        z = linear(x, params["in_z"])
-        xbc = torch.cat([linear(x, params[f"in_{c}"]) for c in ("x", "B", "C")], dim=-1)
-        dt_raw = linear(x, params["in_dt"])
-        window = torch.cat([cache.conv, xbc], dim=1)  # [B, d_conv, C]
+        lo, hi = hs.h_lo * p, hs.h_hi * p
+        z = linear(x, sv.part(params["in_z"], 1, di, lo, hi, "mamba/in_z"))
+        xn = linear(x, sv.part(params["in_x"], 1, di, lo, hi, "mamba/in_x"))
+        xbc = torch.cat([xn] + [linear(x, params[f"in_{c}"]) for c in ("B", "C")], dim=-1)
+        dt_raw = linear(x, sv.part(params["in_dt"], 1, cfg.ssm_heads, hs.h_lo, hs.h_hi,
+                                   "mamba/in_dt"))
+        # the rank's columns of the window: its x part, then B and C
+        own = torch.cat([cache.conv[..., lo:hi], cache.conv[..., di:]], dim=-1)
+        window = torch.cat([own, xbc], dim=1)  # [B, d_conv, hi - lo + 2 gn]
+        nx = hi - lo
         conv_out = torch.cat([
-            torch.einsum("bkc,kc->bc", window[:, :, lo:hi], params[f"conv_{c}_w"])
-            + params[f"conv_{c}_b"]
-            for lo, hi, c in ((0, di, "x"), (di, di + gn, "B"), (di + gn, di + 2 * gn, "C"))
+            torch.einsum("bkc,kc->bc", window[:, :, a:b], w) + bias
+            for a, b, w, bias in (
+                (0, nx, sv.part(params["conv_x_w"], 1, di, lo, hi, "mamba/conv_x_w"),
+                 sv.part(params["conv_x_b"], 0, di, lo, hi, "mamba/conv_x_b")),
+                (nx, nx + gn, params["conv_B_w"], params["conv_B_b"]),
+                (nx + gn, nx + 2 * gn, params["conv_C_w"], params["conv_C_b"]))
         ], dim=-1)
+        conv_out = F.silu(conv_out)[:, None]
+        g_sl = slice(hs.g_lo * n, hs.g_hi * n)
+        xs = conv_out[..., :nx].reshape(bsz, 1, hs.h_hi - hs.h_lo, p)
+        b_ = conv_out[..., nx: nx + gn][..., g_sl].reshape(bsz, 1, -1, n)
+        c_ = conv_out[..., nx + gn:][..., g_sl].reshape(bsz, 1, -1, n)
+        new_rows = _whole_xbc(cfg, xbc, sv)
+        window = torch.cat([cache.conv, new_rows], dim=1)
     else:
-        z, xbc, dt_raw = _split_proj(cfg, linear(x, params["in_proj"]))
+        width = 2 * cfg.d_inner + 2 * cfg.ssm_groups * n + cfg.ssm_heads
+        cd = cfg.conv_dim
+        z, xbc, dt_raw = _split_proj(cfg, linear(x, sv.part(params["in_proj"], 1, width, 0,
+                                                             width, "mamba/in_proj")))
         window = torch.cat([cache.conv, xbc], dim=1)  # [B, d_conv, C]
-        conv_out = torch.einsum("bkc,kc->bc", window, params["conv_w"]) + params["conv_b"]
-    conv_out = F.silu(conv_out)[:, None]          # [B, 1, C]
-    xs, b_, c_ = _split_xbc(cfg, conv_out)
-    dt = F.softplus(dt_raw.float() + params["dt_bias"][None, None])
-    a = -torch.exp(params["A_log"])
-    da = torch.exp(dt[:, 0] * a[None])            # [B, H]
-    rep = cfg.ssm_heads // cfg.ssm_groups
-    bh = b_[:, 0].repeat_interleave(rep, dim=1)   # [B, H, N]
+        conv_out = torch.einsum("bkc,kc->bc", window,
+                                sv.part(params["conv_w"], 1, cd, 0, cd, "mamba/conv_w")) \
+            + sv.part(params["conv_b"], 0, cd, 0, cd, "mamba/conv_b")
+        conv_out = F.silu(conv_out)[:, None]          # [B, 1, C]
+        xs, b_, c_ = _split_xbc(cfg, conv_out)
+        z, xs, b_, c_, dt_raw = _own_heads(cfg, hs, z, xs, b_, c_, dt_raw)
+    sl = slice(hs.h_lo, hs.h_hi)
+    dt = F.softplus(dt_raw.float() + params["dt_bias"][sl][None, None])
+    a = -torch.exp(params["A_log"][sl])
+    da = torch.exp(dt[:, 0] * a[None])            # [B, h]
+    rep = hs.rep
+    bh = b_[:, 0].repeat_interleave(rep, dim=1)   # [B, h, N]
     chh = c_[:, 0].repeat_interleave(rep, dim=1)
     contrib = (dt[:, 0][..., None, None] * xs[:, 0][..., None]) * bh[:, :, None, :]
-    state = cache.state
+    state = cache.state[:, sl]
     state.mul_(da[..., None, None]).add_(contrib.to(state.dtype))
     y = torch.einsum("bhpn,bhn->bhp", state, chh.to(state.dtype))
-    y = y.to(xs.dtype) + xs[:, 0] * params["D"][None, :, None].to(xs.dtype)
-    y = y.reshape(bsz, 1, cfg.d_inner)
-    y = rms_norm(y * F.silu(z), params["norm"])
-    out = linear(y, params["out_proj"])
+    if state.shape[1] < cfg.ssm_heads:
+        cache.state.copy_(sv.cat(state.contiguous(), 1, "cache"))
+    y = y.to(xs.dtype) + xs[:, 0] * params["D"][sl][None, :, None].to(xs.dtype)
+    y = y.reshape(bsz, 1, -1)
+    y = _gated_norm(cfg, y, z, params["norm"], sv, hs)
+    out = row_linear(y, params["out_proj"], sv, cfg.d_inner, hs.h_lo * p)
     cache.conv.copy_(window[:, 1:])
     return out, cache
 

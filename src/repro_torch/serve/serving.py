@@ -7,6 +7,13 @@ per-node service cost (prefill ms, decode ms, tokens/s).  With
 ``cfg.use_flash`` / ``cfg.use_ssd_kernel`` the prefill runs the flash
 attention and SSD intra-chunk kernels.
 
+With ``shardings=`` (a `repro_torch.sharding.ServingShardings`) a
+ServeLoop serves one rank's part of a sharded model: its parameter pieces,
+its rows of each drawn batch (the batch's placement over (node, fsdp)), and
+the sharded `prefill` / `decode_step`, whose logits are whole over the
+vocabulary on every rank of a `model` group, so that each rank's argmax
+gives the same tokens.
+
 Tokens accumulate on the device and move to the host once, after the last
 step: a per-step host copy would force a device sync per token and inflate
 ms/token.  Timing synchronises the card (`torch.cuda.synchronize`) where
@@ -22,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch import sharding as shd
 from repro_torch.models import decode_step, prefill
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -67,7 +75,8 @@ def decode_greedy(
 ) -> torch.Tensor:
     """Greedy-decode ``gen - 1`` steps after the prefill token.
 
-    ``dc(params, tok, pos, caches) -> (logits, caches)`` is the decode step;
+    ``dc(params, tok, pos, caches) -> (logits, caches)`` is the decode step
+    (sharded or not: it carries its shardings, and its logits are whole);
     ``first_tok`` is the argmax of the prefill logits.  Returns the [B, gen]
     token matrix on the device: the only host transfer is the caller's.
     """
@@ -89,7 +98,7 @@ class ServeLoop:
     """
 
     def __init__(self, cfg, prompt_len: int = 16, gen: int = 8, batch: int = 2,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, shardings=None):
         if gen < 2:
             raise ValueError("gen must be >= 2 (prefill token + decode)")
         self.cfg = cfg
@@ -101,13 +110,14 @@ class ServeLoop:
         self.offset = cfg.n_patches if cfg.arch_type == "vlm" else 0
         self.capacity = self.prompt_len + self.gen + self.offset
         self.device = resolve_device(device)
+        self.shardings = shardings
         self._rng = np.random.default_rng(seed)
 
     def _pf(self, params, batch):
-        return prefill(params, self.cfg, batch, self.capacity)
+        return prefill(params, self.cfg, batch, self.capacity, shardings=self.shardings)
 
     def _dc(self, params, tok, pos, caches):
-        return decode_step(params, self.cfg, tok, pos, caches)
+        return decode_step(params, self.cfg, tok, pos, caches, shardings=self.shardings)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -120,10 +130,16 @@ class ServeLoop:
             batch["patch_embeds"] = torch.zeros(
                 (self.batch, self.cfg.n_patches, self.cfg.vision_dim),
                 dtype=getattr(torch, self.cfg.dtype), device=self.device)
+        if self.shardings is not None:  # this rank's rows
+            mesh = self.shardings.mesh
+            layout = shd.mesh_layout(mesh)
+            batch = shd.shard_tree(batch, shd.batch_shardings(batch, layout, node_stacked=False),
+                                   layout, shd.mesh_coords(mesh))
         return batch
 
     def serve_node(self, params_node) -> Dict[str, object]:
-        """One decode batch against a single node's parameters: prefill and
+        """One decode batch against a single node's parameters (this rank's
+        pieces under ``shardings``): prefill and
         decode wall-clock, decode tokens/s (batch x decode steps / wall), the
         [batch, gen] tokens (numpy) and whether every prefill and decode
         logit was finite (kept on the device, read with the tokens)."""

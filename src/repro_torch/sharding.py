@@ -46,6 +46,30 @@ From placements to local pieces (the sharded PaME step, `core.pame`):
   * `local_view(None, tree)` is the unsharded step's view: one rank
     holding every row whole, the collectives on it (``mesh`` None) the
     identity.  The exchanges and the step take one body for both.
+
+Sharded serving (`models.prefill` / `decode_step`, ``shardings=``):
+
+  * `serving_shardings` binds the mesh to the parameters' placements
+    (`params_shardings(..., node_stacked=False)`), the batch's
+    (`batch_shardings(..., node_stacked=False)`: rows over (node, fsdp)
+    jointly where they divide) and the caches' (`cache_shardings(...,
+    serving=True)`: rows only, whole over `model` on every rank);
+  * `serve_view` gives the forward a `Serve` view: each layer's leaves are
+    gathered over `fsdp` just before the layer runs (``use="weights"``)
+    and dropped after it; over `model` the layers run tensor-parallel on
+    the heads, columns and experts each rank owns, and a leaf whose piece
+    does not line up with them (a column block cut inside a head, the fused
+    Mamba projection) is gathered over `model` and that piece computed
+    replicated.  `gathered_over_model` lists those leaves;
+  * the serving uses: "weights" (the gathers over fsdp and the fallback
+    gathers over model), "activations" (a row-parallel product's partial
+    sums, the gated norm's sum of squares), "embed" (the vocab-parallel
+    lookup), "logits" (the vocab slices gathered), "cache" (each rank's
+    new K/V, SSM state and conv rows gathered into its whole cache) and
+    "routing" (a MoE layer's per-expert counts gathered over the batch's
+    rows, `Serve.rows_before`).
+    `serve_view(None)` is the unsharded view: one rank, every collective
+    the identity, every leaf whole.
 """
 from __future__ import annotations
 
@@ -83,6 +107,11 @@ __all__ = [
     "all_reduce",
     "collective_counts",
     "reset_collective_counts",
+    "ServingShardings",
+    "serving_shardings",
+    "Serve",
+    "serve_view",
+    "gathered_over_model",
 ]
 
 Layout = Mapping[str, int]
@@ -233,14 +262,21 @@ def batch_shardings(batch_shapes, layout: Layout, node_stacked: bool):
     return _map_with_path(one, batch_shapes)
 
 
-def cache_shardings(cache_shapes, layout: Layout):
-    """KV / MLA / SSM cache trees: batch over (node, fsdp); heads over model."""
+def cache_shardings(cache_shapes, layout: Layout, serving: bool = False):
+    """KV / MLA / SSM cache trees: batch over (node, fsdp); heads over model.
+
+    A named-tuple field's path ends in ``.name``, so the ``positions`` and
+    head rules below never fire, as in JAX: every leaf, a ring's
+    ``positions`` [L, C] included, is placed over its dim 1 only, which
+    for ``positions`` cuts C.  With `serving` (a sharded serving step's
+    caches), ``positions`` stay whole: every rank's ring needs them all
+    (C · 4 bytes a layer)."""
 
     def one(path, leaf):
         shape = tuple(leaf.shape)
         axes: list = [None] * len(shape)
         name = path.rsplit("/", 1)[-1]
-        if name == "positions":
+        if name == "positions" or (serving and name == ".positions"):
             return tuple(axes)
         # the batch dim follows the layer-stack axis: caches are [L, B, ...]
         bpos = 1 if len(shape) >= 2 else 0
@@ -480,10 +516,21 @@ def owns(spec: Placement, coord: Mapping[str, int]) -> bool:
 # collectives (counted)
 # ---------------------------------------------------------------------------
 _COUNTS: Dict[str, Dict[str, object]] = {}
+# the leaves a serving step gathered over `model` (their paths, in order)
+_GATHERED: Dict[str, None] = {}
 
 
 def reset_collective_counts() -> None:
+    """Set the counts, and the list of leaves gathered over `model`, to 0."""
     _COUNTS.clear()
+    _GATHERED.clear()
+
+
+def gathered_over_model() -> list:
+    """The paths of the leaves the serving steps since the last reset
+    gathered over `model` (their pieces do not line up with the heads,
+    columns or experts a rank computes)."""
+    return list(_GATHERED)
 
 
 def collective_counts() -> Dict[str, Dict[str, object]]:
@@ -566,3 +613,149 @@ def gather_tree(tree, shardings: MeshShardings, axes: Optional[Sequence[str]] = 
     return tree_unflatten(treedef, [
         gather_dims(x, spec, shardings.mesh, axes, use=use) if isinstance(x, torch.Tensor) else x
         for x, spec in zip(leaves, specs)])
+
+
+# ---------------------------------------------------------------------------
+# sharded serving
+# ---------------------------------------------------------------------------
+class ServingShardings(NamedTuple):
+    """A sharded serving step's placements bound to a (node, fsdp, model)
+    `DeviceMesh`: the parameters', the batch's and the caches' trees."""
+
+    mesh: object
+    params: object
+    batch: object = None
+    caches: object = None
+
+
+def serving_shardings(mesh, params, batch=None, caches=None) -> ServingShardings:
+    """The placements of a serving step over `mesh` from the whole trees'
+    shapes (tensors or meta stand-ins): parameters unstacked
+    (``node_stacked=False``), the batch's rows over (node, fsdp), the
+    caches' rows likewise (`cache_shardings(..., serving=True)`)."""
+    layout = mesh_layout(mesh)
+    return ServingShardings(
+        mesh, params_shardings(params, layout, node_stacked=False),
+        None if batch is None else batch_shardings(batch, layout, node_stacked=False),
+        None if caches is None else cache_shardings(caches, layout, serving=True))
+
+
+class Serve(NamedTuple):
+    """A rank's view of a serving step: the mesh (None unsharded), its
+    layout, this rank's coordinate, the parameters' placement tree (None
+    unsharded), the axes the batch's rows are split over (None where the
+    batch's placement was not given and node · fsdp > 1) and the path of
+    the block being run (for `gathered_over_model`)."""
+
+    mesh: object
+    layout: Dict[str, int]
+    coord: Dict[str, int]
+    specs: object = None
+    rows: Optional[Tuple[str, ...]] = ()
+    path: str = ""
+
+    @property
+    def sharded(self) -> bool:
+        return self.mesh is not None
+
+    @property
+    def t(self) -> int:
+        """The `model` axis' size."""
+        return self.layout["model"]
+
+    @property
+    def r(self) -> int:
+        """This rank's coordinate on `model`."""
+        return self.coord["model"]
+
+    def at(self, path: str) -> "Serve":
+        """The view inside the block at `path` (a path of the parameter tree)."""
+        return self._replace(path=path)
+
+    def heads(self, n: int) -> Tuple[int, int]:
+        """The [lo, hi) of n heads (or experts) this rank computes: its
+        n / t when t divides n, else all n (computed replicated)."""
+        if n % self.t:
+            return 0, n
+        return self.r * n // self.t, (self.r + 1) * n // self.t
+
+    def span(self, w: torch.Tensor, dim: int, whole: int) -> Tuple[int, int]:
+        """The [lo, hi) of the whole leaf's dim `dim` (of size `whole`)
+        that this rank's piece `w` holds: all of it, or its 1/t over
+        `model`."""
+        n = w.shape[dim]
+        return (0, whole) if n == whole else (self.r * n, (self.r + 1) * n)
+
+    def part(self, w: torch.Tensor, dim: int, whole: int, lo: int, hi: int,
+             name: str) -> torch.Tensor:
+        """[lo, hi) of the whole leaf `name` along `dim`, from this rank's
+        piece `w` (a view where the piece holds it; otherwise the leaf is
+        gathered over `model`, counted under "weights" and listed in
+        `gathered_over_model`)."""
+        plo, phi = self.span(w, dim, whole)
+        if plo <= lo and hi <= phi:
+            return w if (lo, hi) == (plo, phi) else w.narrow(dim, lo - plo, hi - lo)
+        _GATHERED[f"{self.path}/{name}" if self.path else name] = None
+        return all_gather(w, self.mesh, "model", dim, use="weights").narrow(dim, lo, hi - lo)
+
+    def psum(self, x: torch.Tensor, use: str = "activations") -> torch.Tensor:
+        """`x` summed over `model` (in place, in its own type)."""
+        return all_reduce(x, self.mesh, ("model",), use=use) if self.t > 1 else x
+
+    def cat(self, x: torch.Tensor, dim: int, use: str) -> torch.Tensor:
+        """The ranks' pieces of `x` joined along `dim` over `model`."""
+        return all_gather(x, self.mesh, "model", dim, use=use) if self.t > 1 else x
+
+    def weights(self, tree, specs, skip: int = 0):
+        """`tree` (this rank's pieces) gathered whole over `fsdp` by the
+        placements `specs`, each placement's first `skip` entries dropped
+        (a layer of a stacked tree): what one layer uses, gathered just
+        before it runs.  Unsharded, or with one rank on `fsdp`, `tree`
+        itself."""
+        if not self.sharded or specs is None or self.layout["fsdp"] == 1:
+            return tree
+        from repro_torch.tree import tree_unflatten
+
+        leaves, pl, treedef = _leaf_pairs(tree, specs)
+        return tree_unflatten(treedef, [
+            gather_dims(x, spec[skip:], self.mesh, ("fsdp",), use="weights")
+            if isinstance(x, torch.Tensor) and "fsdp" in
+            {n for e in spec[skip:] for n in spec_axes(e)} else x
+            for x, spec in zip(leaves, pl)])
+
+    def rows_before(self, counts: torch.Tensor) -> Tuple[torch.Tensor, int]:
+        """(`counts` [n], a count over this rank's rows of the batch,
+        summed over the ranks that hold the rows before them; the number of
+        pieces the rows are split into).  The counts are gathered over the
+        rows' axes (``use="routing"``); with the rows whole, zeros and 1."""
+        if self.rows is None:
+            raise ValueError("this step needs the batch's placement: "
+                             "serving_shardings(mesh, params, batch)")
+        if not self.rows:
+            return torch.zeros_like(counts), 1
+        every = gather_dims(counts[None], (self.rows, None), self.mesh, self.rows,
+                            use="routing")
+        return every[:_index(self.rows, self.layout, self.coord)].sum(0), every.shape[0]
+
+    def sub(self, *keys):
+        """The placements under `keys` of the parameter tree (None unsharded)."""
+        specs = self.specs
+        if specs is None:
+            return None
+        for k in keys:
+            specs = specs[k]
+        return specs
+
+
+def serve_view(shardings: Optional[ServingShardings]) -> Serve:
+    """The `Serve` view of `shardings`; with None, the unsharded view (one
+    rank, every collective the identity)."""
+    if shardings is None:
+        return Serve(None, dict.fromkeys(AXES, 1), dict.fromkeys(AXES, 0))
+    layout = mesh_layout(shardings.mesh)
+    if shardings.batch is not None:  # every leaf's rows lie alike
+        spec = shardings.batch
+        rows = spec_axes((next(iter(spec.values())) if isinstance(spec, dict) else spec)[0])
+    else:
+        rows = () if layout["node"] * layout["fsdp"] == 1 else None
+    return Serve(shardings.mesh, layout, mesh_coords(shardings.mesh), shardings.params, rows)

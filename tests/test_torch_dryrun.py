@@ -117,11 +117,13 @@ def test_record_roundtrips_through_the_json_file(tmp_path, capsys):
                                                       "devices": 8}
     assert rec["per_device_bytes"]["total"] == sum(
         v for k, v in rec["per_device_bytes"].items() if k != "total")
-    # the memory record and the fit on its peak; a prefill has no collectives
+    # the memory record and the fit on its peak; the sharded prefill over 8
+    # one-rank model groups moves no byte
     assert rec["fits_one_card"] == (rec["memory"]["peak_bytes"] <= 8e10)
     assert rec["memory"]["peak_bytes"] >= rec["resident_bytes"] - rec["cache_bytes"]
     assert rec["mem_trace_s"] > 0 and rec["memory"]["code_bytes"] is None
-    assert rec["collective_bytes"] is None and "sharded serving" in rec["collective_note"]
+    assert rec["collective_bytes"] == {"all_gather": 0, "all_reduce": 0}
+    assert rec["collective_note"] == dryrun.SERVING_NOTE
     capsys.readouterr()
     assert dryrun.main(argv) == json.loads(out.read_text())
     assert f"skip cached {key}" in capsys.readouterr().out
@@ -271,3 +273,85 @@ def test_memory_trace_adds_the_cuda_temporaries():
         peaks[kind] = with_temps - without
     assert peaks["train"] == 8 // M * base.n_heads * 512 * 512 * 4
     assert peaks["prefill"] == 0
+
+
+def _serving_bytes(cfg, layout, kind, batch, seq):
+    """The counted bytes a device of a dense GQA arch's sharded prefill or
+    decode (S = 1) over `layout`, by kind and use, in the parameters' type
+    (e bytes an element), for B rows a rank and L layers, where the heads,
+    KV heads, hidden columns and vocab all divide by t = layout["model"]:
+    all-reduce 2 (2L + 1) B S d e (wo, w_down and the embedding); cache
+    all-gather 2L B S KV hd e (K and V), logits B V 4; plus the fsdp
+    weight gathers, each leaf once a use (the tied embedding twice: the
+    lookup and the logits) at its bytes over t where `model` splits it."""
+    from repro_torch import sharding as shd
+    from repro_torch.tree import tree_leaves
+
+    t, f = layout["model"], layout["fsdp"]
+    e = 4 if cfg.dtype == "float32" else 2
+    rows = batch // (layout["node"] * f) if batch % (layout["node"] * f) == 0 else batch
+    s = seq if kind == "prefill" else 1
+    lay = cfg.n_layers
+    params = dryrun.abstract_params(cfg)
+    specs = shd.params_shardings(params, layout, node_stacked=False)
+    weights = 0
+    for leaf, spec in zip(tree_leaves(params), shd.leaf_specs(params, specs)):
+        names = {n for entry in spec for n in shd.spec_axes(entry)}
+        if "fsdp" in names:
+            uses = 2 if spec == specs["embed"] and cfg.tie_embeddings else 1
+            weights += uses * leaf.numel() * e // (t if "model" in names else 1)
+    if t == 1:
+        return {"all_gather": {"weights": weights} if weights else {}, "all_reduce": {}}
+    return {"all_gather": dict({"cache": 2 * lay * rows * s * cfg.n_kv_heads * cfg.head_dim * e,
+                                "logits": rows * cfg.vocab * 4},
+                               **({"weights": weights} if weights else {})),
+            "all_reduce": {"activations": 2 * 2 * lay * rows * s * cfg.d_model * e,
+                           "embed": 2 * rows * s * cfg.d_model * e}}
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("model_axis", [4, 1])
+def test_serving_record_collectives(kind, model_axis, tmp_path):
+    """The CLI's smoke prefill and decode records at --devices 8 and
+    --model-axis 4 (2 x 1 x 4) and 1 (8 x 1 x 1): collective bytes by kind
+    and by use as `_serving_bytes` counts them, the leaves gathered over
+    `model` (none: stablelm-smoke's pieces line up), and one rank's peak
+    below the one-card peak where `model` splits the step."""
+    shape = {"prefill": "prefill_32k", "decode": "decode_32k"}[kind]
+    out = tmp_path / "dry.json"
+    (rec,) = dryrun.main(["--arch", "stablelm-1.6b", "--size", "smoke", "--shape", shape,
+                          "--batch", "2", "--device-bytes", "8e10", "--devices", "8",
+                          "--model-axis", str(model_axis), "--out", str(out)]).values()
+    layout = {k: rec["layout"][k] for k in ("node", "fsdp", "model")}
+    assert layout["model"] == model_axis and layout["node"] * layout["fsdp"] * model_axis == 8
+    cfg = get_config("stablelm-1.6b", "smoke")
+    want = _serving_bytes(cfg, layout, kind, 2, INPUT_SHAPES[shape].seq_len)
+    assert rec["collective_bytes_by_use"] == want
+    assert rec["collective_bytes"] == {k: sum(v.values()) for k, v in want.items()}
+    assert rec["collective_bytes_total"] == sum(rec["collective_bytes"].values())
+    assert rec["gathered_over_model"] == []
+    dev, one = rec["per_device_memory"]["peak_bytes"], rec["memory"]["peak_bytes"]
+    if model_axis > 1:
+        assert 0 < dev < one
+    else:
+        assert dev == one
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_serving_collectives_gather_over_fsdp_and_model(kind):
+    """The sharded serving step at (1, 2, 4), 4 rows: stablelm-smoke's
+    bytes with the per-layer gathers over fsdp (`_serving_bytes`); and
+    qwen3-smoke (5 heads on 1 KV head) gathers its wq, wk and wv over
+    `model`, whose 4 pieces are cut inside a head."""
+    from repro_torch.configs.shapes import InputShape
+
+    layout = {"node": 1, "fsdp": 2, "model": 4}
+    shape = InputShape("serve_small", 32, 4, kind)
+    cfg = get_config("stablelm-1.6b", "smoke")
+    got = dryrun.sharded_serving(cfg, shape, kind, layout, 4)
+    assert got["by_use"] == _serving_bytes(cfg, layout, kind, 4, 32)
+    assert got["gathered_over_model"] == []
+    assert got["per_device_memory"]["peak_bytes"] > 0
+    qwen = dryrun.sharded_serving(get_config("qwen3-14b", "smoke"), shape, kind, layout, 4)
+    assert qwen["gathered_over_model"] == [f"groups/0/0_attn/attn/{w}"
+                                           for w in ("wq", "wk", "wv")]
