@@ -209,9 +209,11 @@ non-zero without the final result line:
      path A's model at full width and depth on 4 nodes, node rows 0.01
      apart: the dense exchange (PME average, 10 launches a step, each with
      its receiver range in the sharded step), sparse (f32 gossip, 11),
-     compressed and compressed_q8 (no kernel), each sharded step
-     `torch.equal` to the unsharded one (state and loss_mean); seconds a
-     step, peaks and the collective wrapper's counts (one rank: 0 bytes);
+     compressed and compressed_q8 (no kernel), each sharded step (the
+     tensor-parallel route: `lm_grad_fn` takes a view) `torch.equal` to the
+     unsharded one (state and loss_mean), and for dense and sparse the
+     gather-whole route (a grad_fn that takes none) too; seconds a step,
+     peaks and the collective wrapper's counts (one rank: 0 bytes);
  19. path L (after path K, before path J): sharded serving
      (`prefill` / `decode_step` / `ServeLoop` with ``shardings=``,
      `sharding.serving_shardings`), a prefill of 8 x 2048-token prompts and
@@ -244,7 +246,28 @@ non-zero without the final result line:
      decode_32k and long_500k of every arch at the dry run's layout of 8
      devices with a model axis of 8 (`j5_t8_arch`: per-device memory and
      collective bytes);
- 20. the kernel table line, then the result line.
+ 20. path M (after path L, before path J): the tensor-parallel train step
+     on ranks sharing the card through gloo over CUDA tensors, path A's
+     model (stablelm-1.6b in bf16, full width and depth, 4 nodes, 4 x 128
+     tokens a node), one dense step (the PME average, receiver range r = m)
+     and one sparse (f32 gossip): M1 two ranks at (1, 1, 2), M2 four at
+     (1, 2, 2) (the fsdp gathers and their reduce-scatters).  The parent
+     first runs the unsharded bf16 step and an f32 step at the same weights
+     on the plain route; each rank draws the whole state in turn and keeps
+     its pieces, runs the gather-whole route (a grad_fn that takes no view:
+     the unsharded step's numbers), then the tensor-parallel route, each
+     node's gradient pieces held against the gather-whole route's as they
+     come.  Held, over bf16's own distance from f32 (by the largest
+     difference and by the relative L2 norm): every node's gradient, the
+     new state and loss_mean at most M_ERROR_RATIO (1.25); a dense step
+     with layer 0's MLP input taken into its rank's columns without its
+     entry op (the backward's sum over `model` left out) more than it;
+     each rank's peak below the gather-whole route's.  Recorded: seconds a
+     step of both routes, each rank's peak, the collective bytes by use
+     and the launches.  J5 holds each rank's peak within 10 % of the dry
+     run's of the same step (`m_dry`) and records rank 0's collective bytes
+     beside the dry run's;
+ 21. the kernel table line, then the result line.
 
 Exits non-zero with no result when no CUDA device is present, or when the
 port's sources are not beside this script.
@@ -504,6 +527,15 @@ def check_gossip(dev):
     row_i1 = case("path-i1-largest-leaf", nbrs, sel.float(), ~valid, xs, reps=5)
     del xs
     free()
+    # path M's launch: a rank's piece of path A's largest leaf over `model`
+    # (half its columns), the same walks over path A's table
+    mask = torch.rand((M, BIG_N // 2), generator=g, device=dev) < 0.2
+    payload = torch.randn((M, BIG_N // 2), generator=g, device=dev).to(torch.bfloat16) * mask
+    xs = [payload.float(), mask.float()]
+    del payload, mask
+    row_m = case("path-m-rank-piece", nbrs, sel.float(), ~valid, xs, reps=5)
+    del xs
+    free()
     # path D's largest leaf: one bf16 term over the baselines' sparse Mixer
     mx = make_mixer(topo, "sparse", device=dev)
     x = torch.randn((M, BIG_N), generator=g, device=dev).to(torch.bfloat16)
@@ -527,7 +559,7 @@ def check_gossip(dev):
     x = torch.randn((M, FC1_N), generator=g, device=dev)
     row_fc1 = case("path-f3-fc1", mx.pm.nbrs, mx.pm.w, mx.pm.pad, [x], reps=50)
     return {"f32": row, "bf16": row_bf16, "bf16_replicas": row_rep, "f32_fc1": row_fc1,
-            "f32_grown": row_grown, "f32_path_i": row_i1}
+            "f32_grown": row_grown, "f32_path_i": row_i1, "f32_path_m": row_m}
 
 
 def check_pme(dev):
@@ -616,9 +648,10 @@ def check_pme_range(dev):
     r0 + r - 1, what a rank of a sharded step computes for its nodes)
     against its plain version, at r = 1 (r0 = 1: a rank of node = 4) and
     r = 2 (r0 = 2: of node = 2) of m = 4, at path B's largest leaf in bf16
-    (row 1r) and at F3's fc1 in f32 (row 1rf), and at path K's own launch,
+    (row 1r) and at F3's fc1 in f32 (row 1rf), at path K's own launch,
     r = m = 4 (r0 = 0: its one rank) on path A's largest leaf in f32 (row
-    1rk); phase 2's tolerances.  The bound counts what the function needs:
+    1rk), and at path M's, r = m = 4 on a rank's half of that leaf's
+    columns in bf16 (row 1rm); phase 2's tolerances.  The bound counts what the function needs:
     m·n reads of W and of the masks (the receivers' own rows are among
     the senders' rows) and r·n writes; the kernel's second read of a
     receiver's own row for the fill is its overhead."""
@@ -633,7 +666,8 @@ def check_pme_range(dev):
     for name, n, dtype, p, reps, ranges in (
             ("1r", BIG_N, torch.bfloat16, 0.2, 5, halves),
             ("1rf", FC1_N, torch.float32, 0.3, 50, halves),
-            ("1rk", BIG_N, torch.float32, 0.2, 5, ((0, M),))):
+            ("1rk", BIG_N, torch.float32, 0.2, 5, ((0, M),)),
+            ("1rm", BIG_N // 2, torch.bfloat16, 0.2, 5, ((0, M),))):
         w = torch.randn((M, n), generator=g, device=dev).to(dtype)
         masks = pme.sample_coordinate_masks(g, M, n, round(p * n))
         a = ((torch.rand((M, M), generator=g, device=dev) < 0.6)
@@ -3741,9 +3775,11 @@ def path_k_rank(device_type="cuda", variant="full"):
     CPU), a (1, 1, 1) (node, fsdp, model) mesh (`make_logical_mesh`), path
     A's model (stablelm-1.6b at full width and depth, 4 nodes, 4 x 128
     tokens a node, node rows 0.01 apart); for each exchange one unsharded
-    `pame_step` and one sharded (`param_shardings=`), from the same state,
-    key and batch: the new state and loss_mean equal (`torch.equal`).
-    Prints one K_RESULT line."""
+    `pame_step` and one sharded (`param_shardings=`, the tensor-parallel
+    route: `lm_grad_fn` takes a view), and for the dense and sparse
+    exchanges one sharded with a grad_fn that takes none (the gather-whole
+    route), from the same state, key and batch: the new state and loss_mean
+    equal (`torch.equal`).  Prints one K_RESULT line."""
     import socket
 
     import torch
@@ -3772,6 +3808,7 @@ def path_k_rank(device_type="cuda", variant="full"):
     mesh = make_logical_mesh(device_type=device_type, layout=layout)
     coord = shd.mesh_coords(mesh)
     topo, params0, grad_fn, make_batch = _task(dev, variant=variant)
+    whole_fn = lambda p, b, k: grad_fn(p, b, k)  # noqa: E731 (takes no view)
     g = torch.Generator(device=dev).manual_seed(5)
     leaves, treedef = tree_flatten(params0)
     stacked = tree_unflatten(treedef, [
@@ -3785,45 +3822,58 @@ def path_k_rank(device_type="cuda", variant="full"):
             cfg = pame.PaMEConfig(**fields)
             ta = pame.make_topology_arrays(topo, cfg, seed=0, device=dev)
             state = pame.pame_init(1, stacked, M, cfg)
-            out = {}
-            for how in ("unsharded", "sharded"):
+            out, equal = {}, {}
+            routes = (("unsharded", grad_fn), ("sharded", grad_fn))
+            if name in ("dense", "sparse"):
+                routes += (("gather_whole", whole_fn),)
+            for how, fn in routes:
                 sharded = None
                 st, b = state, batch
-                if how == "sharded":
+                if how != "unsharded":
                     place = shd.state_shardings(state, layout)
                     sharded = shd.MeshShardings(mesh, place.params)
                     st = shd.shard_tree(state, place, layout, coord)
-                    b = {k: shd.cut(v, ("node",), layout, coord) for k, v in batch.items()}
+                    b = pame.shard_batch(batch, sharded, fn)
                 _reset_counts()
                 shd.reset_collective_counts()
                 free()
                 if card:
                     torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
-                new, metrics = pame.pame_step(st, b, grad_fn, ta, cfg, param_shardings=sharded)
+                new, metrics = pame.pame_step(st, b, fn, ta, cfg, param_shardings=sharded)
                 _sync(dev)
-                out[how] = {"state": new, "loss": metrics["loss_mean"],
-                            "s": time.perf_counter() - t0,
+                out[how] = {"loss": metrics["loss_mean"], "s": time.perf_counter() - t0,
                             "peak_bytes": torch.cuda.max_memory_allocated() if card else 0,
                             "launches": {"pme_average": pme_average_cuda.launches,
                                          "pme_average_range": pme_average_cuda.range_launches,
                                          "gossip_f32": gossip_gather.variant_launches["f32"],
                                          "gossip_bf16": gossip_gather.variant_launches["bf16"]},
                             "collectives": shd.collective_counts()}
-                del new, metrics, st, b
+                del metrics, st, b
+                if how == "unsharded":  # kept to hold each sharded route's state against
+                    ref = new
+                else:  # one route's new state beside the reference at a time
+                    equal[how] = all(torch.equal(x, y) for x, y in zip(
+                        tree_leaves(ref.params), tree_leaves(new.params))) \
+                        and torch.equal(ref.sigma, new.sigma) \
+                        and torch.equal(out["unsharded"]["loss"], out[how]["loss"])
+                    del new
             u, s = out["unsharded"], out["sharded"]
-            equal = all(torch.equal(x, y) for x, y in zip(
-                tree_leaves(u["state"].params), tree_leaves(s["state"].params))) \
-                and torch.equal(u["state"].sigma, s["state"].sigma) \
-                and torch.equal(u["loss"], s["loss"])
-            rows[name] = {"exchange": name, "bit_equal": bool(equal),
+            rows[name] = {"exchange": name, "bit_equal": bool(equal["sharded"]),
                           "loss": float(s["loss"]), "finite": bool(torch.isfinite(s["loss"])),
                           "s_step_sharded": s["s"], "s_step_unsharded": u["s"],
                           "peak_bytes_sharded": s["peak_bytes"],
                           "peak_bytes_unsharded": u["peak_bytes"],
                           "launches_sharded": s["launches"], "launches_unsharded": u["launches"],
                           "want_launches": want, "collectives": s["collectives"]}
-            del out, u, s, state
+            if "gather_whole" in out:
+                gw = out["gather_whole"]
+                rows[name].update(gather_whole_bit_equal=bool(equal["gather_whole"]),
+                                  s_step_gather_whole=gw["s"],
+                                  peak_bytes_gather_whole=gw["peak_bytes"],
+                                  launches_gather_whole=gw["launches"],
+                                  collectives_gather_whole=gw["collectives"])
+            del out, u, s, state, ref
             free()
     finally:
         dist.destroy_process_group()
@@ -3832,13 +3882,14 @@ def path_k_rank(device_type="cuda", variant="full"):
 
 def path_k(dev, variant="full"):
     """Path K on the card: `path_k_rank` in a process of its own.  Each
-    exchange's sharded step must equal the unsharded one bit for bit and
-    launch what it does: the PME average 10 times a step (dense, every
-    sharded launch with its receiver range r0 = 0, r = m), the f32 gossip
-    kernel 11 times (sparse), neither kernel for the compressed exchanges
-    (on the CPU, no kernel at all).  One card cannot show a collective
-    between ranks (NCCL takes one rank a device); the wrapper's counts of
-    this rank's calls are recorded."""
+    exchange's sharded step (tensor-parallel) must equal the unsharded one
+    bit for bit, and so must the dense and sparse exchanges' gather-whole
+    route; each launches what it does: the PME average 10 times a step
+    (dense, every sharded launch with its receiver range r0 = 0, r = m),
+    the f32 gossip kernel 11 times (sparse), neither kernel for the
+    compressed exchanges (on the CPU, no kernel at all).  One card cannot
+    show a collective between ranks (NCCL takes one rank a device); the
+    wrapper's counts of this rank's calls are recorded."""
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, "-c", K_SCRIPT, dev.type, variant],
                          capture_output=True, text=True, env=_env(), cwd=HERE, timeout=600)
@@ -3847,29 +3898,36 @@ def path_k(dev, variant="full"):
         print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
         fail(f"path K: the sharded step's process exited {res.returncode}")
     rows = json.loads(lines[0][len("K_RESULT "):])
+    sharded_routes = {name: ["sharded"] + (["gather_whole"] if name in ("dense", "sparse")
+                                           else []) for name, _, _ in K_EXCHANGES}
     for name, fields, want in K_EXCHANGES:
         if dev.type != "cuda":
             want = dict.fromkeys(want, 0)
         row = rows[name]
         emit(phase="path_k", arch="stablelm-1.6b", nodes=M, layout=[1, 1, 1], **row)
-        su, sh = row["launches_unsharded"], row["launches_sharded"]
-        ok_launches = (su["pme_average"] == sh["pme_average"] == want["pme_average"]
-                       and sh["pme_average_range"] == want["pme_average"]
-                       and su["pme_average_range"] == 0
-                       and su["gossip_f32"] == sh["gossip_f32"] == want["gossip_f32"]
-                       and su["gossip_bf16"] == sh["gossip_bf16"] == 0)
-        if not (row["bit_equal"] and row["finite"] and ok_launches):
-            fail(f"path K ({name}): the sharded step is not the unsharded step bit for bit, "
+        su = row["launches_unsharded"]
+        ok_launches = (su["pme_average"] == want["pme_average"] and su["pme_average_range"] == 0
+                       and su["gossip_f32"] == want["gossip_f32"] and su["gossip_bf16"] == 0)
+        for how in sharded_routes[name]:
+            sh = row[f"launches_{how}"]
+            ok_launches &= (sh["pme_average"] == sh["pme_average_range"] == want["pme_average"]
+                            and sh["gossip_f32"] == want["gossip_f32"] and sh["gossip_bf16"] == 0)
+        equal = row["bit_equal"] and row.get("gather_whole_bit_equal", True)
+        if not (equal and row["finite"] and ok_launches):
+            fail(f"path K ({name}): a sharded route is not the unsharded step bit for bit, "
                  f"or launched other kernels than {want}")
-        if max(row["peak_bytes_sharded"], row["peak_bytes_unsharded"]) >= PEAK_LIMIT:
+        if max(row["peak_bytes_sharded"], row["peak_bytes_unsharded"],
+               row.get("peak_bytes_gather_whole", 0)) >= PEAK_LIMIT:
             fail(f"path K ({name}): peak over {PEAK_LIMIT}")
     emit(phase="path_k_done", seconds=time.perf_counter() - t0)
-    return {"pme_average": sum(r["launches_sharded"]["pme_average"]
-                               + r["launches_unsharded"]["pme_average"] for r in rows.values()),
-            "pme_average_range": sum(r["launches_sharded"]["pme_average_range"]
-                                     for r in rows.values()),
-            "f32": sum(r["launches_sharded"]["gossip_f32"] + r["launches_unsharded"]["gossip_f32"]
-                       for r in rows.values())}
+    return {"pme_average": sum(r["launches_unsharded"]["pme_average"]
+                               + sum(r[f"launches_{how}"]["pme_average"]
+                                     for how in sharded_routes[n]) for n, r in rows.items()),
+            "pme_average_range": sum(r[f"launches_{how}"]["pme_average_range"]
+                                     for n, r in rows.items() for how in sharded_routes[n]),
+            "f32": sum(r["launches_unsharded"]["gossip_f32"]
+                       + sum(r[f"launches_{how}"]["gossip_f32"] for how in sharded_routes[n])
+                       for n, r in rows.items())}
 
 
 # ---------------------------------------------------------------------------
@@ -4360,6 +4418,523 @@ def path_l(dev, variant="full", ratio=L2_ERROR_RATIO):
 
 
 # ---------------------------------------------------------------------------
+# path M: the tensor-parallel train step on ranks sharing the card
+# ---------------------------------------------------------------------------
+# (name, (node, fsdp, model), depth (None: the full depth), exchanges,
+# whether the negative control runs).  Through gloo every collective is
+# staged through the host (chip run 3 of PR 24: M1's gather-whole step 17.6-
+# 19.7 s, its tensor-parallel step 7.9 s, the parent's references 29.5-34.1 s
+# an exchange at full depth), so that the script stays within the chip
+# tool's 1200 s, M1 runs the dense step at full depth, and M2 the dense step,
+# the negative control and the sparse step at M2_LAYERS layers
+M2_LAYERS = 4
+M_RUNS = (("M1", (1, 1, 2), None, ("dense",), False),
+          ("M2", (1, 2, 2), M2_LAYERS, ("dense", "sparse"), True))
+# the dense step (the PME average, receiver range r = m) and the sparse one
+# (f32 gossip); the PaMEConfig defaults otherwise (exact masks), as path K
+M_EXCHANGES = {"dense": {}, "sparse": {"mixing": "sparse"}}
+# the split step's gradients at most this many times as far from the
+# unsharded bf16 step's as those are from the f32 step's at the same weights,
+# by the largest difference and by the relative L2 norm, and its new state by
+# the relative L2 norm; the negative control (one layer's MLP input taken into
+# its rank's columns without `Serve.enter`) must read above it.  The new
+# state's largest difference is recorded, not held: a bf16 element that
+# rounds the other way in two bf16 steps moves by one ulp, twice the half ulp
+# by which rounding puts a bf16 state from an f32 one, so its ratio sits near
+# 2 wherever the gradients agree closely (1.98 on the CPU rehearsal at 8
+# smoke layers)
+M_ERROR_RATIO = L2_ERROR_RATIO
+M_NO_ENTRY = "groups/0/1_mlp"
+# loss_mean, one f32 scalar whose bf16 routes differ in steps of the bf16
+# logits' rounding (2^-13 near 12): chip run 2 of PR 24 read bf16's own
+# distance from f32 as 2 such steps and the split step's as 5, a ratio of one
+# sample (2.56).  It is held relative to itself instead, at most this share of
+# |loss_mean| (run 2: 5.1e-5; the CPU rehearsal 9.4e-5); the ratio is recorded
+M_LOSS_REL = 2e-4
+# elements at a time in path M's comparisons
+M_CHUNK = 1 << 24
+M_SCRIPT = "import sys, chip_smoke; chip_smoke.path_m_rank(*sys.argv[1:])"
+M_DRY_SCRIPT = "import sys, chip_smoke; chip_smoke.m_dry(sys.argv[1:])"
+
+
+def _m_task(dev, variant, layers):
+    """Path A's model (bf16; the smoke config cast to bf16 for the CPU
+    rehearsal), `layers` deep, its graph, grad_fn and batch, and the
+    node-stacked state from seed 0 with node rows 0.01 apart (path K's)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import make_lm_task
+    from repro_torch.tree import tree_flatten, tree_unflatten
+
+    cfg = get_config("stablelm-1.6b", variant).replace(dtype="bfloat16")
+    cfg = cfg.replace(n_layers=layers) if layers else cfg
+    topo, params0, grad_fn, make_batch = make_lm_task(cfg, M, 4, 128, 0, "erdos_renyi", dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    leaves, treedef = tree_flatten(params0)
+    stacked = tree_unflatten(treedef, [
+        (x.unsqueeze(0) + 0.01 * torch.randn((M,) + tuple(x.shape), generator=g, device=dev))
+        .to(x.dtype) for x in leaves])
+    return cfg, topo, stacked, grad_fn, make_batch(0)
+
+
+class _Dist:
+    """The largest |got - want| and the squared L2 norms of got - want and
+    of want, summed in f64 over M_CHUNK-element slices; `owned` False
+    leaves a piece out of the sums (another rank counts it)."""
+
+    def __init__(self):
+        self.max, self.d2, self.w2 = 0.0, 0.0, 0.0
+
+    def add(self, got, want, owned=True):
+        import torch
+
+        g, w = got.reshape(-1), want.reshape(-1)
+        for i in range(0, g.numel(), M_CHUNK):
+            wf = w[i:i + M_CHUNK].float()
+            d = g[i:i + M_CHUNK].float() - wf
+            self.max = max(self.max, d.abs().max().item())
+            if owned:
+                self.d2 += torch.sum(d * d, dtype=torch.float64).item()
+                self.w2 += torch.sum(wf * wf, dtype=torch.float64).item()
+            del d, wf
+
+    def reduce(self):
+        """The sums over every rank of the default group (its max over them)."""
+        import torch
+        import torch.distributed as dist
+
+        t = torch.tensor([self.d2, self.w2], dtype=torch.float64)
+        dist.all_reduce(t)
+        m = torch.tensor([self.max], dtype=torch.float64)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX)
+        self.d2, self.w2, self.max = float(t[0]), float(t[1]), float(m[0])
+        return self
+
+    def result(self):
+        return {"max_abs": self.max, "rel": math.sqrt(self.d2 / self.w2) if self.w2 else 0.0}
+
+
+@contextlib.contextmanager
+def _gossip_impl(impl):
+    """Inside: the exchange's contraction forced to `impl` (the variable
+    `core.mixing` reads at each call)."""
+    old = os.environ.get("REPRO_TORCH_GOSSIP_IMPL")
+    os.environ["REPRO_TORCH_GOSSIP_IMPL"] = impl
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_TORCH_GOSSIP_IMPL", None)
+        else:
+            os.environ["REPRO_TORCH_GOSSIP_IMPL"] = old
+
+
+@contextlib.contextmanager
+def _no_entry(path):
+    """Inside: the block at `path` takes its input into its rank's columns
+    without `Serve.enter`, the backward's sum over `model` left out (path
+    M's negative control)."""
+    from repro_torch import sharding as shd
+
+    enter = shd.Serve.enter
+    shd.Serve.enter = lambda self, x: x if self.path == path else enter(self, x)
+    try:
+        yield
+    finally:
+        shd.Serve.enter = enter
+
+
+def _m_refs(dev, variant, layers, exchanges):
+    """Path M's references, in the parent: for each of `exchanges` the
+    unsharded bf16 step and an f32 step at the same weights (its gradients
+    kept on the host; its exchange through the kernels in f32, as the plain
+    route's f32 buffers do not fit beside the f32 state at full width):
+    bf16's distance from f32 for each node's gradient, the new state and
+    loss_mean, and the bf16 step's loss_mean and per-leaf f64 sums (the
+    gather-whole route on the ranks must give them).  Returns them by
+    exchange, and the kernels' launches."""
+    import torch
+
+    threads = torch.get_num_threads()
+    if dev.type != "cuda":  # as the ranks: the CPU's embedding backward sums in no fixed order
+        torch.set_num_threads(1)
+    try:
+        return _m_refs_steps(dev, variant, layers, exchanges)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _m_refs_steps(dev, variant, layers, exchanges):
+    import torch
+    from repro_torch.core import pame, pme
+    from repro_torch.kernels.gossip.kernel import gossip_gather
+    from repro_torch.kernels.pme_average.kernel import pme_average_cuda
+    from repro_torch.launch.train import lm_grad_fn
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg, topo, stacked, grad_fn, batch = _m_task(dev, variant, layers)
+    grad32 = lm_grad_fn(cfg.replace(dtype="float32"))
+    # the leaves the dense exchange sends to the PME-average kernel
+    pme_leaves = sum(x.numel() >= pme._KERNEL_MIN_ELEMS for x in tree_leaves(stacked))
+    n_leaves = len(tree_leaves(stacked))
+    # the bf16 state waits on the host while the f32 step runs
+    host = tree_map(lambda x: x.cpu(), stacked)
+    del stacked
+    free()
+    refs = {}
+    _reset_counts()
+    for name in exchanges:
+        pcfg = pame.PaMEConfig(**M_EXCHANGES[name])
+        ta = pame.make_topology_arrays(topo, pcfg, seed=0, device=dev)
+        g32 = []
+
+        def rec32(p, b, k, view=None):
+            loss, g = grad32(p, b, k, view=view)
+            g32.append([x.cpu() for x in tree_leaves(g)])
+            return loss, g
+
+        t0 = time.perf_counter()
+        s32 = pame.pame_init(1, tree_map(lambda x: x.to(dev, torch.float32), host), M, pcfg)
+        new32, met32 = pame.pame_step(s32, batch, rec32, ta, pcfg)
+        del s32
+        free()
+        grad, seen = _Dist(), []
+
+        def cmp16(p, b, k, view=None):
+            loss, g = grad_fn(p, b, k, view=view)
+            for x, r in zip(tree_leaves(g), g32[len(seen)]):
+                grad.add(x, r.to(dev))
+            seen.append(True)
+            return loss, g
+
+        new16, met16 = pame.pame_step(
+            pame.pame_init(1, tree_map(lambda x: x.to(dev), host), M, pcfg), batch, cmp16, ta,
+            pcfg)
+        state = _Dist()
+        for x, r in zip(tree_leaves(new16.params), tree_leaves(new32.params)):
+            state.add(x, r)
+        refs[name] = {"grad": grad.result(), "state": state.result(),
+                      "loss_bf16": float(met16["loss_mean"]),
+                      "loss_f32": float(met32["loss_mean"]),
+                      "sums": [x.double().sum().item() for x in tree_leaves(new16.params)],
+                      "s": time.perf_counter() - t0,
+                      "launches": {"pme_average": pme_leaves if name == "dense" else 0,
+                                   "gossip_f32": n_leaves if name == "sparse" else 0}}
+        del new32, new16, met32, met16, g32
+        free()
+    return refs, {"pme_average": pme_average_cuda.launches,
+                  "pme_average_range": pme_average_cuda.range_launches,
+                  "f32": gossip_gather.variant_launches["f32"]}
+
+
+def path_m_rank(rank, world, layout, device_type="cuda", variant="full", port="0",
+                layers="0", exchanges="dense", negative="0"):
+    """Path M's process `rank` of `world` ranks sharing the card (gloo over
+    CUDA tensors; on the CPU gloo): a (node, fsdp, model) mesh of `layout`
+    ("1x2x2"), path A's model `layers` deep (0: full depth), each rank
+    drawing the whole state in turn and keeping its pieces.  For each of
+    `exchanges` ("dense,sparse"): the gather-whole route (a grad_fn that
+    takes no view; each node's gradient cut to this rank's piece and kept
+    on the host), then the tensor-parallel route (`lm_grad_fn`), each
+    node's gradient pieces held against the gather-whole route's as they
+    come; the new state and loss_mean likewise; with `negative` "1", for
+    the dense exchange a third step with one entry left out (`_no_entry`).
+    Prints one M_RESULT line: the distances summed over the ranks, each
+    route's seconds and peaks (the step's own: max_memory_allocated less
+    what was allocated before it, plus its state and batch; over the
+    whole step and from the first node's gradient on), the tensor-parallel
+    step's collective counts and launches, and the gather-whole route's
+    new-state f64 sums."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import sharding as shd
+    from repro_torch.core import pame
+    from repro_torch.kernels.gossip.kernel import gossip_gather
+    from repro_torch.kernels.pme_average.kernel import pme_average_cuda
+    from repro_torch.launch.mesh import make_logical_mesh
+    from repro_torch.tree import tree_leaves
+
+    rank, world, layers = int(rank), int(world), int(layers) or None
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device_type)
+    card = dev.type == "cuda"
+    if not card:
+        torch.set_num_threads(1)
+    _pg(device_type, rank, world, int(port))
+    sizes = dict(zip(("node", "fsdp", "model"), map(int, layout.split("x"))))
+    mesh = make_logical_mesh(device_type=device_type, layout=sizes)
+    coord = shd.mesh_coords(mesh)
+    t_init = time.perf_counter()
+    for turn in range(world):  # one whole draw on the card at a time
+        if turn == rank:
+            cfg, topo, stacked, grad_fn, batch = _m_task(dev, variant, layers)
+            place = shd.state_shardings(pame.pame_init(1, stacked, M, pame.PaMEConfig()), sizes)
+            sharded = shd.MeshShardings(mesh, place.params)
+            mine = shd.shard_tree(stacked, place.params, sizes, coord)
+            del stacked
+            free()
+        dist.barrier()
+    t_init = time.perf_counter() - t_init
+    whole_fn = lambda p, b, k: grad_fn(p, b, k)  # noqa: E731 (takes no view)
+    specs = [tuple(s[1:]) for s in shd.leaf_specs(mine, place.params)]
+    owned = [shd.owns(s, coord) for s in specs]
+    marks = {}
+
+    def mark():
+        """At a step's first gradient: its peak so far, and a fresh peak."""
+        if card and not marks:
+            marks["exchange"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+
+    def measured(fn, state, b, pcfg, ta):
+        free()
+        marks.clear()
+        before = torch.cuda.memory_allocated() if card else 0
+        if card:
+            torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        shd.reset_collective_counts()
+        t0 = time.perf_counter()
+        new, met = pame.pame_step(state, b, fn, ta, pcfg, param_shardings=sharded)
+        _sync(dev)
+        s = time.perf_counter() - t0
+        args = sum(x.numel() * x.element_size() for x in tree_leaves((state, b))
+                   if isinstance(x, torch.Tensor))
+        grads = torch.cuda.max_memory_allocated() if card else 0
+        return new, met, {
+            "s": s,
+            "peak_bytes": max(grads, marks.get("exchange", 0)) - before + args if card else None,
+            "gradient_peak_bytes": grads - before + args if card else None,
+            "collectives": shd.collective_counts(),
+            "launches": {"pme_average": pme_average_cuda.launches,
+                         "pme_average_range": pme_average_cuda.range_launches,
+                         "gossip_f32": gossip_gather.variant_launches["f32"],
+                         "gossip_bf16": gossip_gather.variant_launches["bf16"]}}
+
+    rows = {}
+    try:
+        for name in exchanges.split(","):
+            pcfg = pame.PaMEConfig(**M_EXCHANGES[name])
+            ta = pame.make_topology_arrays(topo, pcfg, seed=0, device=dev)
+            state = pame.pame_init(1, mine, M, pcfg)  # this rank's rows
+            recorded = []
+
+            def record(p, b, k):
+                mark()
+                loss, g = whole_fn(p, b, k)
+                recorded.append([shd.cut(x, s, sizes, coord).cpu()
+                                 for x, s in zip(tree_leaves(g), specs)])
+                return loss, g
+
+            gw_new, gw_met, gw = measured(record, state, pame.shard_batch(batch, sharded, record),
+                                          pcfg, ta)
+            row = {"gather_whole": gw, "gw_loss": float(gw_met["loss_mean"])}
+            # the gather-whole route's new state, each leaf's f64 sum over the ranks
+            sums = torch.tensor([x.double().sum().item() if own else 0.0
+                                 for x, own in zip(tree_leaves(gw_new.params), owned)],
+                                dtype=torch.float64)
+            dist.all_reduce(sums)
+            row["gw_sums"] = sums.tolist()
+            runs = (("tensor_parallel", None),) + (
+                (("no_entry", M_NO_ENTRY),) if name == "dense" and negative == "1" else ())
+            for how, planted in runs:
+                grad, seen = _Dist(), []
+
+                def compare(p, b, k, view=None):
+                    mark()
+                    loss, g = grad_fn(p, b, k, view=view)
+                    for x, r, own in zip(tree_leaves(g), recorded[len(seen)], owned):
+                        grad.add(x, r.to(dev), own)
+                    seen.append(True)
+                    return loss, g
+
+                scope = _no_entry(planted) if planted else contextlib.nullcontext()
+                with scope:
+                    new, met, info = measured(compare, state,
+                                              pame.shard_batch(batch, sharded, compare),
+                                              pcfg, ta)
+                st = _Dist()
+                for x, r, own in zip(tree_leaves(new.params), tree_leaves(gw_new.params),
+                                     owned):
+                    st.add(x, r, own)
+                info.update(grad=grad.reduce().result(), state=st.reduce().result(),
+                            loss=float(met["loss_mean"]),
+                            loss_abs=abs(float(met["loss_mean"]) - row["gw_loss"]),
+                            finite=bool(torch.isfinite(met["loss_mean"])))
+                row[how] = info
+                del new, met
+            rows[name] = row
+            del gw_new, recorded, state
+            free()
+    finally:
+        dist.destroy_process_group()
+    print("M_RESULT " + json.dumps({"rank": rank, "layout": sizes, "layers": cfg.n_layers,
+                                    "init_s": t_init, "rows": rows}), flush=True)
+
+
+def _m_children(dev, argvs, timeout):
+    """Path M's ranks, all at once; each one's M_RESULT."""
+    procs = [subprocess.Popen([sys.executable, "-c", M_SCRIPT, *argv], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=_env(), cwd=HERE)
+             for argv in argvs]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=timeout))
+    finally:  # no rank outlives the path
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    results = []
+    for proc, (out, err) in zip(procs, outs):
+        lines = [ln for ln in out.splitlines() if ln.startswith("M_RESULT ")]
+        if proc.returncode != 0 or not lines:
+            print(out[-4000:], err[-4000:], file=sys.stderr)
+            fail(f"path M: a rank exited {proc.returncode}")
+        results.append(json.loads(lines[0][len("M_RESULT "):]))
+    return results
+
+
+def path_m(dev, variant="full", ratio=M_ERROR_RATIO, runs=M_RUNS):
+    """Path M: the parent's references (`_m_refs`), then each of `runs` on
+    its ranks (`path_m_rank`, all sharing the card).  Held, for each
+    exchange, over the unsharded bf16 step's distance from the f32 step's:
+    every node's gradient (by the largest difference and by the relative
+    L2 norm) and the new state (by the relative L2 norm) of the
+    tensor-parallel route at most `ratio` from the gather-whole route's
+    (which must be the unsharded bf16 step:
+    its loss_mean equal and its new state's per-leaf f64 sums within 1e-9
+    relatively), its loss_mean within M_LOSS_REL of it, and the negative
+    control's gradient more than `ratio`; finite losses; on the card a
+    PME-average launch a step a rank for each leaf of at least
+    `pme._KERNEL_MIN_ELEMS` elements over the m nodes (dense, every one
+    with its receiver range: 10 at full depth) and an f32 gossip launch for
+    each leaf (sparse); and each rank's peak from
+    the first node's gradient on below the gather-whole route's.  Returns
+    the rows by run (each rank's peaks and seconds a step of both routes,
+    the collectives by use) and the launches."""
+    t0 = time.perf_counter()
+    refs = {}
+    launches = {"pme_average": 0, "pme_average_range": 0, "f32": 0}
+    rows = {}
+    for run, layout, layers, exchanges, negative in runs:
+        t1 = time.perf_counter()
+        refs, counted = _m_refs(dev, variant, layers, exchanges)
+        launches = {k: launches[k] + counted[k] for k in launches}
+        refs_s = time.perf_counter() - t1
+        world = math.prod(layout)
+        port = str(_free_port())
+        tag = "x".join(map(str, layout))
+        t1 = time.perf_counter()
+        ranks = _m_children(dev, [[str(r), str(world), tag, dev.type, variant, port,
+                                   str(layers or 0), ",".join(exchanges), str(int(negative))]
+                                  for r in range(world)], 900)
+        rows[run] = {"layout": layout, "layers": ranks[0]["layers"], "refs_s": refs_s,
+                     "seconds": time.perf_counter() - t1, "ranks": []}
+        for res in ranks:
+            for name in exchanges:
+                row, r = res["rows"][name], refs[name]
+                loss_ref = abs(r["loss_bf16"] - r["loss_f32"])
+                ratios = {}
+                for how in ("tensor_parallel", "no_entry"):
+                    if how not in row:
+                        continue
+                    got = row[how]
+                    ratios[how] = {
+                        "grad_max_abs": got["grad"]["max_abs"] / r["grad"]["max_abs"],
+                        "grad_rel": got["grad"]["rel"] / r["grad"]["rel"],
+                        "state_max_abs": got["state"]["max_abs"] / r["state"]["max_abs"],
+                        "state_rel": got["state"]["rel"] / r["state"]["rel"],
+                        "loss": got["loss_abs"] / loss_ref if loss_ref else None}
+                tp = row["tensor_parallel"]
+                sums_rel = max(abs(a - b) / max(abs(b), 1e-30)
+                               for a, b in zip(row["gw_sums"], r["sums"]))
+                emit(phase="path_m", run=run, layout=list(layout), rank=res["rank"],
+                     layers=res["layers"], exchange=name, ratio=ratio, ratios=ratios,
+                     bf16_vs_f32={"grad": r["grad"], "state": r["state"], "loss": loss_ref},
+                     loss_rel=tp["loss_abs"] / abs(row["gw_loss"]), loss_rel_bound=M_LOSS_REL,
+                     tensor_parallel=tp, gather_whole=row["gather_whole"],
+                     no_entry=row.get("no_entry"), gw_loss=row["gw_loss"],
+                     ref_loss_bf16=r["loss_bf16"], gw_sums_max_rel=sums_rel, ref_s=r["s"],
+                     init_s=res["init_s"])
+                want = dict(r["launches"], pme_average_range=r["launches"]["pme_average"])
+                if dev.type != "cuda":
+                    want = dict.fromkeys(want, 0)
+                got_l = {k: tp["launches"][k] for k in want}
+                held = ratios["tensor_parallel"]
+                tp_held = (max(held["grad_max_abs"], held["grad_rel"], held["state_rel"]) <= ratio
+                           and tp["loss_abs"] <= M_LOSS_REL * abs(row["gw_loss"]))
+                neg = ratios.get("no_entry")
+                neg_held = neg is None or min(neg["grad_max_abs"], neg["grad_rel"]) > ratio
+                if not (tp_held and neg_held and tp["finite"] and got_l == want
+                        and row["gw_loss"] == r["loss_bf16"] and sums_rel <= 1e-9):
+                    fail(f"path M ({run}, rank {res['rank']}, {name}): over bf16's own distance "
+                         f"from f32 the tensor-parallel step is {ratios} (at most {ratio}; the "
+                         f"negative control more), its loss_mean {tp['loss_abs']} off (at most "
+                         f"{M_LOSS_REL} of it), launches {got_l} against {want}, the "
+                         f"gather-whole route's loss {row['gw_loss']} against the unsharded "
+                         f"{r['loss_bf16']}, its sums {sums_rel} apart")
+                for how in ("tensor_parallel", "gather_whole", "no_entry"):
+                    if how in row:
+                        n = row[how]["launches"]
+                        launches["pme_average"] += n["pme_average"]
+                        launches["pme_average_range"] += n["pme_average_range"]
+                        launches["f32"] += n["gossip_f32"]
+                if name == "dense":
+                    gw = row["gather_whole"]
+                    rows[run]["ranks"].append({
+                        "rank": res["rank"], "peak_bytes": tp["peak_bytes"],
+                        "gradient_peak_bytes": tp["gradient_peak_bytes"],
+                        "gather_whole_peak_bytes": gw["peak_bytes"],
+                        "gather_whole_gradient_peak_bytes": gw["gradient_peak_bytes"],
+                        "s_step": tp["s"], "gather_whole_s_step": gw["s"],
+                        "collectives": tp["collectives"]})
+        for r in rows[run]["ranks"]:
+            if dev.type == "cuda" and \
+                    not r["gradient_peak_bytes"] < r["gather_whole_gradient_peak_bytes"]:
+                fail(f"path M ({run}): rank {r['rank']}'s peak from the first gradient on, "
+                     f"{r['gradient_peak_bytes']}, is not below the gather-whole route's "
+                     f"{r['gather_whole_gradient_peak_bytes']}")
+        emit(phase=f"path_m_{run.lower()}_done", seconds=rows[run]["seconds"], refs_s=refs_s)
+    emit(phase="path_m_done", seconds=time.perf_counter() - t0)
+    return rows, launches
+
+
+def m_dry(argv):
+    """One of J5's path-M records, written as the dry run's ``--out`` file:
+    `dryrun.sharded_collectives` of path M's dense step (path A's model in
+    bf16, 4 nodes, 4 x 128 tokens a node, exact masks) at ``--layout``
+    ("1x2x2"), with the exchange's kernels on their route (the dry run's
+    tensors are the CPU's, where the contraction would take its plain
+    version): rank 0's collective bytes by use and its peak."""
+    import argparse
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core.pame import PaMEConfig
+    from repro_torch.launch import dryrun
+
+    ap = argparse.ArgumentParser()
+    for flag in ("--layout", "--out"):
+        ap.add_argument(flag, required=True)
+    ap.add_argument("--device-bytes", type=float, required=True)
+    ap.add_argument("--size", default="full")
+    ap.add_argument("--layers", type=int, default=0)
+    args = ap.parse_args(argv)
+    cfg = get_config("stablelm-1.6b", args.size).replace(dtype="bfloat16")
+    cfg = cfg.replace(n_layers=args.layers) if args.layers else cfg
+    layout = dict(zip(("node", "fsdp", "model"), map(int, args.layout.split("x"))))
+    t0 = time.perf_counter()
+    with _gossip_impl("kernel"):
+        rec = dryrun.sharded_collectives(cfg, InputShape("M", 128, M * 4, "train"), layout, M * 4,
+                                         m=M, pame_cfg=PaMEConfig())
+    with open(args.out, "w") as f:
+        json.dump({"m": dict(rec, layout=layout, layers=cfg.n_layers,
+                             trace_s=time.perf_counter() - t0)}, f)
+
+
+# ---------------------------------------------------------------------------
 # path J: the four input shapes (configs/shapes.py) at full width and depth
 # ---------------------------------------------------------------------------
 J_LONG, J_WINDOW = 524_288, 4096  # long_500k's sequence and window (configs/shapes.py)
@@ -4824,9 +5399,43 @@ def path_j_parity(dev, seq=PARITY_J_SEQ, layers=PARITY_LAYERS):
     return rows
 
 
-def path_j(dev):
+def m_dry_combos(runs=M_RUNS):
+    """J5's path-M records, one a run of path M: (name, arguments)."""
+    return tuple((f"M-{run}", ["-c", M_DRY_SCRIPT, "--layout", "x".join(map(str, layout)),
+                               "--layers", str(layers or 0)])
+                 for run, layout, layers, _, _ in runs)
+
+
+def hold_m_dry(dev, m_rows, dry):
+    """J5 on path M: each rank's peak of the tensor-parallel dense step
+    within J5_PEAK_TOL of the dry run's per-device peak of the same step
+    (on the card), and rank 0's collective bytes by use beside the dry
+    run's.  Returns the misses."""
+    misses = []
+    for run, row in m_rows.items():
+        rec = dry[f"M-{run}"]
+        dry_peak = rec["per_device_memory"]["peak_bytes"]
+        ranks = row["ranks"]
+        got = {kind: {u: int(round(b)) for u, b in c["by_use"].items()}
+               for kind, c in ranks[0]["collectives"].items()}
+        emit(phase="path_j5_m", run=run, layout=row["layout"], layers=row["layers"],
+             dry_per_device_peak_bytes=dry_peak,
+             peaks=[r["peak_bytes"] for r in ranks],
+             peak_ratios=[dry_peak / r["peak_bytes"] if r["peak_bytes"] else None
+                          for r in ranks],
+             gather_whole_peaks=[r["gather_whole_peak_bytes"] for r in ranks],
+             dry_collective_bytes_by_use=rec["by_use"], collective_bytes_by_use=got,
+             collective_bytes_equal=got == rec["by_use"], trace_s=rec["trace_s"])
+        for r in ranks:
+            if dev.type == "cuda" and abs(dry_peak / r["peak_bytes"] - 1) > J5_PEAK_TOL:
+                misses.append(f"M-{run} rank {r['rank']}: dry run {dry_peak} B against the "
+                              f"card's {r['peak_bytes']} B")
+    return misses
+
+
+def path_j(dev, m_rows=None):
     """J1-J4 on the card, then J5's dry runs (the card idle) and their
-    records beside what J1-J4 measured."""
+    records beside what J1-J4 and path M measured."""
     import shutil
     import tempfile
 
@@ -4849,7 +5458,8 @@ def path_j(dev):
     try:
         dry = run_dryruns(torch.cuda.get_device_properties(0).total_memory
                           if dev.type == "cuda" else 80e9, dry_dir,
-                          J5[:2] + j5_t8_combos() + J5[2:])
+                          J5[:2] + j5_t8_combos() + (m_dry_combos() if m_rows else ())
+                          + J5[2:])
     finally:
         shutil.rmtree(dry_dir, ignore_errors=True)
     # J1's dry-run combo is the dry run's own step, which J1-dry ran on the
@@ -4861,8 +5471,10 @@ def path_j(dev):
         r = rows["J4"][run]
         measured[run] = (r["prefill_ms"] / 1e3, r["prefill_peak_bytes"])
         measured[run + "-decode"] = (r["decode_ms_per_token"] / 1e3, r["peak_bytes"])
-    misses = []
+    misses = hold_m_dry(dev, m_rows, dry) if m_rows else []
     for name, rec in dry.items():
+        if name.startswith("M-"):
+            continue
         if name.startswith("T8-"):
             emit(phase="path_j5_t8", run=name, arch=rec["arch"], shape=rec["shape"],
                  kind=rec["kind"], global_batch=rec["global_batch"], layout=rec["layout"],
@@ -4898,7 +5510,7 @@ def path_j(dev):
         fail(f"path J5: the dry run's peak is not within {J5_PEAK_TOL:.0%} of the card's:\n"
              + "\n".join(misses))
     if any(rec["collective_bytes"] is None for name, rec in dry.items()
-           if not name.startswith("T8-")):
+           if not name.startswith(("T8-", "M-"))):
         fail("path J5: a record has no collective bytes")
     if any(rec["bytes"]["all_reduce"] <= 0 for name, rec in dry.items()
            if name.startswith("T8-")):
@@ -5029,7 +5641,10 @@ def main():
     l_launches = path_l(dev)
     emit(phase="path_l_done", seconds=time.perf_counter() - t)
     t = time.perf_counter()
-    j = path_j(dev)
+    m_rows, m_launches = path_m(dev)
+    emit(phase="path_m_total", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    j = path_j(dev, m_rows)
     emit(phase="path_j_done", seconds=time.perf_counter() - t)
     tc = lambda r, k: r["prefill_launches"][k]["tensor_cores"]  # noqa: E731
     j_gossip = j["J1"]["gossip_variant_launches"]["f32"]
@@ -5044,10 +5659,12 @@ def main():
     bf16_launches = sum(r["gossip_launches"]["bf16"] for r in baselines.values())
     # each path's launches, read just after the path ran with the counts at 0
     f32_launches = (gossip_launches + e_launches["f32"] + f_launches["f32"] + g_launches
-                    + h_f32 + i_gossip + j_gossip + r_launches["f32"] + k_launches["f32"])
+                    + h_f32 + i_gossip + j_gossip + r_launches["f32"] + k_launches["f32"]
+                    + m_launches["f32"])
     bf16_launches += e_launches["bf16"] + f_launches["bf16"]
     pme_launches += e_launches["pme_average"] + f_launches["pme_average"] \
-        + h_launches["pme_average"] + r_launches["pme_average"] + k_launches["pme_average"]
+        + h_launches["pme_average"] + r_launches["pme_average"] + k_launches["pme_average"] \
+        + m_launches["pme_average"]
 
     def entry(name, source, replaces, launches, row):
         e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -5097,6 +5714,10 @@ def main():
     # steps, the sharded one over the gathered sender stack; among the f32
     # launches), timed at path A's largest leaf
     g32["variants"]["f32_path_k"] = variant(k_launches["f32"], gossip["f32"])
+    # path M's f32 launches (the sparse exchange on the ranks sharing the
+    # card, both routes; among the f32 launches), timed at a rank's piece
+    # of path A's largest leaf
+    g32["variants"]["f32_path_m"] = variant(m_launches["f32"], gossip["f32_path_m"])
     pme = entry("pme_average", "src/repro_torch/csrc/pme_average.cu",
                 "src/repro/kernels/pme_average/kernel.py:46", pme_launches, pme_row)
     # path F's launches (F3 PaME on fc1, F4 on five ResNet-20 convs), timed at F3's fc1
@@ -5112,7 +5733,11 @@ def main():
                        # their own form, row 1rk: r = m = 4 of path A's
                        # largest leaf in f32
                        "receivers": variant(k_launches["pme_average_range"],
-                                            pme_range["1rk-r4"])}
+                                            pme_range["1rk-r4"]),
+                       # path M's launches (the dense exchange on the ranks
+                       # sharing the card, every one with its receiver range
+                       # r = m), timed at their own form, row 1rm
+                       "path_m": variant(m_launches["pme_average_range"], pme_range["1rm-r4"])}
     l_flash = {row: n["flash"] for row, n in l_launches.items()}
     l_ssd = {row: n["ssd"] for row, n in l_launches.items()}
     fa = entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",

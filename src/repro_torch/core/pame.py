@@ -35,11 +35,27 @@ piece of every leaf — and the batch its nodes' whole sub-batches.  Every
 rank draws the step's selection, masks and offsets for all m nodes at the
 whole leaves' shapes (or takes the same injected draws) and keeps its
 part; the exchange gathers over ``node`` only (`core.pme`,
-`core.gossip`).  Each local node's leaves are then gathered whole over
-fsdp and model, its forward and backward run on them as the unsharded
-step runs them (gather before compute, as ZeRO-3 does: no
-tensor-parallel forward yet), and the rank keeps its piece of the
-update.  ``loss_mean`` is the mean of the gathered per-node losses and
+`core.gossip`).  Each local node's loss and gradient then run one of two
+ways:
+
+  * a ``grad_fn`` that takes a ``view`` keyword (``grad_fn(p, b, key, *,
+    view)``, as `launch.train.lm_grad_fn`'s does) gets this rank's pieces
+    of node i, the node's `sharding.train_view` and this rank's rows of
+    node i's batch, and returns the node's loss and the gradient of those
+    pieces: the forward runs tensor-parallel over `model`, each layer
+    gathered over fsdp just before it runs, its backward reduce-scattered
+    (as JAX's XLA partitions ``vmap(grad_fn)`` on ``v_bar`` pinned to the
+    parameters' placements).  No rank holds a node's whole leaves or
+    gradient.  The batch then holds this rank's piece under
+    `sharding.batch_shardings(..., node_stacked=True)`: its nodes, and the
+    rows of each over fsdp (`shard_batch`);
+  * any other ``grad_fn`` gets each local node's leaves gathered whole over
+    fsdp and model and its nodes' whole sub-batches, runs as the unsharded
+    step runs (gather before compute, as ZeRO-3 does), and the rank keeps
+    its piece of the update.
+
+Unsharded, both take the same body on the unsharded view.  ``loss_mean``
+is the mean of the gathered per-node losses and
 ``consensus`` and ``sigma_mean`` are reduced over the ranks, so every
 rank reports the global values (and the engine's stop rule stops every
 rank at the same step).  The dense and sparse exchanges give the
@@ -50,6 +66,7 @@ and delivery masks are not taken with shardings (ROADMAP, later work).
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -65,12 +82,40 @@ from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 __all__ = [
     "PaMEConfig", "PaMEState", "TopologyArrays", "LaneTopologyArrays",
     "make_topology_arrays", "fold_topology_arrays",
-    "pame_init", "pame_step", "make_pame_runner", "run_pame",
+    "pame_init", "pame_step", "make_pame_runner", "run_pame", "takes_view", "shard_batch",
 ]
 
 # grad_fn(params_i, batch_i, key_i) -> (loss_i, grads_i); key_i is an int seed
-# for node i's own randomness (the LM and regression losses ignore it)
+# for node i's own randomness (the LM and regression losses ignore it).  A
+# grad_fn may also take a keyword `view` (`sharding.train_view`): it then
+# takes this rank's pieces of node i and its rows of node i's batch
 GradFn = Callable[[object, object, int], Tuple[torch.Tensor, object]]
+
+
+def takes_view(grad_fn: GradFn) -> bool:
+    """Whether `grad_fn` takes a ``view`` keyword (the tensor-parallel route
+    of the sharded step)."""
+    return "view" in inspect.signature(grad_fn).parameters
+
+
+def shard_batch(batch, param_shardings, grad_fn: GradFn):
+    """This rank's piece of a whole [m, ...] batch as `pame_step` takes it
+    with `param_shardings`: its nodes' rows, and for a `grad_fn` that takes
+    a view each node's rows split over fsdp as
+    `sharding.batch_shardings(..., node_stacked=True)` places them (which
+    must split them: a node's rows divide over fsdp)."""
+    if param_shardings is None:
+        return batch
+    layout = shd.mesh_layout(param_shardings.mesh)
+    coord = shd.mesh_coords(param_shardings.mesh)
+    if not takes_view(grad_fn):
+        return tree_map(lambda b: shd.cut(b, ("node",), layout, coord), batch)
+    place = shd.batch_shardings(batch, layout, node_stacked=True)
+    for leaf, spec in zip(tree_leaves(batch), shd.leaf_specs(batch, place)):
+        if layout["fsdp"] > 1 and (len(spec) < 2 or spec[1] != "fsdp"):
+            raise ValueError(f"a node's {leaf.shape[1]} rows do not divide over "
+                             f"{layout['fsdp']} fsdp ranks")
+    return shd.shard_tree(batch, place, layout, coord)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -328,29 +373,37 @@ def pame_step(
     # tensor from the exchange, so node i's local step updates its rows in
     # place once node i's gradient is taken — the other nodes' gradients
     # read only their own rows.  Row r0 + r is node (r0 + r) % m of lane
-    # (r0 + r) // m.  Sharded, a node's leaves are gathered whole over fsdp
-    # and model first and the rank keeps its piece of the update; the
-    # batch holds the rank's own nodes (unsharded, the view's collectives
-    # are the identity and its cuts the whole tensor).
+    # (r0 + r) // m.  Sharded, a grad_fn that takes a view runs on this
+    # rank's pieces and rows (tensor-parallel); any other gets a node's
+    # leaves gathered whole over fsdp and model and the rank keeps its
+    # piece of the update (unsharded, the view's collectives are the
+    # identity and its cuts the whole tensor).
     loc = shd.local_view(param_shardings, v_bar)
     stepsize = 1.0 / (state.sigma * topo.t[loc.rows()].float())
     leaves, treedef = tree_flatten(v_bar)
     batch_leaves, batch_def = tree_flatten(batch)
+    view = shd.train_view(loc, treedef) if takes_view(grad_fn) else None
     losses = []
     for r in range(loc.r):
         lane, i = divmod(loc.r0 + r, m)
-        whole = [shd.gather_dims(x[r:r + 1], spec, loc.mesh, ("fsdp", "model"),
-                                 use="gradient")[0] for x, spec in zip(leaves, loc.specs)]
-        p_i = tree_unflatten(treedef, [w.detach().requires_grad_(True) for w in whole])
+        if view is None:
+            mine = [shd.gather_dims(x[r:r + 1], spec, loc.mesh, ("fsdp", "model"),
+                                    use="gradient")[0] for x, spec in zip(leaves, loc.specs)]
+        else:
+            mine = [x[r] for x in leaves]
+        p_i = tree_unflatten(treedef, [w.detach().requires_grad_(True) for w in mine])
         b_i = tree_unflatten(batch_def, [b[i - loc.r0] for b in batch_leaves])
-        loss_i, g_i = grad_fn(p_i, b_i, pme.fold_in(LN.lane_key(k_data, lane), i))
+        key_i = pme.fold_in(LN.lane_key(k_data, lane), i)
+        loss_i, g_i = (grad_fn(p_i, b_i, key_i) if view is None
+                       else grad_fn(p_i, b_i, key_i, view=view))
         losses.append(loss_i.detach().float().reshape(()))
-        del p_i, whole
+        del p_i, mine
         with torch.no_grad():
             for x, g, spec in zip(leaves, tree_leaves(g_i), loc.specs):
                 # w_i = v_i - g_i * (1 / (sigma_i t_i)), the step cast to
                 # the leaf's type before the multiply (this rank's piece)
-                g = shd.cut(g, spec[1:], loc.layout, loc.coord)
+                if view is None:
+                    g = shd.cut(g, spec[1:], loc.layout, loc.coord)
                 x[r].sub_(g.to(x.dtype) * stepsize[r].to(x.dtype))
         del g_i
     new_params = v_bar
@@ -460,8 +513,8 @@ def make_pame_runner(
     `param_shardings` (a `repro_torch.sharding.MeshShardings`) every rank
     calls ``run`` with the same whole ``params0`` and ``batch_fn`` (whole
     [m, ...] batches): it keeps its pieces of the stacked parameters and
-    its nodes' sub-batches, steps the sharded `pame_step`, and gets back
-    its pieces of the state and the global history; the stop rule's
+    its piece of each batch (`shard_batch`), steps the sharded `pame_step`,
+    and gets back its pieces of the state and the global history; the stop rule's
     objective is taken on the node-mean parameters gathered whole, the
     same on every rank.
     """
@@ -469,16 +522,10 @@ def make_pame_runner(
     topo_arrays = make_topology_arrays(topo, cfg, seed=seed, device=dev)
     sh = param_shardings
 
-    def local_batch(batch):
-        if sh is None:
-            return batch
-        layout, coord = shd.mesh_layout(sh.mesh), shd.mesh_coords(sh.mesh)
-        return tree_map(lambda b: shd.cut(b, ("node",), layout, coord), batch)
-
     def step_fn(state, batch):
         draws = draws_fn(state.step) if draws_fn is not None else None
-        return pame_step(state, local_batch(_on(dev, batch)), grad_fn, topo_arrays, cfg,
-                         param_shardings=sh, draws=draws)
+        return pame_step(state, shard_batch(_on(dev, batch), sh, grad_fn), grad_fn,
+                         topo_arrays, cfg, param_shardings=sh, draws=draws)
 
     def node_mean(params):
         # every node's piece gathered over "node", averaged, then made whole

@@ -51,16 +51,21 @@ that layout.
     and dry run leave both off; this variant is the port's own).
   * ``collective_bytes``: JAX's record parses them from the partitioned
     HLO (`parse_collective_bytes`); the port has no HLO.  A train record
-    runs the sharded PaME step (`core.pame`, ``param_shardings=``) as rank
-    0 of a world of ``--devices`` ranks under torch's fake process group,
-    on fake tensors, with m = the layout's node count (JAX's choice) and
-    the global batch split over them, and records what
-    `repro_torch.sharding`'s counted collectives moved, by kind, per
-    device, with JAX's convention (`collective_bytes`, the counterpart of
-    `parse_collective_bytes`), and the same bytes by use
-    (``collective_bytes_by_use``: the exchange, the gradient's gather, the
-    metrics).  A prefill or decode record runs the sharded serving step
-    (`prefill` / `decode_step` with ``shardings=``, `sharding.
+    runs the sharded PaME step (`core.pame`, ``param_shardings=``,
+    tensor-parallel over `model` with each layer gathered over fsdp, as
+    `launch.train.lm_grad_fn` takes a view) as rank 0 of a world of
+    ``--devices`` ranks under torch's fake process group, on fake tensors,
+    with m = the layout's node count (JAX's choice) and the global batch
+    split over them, and records what `repro_torch.sharding`'s counted
+    collectives moved, by kind, per device, with JAX's convention
+    (`collective_bytes`, the counterpart of `parse_collective_bytes`), the
+    same bytes by use (``collective_bytes_by_use``: "exchange", "weights"
+    (the layers' gathers over fsdp), "activations" (the sums over `model`
+    forward and backward), "gradient" (the reduce-scatters over fsdp and
+    the sums of the leaves not placed over fsdp), "metrics") and
+    ``per_device_memory``, that rank's trace of the step.  A prefill or
+    decode record runs the sharded serving step (`prefill` / `decode_step`
+    with ``shardings=``, `sharding.
     serving_shardings` at the layout) the same way, with the step's own
     global batch: its collective bytes by kind and by use ("weights": the
     per-layer gathers over fsdp and the fallback gathers over model;
@@ -101,7 +106,8 @@ from repro_torch.configs.shapes import (
     config_for_shape,
     input_specs,
 )
-from repro_torch.core.pame import PaMEConfig, PaMEState, make_topology_arrays, pame_step
+from repro_torch.core.pame import (PaMEConfig, PaMEState, make_topology_arrays, pame_step,
+                                   shard_batch)
 from repro_torch.core.topology import build_topology
 from repro_torch.launch.mesh import logical_layout, make_logical_mesh
 from repro_torch.launch.train import lm_grad_fn
@@ -119,9 +125,11 @@ FLOPS_NOTE = ("counted on the plain versions: masked attention counts whole [S, 
 MEMORY_NOTE = ("live bytes of a trace on fake tensors (MemTracker) on the route each kernel "
                "takes on the card, with CUDA_TEMPS' in-launch temporaries; code_bytes: no "
                "counterpart, nothing is compiled")
-COLLECTIVE_NOTE = ("per device: rank 0 of the sharded PaME step, by kind, with JAX's "
-                   "convention (an all-gather counts its result, g x its input; an all-reduce "
-                   "2 x its tensor); collective_bytes_by_use splits them by what they carry")
+COLLECTIVE_NOTE = ("per device: rank 0 of the sharded PaME step (tensor-parallel over model, "
+                   "each layer gathered over fsdp), by kind, with JAX's convention (an "
+                   "all-gather counts its result, g x its input; a reduce-scatter its result; "
+                   "an all-reduce 2 x its tensor); collective_bytes_by_use splits them by what "
+                   "they carry; per_device_memory is that rank's trace")
 SERVING_NOTE = ("per device: rank 0 of the sharded serving step, by kind and by use, with "
                 "JAX's convention; gathered_over_model lists the leaves whose pieces do not "
                 "line up with the heads, columns or experts a rank computes; "
@@ -151,16 +159,20 @@ def abstract_params(cfg: ModelConfig):
 # the steps sized
 # ---------------------------------------------------------------------------
 def build_train(cfg: ModelConfig, m: int, exchange: str = "dense", device="cpu",
-                param_shardings=None):
+                param_shardings=None, *, pame_cfg: Optional[PaMEConfig] = None,
+                grad_fn=None):
     """One PaME step of m node models with the JAX dry run's settings (ring
-    topology, Bernoulli masks, every node exchanging at step 0), on
-    `device`; sharded over `param_shardings` (a `sharding.MeshShardings`)
-    when it is given, as JAX's ``step(..., param_shardings=)``."""
+    topology, Bernoulli masks, every node exchanging at step 0; or
+    `pame_cfg`), on `device`; sharded over `param_shardings` (a
+    `sharding.MeshShardings`) when it is given, as JAX's ``step(...,
+    param_shardings=)``.  The LM's `lm_grad_fn` takes a view, so the
+    sharded step runs tensor-parallel; a `grad_fn` without one takes the
+    gather-whole route."""
     topo = build_topology("ring", m) if m > 2 else build_topology("complete", max(m, 2))
-    pcfg = PaMEConfig(nu=0.5, p=0.2, gamma=1.001, sigma0=5.0, mask_mode="bernoulli",
-                      homogeneous_kappa=4, exchange=exchange)
+    pcfg = pame_cfg or PaMEConfig(nu=0.5, p=0.2, gamma=1.001, sigma0=5.0,
+                                  mask_mode="bernoulli", homogeneous_kappa=4, exchange=exchange)
     topo_arrays = make_topology_arrays(topo, pcfg, device=device)
-    grad_fn = lm_grad_fn(cfg)
+    grad_fn = grad_fn or lm_grad_fn(cfg)
 
     def step(state, batch):
         return pame_step(state, batch, grad_fn, topo_arrays, pcfg,
@@ -442,7 +454,7 @@ def _counted(counts: Dict[str, Dict[str, object]]) -> Dict[str, object]:
     """Bytes by kind (both kinds, 0 where none was issued), by use, and the
     calls, from `sharding.collective_counts()`."""
     counts = {kind: counts.get(kind, {"calls": 0, "bytes": 0, "by_use": {}})
-              for kind in ("all_gather", "all_reduce")}
+              for kind in ("all_gather", "all_reduce", *counts)}
     return {"bytes": collective_bytes(counts),
             "by_use": {k: {u: int(round(b)) for u, b in sorted(c["by_use"].items())}
                        for k, c in sorted(counts.items())},
@@ -450,16 +462,21 @@ def _counted(counts: Dict[str, Dict[str, object]]) -> Dict[str, object]:
 
 
 def sharded_collectives(cfg: ModelConfig, shape: InputShape, layout: Dict[str, int],
-                        global_batch: int, exchange: str = "dense") -> Dict[str, object]:
+                        global_batch: int, exchange: str = "dense", *, m: Optional[int] = None,
+                        pame_cfg: Optional[PaMEConfig] = None,
+                        grad_fn=None) -> Dict[str, object]:
     """One sharded PaME step over `layout` as rank 0 of a fake process
-    group of its size, on fake tensors: m = layout["node"] nodes, the
-    global batch split over them.  Returns the bytes by kind and by use,
-    and the calls (see the module's docstring)."""
+    group of its size, on fake tensors with every kernel wrapper on its
+    kernel's route: m nodes (default layout["node"]), the global batch
+    split over them, `build_train`'s step (`pame_cfg`, `grad_fn`; default
+    the tensor-parallel LM step).  Returns the bytes by kind and by use, the
+    calls and ``per_device_memory``, that rank's `MemTracker` trace of the
+    step (see the module's docstring)."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     world = layout["node"] * layout["fsdp"] * layout["model"]
-    m = layout["node"]
+    m = m or layout["node"]
     if dist.is_initialized():
         raise RuntimeError("the collective trace needs a process without a process group")
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
@@ -467,22 +484,23 @@ def sharded_collectives(cfg: ModelConfig, shape: InputShape, layout: Dict[str, i
         mesh = make_logical_mesh(device_type="cpu", layout=layout)
         specs = step_specs(cfg, shape, "train", global_batch, m)
         place = shd.state_shardings(specs["state"], layout)
+        sharded = shd.MeshShardings(mesh, place.params)
         coord = shd.mesh_coords(mesh)
+        step = build_train(cfg, m, exchange=exchange, param_shardings=sharded,
+                           pame_cfg=pame_cfg, grad_fn=grad_fn)
+        grad_fn = grad_fn or lm_grad_fn(cfg)
         # the mesh's own index tensors are real (its groups are looked up
         # inside the step); every tensor of the step is fake
-        with FakeTensorMode(allow_non_fake_inputs=True):
+        with FakeTensorMode(allow_non_fake_inputs=True), fake_route.kernel_route():
             state = shd.shard_tree(_materialize(specs["state"]), place, layout, coord)
-            batch = tree_map(lambda b: shd.cut(b, ("node",), layout, coord).contiguous(),
-                             _materialize(specs["inputs"]))
-            step = build_train(cfg, m, exchange=exchange,
-                               param_shardings=shd.MeshShardings(mesh, place.params))
+            batch = shard_batch(_materialize(specs["inputs"]), sharded, grad_fn)
             shd.reset_collective_counts()
-            step(state, batch)
+            memory = _traced((state, batch), lambda: step(state, batch), False)
             counts = shd.collective_counts()
             del state, batch
     finally:
         dist.destroy_process_group()
-    return dict(_counted(counts), m=m)
+    return dict(_counted(counts), m=m, per_device_memory=memory)
 
 
 def sharded_serving(cfg: ModelConfig, shape: InputShape, kind: str, layout: Dict[str, int],
@@ -610,6 +628,7 @@ def run_combo(
                    collective_bytes_total=sum(coll["bytes"].values()),
                    collective_bytes_by_use=coll["by_use"],
                    collective_calls=coll["calls"], collective_m=coll["m"],
+                   per_device_memory=coll["per_device_memory"],
                    collective_trace_s=time.perf_counter() - t0,
                    collective_note=COLLECTIVE_NOTE)
     tag = f"L{probe_layers}" if probe_layers else "full"

@@ -188,12 +188,15 @@ def lm_batch_fn(cfg, m: int, batch: int, seq: int, seed: int, device: torch.devi
 
 
 def lm_grad_fn(cfg):
-    """``grad_fn(params, batch, key) -> (loss, grads)`` of one node's LM loss."""
+    """``grad_fn(params, batch, key, view=None) -> (loss, grads)`` of one
+    node's LM loss; with ``view`` (a `sharding.train_view`, as the sharded
+    PaME step passes it), on this rank's pieces of the node's parameters
+    and its rows of the node's batch, tensor-parallel (`models.train_loss`)."""
 
-    def grad_fn(p, b, key):
+    def grad_fn(p, b, key, view=None):
         del key
         leaves, treedef = tree_flatten(p)
-        loss = train_loss(p, cfg, b)
+        loss = train_loss(p, cfg, b, view)
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), tree_unflatten(treedef, list(grads))
 

@@ -27,6 +27,13 @@ gathered over `model` where their pieces are cut inside a head;
 new K / V rows are gathered over `model` into its whole cache
 (``use="cache"``), and attention reads the rank's own heads from it.  MLA's
 ``w_dq`` and ``w_dkv`` and its latent cache are whole on every rank.
+
+In training (a `sharding.train_view`, full sequence only), every tensor
+that all model ranks hold whole and that the rank's heads read goes
+through `Serve.enter` (its gradient summed over `model`): the block's
+input where its heads' projections are split, ``q_norm`` / ``k_norm`` on
+split heads, K / V computed for all KV heads and read by a rank's query
+heads, and MLA's query latent, ``c_kv`` and ``k_rope``.
 """
 from __future__ import annotations
 
@@ -110,15 +117,18 @@ def _qkv(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tenso
          hs: _Heads):
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = linear(x, sv.part(params["wq"], 1, h * hd, hs.h_lo * hd, hs.h_hi * hd, "attn/wq"))
-    k = linear(x, sv.part(params["wk"], 1, kv * hd, hs.kv_lo * hd, hs.kv_hi * hd, "attn/wk"))
-    v = linear(x, sv.part(params["wv"], 1, kv * hd, hs.kv_lo * hd, hs.kv_hi * hd, "attn/wv"))
+    q_split, kv_split = hs.h_hi - hs.h_lo < h, hs.kv_hi - hs.kv_lo < kv
+    xq = sv.enter(x) if q_split else x
+    xkv = xq if kv_split else x
+    q = linear(xq, sv.part(params["wq"], 1, h * hd, hs.h_lo * hd, hs.h_hi * hd, "attn/wq"))
+    k = linear(xkv, sv.part(params["wk"], 1, kv * hd, hs.kv_lo * hd, hs.kv_hi * hd, "attn/wk"))
+    v = linear(xkv, sv.part(params["wv"], 1, kv * hd, hs.kv_lo * hd, hs.kv_hi * hd, "attn/wv"))
     q = q.reshape(b, s, hs.h_hi - hs.h_lo, hd)
     k = k.reshape(b, s, hs.kv_hi - hs.kv_lo, hd)
     v = v.reshape(b, s, hs.kv_hi - hs.kv_lo, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, params["q_norm"])
-        k = rms_norm(k, params["k_norm"])
+        q = rms_norm(q, sv.enter(params["q_norm"]) if q_split else params["q_norm"])
+        k = rms_norm(k, sv.enter(params["k_norm"]) if kv_split else params["k_norm"])
     cos, sin = rope_freqs(positions, hd, cfg.rope_theta)  # [s, hd/2]
     q = apply_rope(q, cos[None], sin[None])
     k = apply_rope(k, cos[None], sin[None])
@@ -199,7 +209,10 @@ def gqa_apply(
     sv = sv or _UNSHARDED
     hs = _gqa_heads(cfg, sv)
     q, k, v = _qkv(params, cfg, x, positions, sv, hs)
-    ka, va = _kv_for(k, hs, cfg), _kv_for(v, hs, cfg)
+    ka, va = k, v
+    if hs.h_hi - hs.h_lo < cfg.n_heads and hs.kv_hi - hs.kv_lo == cfg.n_kv_heads:
+        ka, va = sv.enter(k), sv.enter(v)  # whole K / V read by the rank's heads
+    ka, va = _kv_for(ka, hs, cfg), _kv_for(va, hs, cfg)
     scale = cfg.head_dim ** -0.5
     if cfg.use_flash and mask_is_plain(cfg, s):
         out = flash_ops.flash_attention(q, ka, va, window=cfg.window)
@@ -298,6 +311,7 @@ def _mla_q(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Ten
     b, s, _ = x.shape
     h, nope, rope_hd = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
     cq = rms_norm(linear(x, params["w_dq"]), params["q_norm"]) if cfg.q_lora else x
+    cq = cq if h_hi - h_lo == h else sv.enter(cq)
     w = nope + rope_hd
     q = linear(cq, sv.part(params["w_uq"], 1, h * w, h_lo * w, h_hi * w, "attn/w_uq"))
     q = q.reshape(b, s, h_hi - h_lo, w)
@@ -330,6 +344,8 @@ def mla_apply(
     h_lo, h_hi = sv.heads(h)
     q_nope, q_rope = _mla_q(params, cfg, x, positions, sv, h_lo, h_hi)
     c_kv, k_rope = _mla_ckv(params, cfg, x, positions)
+    if h_hi - h_lo < h:  # the latents every rank holds whole, read by its heads
+        c_kv, k_rope = sv.enter(c_kv), sv.enter(k_rope)
     k_nope = linear(c_kv, sv.part(params["w_uk"], 1, h * nope, h_lo * nope, h_hi * nope,
                                   "attn/w_uk")).reshape(b, s, h_hi - h_lo, nope)
     v = linear(c_kv, sv.part(params["w_uv"], 1, h * v_hd, h_lo * v_hd, h_hi * v_hd,

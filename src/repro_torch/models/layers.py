@@ -7,7 +7,9 @@ each of them the plain form): a column-parallel product is `linear` on the
 rank's columns (`Serve.part`); `row_linear` multiplies the rank's rows of
 a weight and sums the partial outputs over `model`; `vocab_embed` and
 `vocab_logits` are the embedding's lookup and the output projection on the
-rank's slice of the vocabulary."""
+rank's slice of the vocabulary.  In training (a `sharding.train_view`) a
+whole input entering the rank's part of a product goes through
+`Serve.enter`, so that its gradient is summed over `model`."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -63,8 +65,9 @@ def row_linear(x: torch.Tensor, w: torch.Tensor, sv, k: int, x_lo: int = 0) -> t
     """x @ W for a weight W [k, n] whose rows may be split over `model`:
     `w` is this rank's piece of W, `x` [..., j] holds the input's columns
     x_lo ... x_lo + j - 1 (all k when it is whole).  A whole W takes the
-    whole input; a piece takes the input's matching columns, and the
-    partial products are summed over `model` in their own type
+    whole input; a piece takes the input's matching columns (a whole input,
+    which every model rank holds, through `Serve.enter`), and the partial
+    products are summed over `model` in their own type
     (``use="activations"``), as XLA's partitioned dot does."""
     if w.shape[0] == k:
         if x.shape[-1] != k:
@@ -76,7 +79,7 @@ def row_linear(x: torch.Tensor, w: torch.Tensor, sv, k: int, x_lo: int = 0) -> t
         raise ValueError(f"the input's columns [{x_lo}, {x_lo + x.shape[-1]}) do not hold "
                          f"the weight's rows [{lo}, {hi})")
     if (lo, hi) != (x_lo, x_lo + x.shape[-1]):
-        x = x.narrow(-1, lo - x_lo, hi - lo)
+        x = sv.enter(x).narrow(-1, lo - x_lo, hi - lo)
     return sv.psum(linear(x, w))
 
 
@@ -100,8 +103,9 @@ def vocab_logits(x: torch.Tensor, head: torch.Tensor, sv, vocab: int) -> torch.T
     """``x @ head`` in f32 for an output projection [d, vocab] whose
     columns may be split over `model`: each rank's slice of the logits,
     gathered over `model` into the whole vocabulary (``use="logits"``)."""
-    logits = torch.matmul(x, head).float()
-    return logits if head.shape[1] == vocab else sv.cat(logits, -1, "logits")
+    if head.shape[1] == vocab:
+        return torch.matmul(x, head).float()
+    return sv.cat(torch.matmul(sv.enter(x), head).float(), -1, "logits")
 
 
 def rope_freqs(positions: torch.Tensor, dim: int, theta: float):

@@ -4,7 +4,8 @@ Under a `repro_torch.sharding.Serve` view the block is tensor-parallel over
 `model`: ``w_gate`` / ``w_up`` column-parallel on the hidden columns whose
 rows of ``w_down`` the rank holds, ``w_down`` row-parallel with its partial
 outputs summed over `model` (`layers.row_linear`).  A gate or up piece that
-does not cover those columns is gathered over `model` (`Serve.part`)."""
+does not cover those columns is gathered over `model` (`Serve.part`).  In
+training the input enters the rank's columns through `Serve.enter`."""
 from __future__ import annotations
 
 import torch
@@ -32,6 +33,7 @@ def mlp_apply(params: dict, x: torch.Tensor, sv, d_ff: int, name: str = "mlp") -
     its layer); with None, the unsharded view."""
     sv = sv or _UNSHARDED
     lo, hi = sv.span(params["w_down"], 0, d_ff)
+    x = x if (lo, hi) == (0, d_ff) else sv.enter(x)
     gate = linear(x, sv.part(params["w_gate"], 1, d_ff, lo, hi, f"{name}/w_gate"))
     up = linear(x, sv.part(params["w_up"], 1, d_ff, lo, hi, f"{name}/w_up"))
     return row_linear(F.silu(gate) * up, params["w_down"], sv, d_ff, lo)

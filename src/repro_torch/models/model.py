@@ -43,6 +43,16 @@ tensor-parallel over `model` on the rank's heads, columns and experts
 and the logits' vocab slices are gathered into the whole [B, vocab] f32
 logits on every rank.  Unsharded (``shardings=None``) the same body runs
 on `sharding.serve_view(None)`: one rank, every collective the identity.
+
+`train_loss` takes a `sharding.train_view` (``view``; None: the unsharded
+view): `params` are then one node's pieces on this rank and `batch` its
+rows of the node's batch (split over fsdp).  The layers are gathered and
+run as in serving, inside each layer's checkpoint under remat (the
+recompute gathers again), with every collective's backward (see
+`repro_torch.sharding`); the loss is the rank's rows' token sum over the
+node's token count, summed over fsdp, plus the MoE aux losses of the
+node's whole batch.  The gradient of the pieces is then the gradient of
+the node's loss with respect to them.
 """
 from __future__ import annotations
 
@@ -286,25 +296,19 @@ def _unbind_layers(tree, repeat: int) -> list:
     return [tree_unflatten(treedef, [u[li] for u in per_leaf]) for li in range(repeat)]
 
 
-def _layers(gparams, gi: int, repeat: int, sv):
-    """Each layer's tree of group `gi` in turn, its leaves gathered over
-    fsdp just before it is handed out (unsharded: `_unbind_layers`' views;
-    the caller drops a layer's tree before it asks for the next)."""
-    if not sv.sharded:
-        yield from _unbind_layers(gparams, repeat)
-        return
-    leaves, treedef = tree_flatten(gparams)
-    per_leaf = [leaf.unbind(0) for leaf in leaves]
-    specs = sv.sub("groups", gi)
-    for li in range(repeat):
-        yield sv.weights(tree_unflatten(treedef, [u[li] for u in per_leaf]), specs, skip=1)
+def _gathered(lp: dict, gi: int, sv):
+    """A layer's tree of group `gi` (this rank's pieces) gathered over fsdp
+    just before the layer runs (the tree itself unsharded)."""
+    return sv.weights(lp, sv.sub("groups", gi), skip=1)
 
 
 def _layer_full(x, lp: dict, pattern: Tuple[str, ...], shared: Optional[dict],
                 cfg: ModelConfig, positions, want_cache: bool, capacity: int,
                 sv=_UNSHARDED, gi: int = 0):
-    """One layer's blocks over the full sequence: (x, the moe block's aux
-    loss or None, the layer's caches by block key)."""
+    """One layer's blocks over the full sequence, on its pieces `lp`
+    gathered over fsdp first: (x, the moe block's aux loss or None, the
+    layer's caches by block key)."""
+    lp = _gathered(lp, gi, sv)
     entries, aux = {}, None
     for i, kind in enumerate(pattern):
         key = f"{i}_{kind}"
@@ -327,7 +331,7 @@ def _run_trunk_full(params: dict, cfg: ModelConfig, x, positions, want_cache: bo
     remat = cfg.remat and not want_cache and torch.is_grad_enabled()
     for gi, (grp, gparams) in enumerate(zip(layer_groups(cfg), params["groups"])):
         stacked = {}
-        for li, lp in enumerate(_layers(gparams, gi, grp.repeat, sv)):
+        for li, lp in enumerate(_unbind_layers(gparams, grp.repeat)):
             args = (x, lp, grp.pattern, shared, cfg, positions, want_cache, capacity, sv, gi)
             x, aux, entries = (_checkpointed(cfg, _layer_full, *args) if remat
                                else _layer_full(*args))
@@ -351,8 +355,9 @@ def _run_trunk_decode(params: dict, cfg: ModelConfig, x, pos: int, caches: list,
     shared = params.get("shared_block")
     for gi, (grp, gparams, gcache) in enumerate(zip(layer_groups(cfg), params["groups"],
                                                     caches)):
-        for lp, lc in zip(_layers(gparams, gi, grp.repeat, sv),
+        for lp, lc in zip(_unbind_layers(gparams, grp.repeat),
                           _unbind_layers(gcache, grp.repeat)):
+            lp = _gathered(lp, gi, sv)
             for i, kind in enumerate(grp.pattern):
                 key = f"{i}_{kind}"
                 x = _apply_block_decode(kind, lp.get(key), shared, cfg, x, pos, lc.get(key),
@@ -363,7 +368,8 @@ def _run_trunk_decode(params: dict, cfg: ModelConfig, x, pos: int, caches: list,
 
 def _whole(params: dict, name: str, sv) -> torch.Tensor:
     """A top-level leaf gathered over fsdp (the embedding's vocab rows stay
-    the rank's slice under a sharded view)."""
+    the rank's slice under a sharded view); in training, a leaf not placed
+    over fsdp with its gradient summed over fsdp."""
     return sv.weights(params[name], sv.sub(name))
 
 
@@ -378,7 +384,7 @@ def _embed_inputs(params: dict, cfg: ModelConfig, batch: dict, sv=_UNSHARDED) ->
 
 
 def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor, sv=_UNSHARDED) -> torch.Tensor:
-    x = rms_norm(x, params["final_norm"])
+    x = rms_norm(x, _whole(params, "final_norm", sv))
     head = _whole(params, "embed", sv).t() if cfg.tie_embeddings else _whole(params, "lm_head", sv)
     return vocab_logits(x, head, sv, cfg.vocab)
 
@@ -386,13 +392,17 @@ def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor, sv=_UNSHARDED) -> t
 # ---------------------------------------------------------------------------
 # public paths
 # ---------------------------------------------------------------------------
-def train_loss(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+def train_loss(params: dict, cfg: ModelConfig, batch: dict, view=None) -> torch.Tensor:
     """Next-token cross-entropy (+ the MoE aux losses).  batch: tokens [B, S]
-    (int; + patch_embeds for vlm); the loss is over the text positions."""
-    x = _embed_inputs(params, cfg, batch)
+    (int; + patch_embeds for vlm); the loss is over the text positions.
+    With `view` (a `sharding.train_view`), on this rank's pieces of one
+    node's parameters and its rows of the node's batch (see the module's
+    docstring); the loss is the node's, on every rank."""
+    sv = view or shd.train_view()
+    x = _embed_inputs(params, cfg, batch, sv)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, _, aux = _run_trunk_full(params, cfg, x, positions, False, x.shape[1])
-    logits = _logits(params, cfg, x)
+    x, _, aux = _run_trunk_full(params, cfg, x, positions, False, x.shape[1], sv)
+    logits = _logits(params, cfg, x, sv)
     if cfg.arch_type == "vlm":
         logits = logits[:, cfg.n_patches:]
     tok = batch["tokens"].long()
@@ -400,7 +410,10 @@ def train_loss(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     tgt = tok[:, 1:]
     logz = torch.logsumexp(pred, dim=-1)
     gold = torch.gather(pred, -1, tgt[..., None])[..., 0]
-    return torch.mean(logz - gold) + aux
+    nll = logz - gold
+    if not sv.rows:
+        return torch.mean(nll) + aux
+    return sv.rows_sum(nll.sum()) / (nll.numel() * sv.pieces) + aux
 
 
 def prefill(params: dict, cfg: ModelConfig, batch: dict, capacity: int, shardings=None):

@@ -44,6 +44,15 @@ outputs; the partial outputs are summed over `model`
 drops them).  The shared experts are the tensor-parallel MLP
 (`mlp.mlp_apply`).  Unsharded, the same body runs on
 `sharding.serve_view(None)`.
+
+In training (a `sharding.train_view`, the node's rows split over fsdp),
+the capacity and the slots are the node's whole batch's in the same way,
+the tokens and their routing weights enter the rank's experts through
+`Serve.enter`, and the aux losses are the node's whole batch's: the sums
+of the router probabilities, of the routed fractions and of the squared
+log-partition over each rank's rows are summed over fsdp
+(`Serve.rows_sum`, ``use="routing"``) before they are divided by the
+node's token count.
 """
 from __future__ import annotations
 
@@ -122,7 +131,8 @@ def moe_apply(params: dict, cfg: ModelConfig, x: torch.Tensor, sv=None
     # dispatch: kept choice (t, j) into its own slot of the rank's
     # [E_r·C + 1, d] buffer, any other into the spare last row (cut off)
     spare = torch.full_like(dest, n_e * capacity)
-    contrib = xf[:, None, :].expand(t, k, d).reshape(t * k, d)
+    xe, pe = (xf, top_p) if n_e == e else (sv.enter(xf), sv.enter(top_p))
+    contrib = xe[:, None, :].expand(t, k, d).reshape(t * k, d)
     buf = torch.zeros((n_e * capacity + 1, d), dtype=xf.dtype, device=x.device).index_put(
         (torch.where(keep, dest, spare),), contrib)[:-1].reshape(n_e, capacity, d)
 
@@ -135,7 +145,7 @@ def moe_apply(params: dict, cfg: ModelConfig, x: torch.Tensor, sv=None
     # combine: a choice not kept here (dropped, or routed to another rank's
     # expert) reads a slot at weight 0 (a zero gradient there); the k terms
     # are added choice by choice
-    weight = torch.where(keep, top_p.reshape(t * k), 0.0)
+    weight = torch.where(keep, pe.reshape(t * k), 0.0)
     terms = (out_buf[dest] * weight[:, None].to(xf.dtype)).reshape(t, k, d)
     y = terms[:, 0]
     for j in range(1, k):
@@ -146,10 +156,15 @@ def moe_apply(params: dict, cfg: ModelConfig, x: torch.Tensor, sv=None
         y = y + mlp_apply(params["shared"], xf, sv, cfg.n_shared_experts * cfg.d_ff_expert,
                           "moe/shared")
 
-    # aux losses, in f32
-    me = probs.mean(dim=0)  # mean router probability
+    # aux losses, in f32, over the node's tokens
+    def mean(u):
+        if not (sv.train and sv.rows):
+            return u.mean(dim=0)
+        return sv.rows_sum(u.sum(dim=0), "routing") / (t * sv.pieces)
+
+    me = mean(probs)  # mean router probability
     routed = flat_oh.reshape(t, k, e).sum(dim=1) > 0
-    ce = routed.float().mean(dim=0)  # routed fraction, dropped choices included
+    ce = mean(routed.float())  # routed fraction, dropped choices included
     lb_loss = e * torch.sum(me * ce) * cfg.router_aux_coef
-    z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2) * cfg.router_z_coef
+    z_loss = mean(torch.logsumexp(logits, dim=-1) ** 2) * cfg.router_z_coef
     return y.reshape(b, s, d), lb_loss + z_loss

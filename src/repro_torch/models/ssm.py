@@ -31,6 +31,14 @@ are whole.  The gated RMSNorm over the whole d_inner sums its squares over
 row-parallel.  A rank's final state, and its x rows of the conv window
 (split projections), are gathered over `model` into its whole cache
 (``use="cache"``).
+
+In training (a `sharding.train_view`, full sequence only), what every model
+rank holds whole and the rank's heads read goes through `Serve.enter` (its
+gradient summed over `model`): the block's input where a projection is
+split over the heads, the fused projection's z, conv output and dt before
+they are cut to the rank's heads, the split projections' B and C convs,
+``dt_bias``, ``A_log``, ``D`` and the norm's scale on the rank's heads, and
+the gated norm's sum of squares after its sum over `model`.
 """
 from __future__ import annotations
 
@@ -233,31 +241,37 @@ def _project(params: dict, cfg: ModelConfig, x: torch.Tensor, sv, hs: _Heads):
     p = cfg.ssm_head_dim
     di, gn, n = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state, cfg.ssm_state
     bsz, s, _ = x.shape
+    split = hs.h_hi - hs.h_lo < cfg.ssm_heads
     if cfg.ssm_split_proj:
         lo, hi = hs.h_lo * p, hs.h_hi * p
+        xe = sv.enter(x) if split else x
         w = {"x": sv.part(params["in_x"], 1, di, lo, hi, "mamba/in_x"),
              "B": params["in_B"], "C": params["in_C"]}
         cw = {"x": sv.part(params["conv_x_w"], 1, di, lo, hi, "mamba/conv_x_w"),
               "B": params["conv_B_w"], "C": params["conv_C_w"]}
         cb = {"x": sv.part(params["conv_x_b"], 0, di, lo, hi, "mamba/conv_x_b"),
               "B": params["conv_B_b"], "C": params["conv_C_b"]}
-        raw = {c: linear(x, w[c]) for c in ("x", "B", "C")}
+        raw = {c: linear(xe if c == "x" else x, w[c]) for c in ("x", "B", "C")}
         conv = {c: _causal_conv(cfg, raw[c], cw[c], cb[c]) for c in raw}
         xbc = torch.cat([raw["x"], raw["B"], raw["C"]], dim=-1)  # the cache's layout
         gsl = slice(hs.g_lo * n, hs.g_hi * n)
         ng = hs.g_hi - hs.g_lo
-        return (linear(x, sv.part(params["in_z"], 1, di, lo, hi, "mamba/in_z")),
+        if split:
+            conv["B"], conv["C"] = sv.enter(conv["B"]), sv.enter(conv["C"])
+        return (linear(xe, sv.part(params["in_z"], 1, di, lo, hi, "mamba/in_z")),
                 conv["x"].reshape(bsz, s, hs.h_hi - hs.h_lo, p),
                 conv["B"][..., gsl].reshape(bsz, s, ng, n),
                 conv["C"][..., gsl].reshape(bsz, s, ng, n),
-                linear(x, sv.part(params["in_dt"], 1, cfg.ssm_heads, hs.h_lo, hs.h_hi,
-                                  "mamba/in_dt")), xbc)
+                linear(xe, sv.part(params["in_dt"], 1, cfg.ssm_heads, hs.h_lo, hs.h_hi,
+                                   "mamba/in_dt")), xbc)
     width = 2 * di + 2 * gn + cfg.ssm_heads
     proj = linear(x, sv.part(params["in_proj"], 1, width, 0, width, "mamba/in_proj"))
     z, xbc, dt_raw = _split_proj(cfg, proj)
     cd = cfg.conv_dim
     xbc_conv = _causal_conv(cfg, xbc, sv.part(params["conv_w"], 1, cd, 0, cd, "mamba/conv_w"),
                             sv.part(params["conv_b"], 0, cd, 0, cd, "mamba/conv_b"))
+    if split:  # computed whole on every rank, cut to its heads
+        z, xbc_conv, dt_raw = sv.enter(z), sv.enter(xbc_conv), sv.enter(dt_raw)
     xs, b_, c_ = _split_xbc(cfg, xbc_conv)
     return _own_heads(cfg, hs, z, xs, b_, c_, dt_raw) + (xbc,)
 
@@ -281,10 +295,10 @@ def _gated_norm(cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor, norm: torch.
     if y.shape[-1] == cfg.d_inner:
         return rms_norm(y * F.silu(z), norm, eps)
     g = (y * F.silu(z)).float()
-    ss = sv.psum(torch.sum(g * g, dim=-1, keepdim=True), "activations")
+    ss = sv.enter(sv.psum(torch.sum(g * g, dim=-1, keepdim=True), "activations"))
     p = cfg.ssm_head_dim
     out = g * torch.rsqrt(ss / cfg.d_inner + eps)
-    return (out * norm[hs.h_lo * p: hs.h_hi * p].float()).to(y.dtype)
+    return (out * sv.enter(norm)[hs.h_lo * p: hs.h_hi * p].float()).to(y.dtype)
 
 
 def _whole_xbc(cfg: ModelConfig, xbc: torch.Tensor, sv) -> torch.Tensor:
@@ -310,10 +324,13 @@ def mamba_apply(
     hs = _ssm_heads(cfg, sv)
     z, xs, b_, c_, dt_raw, xbc = _project(params, cfg, x, sv, hs)
     sl = slice(hs.h_lo, hs.h_hi)
-    dt = F.softplus(dt_raw.float() + params["dt_bias"][sl][None, None])
-    a = -torch.exp(params["A_log"][sl])
+    # the per-head leaves, whole on every rank, on the rank's heads
+    dt_bias, a_log, d_skip = (params[k] if sl == slice(0, cfg.ssm_heads) else
+                              sv.enter(params[k]) for k in ("dt_bias", "A_log", "D"))
+    dt = F.softplus(dt_raw.float() + dt_bias[sl][None, None])
+    a = -torch.exp(a_log[sl])
     y, final_state = _ssd_chunked(cfg, xs, dt, a, b_, c_)
-    y = y + xs * params["D"][sl][None, None, :, None].to(xs.dtype)
+    y = y + xs * d_skip[sl][None, None, :, None].to(xs.dtype)
     y = y.reshape(bsz, s, -1)
     y = _gated_norm(cfg, y, z, params["norm"], sv, hs)
     p = cfg.ssm_head_dim

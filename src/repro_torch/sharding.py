@@ -70,6 +70,27 @@ Sharded serving (`models.prefill` / `decode_step`, ``shardings=``):
     rows, `Serve.rows_before`).
     `serve_view(None)` is the unsharded view: one rank, every collective
     the identity, every leaf whole.
+
+The tensor-parallel train step (`core.pame` with a ``grad_fn`` that takes a
+``view``; `models.train_loss(..., view)`):
+
+  * `train_view` gives a node's loss the training form of the view: one
+    node's placements (the node entry of each dropped), the batch's rows
+    split over ``("fsdp",)`` as JAX places a node's rows, and every
+    collective one that autograd sees (``Serve.train``);
+  * a layer's gather over fsdp has a reduce-scatter for its backward
+    (`reduce_scatter`, ``use="gradient"``: each fsdp rank used the weight
+    on its own rows), and a leaf not placed over fsdp a sum over fsdp
+    (``use="gradient"``); a sum over `model` (`Serve.psum`) has the
+    identity, and a gather over `model` (`Serve.part`'s fallback, the
+    vocab slices of `Serve.cat`) this rank's slice;
+  * `Serve.enter` (identity forward, a sum over `model` backward,
+    ``use="activations"``) is where a tensor every model rank holds whole
+    enters a computation split over `model` (Megatron's f; the psum is its
+    g): the gradient of a tensor that all model ranks hold whole is then
+    whole on every rank;
+  * `Serve.rows_sum` sums a loss term over the rows' ranks (identity
+    backward: each rank's term is its own rows').
 """
 from __future__ import annotations
 
@@ -105,12 +126,14 @@ __all__ = [
     "owns",
     "all_gather",
     "all_reduce",
+    "reduce_scatter",
     "collective_counts",
     "reset_collective_counts",
     "ServingShardings",
     "serving_shardings",
     "Serve",
     "serve_view",
+    "train_view",
     "gathered_over_model",
 ]
 
@@ -583,6 +606,77 @@ def all_reduce(x: torch.Tensor, mesh, axes: Sequence[str], op: str = "sum", *,
     return x
 
 
+def reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0, *,
+                   use: str = "other") -> torch.Tensor:
+    """`x` summed over the ranks of the mesh's `axis` group, each rank
+    keeping its 1/g of the sum along `dim` (the group's order, as
+    `all_gather` joins them); `x` itself when `mesh` is None.  Counted by
+    its result, as JAX's convention counts a reduce-scatter."""
+    if mesh is None:
+        return x
+    import torch.distributed as dist
+
+    group = mesh.get_group(axis)
+    g = dist.get_world_size(group)
+    x0 = x.movedim(dim, 0).contiguous()
+    out = x0.new_empty((x0.shape[0] // g,) + tuple(x0.shape[1:]))
+    # reduce_scatter_single is reduce_scatter_tensor's newer name (torch >= 2.13)
+    scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+    scatter(out, x0, group=group)
+    _count("reduce_scatter", use, g, out.numel() * out.element_size())
+    return out.movedim(0, dim)
+
+
+class _Gather(torch.autograd.Function):
+    """`all_gather` over `axis`; backward "scatter" (a reduce-scatter: each
+    rank used the whole tensor on its own rows) or "slice" (this rank's
+    slice of a gradient that is whole on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, use, back):
+        ctx.args = (mesh, axis, dim, back, x.shape[dim])
+        return all_gather(x, mesh, axis, dim, use=use)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, axis, dim, back, n = ctx.args
+        if back == "scatter":
+            grad = reduce_scatter(grad, mesh, axis, dim, use="gradient")
+        else:
+            grad = grad.narrow(dim, mesh_coords(mesh)[axis] * n, n)
+        return grad, None, None, None, None, None
+
+
+class _Psum(torch.autograd.Function):
+    """`all_reduce` (sum) over `axes`; backward the identity (the sum is
+    used whole on every rank, its gradient whole on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, use):
+        x = x.clone()
+        return all_reduce(x, mesh, axes, use=use)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None, None
+
+
+class _Enter(torch.autograd.Function):
+    """The identity; backward the gradient summed over `axis` (the ranks
+    each used the tensor on their own part of a split computation)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, use):
+        ctx.args = (mesh, axis, use)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, axis, use = ctx.args
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        return all_reduce(grad, mesh, (axis,), use=use), None, None, None
+
+
 def gather_dims(x: torch.Tensor, spec: Placement, mesh,
                 axes: Optional[Sequence[str]] = None, *, use: str = "other") -> torch.Tensor:
     """`x` (a rank's piece) gathered whole along every dim `spec` places
@@ -641,11 +735,13 @@ def serving_shardings(mesh, params, batch=None, caches=None) -> ServingShardings
 
 
 class Serve(NamedTuple):
-    """A rank's view of a serving step: the mesh (None unsharded), its
-    layout, this rank's coordinate, the parameters' placement tree (None
-    unsharded), the axes the batch's rows are split over (None where the
-    batch's placement was not given and node · fsdp > 1) and the path of
-    the block being run (for `gathered_over_model`)."""
+    """A rank's view of a serving step or of a node's loss: the mesh (None
+    unsharded), its layout, this rank's coordinate, the parameters'
+    placement tree (None unsharded), the axes the batch's rows are split
+    over (None where the batch's placement was not given and node · fsdp >
+    1), the path of the block being run (for `gathered_over_model`) and
+    whether it is the training form (`train_view`: every collective has its
+    backward, and a node's loss terms are summed over the rows' ranks)."""
 
     mesh: object
     layout: Dict[str, int]
@@ -653,6 +749,7 @@ class Serve(NamedTuple):
     specs: object = None
     rows: Optional[Tuple[str, ...]] = ()
     path: str = ""
+    train: bool = False
 
     @property
     def sharded(self) -> bool:
@@ -667,6 +764,11 @@ class Serve(NamedTuple):
     def r(self) -> int:
         """This rank's coordinate on `model`."""
         return self.coord["model"]
+
+    @property
+    def pieces(self) -> int:
+        """The number of pieces the batch's rows are split into."""
+        return math.prod(self.layout[name] for name in self.rows or ())
 
     def at(self, path: str) -> "Serve":
         """The view inside the block at `path` (a path of the parameter tree)."""
@@ -691,26 +793,58 @@ class Serve(NamedTuple):
         """[lo, hi) of the whole leaf `name` along `dim`, from this rank's
         piece `w` (a view where the piece holds it; otherwise the leaf is
         gathered over `model`, counted under "weights" and listed in
-        `gathered_over_model`)."""
+        `gathered_over_model`; in training its gradient is then whole on
+        every rank and the backward keeps this rank's slice, the part of a
+        split range entering through `enter`)."""
         plo, phi = self.span(w, dim, whole)
         if plo <= lo and hi <= phi:
             return w if (lo, hi) == (plo, phi) else w.narrow(dim, lo - plo, hi - lo)
         _GATHERED[f"{self.path}/{name}" if self.path else name] = None
-        return all_gather(w, self.mesh, "model", dim, use="weights").narrow(dim, lo, hi - lo)
+        if not self.train:
+            return all_gather(w, self.mesh, "model", dim, use="weights").narrow(dim, lo, hi - lo)
+        w = _Gather.apply(w, self.mesh, "model", dim, "weights", "slice")
+        return w if (lo, hi) == (0, whole) else self.enter(w).narrow(dim, lo, hi - lo)
 
     def psum(self, x: torch.Tensor, use: str = "activations") -> torch.Tensor:
-        """`x` summed over `model` (in place, in its own type)."""
-        return all_reduce(x, self.mesh, ("model",), use=use) if self.t > 1 else x
+        """`x` summed over `model` (in place, in its own type; in training
+        a new tensor, its backward the identity)."""
+        if self.t == 1:
+            return x
+        if self.train:
+            return _Psum.apply(x, self.mesh, ("model",), use)
+        return all_reduce(x, self.mesh, ("model",), use=use)
 
     def cat(self, x: torch.Tensor, dim: int, use: str) -> torch.Tensor:
-        """The ranks' pieces of `x` joined along `dim` over `model`."""
-        return all_gather(x, self.mesh, "model", dim, use=use) if self.t > 1 else x
+        """The ranks' pieces of `x` joined along `dim` over `model` (in
+        training, the backward keeps this rank's slice)."""
+        if self.t == 1:
+            return x
+        if self.train:
+            return _Gather.apply(x, self.mesh, "model", dim, use, "slice")
+        return all_gather(x, self.mesh, "model", dim, use=use)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """`x`, which every model rank holds whole, where it enters a
+        computation split over `model`: in training its gradient is summed
+        over `model` (``use="activations"``); otherwise `x` itself."""
+        if self.t == 1 or not self.train:
+            return x
+        return _Enter.apply(x, self.mesh, "model", "activations")
+
+    def rows_sum(self, x: torch.Tensor, use: str = "activations") -> torch.Tensor:
+        """A node's loss term `x` over this rank's rows summed over the
+        rows' ranks (identity backward); `x` itself with the rows whole."""
+        if not self.rows:
+            return x
+        return _Psum.apply(x, self.mesh, self.rows, use)
 
     def weights(self, tree, specs, skip: int = 0):
         """`tree` (this rank's pieces) gathered whole over `fsdp` by the
         placements `specs`, each placement's first `skip` entries dropped
         (a layer of a stacked tree): what one layer uses, gathered just
-        before it runs.  Unsharded, or with one rank on `fsdp`, `tree`
+        before it runs.  In training a gathered leaf's gradient is
+        reduce-scattered over fsdp and that of a leaf not placed over fsdp
+        summed over fsdp.  Unsharded, or with one rank on `fsdp`, `tree`
         itself."""
         if not self.sharded or specs is None or self.layout["fsdp"] == 1:
             return tree
@@ -718,10 +852,19 @@ class Serve(NamedTuple):
 
         leaves, pl, treedef = _leaf_pairs(tree, specs)
         return tree_unflatten(treedef, [
-            gather_dims(x, spec[skip:], self.mesh, ("fsdp",), use="weights")
-            if isinstance(x, torch.Tensor) and "fsdp" in
-            {n for e in spec[skip:] for n in spec_axes(e)} else x
+            self._fsdp_whole(x, spec[skip:]) if isinstance(x, torch.Tensor) else x
             for x, spec in zip(leaves, pl)])
+
+    def _fsdp_whole(self, x: torch.Tensor, spec: Placement) -> torch.Tensor:
+        placed = [dim for dim, e in enumerate(spec) if "fsdp" in spec_axes(e)]
+        if not self.train:
+            return gather_dims(x, spec, self.mesh, ("fsdp",), use="weights") if placed else x
+        if not placed:
+            return _Enter.apply(x, self.mesh, "fsdp", "gradient")
+        (dim,) = placed
+        if spec_axes(spec[dim]) != ("fsdp",):
+            raise ValueError(f"dim {dim} is placed over {spec[dim]} jointly")
+        return _Gather.apply(x, self.mesh, "fsdp", dim, "weights", "scatter")
 
     def rows_before(self, counts: torch.Tensor) -> Tuple[torch.Tensor, int]:
         """(`counts` [n], a count over this rank's rows of the batch,
@@ -759,3 +902,18 @@ def serve_view(shardings: Optional[ServingShardings]) -> Serve:
     else:
         rows = () if layout["node"] * layout["fsdp"] == 1 else None
     return Serve(shardings.mesh, layout, mesh_coords(shardings.mesh), shardings.params, rows)
+
+
+def train_view(loc: Optional[Local] = None, treedef=None) -> Serve:
+    """The training form of the view for one node of the sharded PaME step:
+    `loc` (a `local_view`) with each placement's node entry dropped (`treedef`
+    the parameter tree's structure), the node's rows split over fsdp where
+    fsdp > 1 (the batch placed as `batch_shardings(..., node_stacked=True)`
+    places it).  With `loc` None or unsharded, the unsharded training view."""
+    if loc is None or not loc.sharded:
+        return Serve(None, dict.fromkeys(AXES, 1), dict.fromkeys(AXES, 0), train=True)
+    from repro_torch.tree import tree_unflatten
+
+    specs = tree_unflatten(treedef, [tuple(spec[1:]) for spec in loc.specs])
+    rows = ("fsdp",) if loc.layout["fsdp"] > 1 else ()
+    return Serve(loc.mesh, loc.layout, loc.coord, specs, rows, train=True)

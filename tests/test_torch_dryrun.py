@@ -207,20 +207,23 @@ def test_kernel_route_drops_the_plain_attentions_scores():
 @pytest.mark.parametrize("layout", [{"node": 8, "fsdp": 1, "model": 1},
                                     {"node": 2, "fsdp": 4, "model": 1}])
 def test_collective_bytes_follow_the_placements(layout):
-    """The sharded step at 8 fake ranks, with JAX's convention (an
-    all-gather counts its result, an all-reduce twice its tensor, a group
-    of one rank nothing): each rank all-gathers its piece of every leaf
-    over node (node x its m / node rows' piece), each local node's
-    fsdp-placed leaves over fsdp before its gradient (fsdp x the row's
-    piece), and the losses and sigma over node; it all-reduces the
-    consensus sums (2 x the f32 node sum of its piece, then 2 x 4 bytes
-    over each axis of more than one rank).  Each byte is counted under its
-    use."""
+    """The sharded step's gather-whole route (a grad_fn that takes no view)
+    at 8 fake ranks, with JAX's convention (an all-gather counts its
+    result, an all-reduce twice its tensor, a group of one rank nothing):
+    each rank all-gathers its piece of every leaf over node (node x its m /
+    node rows' piece), each local node's fsdp-placed leaves over fsdp
+    before its gradient (fsdp x the row's piece), and the losses and sigma
+    over node; it all-reduces the consensus sums (2 x the f32 node sum of
+    its piece, then 2 x 4 bytes over each axis of more than one rank).
+    Each byte is counted under its use."""
     from repro_torch import sharding as shd
+    from repro_torch.launch.train import lm_grad_fn
 
     cfg = get_config("stablelm-1.6b", "smoke").replace(remat=True)
     shape = _small()
-    got = dryrun.sharded_collectives(cfg, shape, layout, shape.global_batch)
+    whole = lm_grad_fn(cfg)
+    got = dryrun.sharded_collectives(cfg, shape, layout, shape.global_batch,
+                                     grad_fn=lambda p, b, k: whole(p, b, k))
     m, node, fsdp = layout["node"], layout["node"], layout["fsdp"]
     r = m // node
     specs = dryrun.step_specs(cfg, shape, "train", shape.global_batch, m)
@@ -355,3 +358,93 @@ def test_serving_collectives_gather_over_fsdp_and_model(kind):
     qwen = dryrun.sharded_serving(get_config("qwen3-14b", "smoke"), shape, kind, layout, 4)
     assert qwen["gathered_over_model"] == [f"groups/0/0_attn/attn/{w}"
                                            for w in ("wq", "wk", "wv")]
+
+
+def _tp_train_bytes(cfg, layout, m, batch, seq):
+    """The counted bytes a device of a dense GQA arch's tensor-parallel PaME
+    step moves over `layout` = (1, f, t), f or t = 1, by kind and use, in
+    the parameters' type (e bytes an element), for m nodes on the rank, R =
+    batch / (m f) rows a node on a rank, S tokens a row and L layers:
+
+      * over `model` (t > 1), per node: the forward's sums of wo's and
+        w_down's partial outputs and the backward's sums of the gradient of
+        each layer's attention and MLP input and of the head's input, 2 (4L
+        + 1) R S d e ("activations"); the embedding's lookup, 2 R S d e
+        ("embed"); the logits' vocab slices gathered, R S V 4 ("logits");
+      * over fsdp (f > 1), per node: every fsdp-placed leaf gathered once a
+        use, its bytes ("weights"; the tied embedding twice), its gradient
+        reduce-scattered, its bytes over f ("gradient"); the leaves not
+        placed over fsdp (the 2L + 1 norms [d]) summed, 2 x their bytes
+        ("gradient"); the loss's f32 sum over the rows' ranks, 8
+        ("activations");
+      * the consensus scalar summed over the axis of more than one rank, 8
+        ("metrics"); the exchange over one node, and the losses and sigma
+        gathered over it, 0 bytes."""
+    from repro_torch import sharding as shd
+    from repro_torch.tree import tree_leaves
+
+    f, t = layout["fsdp"], layout["model"]
+    e = 4 if cfg.dtype == "float32" else 2
+    rows, d, lay = batch // (m * f), cfg.d_model, cfg.n_layers
+    out = {"all_gather": {"exchange": 0, "metrics": 0}, "all_reduce": {"metrics": 8}}
+    if t > 1:
+        out["all_gather"]["logits"] = m * rows * seq * cfg.vocab * 4
+        out["all_reduce"].update(activations=m * 2 * (4 * lay + 1) * rows * seq * d * e,
+                                 embed=m * 2 * rows * seq * d * e)
+    if f > 1:
+        params = dryrun.abstract_params(cfg)
+        specs = shd.params_shardings(params, layout, node_stacked=False)
+        placed = replicated = 0
+        for leaf, spec in zip(tree_leaves(params), shd.leaf_specs(params, specs)):
+            if any("fsdp" in shd.spec_axes(entry) for entry in spec):
+                uses = 2 if spec == specs["embed"] and cfg.tie_embeddings else 1
+                placed += uses * leaf.numel() * e
+            else:
+                replicated += leaf.numel() * e
+        assert replicated == (2 * lay + 1) * d * e
+        out["all_gather"]["weights"] = m * placed
+        out["reduce_scatter"] = {"gradient": m * placed // f}
+        out["all_reduce"].update(gradient=m * 2 * replicated, activations=m * 8)
+    return out
+
+
+@pytest.mark.parametrize("layout", [{"node": 1, "fsdp": 1, "model": 4},
+                                    {"node": 1, "fsdp": 4, "model": 1}])
+def test_tp_train_collectives_follow_a_formula(layout):
+    """The tensor-parallel PaME step (`lm_grad_fn` takes a view) of
+    stablelm-smoke, 4 nodes on one rank, at (1, 1, 4) and (1, 4, 1): its
+    collective bytes by kind and by use are `_tp_train_bytes`', and no
+    gradient is gathered: it is reduce-scattered."""
+    cfg = get_config("stablelm-1.6b", "smoke")
+    shape = _small(seq=32, batch=16)
+    got = dryrun.sharded_collectives(cfg, shape, layout, 16, m=M)
+    want = _tp_train_bytes(cfg, layout, M, 16, 32)
+    assert got["by_use"] == want
+    assert got["bytes"] == {k: sum(v.values()) for k, v in want.items()}
+    assert "gradient" not in got["by_use"]["all_gather"]
+
+
+def test_train_record_memory_below_the_gather_whole_route(tmp_path):
+    """The CLI's smoke train record at --devices 8 --model-axis 4 carries
+    ``per_device_memory``, one rank's trace of the tensor-parallel step;
+    its peak is below the one-card step's and below the gather-whole
+    route's at the same layout, and the record's gradient is
+    reduce-scattered, not gathered."""
+    from repro_torch.launch.train import lm_grad_fn
+
+    out = tmp_path / "dry.json"
+    (rec,) = dryrun.main(["--arch", "stablelm-1.6b", "--size", "smoke", "--shape", "train_4k",
+                          "--batch", "16", "--device-bytes", "8e10", "--devices", "8",
+                          "--model-axis", "4", "--out", str(out)]).values()
+    layout = {k: rec["layout"][k] for k in ("node", "fsdp", "model")}
+    assert layout == {"node": 2, "fsdp": 1, "model": 4}
+    dev = rec["per_device_memory"]["peak_bytes"]
+    assert 0 < dev < rec["memory"]["peak_bytes"]
+    assert rec["collective_bytes_by_use"]["all_reduce"]["activations"] > 0
+    assert "gradient" not in rec["collective_bytes_by_use"]["all_gather"]
+    cfg = dryrun._resolve("stablelm-1.6b", "train_4k", size="smoke")[1]
+    whole = lm_grad_fn(cfg)
+    gw = dryrun.sharded_collectives(cfg, INPUT_SHAPES["train_4k"], layout, 16,
+                                    grad_fn=lambda p, b, k: whole(p, b, k))
+    assert dev < gw["per_device_memory"]["peak_bytes"]
+    assert gw["by_use"]["all_gather"]["gradient"] > 0
