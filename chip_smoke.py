@@ -213,7 +213,15 @@ non-zero without the final result line:
      tensor-parallel route: `lm_grad_fn` takes a view) `torch.equal` to the
      unsharded one (state and loss_mean), and for dense and sparse the
      gather-whole route (a grad_fn that takes none) too; seconds a step,
-     peaks and the collective wrapper's counts (one rank: 0 bytes);
+     peaks and the collective wrapper's counts (one rank: 0 bytes); then
+     the network cases (`NET_CASES`: path A's graph with node 1 offline,
+     the edge 2-3 down, nodes 2 and 3 read one step back from the
+     `temporal` ring, node 3's one message lost): the dense step under the
+     realization (PME average, 10 a step), the sparse step under the
+     realization, the delivery masks and the stale self view (f32 gossip,
+     11), the dense step with the self view (the plain average, as JAX
+     routes it: no launch), both routes `torch.equal` to the unsharded
+     step, wire_bits too;
  19. path L (after path K, before path J): sharded serving
      (`prefill` / `decode_step` / `ServeLoop` with ``shardings=``,
      `sharding.serving_shardings`), a prefill of 8 x 2048-token prompts and
@@ -248,10 +256,11 @@ non-zero without the final result line:
      collective bytes);
  20. path M (after path L, before path J): the tensor-parallel train step
      on ranks sharing the card through gloo over CUDA tensors, path A's
-     model (stablelm-1.6b in bf16, full width and depth, 4 nodes, 4 x 128
-     tokens a node), one dense step (the PME average, receiver range r = m)
-     and one sparse (f32 gossip): M1 two ranks at (1, 1, 2), M2 four at
-     (1, 2, 2) (the fsdp gathers and their reduce-scatters).  The parent
+     model (stablelm-1.6b in bf16, full width, 4 nodes, 4 x 128 tokens a
+     node), one dense step (the PME average, receiver range r = m) and one
+     sparse (f32 gossip): M1 two ranks at (1, 1, 2) at full depth, M2 four
+     at (1, 2, 2) and M2_LAYERS (4) (the fsdp gathers and their
+     reduce-scatters).  The parent
      first runs the unsharded bf16 step and an f32 step at the same weights
      on the plain route; each rank draws the whole state in turn and keeps
      its pieces, runs the gather-whole route (a grad_fn that takes no view:
@@ -267,7 +276,23 @@ non-zero without the final result line:
      and the launches.  J5 holds each rank's peak within 10 % of the dry
      run's of the same step (`m_dry`) and records rank 0's collective bytes
      beside the dry run's;
- 21. the kernel table line, then the result line.
+ 21. path N (after path M, before path J): the network cases of path K
+     with node rows across two ranks sharing the card (gloo over CUDA
+     tensors, a (2, 1, 1) mesh, two nodes a rank), path A's model in bf16
+     at full width and N_LAYERS (4) layers: the parent first runs the
+     unsharded steps alone on the card, then each rank draws the stacks in
+     turn, keeps its rows and runs the tensor-parallel route of every case
+     (path K holds the gather-whole route).  Held: each rank's
+     rows of every new state equal to the parent's by a 64-bit digest of
+     every row (`row_digests`), loss_mean, wire_bits and comm_nodes equal,
+     the launches (PME average with its receiver range r = 2, f32 gossip
+     over the gathered four-row sender stack, none for the self view), and
+     `freeze_dropped(shardings=)` equal to the unsharded freeze with the
+     offline node's rows back bit for bit.  Recorded: each rank's peak and
+     seconds a step.  Phase 2 times both launch forms: the PME average at
+     r = 2 (r0 = 0 and 2) and the gossip kernel's two receivers of four
+     senders, at path N's largest leaf;
+ 22. the kernel table line, then the result line.
 
 Exits non-zero with no result when no CUDA device is present, or when the
 port's sources are not beside this script.
@@ -455,7 +480,10 @@ def check_gossip(dev):
             row["plain_ms"] = time_ms(lambda: gather_terms_ref(nbrs, terms, pad=pad), reps)
             row["library_ms"] = time_ms(
                 lambda: mixing.gather_terms(nbrs, terms, pad=pad, impl="segsum"), reps)
-            bytes_ = (len(xs) * (xs[0].shape[0] + m) * n * xs[0].element_size()
+            # the sender rows the function reads: those its unpadded slots
+            # name (a rank's receivers may leave rows of the stack unread)
+            row["senders_read"] = int(torch.unique(nbrs if pad is None else nbrs[~pad]).numel())
+            bytes_ = (len(xs) * (row["senders_read"] + m) * n * xs[0].element_size()
                       + nbrs.numel() * 4 + w.numel() * 4)
             flops = 2 * len(xs) * m * k * n  # f32 multiply-adds on the CUDA cores
             row["bound_ms"], row["bound_by"] = bound(bytes_, flops, F32_FLOPS)
@@ -536,6 +564,15 @@ def check_gossip(dev):
     row_m = case("path-m-rank-piece", nbrs, sel.float(), ~valid, xs, reps=5)
     del xs
     free()
+    # path N's launch on rank 1: its two receivers (nodes 2 and 3) walking
+    # the gathered four-row sender stack of path N's largest leaf
+    mask = torch.rand((M, N_LEAF_N), generator=g, device=dev) < 0.2
+    payload = torch.randn((M, N_LEAF_N), generator=g, device=dev).to(torch.bfloat16) * mask
+    xs = [payload.float(), mask.float()]
+    del payload, mask
+    row_n = case("path-n-rank-receivers", nbrs[2:], sel.float()[2:], ~valid[2:], xs, reps=5)
+    del xs
+    free()
     # path D's largest leaf: one bf16 term over the baselines' sparse Mixer
     mx = make_mixer(topo, "sparse", device=dev)
     x = torch.randn((M, BIG_N), generator=g, device=dev).to(torch.bfloat16)
@@ -559,7 +596,8 @@ def check_gossip(dev):
     x = torch.randn((M, FC1_N), generator=g, device=dev)
     row_fc1 = case("path-f3-fc1", mx.pm.nbrs, mx.pm.w, mx.pm.pad, [x], reps=50)
     return {"f32": row, "bf16": row_bf16, "bf16_replicas": row_rep, "f32_fc1": row_fc1,
-            "f32_grown": row_grown, "f32_path_i": row_i1, "f32_path_m": row_m}
+            "f32_grown": row_grown, "f32_path_i": row_i1, "f32_path_m": row_m,
+            "f32_path_n": row_n}
 
 
 def check_pme(dev):
@@ -650,8 +688,10 @@ def check_pme_range(dev):
     r = 2 (r0 = 2: of node = 2) of m = 4, at path B's largest leaf in bf16
     (row 1r) and at F3's fc1 in f32 (row 1rf), at path K's own launch,
     r = m = 4 (r0 = 0: its one rank) on path A's largest leaf in f32 (row
-    1rk), and at path M's, r = m = 4 on a rank's half of that leaf's
-    columns in bf16 (row 1rm); phase 2's tolerances.  The bound counts what the function needs:
+    1rk), at path M's, r = m = 4 on a rank's half of that leaf's
+    columns in bf16 (row 1rm), and at path N's, r = 2 (r0 = 0 and 2: its
+    two ranks) of path N's largest leaf in bf16 (row 1rn); phase 2's
+    tolerances.  The bound counts what the function needs:
     m·n reads of W and of the masks (the receivers' own rows are among
     the senders' rows) and r·n writes; the kernel's second read of a
     receiver's own row for the fill is its overhead."""
@@ -667,7 +707,8 @@ def check_pme_range(dev):
             ("1r", BIG_N, torch.bfloat16, 0.2, 5, halves),
             ("1rf", FC1_N, torch.float32, 0.3, 50, halves),
             ("1rk", BIG_N, torch.float32, 0.2, 5, ((0, M),)),
-            ("1rm", BIG_N // 2, torch.bfloat16, 0.2, 5, ((0, M),))):
+            ("1rm", BIG_N // 2, torch.bfloat16, 0.2, 5, ((0, M),)),
+            ("1rn", N_LEAF_N, torch.bfloat16, 0.2, 5, ((0, 2), (2, 2)))):
         w = torch.randn((M, n), generator=g, device=dev).to(dtype)
         masks = pme.sample_coordinate_masks(g, M, n, round(p * n))
         a = ((torch.rand((M, M), generator=g, device=dev) < 0.6)
@@ -685,7 +726,9 @@ def check_pme_range(dev):
             else:
                 tol = "1 bf16 ulp"
                 ok = bf16_ulps(got, plain) <= 1.0
-            row = {"kernel": "pme_average", "case": f"receivers-{name}-r{r}", "m": M, "n": n,
+            # path N's two ranks take r = 2 at r0 = 0 and 2: its keys carry r0
+            key = f"{name}-r{r}" + (f"@{r0}" if name == "1rn" else "")
+            row = {"kernel": "pme_average", "case": f"receivers-{key}", "m": M, "n": n,
                    "r0": r0, "r": r, "dtype": str(dtype), "max_abs_err": err, "tol": tol,
                    "square_rows_equal": bool(torch.equal(got, square[r0:r0 + r]))}
             if not ok or not row["square_rows_equal"] or not torch.isfinite(got).all():
@@ -708,7 +751,7 @@ def check_pme_range(dev):
                 + r * n * w.element_size() + a.numel() * 4
             row["bound_ms"], row["bound_by"] = bound(bytes_, 4 * M * r * n, F32_FLOPS)
             emit(**row)
-            rows[f"{name}-r{r}"] = row
+            rows[key] = row
         del w, masks, got
         free()
     return rows
@@ -3757,6 +3800,138 @@ def path_resume(dev, argv=RESUME_ARGS, steps=RESUME_STEPS, at=RESUME_AT):
 
 
 # ---------------------------------------------------------------------------
+# the dynamic network of paths K and N: a realization, a stale self view and
+# delivery masks on path A's graph
+# ---------------------------------------------------------------------------
+# path A's graph (Erdos-Renyi p = 0.5, seed 0: edges 0-1, 0-2, 0-3, 2-3):
+# node 1 offline, the edge 2-3 down, nodes 2 and 3 late by one step (read at
+# the ring's snapshot of the step before; they take part through their stale
+# rows, as the temporal scenario's delayed stragglers do), and node 3's
+# message from node 0 lost (receiver, sender), so node 3 fills from its
+# fresh row alone
+NET_OFFLINE, NET_LATE, NET_EDGE_DOWN, NET_LOST = 1, (2, 3), (2, 3), (3, 0)
+NET_STALENESS = 2  # the ring's depth
+# (name, PaMEConfig fields, the inputs the step takes: "r" the realization,
+# "d" the delivery masks, "s" the self view); the PaMEConfig defaults
+# otherwise (exact masks), as path K's exchanges
+NET_CASES = (("dense-real", {}, "r"), ("sparse-net", {"mixing": "sparse"}, "rds"),
+             ("dense-self", {}, "rs"))
+# the CPU rehearsals' tokens a node (batch, sequence): the smoke model's
+# vocabulary makes path A's 4 x 128 cost seconds a step on one thread
+NET_SMOKE_TOKENS = (1, 16)
+# 0x9E3779B97F4A7C15 as a signed int64: `row_digests`' position hash
+DIGEST_K = -0x61C8864680B583EB
+
+
+def net_inputs(topo):
+    """The network's realization (`scenarios.realization_from_masks` with
+    node NET_OFFLINE offline and the edge NET_EDGE_DOWN down; the late
+    nodes are delayed, not excluded) and the delivery masks ([m, d], node
+    NET_LOST[0]'s slot of NET_LOST[1] lost), CPU tensors."""
+    import torch
+    from repro_torch.core import scenarios
+
+    arrays = scenarios.make_scenario_arrays(topo, scenarios.Scenario())
+    nbrs = arrays.nbrs.tolist()
+    edge_up = torch.ones(arrays.nbrs.shape, dtype=torch.bool)
+    a, b = NET_EDGE_DOWN
+    edge_up[a, nbrs[a].index(b)] = edge_up[b, nbrs[b].index(a)] = False
+    alive = torch.ones(M, dtype=torch.bool)
+    alive[NET_OFFLINE] = False
+    real = scenarios.realization_from_masks(arrays, edge_up, alive,
+                                            torch.zeros(M, dtype=torch.bool))
+    delivered = torch.ones(arrays.nbrs.shape, dtype=torch.bool)
+    recv, send = NET_LOST
+    delivered[recv, nbrs[recv].index(send)] = False
+    return real, delivered
+
+
+def net_leaf(prev, g, rows=slice(None)):
+    """One leaf's fresh and delayed stacks from its stack of the step before,
+    `prev` [M, ...]: fresh = prev + 0.01 N(0, 1) from `g`; delayed = fresh
+    with the late nodes' rows read from the snapshot ring
+    (`temporal.ring_init` holds step 0's parameters, step 1 reads its late
+    nodes one step back, then `ring_push` writes the fresh stack into slot
+    1).  Nodes `rows` of each, contiguous."""
+    import torch
+    from repro_torch.core import temporal
+
+    fresh = (prev + 0.01 * torch.randn(prev.shape, generator=g, device=prev.device)) \
+        .to(prev.dtype)
+    ring = temporal.ring_init(prev, NET_STALENESS)
+    late = list(NET_LATE)
+    delayed = fresh.clone()
+    delayed[late] = ring[(1 - 1) % NET_STALENESS][late]
+    temporal.ring_push(ring, fresh, 1, NET_STALENESS)
+    if not torch.equal(ring[1], fresh):
+        fail("the snapshot ring's slot 1 is not the pushed stack")
+    del ring
+    return fresh[rows].contiguous(), delayed[rows].contiguous()
+
+
+def net_task(dev, variant="full", layers=None, rows=slice(None)):
+    """Path A's model (bf16 at full size; `layers` deep), its graph, grad_fn
+    and batch (path A's 4 x 128 tokens a node; NET_SMOKE_TOKENS for the
+    smoke variant), and the network's stacks of nodes `rows` (`net_leaf`):
+    the step before is path K's stack (node rows 0.01 apart, seed 5), the
+    fresh noise from seed 6, drawn whole leaf by leaf, so that every
+    process gets the same values.  Returns (topo, grad_fn, batch, fresh,
+    delayed)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import make_lm_task
+    from repro_torch.tree import tree_flatten, tree_unflatten
+
+    cfg = get_config("stablelm-1.6b", variant)
+    cfg = cfg.replace(n_layers=layers) if layers else cfg
+    batch, seq = NET_SMOKE_TOKENS if variant == "smoke" else (4, 128)
+    topo, params0, grad_fn, make_batch = make_lm_task(cfg, M, batch, seq, 0, "erdos_renyi",
+                                                      dev)
+    g_prev = torch.Generator(device=dev).manual_seed(5)
+    g_fresh = torch.Generator(device=dev).manual_seed(6)
+    leaves, treedef = tree_flatten(params0)
+    del params0
+    fresh, delayed = [], []
+    for i, x in enumerate(leaves):
+        prev = (x.unsqueeze(0) + 0.01 * torch.randn((M,) + tuple(x.shape), generator=g_prev,
+                                                    device=dev)).to(x.dtype)
+        leaves[i] = None
+        f, d = net_leaf(prev, g_fresh, rows)
+        fresh.append(f)
+        delayed.append(d)
+        del prev, x, f, d
+    free()
+    return (topo, grad_fn, make_batch(0), tree_unflatten(treedef, fresh),
+            tree_unflatten(treedef, delayed))
+
+
+def row_digests(tree):
+    """Each leaf's rows' 64-bit digests, [[int] a row] in JAX leaf order: the
+    wrapping sum over a row's elements of their bits times a hash of their
+    position (CHUNK elements at a time).  Equal rows give equal digests; two
+    different rows share one by a 2^-64 coincidence, so digests stand in for
+    `torch.equal` between processes that cannot hold each other's states."""
+    import torch
+    from repro_torch.tree import tree_leaves
+
+    out = []
+    for x in tree_leaves(tree):
+        ity = {2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]
+        rows = []
+        for row in x.reshape(x.shape[0], -1):
+            acc = torch.zeros((), dtype=torch.int64, device=x.device)
+            for i in range(0, row.numel(), CHUNK):
+                v = row[i:i + CHUNK].view(ity).to(torch.int64)
+                pos = torch.arange(i + 1, i + 1 + v.numel(), dtype=torch.int64,
+                                   device=x.device).mul_(DIGEST_K)
+                acc += (v * pos).sum()
+                del v, pos
+            rows.append(int(acc))
+        out.append(rows)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # path K: the sharded PaME step over a (1, 1, 1) mesh of one NCCL rank
 # ---------------------------------------------------------------------------
 # the exchanges of path K: (name, PaMEConfig fields, kernel launches a step
@@ -3786,8 +3961,6 @@ def path_k_rank(device_type="cuda", variant="full"):
     import torch.distributed as dist
     from repro_torch import sharding as shd
     from repro_torch.core import pame
-    from repro_torch.kernels.gossip.kernel import gossip_gather
-    from repro_torch.kernels.pme_average.kernel import pme_average_cuda
     from repro_torch.launch.mesh import make_logical_mesh
     from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 
@@ -3844,11 +4017,7 @@ def path_k_rank(device_type="cuda", variant="full"):
                 _sync(dev)
                 out[how] = {"loss": metrics["loss_mean"], "s": time.perf_counter() - t0,
                             "peak_bytes": torch.cuda.max_memory_allocated() if card else 0,
-                            "launches": {"pme_average": pme_average_cuda.launches,
-                                         "pme_average_range": pme_average_cuda.range_launches,
-                                         "gossip_f32": gossip_gather.variant_launches["f32"],
-                                         "gossip_bf16": gossip_gather.variant_launches["bf16"]},
-                            "collectives": shd.collective_counts()}
+                            "launches": _k_launches(), "collectives": shd.collective_counts()}
                 del metrics, st, b
                 if how == "unsharded":  # kept to hold each sharded route's state against
                     ref = new
@@ -3875,9 +4044,105 @@ def path_k_rank(device_type="cuda", variant="full"):
                                   collectives_gather_whole=gw["collectives"])
             del out, u, s, state, ref
             free()
+        del stacked
+        free()
+        rows.update(_k_network(dev, variant, mesh, layout, coord, grad_fn, whole_fn))
     finally:
         dist.destroy_process_group()
     print("K_RESULT " + json.dumps(rows), flush=True)
+
+
+def _k_launches():
+    from repro_torch.kernels.gossip.kernel import gossip_gather
+    from repro_torch.kernels.pme_average.kernel import pme_average_cuda
+
+    return {"pme_average": pme_average_cuda.launches,
+            "pme_average_range": pme_average_cuda.range_launches,
+            "gossip_f32": gossip_gather.variant_launches["f32"],
+            "gossip_bf16": gossip_gather.variant_launches["bf16"]}
+
+
+def _k_network(dev, variant, mesh, layout, coord, grad_fn, whole_fn):
+    """Path K's network cases (NET_CASES) on its one rank: for each, the
+    unsharded step (its new state kept in pinned host memory), then the
+    tensor-parallel and the gather-whole routes from the same state, key,
+    batch, realization, delivery masks and self view, each held leaf by
+    leaf with `torch.equal` (state, sigma, loss_mean and wire_bits)."""
+    import torch
+    from repro_torch import sharding as shd
+    from repro_torch.core import pame
+    from repro_torch.tree import tree_leaves
+
+    card = dev.type == "cuda"
+    topo, _, batch, fresh, delayed = net_task(dev, variant)
+    real, delivered = net_inputs(topo)
+    # the unsharded step's new state waits in pinned host memory (one
+    # buffer a leaf, every case's state has the same shapes) while each
+    # route's runs on the card: 11.5 GB each at full depth
+    ref = [torch.empty(x.shape, dtype=x.dtype, pin_memory=card) for x in tree_leaves(fresh)]
+    rows = {}
+    for name, fields, net in NET_CASES:
+        cfg = pame.PaMEConfig(**fields)
+        ta = pame.make_topology_arrays(topo, cfg, seed=0, device=dev)
+        state = pame.pame_init(1, delayed if "s" in net else fresh, M, cfg)
+        kw = dict(realization=real, self_params=fresh if "s" in net else None,
+                  delivered=delivered if "d" in net else None)
+        out, equal = {}, {}
+        for how, fn in (("unsharded", grad_fn), ("sharded", grad_fn),
+                        ("gather_whole", whole_fn)):
+            sharded, st, b, self_view = None, state, batch, kw["self_params"]
+            if how != "unsharded":
+                place = shd.state_shardings(state, layout)
+                sharded = shd.MeshShardings(mesh, place.params)
+                st = shd.shard_tree(state, place, layout, coord)
+                b = pame.shard_batch(batch, sharded, fn)
+                if self_view is not None:
+                    self_view = shd.shard_tree(self_view, place.params, layout, coord)
+            _reset_counts()
+            shd.reset_collective_counts()
+            free()
+            if card:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            new, met = pame.pame_step(st, b, fn, ta, cfg, param_shardings=sharded,
+                                      **dict(kw, self_params=self_view))
+            _sync(dev)
+            out[how] = {"loss": met["loss_mean"], "wire_bits": met["wire_bits"],
+                        "comm_nodes": int(met["comm_nodes"]), "s": time.perf_counter() - t0,
+                        "peak_bytes": torch.cuda.max_memory_allocated() if card else 0,
+                        "launches": _k_launches()}
+            del met, st, b
+            if how == "unsharded":
+                for r, x in zip(ref, tree_leaves(new.params)):
+                    r.copy_(x)
+                ref_sigma = new.sigma.cpu()
+            else:  # leaf by leaf back on the card
+                equal[how] = (all(torch.equal(x, y.to(dev, non_blocking=True))
+                                  for x, y in zip(tree_leaves(new.params), ref))
+                              and torch.equal(new.sigma.cpu(), ref_sigma)
+                              and all(torch.equal(out["unsharded"][k], out[how][k])
+                                      for k in ("loss", "wire_bits")))
+            del new
+            free()
+        u, sh, gw = out["unsharded"], out["sharded"], out["gather_whole"]
+        rows[f"net-{name}"] = {
+            "exchange": name, "inputs": net, "bit_equal": bool(equal["sharded"]),
+            "gather_whole_bit_equal": bool(equal["gather_whole"]),
+            "loss": float(sh["loss"]), "finite": bool(torch.isfinite(sh["loss"])),
+            "wire_bits": float(sh["wire_bits"]), "comm_nodes": sh["comm_nodes"],
+            "s_step_sharded": sh["s"], "s_step_unsharded": u["s"],
+            "s_step_gather_whole": gw["s"], "peak_bytes_sharded": sh["peak_bytes"],
+            "peak_bytes_unsharded": u["peak_bytes"], "peak_bytes_gather_whole": gw["peak_bytes"],
+            "launches_sharded": sh["launches"], "launches_unsharded": u["launches"],
+            "launches_gather_whole": gw["launches"],
+            "want_launches": {"pme_average": 10 if name == "dense-real" else 0,
+                              "gossip_f32": 11 if name == "sparse-net" else 0},
+            "collectives": shd.collective_counts()}
+        del out, state
+        free()
+    del fresh, delayed, ref
+    free()
+    return rows
 
 
 def path_k(dev, variant="full"):
@@ -3900,10 +4165,20 @@ def path_k(dev, variant="full"):
     rows = json.loads(lines[0][len("K_RESULT "):])
     sharded_routes = {name: ["sharded"] + (["gather_whole"] if name in ("dense", "sparse")
                                            else []) for name, _, _ in K_EXCHANGES}
-    for name, fields, want in K_EXCHANGES:
+    sharded_routes.update({f"net-{name}": ["sharded", "gather_whole"]
+                           for name, _, _ in NET_CASES})
+    cases = [(name, want) for name, _, want in K_EXCHANGES] + [
+        (f"net-{name}", rows[f"net-{name}"]["want_launches"]) for name, _, _ in NET_CASES]
+    for name, want in cases:
         if dev.type != "cuda":
             want = dict.fromkeys(want, 0)
         row = rows[name]
+        if name.startswith("net-"):
+            # the realized wire bits: 3 messages sent (node 3's lost one
+            # charged too), the 3 participants communicating
+            if not (row["wire_bits"] > 0 and row["comm_nodes"] == M - 1):
+                fail(f"path K ({name}): wire_bits {row['wire_bits']}, comm_nodes "
+                     f"{row['comm_nodes']}")
         emit(phase="path_k", arch="stablelm-1.6b", nodes=M, layout=[1, 1, 1], **row)
         su = row["launches_unsharded"]
         ok_launches = (su["pme_average"] == want["pme_average"] and su["pme_average_range"] == 0
@@ -3959,7 +4234,8 @@ L2_ERROR_RATIO = 1.25
 L2_F32_RATIO = 1.0
 # the CPU rehearsal's prompts (tests/test_torch_sharded_serving.py)
 L_SMOKE_SERVE = dict(prompt_len=16, gen=4, batch=4, seed=0)
-L_SCRIPT = "import sys, chip_smoke; chip_smoke.{}(*sys.argv[1:])"
+# a rank of paths L, M and N: a function of this module on its arguments
+RANK_SCRIPT = "import sys, chip_smoke; chip_smoke.{}(*sys.argv[1:])"
 
 
 def _l_config(arch, variant, layers=None):
@@ -4025,16 +4301,21 @@ def _serve_run(dev, cfg, params, loop, shardings=None, forced=None):
             "decode_ms_per_token": decode_s * 1e3 / (loop.gen - 1), "launches": launches}
 
 
-def _pg(device_type, rank, world, port):
+def _pg(device_type, rank, world, port, timeout=None):
     """The default process group: NCCL on the card for one rank, gloo over
     CUDA tensors for two ranks sharing it (NCCL takes one rank a device),
-    gloo on the CPU."""
+    gloo on the CPU; `timeout` seconds for a collective (torch's default
+    when None)."""
+    import datetime
+
     import torch
     import torch.distributed as dist
 
     card = device_type == "cuda"
     backend = ("nccl" if world == 1 else "cuda:gloo,cpu:gloo") if card else "gloo"
     kw = {"device_id": torch.device("cuda", 0)} if card and world == 1 else {}
+    if timeout is not None:
+        kw["timeout"] = datetime.timedelta(seconds=timeout)
     dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                             world_size=world, **kw)
 
@@ -4260,12 +4541,16 @@ def path_l2_rank(rank, ref_path, device_type="cuda", variant="full", port="0"):
     print("L2_RESULT " + json.dumps(rows), flush=True)
 
 
-def _l_children(dev, script, argvs, timeout):
-    """Run `script` once a list of arguments in `argvs`, all at once; the
-    lines each printed that start with its result tag."""
-    procs = [subprocess.Popen([sys.executable, "-c", L_SCRIPT.format(script), *argv],
+def _rank_children(path, script, tag, argvs, timeout, env=None):
+    """Path `path`'s ranks: `script` (a function of this module) in a
+    process of its own once a list of arguments in `argvs`, all at once,
+    under `env` (`_env()` when None); the line each printed that starts with
+    `tag`, parsed.  No rank outlives the call.  A rank that exits without
+    its line fails the path, with every such rank's tail on stderr (the
+    first to fail may be any of them)."""
+    procs = [subprocess.Popen([sys.executable, "-c", RANK_SCRIPT.format(script), *argv],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                              env=_env(), cwd=HERE) for argv in argvs]
+                              env=env or _env(), cwd=HERE) for argv in argvs]
     outs = []
     try:
         for proc in procs:
@@ -4275,14 +4560,16 @@ def _l_children(dev, script, argvs, timeout):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    tag = {"path_l1_rank": "L1_RESULT ", "path_l2_rank": "L2_RESULT "}[script]
-    results = []
-    for proc, (out, err) in zip(procs, outs):
-        lines = [ln for ln in out.splitlines() if ln.startswith(tag)]
+    results, failed = [], []
+    for rank, (proc, (out, err)) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith(tag + " ")]
         if proc.returncode != 0 or not lines:
-            print(out[-4000:], err[-4000:], file=sys.stderr)
-            fail(f"path L: {script} exited {proc.returncode}")
-        results.append(json.loads(lines[0][len(tag):]))
+            print(f"path {path} rank {rank}:", out[-4000:], err[-4000:], file=sys.stderr)
+            failed.append(f"rank {rank} exited {proc.returncode}")
+            continue
+        results.append(json.loads(lines[0][len(tag) + 1:]))
+    if failed:
+        fail(f"path {path}: {script}: {', '.join(failed)}")
     return results
 
 
@@ -4290,7 +4577,7 @@ def path_l1(dev, variant="full"):
     """Path L1 on the card: `path_l1_rank` in a process of its own.  The
     sharded run must equal the unsharded one bit for bit and launch flash
     and SSD as often a prefill (on the CPU: no launch)."""
-    (rows,) = _l_children(dev, "path_l1_rank", [[dev.type, variant]], 900)
+    (rows,) = _rank_children("L1", "path_l1_rank", "L1_RESULT", [[dev.type, variant]], 900)
     launches = {"flash": 0, "ssd": 0}  # all at path C's shape (row 4 / row 5)
     for arch, row in rows.items():
         emit(phase="path_l1", layout=[1, 1, 1], **row)
@@ -4353,8 +4640,9 @@ def path_l2(dev, variant="full", ratio=L2_ERROR_RATIO):
         ref_path = os.path.join(tmp, "refs.pt")
         torch.save(refs, ref_path)
         port = str(_free_port())
-        ranks = _l_children(dev, "path_l2_rank",
-                            [[str(r), ref_path, dev.type, variant, port] for r in range(2)], 900)
+        ranks = _rank_children("L2", "path_l2_rank", "L2_RESULT",
+                               [[str(r), ref_path, dev.type, variant, port] for r in range(2)],
+                               900)
     for arch, layers in L2_RUNS:
         cfg = _l_config(arch, variant, layers)
         ref = refs[arch]
@@ -4453,7 +4741,6 @@ M_NO_ENTRY = "groups/0/1_mlp"
 M_LOSS_REL = 2e-4
 # elements at a time in path M's comparisons
 M_CHUNK = 1 << 24
-M_SCRIPT = "import sys, chip_smoke; chip_smoke.path_m_rank(*sys.argv[1:])"
 M_DRY_SCRIPT = "import sys, chip_smoke; chip_smoke.m_dry(sys.argv[1:])"
 
 
@@ -4649,8 +4936,6 @@ def path_m_rank(rank, world, layout, device_type="cuda", variant="full", port="0
     import torch.distributed as dist
     from repro_torch import sharding as shd
     from repro_torch.core import pame
-    from repro_torch.kernels.gossip.kernel import gossip_gather
-    from repro_torch.kernels.pme_average.kernel import pme_average_cuda
     from repro_torch.launch.mesh import make_logical_mesh
     from repro_torch.tree import tree_leaves
 
@@ -4705,11 +4990,7 @@ def path_m_rank(rank, world, layout, device_type="cuda", variant="full", port="0
             "s": s,
             "peak_bytes": max(grads, marks.get("exchange", 0)) - before + args if card else None,
             "gradient_peak_bytes": grads - before + args if card else None,
-            "collectives": shd.collective_counts(),
-            "launches": {"pme_average": pme_average_cuda.launches,
-                         "pme_average_range": pme_average_cuda.range_launches,
-                         "gossip_f32": gossip_gather.variant_launches["f32"],
-                         "gossip_bf16": gossip_gather.variant_launches["bf16"]}}
+            "collectives": shd.collective_counts(), "launches": _k_launches()}
 
     rows = {}
     try:
@@ -4772,30 +5053,6 @@ def path_m_rank(rank, world, layout, device_type="cuda", variant="full", port="0
                                     "init_s": t_init, "rows": rows}), flush=True)
 
 
-def _m_children(dev, argvs, timeout):
-    """Path M's ranks, all at once; each one's M_RESULT."""
-    procs = [subprocess.Popen([sys.executable, "-c", M_SCRIPT, *argv], stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True, env=_env(), cwd=HERE)
-             for argv in argvs]
-    outs = []
-    try:
-        for proc in procs:
-            outs.append(proc.communicate(timeout=timeout))
-    finally:  # no rank outlives the path
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    results = []
-    for proc, (out, err) in zip(procs, outs):
-        lines = [ln for ln in out.splitlines() if ln.startswith("M_RESULT ")]
-        if proc.returncode != 0 or not lines:
-            print(out[-4000:], err[-4000:], file=sys.stderr)
-            fail(f"path M: a rank exited {proc.returncode}")
-        results.append(json.loads(lines[0][len("M_RESULT "):]))
-    return results
-
-
 def path_m(dev, variant="full", ratio=M_ERROR_RATIO, runs=M_RUNS):
     """Path M: the parent's references (`_m_refs`), then each of `runs` on
     its ranks (`path_m_rank`, all sharing the card).  Held, for each
@@ -4827,9 +5084,10 @@ def path_m(dev, variant="full", ratio=M_ERROR_RATIO, runs=M_RUNS):
         port = str(_free_port())
         tag = "x".join(map(str, layout))
         t1 = time.perf_counter()
-        ranks = _m_children(dev, [[str(r), str(world), tag, dev.type, variant, port,
-                                   str(layers or 0), ",".join(exchanges), str(int(negative))]
-                                  for r in range(world)], 900)
+        ranks = _rank_children(f"M ({tag})", "path_m_rank", "M_RESULT",
+                               [[str(r), str(world), tag, dev.type, variant, port,
+                                 str(layers or 0), ",".join(exchanges), str(int(negative))]
+                                for r in range(world)], 900)
         rows[run] = {"layout": layout, "layers": ranks[0]["layers"], "refs_s": refs_s,
                      "seconds": time.perf_counter() - t1, "ranks": []}
         for res in ranks:
@@ -4932,6 +5190,246 @@ def m_dry(argv):
     with open(args.out, "w") as f:
         json.dump({"m": dict(rec, layout=layout, layers=cfg.n_layers,
                              trace_s=time.perf_counter() - t0)}, f)
+
+
+# ---------------------------------------------------------------------------
+# path N: the sharded PaME step under the dynamic network, node rows across
+# two ranks sharing the card
+# ---------------------------------------------------------------------------
+# path N's depth, cut from 24 for time, not for memory.  Each rank holds
+# the fresh and the delayed stacks of its two nodes, and the dense step with
+# the self view takes the plain average (JAX's routing) with its f32
+# temporaries of the largest leaf beside them; both ranks run each step at
+# once.  On an H100 80GB HBM3 at 700 W, at 23 and 20 layers a rank ran out
+# of memory (34.63 GiB allocated beside the other rank and the parent) and
+# 16 layers fit (a rank's peak 32.8 GB); but every step gathers the other
+# rank's rows through gloo, staged through the host: 9.9-16.8 s a step at 12
+# layers, the ranks 50.2-59.5 s of the script.  The gather scales with the
+# parameters (4 layers: 0.60 of 12's), and the script must end within
+# 1200 s with path M1 at full depth
+N_LAYERS = 4
+# path N's largest leaf (the MLP's at full depth, the embedding's below 18 layers)
+N_LEAF_N = max(100352 * 2048, (N_LAYERS or 24) * 2048 * 5632)
+N_LAYOUT = {"node": 2, "fsdp": 1, "model": 1}
+N_TIMEOUT = 600  # seconds: a rank's collectives, and the ranks' processes
+
+
+def _n_record(dev, new, met, t0):
+    """A step's record: its new state's row digests (params, then sigma),
+    loss_mean, wire_bits, comm_nodes, seconds, peak and launches."""
+    import torch
+
+    _sync(dev)
+    return {"digests": row_digests(new.params) + row_digests([new.sigma]),
+            "loss": float(met["loss_mean"]), "wire_bits": float(met["wire_bits"]),
+            "comm_nodes": int(met["comm_nodes"]), "s": time.perf_counter() - t0,
+            "peak_bytes": torch.cuda.max_memory_allocated() if dev.type == "cuda" else None,
+            "launches": _k_launches()}
+
+
+def _n_refs(dev, variant, layers):
+    """Path N's references, in the parent, alone on the card: each network
+    case's unsharded step from the whole stacks (`net_task`), its record
+    (`_n_record`), and for the first case `freeze_dropped` after it (the
+    offline node's rows back).  Returns the records by case, the frozen
+    state's digests, the launches each rank's step should make (the PME
+    average once a leaf of at least `pme._KERNEL_MIN_ELEMS` elements over
+    the m nodes, the f32 gossip kernel once a leaf) and the parent's
+    launches."""
+    import torch
+    from repro_torch.core import pame, pme, scenarios
+    from repro_torch.tree import tree_leaves
+
+    threads = torch.get_num_threads()
+    if dev.type != "cuda":  # as the ranks: the CPU's embedding backward sums in no fixed order
+        torch.set_num_threads(1)
+    try:
+        topo, grad_fn, batch, fresh, delayed = net_task(dev, variant, layers)
+        real, delivered = net_inputs(topo)
+        n_pme = sum(x.numel() >= pme._KERNEL_MIN_ELEMS for x in tree_leaves(fresh))
+        n_leaves = len(tree_leaves(fresh))
+        refs, frozen = {}, None
+        counted = {"pme_average": 0, "f32": 0}
+        for name, fields, net in NET_CASES:
+            cfg = pame.PaMEConfig(**fields)
+            ta = pame.make_topology_arrays(topo, cfg, seed=0, device=dev)
+            state = pame.pame_init(1, delayed if "s" in net else fresh, M, cfg)
+            t0 = _start(dev)
+            new, met = pame.pame_step(state, batch, grad_fn, ta, cfg, realization=real,
+                                      self_params=fresh if "s" in net else None,
+                                      delivered=delivered if "d" in net else None)
+            refs[name] = _n_record(dev, new, met, t0)
+            counted["pme_average"] += refs[name]["launches"]["pme_average"]
+            counted["f32"] += refs[name]["launches"]["gossip_f32"]
+            if frozen is None:
+                f = scenarios.freeze_dropped(real.alive, state, new)
+                frozen = row_digests(f.params) + row_digests([f.sigma])
+                del f
+            del new, met, state
+            free()
+        del fresh, delayed
+        free()
+    finally:
+        torch.set_num_threads(threads)
+    none = {"pme_average": 0, "pme_average_range": 0, "gossip_f32": 0, "gossip_bf16": 0}
+    want = {"dense-real": dict(none, pme_average=n_pme, pme_average_range=n_pme),
+            "sparse-net": dict(none, gossip_f32=n_leaves), "dense-self": none}
+    return refs, frozen, want, counted
+
+
+def path_n_rank(rank, device_type="cuda", variant="full", port="0", layers="0"):
+    """Path N's process `rank` of two sharing the card (gloo over CUDA
+    tensors; on the CPU gloo): a (2, 1, 1) (node, fsdp, model) mesh, so the
+    rank holds nodes 2·rank and 2·rank + 1 whole, path A's model `layers`
+    deep (0: the full depth), the network's fresh and delayed stacks
+    (`net_task`, each rank drawing the whole leaves in turn and keeping
+    its rows).  For each network case (NET_CASES) the tensor-parallel
+    route (`lm_grad_fn`; path K holds the gather-whole route on one rank)
+    from this rank's pieces and the same key, batch, realization, delivery
+    masks and self view: the record of `_n_record` (this rank's rows'
+    digests); after the first case's step
+    `freeze_dropped(..., shardings=)`, whether the offline node's rows
+    came back bit for bit (`torch.equal`, on the rank that holds it) and
+    the frozen rows' digests.  Prints one N_RESULT line."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import sharding as shd
+    from repro_torch.core import pame, scenarios
+    from repro_torch.launch.mesh import make_logical_mesh
+    from repro_torch.tree import tree_leaves, tree_map
+
+    rank, layers = int(rank), int(layers) or None
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device_type)
+    if dev.type != "cuda":
+        torch.set_num_threads(1)
+    _pg(device_type, rank, 2, int(port), timeout=N_TIMEOUT)
+    mesh = make_logical_mesh(device_type=device_type, layout=N_LAYOUT)
+    coord = shd.mesh_coords(mesh)
+    mine = shd.node_rows(shd.MeshShardings(mesh, None), M)
+    t_init = time.perf_counter()
+    for turn in range(2):  # one whole draw on the card at a time
+        if turn == rank:
+            topo, grad_fn, batch, fresh, delayed = net_task(dev, variant, layers, mine)
+        dist.barrier()
+    t_init = time.perf_counter() - t_init
+    held = torch.cuda.memory_allocated() if dev.type == "cuda" else None
+    real, delivered = net_inputs(topo)
+    # the placements of the whole state, from its shapes alone
+    shapes = tree_map(lambda x: torch.empty((M,) + tuple(x.shape[1:]), dtype=x.dtype,
+                                            device="meta"), fresh)
+    place = shd.state_shardings(pame.pame_init(1, shapes, M, pame.PaMEConfig()), N_LAYOUT)
+    sharded = shd.MeshShardings(mesh, place.params)
+    cases, freeze = {}, {}
+    try:
+        for name, fields, net in NET_CASES:
+            cfg = pame.PaMEConfig(**fields)
+            ta = pame.make_topology_arrays(topo, cfg, seed=0, device=dev)
+            state = pame.pame_init(1, delayed if "s" in net else fresh, M, cfg)
+            b = pame.shard_batch(batch, sharded, grad_fn)
+            t0 = _start(dev)
+            new, met = pame.pame_step(state, b, grad_fn, ta, cfg, param_shardings=sharded,
+                                      realization=real, self_params=fresh if "s" in net else None,
+                                      delivered=delivered if "d" in net else None)
+            cases[name] = _n_record(dev, new, met, t0)
+            del met, b
+            if not freeze:
+                frozen = scenarios.freeze_dropped(real.alive, state, new, shardings=sharded)
+                i = NET_OFFLINE - mine.start
+                freeze = {"digests": row_digests(frozen.params) + row_digests([frozen.sigma]),
+                          "restored": None if not mine.start <= NET_OFFLINE < mine.stop
+                          else all(torch.equal(x[i], y[i]) for x, y in zip(
+                              tree_leaves((frozen.params, frozen.sigma)),
+                              tree_leaves((state.params, state.sigma))))}
+                del frozen
+            del new, state
+            free()
+    finally:
+        dist.destroy_process_group()
+    print("N_RESULT " + json.dumps({"rank": rank, "rows": [mine.start, mine.stop],
+                                    "init_s": t_init, "held_bytes": held, "cases": cases,
+                                    "freeze": freeze}),
+          flush=True)
+
+
+def path_n(dev, variant="full", layers=N_LAYERS):
+    """Path N: the parent's unsharded references alone on the card
+    (`_n_refs`), then two ranks sharing it at (2, 1, 1) (`path_n_rank`).
+    Held for every network case and rank: the rank's rows of the
+    new state (params and sigma) equal to the parent's rows of the
+    unsharded step's by their digests (`row_digests`), loss_mean,
+    wire_bits and comm_nodes equal, finite losses, and on the card the
+    launches of `_n_refs`' `want` (every PME-average launch with its
+    receiver range r = 2); `freeze_dropped(shardings=)` equal to the
+    parent's unsharded freeze by the digests, and the offline node's rows
+    back bit for bit on the rank that holds it.  Returns the rows (each
+    rank's peak and seconds a step) and the launches."""
+    import torch
+
+    t0 = time.perf_counter()
+    refs, frozen, want, counted = _n_refs(dev, variant, layers)
+    free()
+    refs_s = time.perf_counter() - t0
+    if dev.type == "cuda":  # what the parent keeps on the card beside the ranks
+        emit(phase="path_n_refs", seconds=refs_s,
+             parent_reserved_bytes=torch.cuda.memory_reserved(),
+             parent_allocated_bytes=torch.cuda.memory_allocated())
+    else:
+        want = {k: dict.fromkeys(w, 0) for k, w in want.items()}
+    t1 = time.perf_counter()
+    port = str(_free_port())
+    # expandable segments: the ranks' leaf-sized transients differ in size
+    # leaf by leaf, and the cached blocks they leave would not be reused
+    ranks = _rank_children("N", "path_n_rank", "N_RESULT",
+                           [[str(r), dev.type, variant, port, str(layers or 0)]
+                            for r in range(2)], N_TIMEOUT,
+                           env=dict(_env(), PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"))
+    rows = {"layout": [2, 1, 1], "layers": layers, "refs_s": refs_s,
+            "seconds": time.perf_counter() - t1, "ranks": []}
+    launches = {"pme_average": counted["pme_average"], "pme_average_range": 0,
+                "pme_average_range_r0": {0: 0, 2: 0}, "f32": counted["f32"], "f32_ranks": 0}
+    for res in ranks:
+        lo, hi = res["rows"]
+        cut = lambda digests: [d[lo:hi] for d in digests]  # noqa: E731 (the rank's rows)
+        rank_row = {"rank": res["rank"], "nodes": [lo, hi], "init_s": res["init_s"],
+                    "held_bytes": res["held_bytes"], "cases": {}}
+        for name, _, net in NET_CASES:
+            ref, got = refs[name], res["cases"][name]
+            case = {k: got[k] for k in ("s", "peak_bytes", "launches", "loss", "wire_bits",
+                                        "comm_nodes")}
+            case.update(inputs=net, bit_equal=(
+                got["digests"] == cut(ref["digests"])
+                and all(got[k] == ref[k] for k in ("loss", "wire_bits", "comm_nodes"))))
+            if not (case["bit_equal"] and math.isfinite(got["loss"])
+                    and got["launches"] == want[name]):
+                emit(phase="path_n", rank=res["rank"], case=name, **case,
+                     want_launches=want[name], ref_loss=ref["loss"],
+                     ref_wire_bits=ref["wire_bits"])
+                fail(f"path N (rank {res['rank']}, {name}): the rank's rows are not the "
+                     f"unsharded step's bit for bit, or it launched {got['launches']} "
+                     f"against {want[name]}")
+            launches["pme_average"] += got["launches"]["pme_average"]
+            launches["pme_average_range"] += got["launches"]["pme_average_range"]
+            launches["pme_average_range_r0"][lo] += got["launches"]["pme_average_range"]
+            launches["f32"] += got["launches"]["gossip_f32"]
+            launches["f32_ranks"] += got["launches"]["gossip_f32"]
+            rank_row["cases"][name] = case
+        fz = res["freeze"]
+        rank_row["freeze_restored"] = fz["restored"] is not False
+        rank_row["freeze_equal"] = fz["digests"] == cut(frozen)
+        rank_row["holds_offline"] = fz["restored"] is not None
+        if not (rank_row["freeze_restored"] and rank_row["freeze_equal"]):
+            fail(f"path N (rank {res['rank']}): freeze_dropped(shardings=) did not give the "
+                 f"offline node's rows back, or differs from the unsharded freeze")
+        emit(phase="path_n", layout=[2, 1, 1], layers=layers, **rank_row)
+        rows["ranks"].append(rank_row)
+    if sum(r["holds_offline"] for r in rows["ranks"]) != 1:
+        fail("path N: the offline node's rows were not on exactly one rank")
+    emit(phase="path_n_done", seconds=time.perf_counter() - t0, refs_s=refs_s,
+         ranks_s=rows["seconds"], refs={k: {"s": r["s"], "peak_bytes": r["peak_bytes"],
+                                            "launches": r["launches"]}
+                                        for k, r in refs.items()})
+    return rows, launches
 
 
 # ---------------------------------------------------------------------------
@@ -5456,10 +5954,12 @@ def path_j(dev, m_rows=None):
     emit(phase="path_j5_start", at_s=t - T0)
     dry_dir = tempfile.mkdtemp(prefix="repro_torch_dryrun_")
     try:
+        # the longest first (J4b, J4c, then J1: 105, 83 and 43 s of tracing
+        # on the H100 machine's host), so that none starts last
         dry = run_dryruns(torch.cuda.get_device_properties(0).total_memory
                           if dev.type == "cuda" else 80e9, dry_dir,
-                          J5[:2] + j5_t8_combos() + (m_dry_combos() if m_rows else ())
-                          + J5[2:])
+                          J5[:3] + j5_t8_combos() + (m_dry_combos() if m_rows else ())
+                          + J5[3:])
     finally:
         shutil.rmtree(dry_dir, ignore_errors=True)
     # J1's dry-run combo is the dry run's own step, which J1-dry ran on the
@@ -5644,6 +6144,9 @@ def main():
     m_rows, m_launches = path_m(dev)
     emit(phase="path_m_total", seconds=time.perf_counter() - t)
     t = time.perf_counter()
+    _, n_launches = path_n(dev)
+    emit(phase="path_n_total", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
     j = path_j(dev, m_rows)
     emit(phase="path_j_done", seconds=time.perf_counter() - t)
     tc = lambda r, k: r["prefill_launches"][k]["tensor_cores"]  # noqa: E731
@@ -5660,11 +6163,11 @@ def main():
     # each path's launches, read just after the path ran with the counts at 0
     f32_launches = (gossip_launches + e_launches["f32"] + f_launches["f32"] + g_launches
                     + h_f32 + i_gossip + j_gossip + r_launches["f32"] + k_launches["f32"]
-                    + m_launches["f32"])
+                    + m_launches["f32"] + n_launches["f32"])
     bf16_launches += e_launches["bf16"] + f_launches["bf16"]
     pme_launches += e_launches["pme_average"] + f_launches["pme_average"] \
         + h_launches["pme_average"] + r_launches["pme_average"] + k_launches["pme_average"] \
-        + m_launches["pme_average"]
+        + m_launches["pme_average"] + n_launches["pme_average"]
 
     def entry(name, source, replaces, launches, row):
         e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -5718,6 +6221,11 @@ def main():
     # card, both routes; among the f32 launches), timed at a rank's piece
     # of path A's largest leaf
     g32["variants"]["f32_path_m"] = variant(m_launches["f32"], gossip["f32_path_m"])
+    # path N's f32 launches on its two ranks (the sparse network case, each
+    # rank's two receivers over the gathered sender stack; among the f32
+    # launches, with the parent's unsharded ones at row 2's shape), timed at
+    # rank 1's receivers of path N's largest leaf
+    g32["variants"]["f32_path_n"] = variant(n_launches["f32_ranks"], gossip["f32_path_n"])
     pme = entry("pme_average", "src/repro_torch/csrc/pme_average.cu",
                 "src/repro/kernels/pme_average/kernel.py:46", pme_launches, pme_row)
     # path F's launches (F3 PaME on fc1, F4 on five ResNet-20 convs), timed at F3's fc1
@@ -5737,7 +6245,15 @@ def main():
                        # path M's launches (the dense exchange on the ranks
                        # sharing the card, every one with its receiver range
                        # r = m), timed at their own form, row 1rm
-                       "path_m": variant(m_launches["pme_average_range"], pme_range["1rm-r4"])}
+                       "path_m": variant(m_launches["pme_average_range"], pme_range["1rm-r4"]),
+                       # path N's launches on its ranks (the dense network
+                       # case, receiver range r = 2 of m = 4), rank 0's at
+                       # r0 = 0 and rank 1's at r0 = 2, each timed at its
+                       # own form, row 1rn
+                       "path_n_r0_0": variant(n_launches["pme_average_range_r0"][0],
+                                              pme_range["1rn-r2@0"]),
+                       "path_n_r0_2": variant(n_launches["pme_average_range_r0"][2],
+                                              pme_range["1rn-r2@2"])}
     l_flash = {row: n["flash"] for row, n in l_launches.items()}
     l_ssd = {row: n["ssd"] for row, n in l_launches.items()}
     fa = entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",

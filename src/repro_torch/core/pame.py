@@ -60,13 +60,19 @@ is the mean of the gathered per-node losses and
 rank reports the global values (and the engine's stop rule stops every
 rank at the same step).  The dense and sparse exchanges give the
 unsharded step's state bit for bit; the compressed ones follow JAX's
-sharded exchange.  Lanes, a dynamic network's realization, a self view
-and delivery masks are not taken with shardings (ROADMAP, later work).
+sharded exchange.  A dynamic network's inputs are taken as unsharded:
+the realization and ``delivered`` whole (every rank draws the same
+realized selection for all m nodes), ``self_params`` as this rank's
+pieces of the fresh stack, and the realized ``wire_bits`` are priced at
+the whole leaves' sizes, so they equal the unsharded step's.  Lanes are
+not taken with shardings: JAX shards none (its `bind_batched` vmaps the
+unsharded step).
 """
 from __future__ import annotations
 
 import dataclasses
 import inspect
+import math
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -236,22 +242,6 @@ def pame_init(key, params_stacked, m: int, cfg: PaMEConfig) -> PaMEState:
     )
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} not yet ported to repro_torch")
-
-
-def _refuse_sharded(batched, realization, self_params, delivered):
-    """What the sharded step leaves out raises (ROADMAP, queue 1: sharded
-    lanes and dynamic networks)."""
-    for what, given in (("lanes (LaneTopologyArrays)", batched),
-                        ("a dynamic network's realization", realization is not None),
-                        ("self_params", self_params is not None),
-                        ("delivered", delivered is not None)):
-        if given:
-            _not_ported(f"param_shardings with {what} (ROADMAP: sharded lanes and "
-                        f"dynamic networks)")
-
-
 def pame_step(
     state: PaMEState,
     batch,  # pytree, leaves [m, ...] (per-node sub-batches B_i^k)
@@ -288,13 +278,20 @@ def pame_step(
     swept floats of `cfg`); draws are then folded too (``sel``, ``masks``
     and ``offsets`` concatenated over the lanes' rows, ``a`` [L, m, m]),
     and the metrics come back [L].  A dynamic network's `realization`,
-    `self_params` and `delivered` are folded over the same L·m rows."""
+    `self_params` and `delivered` are folded over the same L·m rows.
+
+    Sharded (`param_shardings`): `realization` and `delivered` are whole
+    ([m, ...], the same on every rank) and `self_params` this rank's pieces
+    of the fresh stack, as `state.params` holds its pieces of the delayed
+    one; lanes raise."""
     if cfg.exchange not in ("dense", "compressed", "compressed_q8"):
         raise ValueError(f"unknown exchange {cfg.exchange!r}")
     batched = isinstance(topo, LaneTopologyArrays)
     sharded = param_shardings is not None
-    if sharded:
-        _refuse_sharded(batched, realization, self_params, delivered)
+    if sharded and batched:
+        raise NotImplementedError("param_shardings with lanes (LaneTopologyArrays): JAX "
+                                  "shards no lanes either (its bind_batched vmaps the "
+                                  "unsharded step)")
     lane_arrays = topo.lanes if batched else (topo,)
     n_lanes = len(lane_arrays)
     m = lane_arrays[0].nbrs.shape[0]
@@ -445,8 +442,10 @@ def pame_step(
         # realized Eq.-(8) accounting: each selected surviving neighbour
         # sends one sparse message (int8 values under compressed_q8); flat
         # partition prices one vector of s = round(p·n) coordinates, tree
-        # partition the per-leaf segments
-        sizes = [int(np.prod(tuple(x.shape[1:]))) for x in leaves]
+        # partition the per-leaf segments; each leaf's whole size (this
+        # rank's pieces are a share of it)
+        sizes = [math.prod(shd.full_shape(x.shape, spec, loc.layout)[1:])
+                 for x, spec in zip(leaves, loc.specs)]
         value_bits = 8 if cfg.exchange == "compressed_q8" else 64
         if cfg.partition == "tree":
             bits = pme.tree_message_bits(sizes, rate, value_bits)

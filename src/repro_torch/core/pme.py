@@ -37,9 +37,13 @@ docstring) and averages for its own receivers only: the dense exchange
 through the kernel's receiver range (or the plain average over the
 selection's columns of those receivers), the padded one through its
 receivers' rows of the neighbour table over the gathered [m, ...] sender
-stack.  Every coordinate sees the unsharded arithmetic.  The unsharded
-exchange is the same body on `sharding.local_view(None, ...)`: every row
-a receiver, the gathers the identity.
+stack.  A self view (``self_params``) is then this rank's pieces of the
+fresh stack: the senders are the gathered delayed stack, and the λ = 0
+fill reads the rank's own fresh rows.  Every coordinate sees the unsharded
+arithmetic.  The unsharded exchange is the same body on
+`sharding.local_view(None, ...)`: every row a receiver, the gathers the
+identity.  A sharded exchange takes no lanes: JAX shards none either
+(its `bind_batched` vmaps the unsharded step).
 """
 from __future__ import annotations
 
@@ -201,6 +205,22 @@ def naive_average(w: torch.Tensor, masks: torch.Tensor, a: torch.Tensor) -> torc
     return (agg / t[:, None]).to(w.dtype)
 
 
+_NO_SHARDED_LANES = ("a sharded exchange takes no lanes: JAX shards none either (its "
+                     "bind_batched vmaps the unsharded step)")
+
+
+def _self_leaves(self_params, leaves) -> list:
+    """The self view's leaves, each of its leaf's shape: sharded, this rank's
+    pieces of the fresh stack, as `params` holds its pieces of the delayed
+    one (not the whole stack, nor the gathered senders)."""
+    own = tree_flatten(self_params)[0]
+    for x, y in zip(own, leaves):
+        if x.shape != y.shape:
+            raise ValueError(f"self_params leaf {tuple(x.shape)} is not its params leaf's "
+                             f"shape {tuple(y.shape)} (sharded: this rank's pieces)")
+    return own
+
+
 def _count_average(agg: torch.Tensor, cnt: torch.Tensor, fallback: torch.Tensor):
     """where(cnt > 0, agg / max(cnt, 1) in fallback's type, fallback).
 
@@ -270,14 +290,14 @@ def pme_average_pytree(
     at least 2^17 elements a lane takes the kernel's lane axis, one launch
     for all lanes.  With `shardings` the leaves are this rank's pieces and
     the masks (drawn or injected) the whole leaves' (see the module's
-    docstring); lanes and a self view are not taken there.
+    docstring), and `self_params` this rank's pieces of the fresh stack;
+    lanes are not taken there.
     """
     loc = shd.local_view(shardings, params)
-    if loc.sharded and (self_params is not None or a.dim() == 3):
-        raise NotImplementedError("a sharded exchange takes no lanes and no self view "
-                                  "(ROADMAP, later work)")
+    if loc.sharded and a.dim() == 3:
+        raise NotImplementedError(_NO_SHARDED_LANES)
     leaves, treedef = tree_flatten(params)
-    self_leaves = leaves if self_params is None else tree_flatten(self_params)[0]
+    self_leaves = leaves if self_params is None else _self_leaves(self_params, leaves)
     lanes = a.shape[0] if a.dim() == 3 else None
     rows = loc.rows()  # this rank's receivers (every row unsharded)
     m = loc.m // (lanes or 1)  # nodes a lane
@@ -300,7 +320,11 @@ def pme_average_pytree(
                 # hot path: the fused kernel (one read of W and the masks,
                 # one write; all lanes in one launch; a rank's receivers
                 # alone when sharded).  It takes the fallback from W
-                # itself, so a self-view override stays on the plain average.
+                # itself, so with a self view JAX routes the leaf to its
+                # einsum (src/repro/core/pme.py), and so does the port,
+                # sharded or not: the plain average below, on this rank's
+                # receivers.  That is JAX's routing, not a fallback, and
+                # it launches no kernel.
                 from repro_torch.kernels.pme_average.ops import (
                     pme_average as pme_average_fused,
                 )
@@ -386,14 +410,13 @@ def pme_average_pytree_padded(
     With `shardings` the leaves are this rank's pieces: its receivers' rows
     of the table walk the gathered [m, ...] sender stack (the kernel's
     M >= m form), and the masks are the whole leaves' (see the module's
-    docstring).
+    docstring), and `self_params` this rank's pieces of the fresh stack
+    (its receivers' fill; the gathered senders are the delayed stack).
     """
     loc = shd.local_view(shardings, params)
-    if loc.sharded and self_params is not None:
-        raise NotImplementedError("a sharded exchange takes no self view "
-                                  "(ROADMAP, later work)")
     leaves, treedef = tree_flatten(params)
-    self_leaves = [None] * len(leaves) if self_params is None else tree_flatten(self_params)[0]
+    self_leaves = ([None] * len(leaves) if self_params is None
+                   else _self_leaves(self_params, leaves))
     rows = loc.rows()  # this rank's receivers (every row unsharded)
     nbrs_r, sel_r = nbrs[rows], sel.float()[rows]
     pad_r = None if pad is None else pad[rows]

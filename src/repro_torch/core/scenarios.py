@@ -63,6 +63,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.core import lanes as LN
 from repro_torch.core.mixing import Mixer, PaddedMixing, _dense_padded, fold_padded
 from repro_torch.core.pme import fold_in, make_generator
@@ -533,47 +534,63 @@ def scenario_mixer(arrays: ScenarioArrays, r: Realization, mode: str = "sparse",
     raise ValueError(f"unknown scenario mixing mode {mode!r}")
 
 
-def _frozen(x, m: int) -> bool:
-    """A leaf `freeze_dropped` restores: floating, with a leading node axis."""
-    return (isinstance(x, torch.Tensor) and x.dim() >= 1 and x.shape[0] == m
+def _frozen(x, r: int) -> bool:
+    """A leaf `freeze_dropped` restores: floating, with a leading node axis
+    of the r node rows the state holds (all m unsharded)."""
+    return (isinstance(x, torch.Tensor) and x.dim() >= 1 and x.shape[0] == r
             and x.is_floating_point())
 
 
-def dropped_rows(alive: torch.Tensor, state) -> List[Tuple[int, int, torch.Tensor]]:
+def dropped_rows(alive: torch.Tensor, state,
+                 shardings=None) -> List[Tuple[int, int, torch.Tensor]]:
     """Copies of the dropped nodes' rows of every floating per-node leaf
     of `state`, as (leaf index, node, row): what `restore_rows` puts back.
-    Only the dropped rows are copied, never the whole state."""
+    Only the dropped rows are copied, never the whole state.  With
+    `shardings` (a `sharding.MeshShardings` or a rank's `Local` view) the
+    state holds this rank's rows r0 ... r0 + r - 1 and pieces, and the
+    dropped nodes among them are copied (node i from its local row
+    i - r0); a floating leaf that holds all m rows where the rank holds
+    r < m raises, as JAX's arrays are whole where the port's are pieces."""
     alive = alive.cpu()
     m = alive.shape[0]
-    gone = [i for i in range(m) if not bool(alive[i])]
-    if not gone:
-        return []
+    mine = shd.node_rows(shardings, m)
+    r = mine.stop - mine.start
     leaves = tree_flatten(state)[0]
-    return [(idx, i, x[i].clone()) for idx, x in enumerate(leaves) if _frozen(x, m)
-            for i in gone]
+    if r < m and any(_frozen(x, m) for x in leaves):
+        raise ValueError(f"a state leaf holds all {m} node rows, but this rank holds "
+                         f"rows {mine.start} ... {mine.stop - 1}: pass the rank's pieces")
+    gone = [i for i in range(mine.start, mine.stop) if not bool(alive[i])]
+    return [(idx, i, x[i - mine.start].clone()) for idx, x in enumerate(leaves)
+            if _frozen(x, r) for i in gone]
 
 
-def restore_rows(rows: List[Tuple[int, int, torch.Tensor]], state):
+def restore_rows(rows: List[Tuple[int, int, torch.Tensor]], state, shardings=None):
     """Write rows saved by `dropped_rows` back into `state`'s leaves, in
     place, and return the state.  A leaf the step did not replace (an
     in-place step's) gets its own pre-step rows back; a new leaf gets
-    them copied in."""
+    them copied in.  `shardings` as `dropped_rows` took it: node i goes
+    to the rank's local row i - r0."""
     if not rows:
         return state
     leaves, treedef = tree_flatten(state)
+    ways = shd.node_ways(shardings)
     with torch.no_grad():
         for idx, i, row in rows:
-            leaves[idx][i].copy_(row)
+            x = leaves[idx]
+            x[i - shd.node_rows(shardings, x.shape[0] * ways).start].copy_(row)
     return tree_unflatten(treedef, leaves)
 
 
-def freeze_dropped(alive: torch.Tensor, old_state, new_state):
+def freeze_dropped(alive: torch.Tensor, old_state, new_state, shardings=None):
     """Revert dropped nodes' per-node state: where `alive` is False, every
     floating leaf with a leading node axis gets `old_state`'s rows back,
     bit for bit; integer counters and keys advance.  `new_state`'s leaves
     are written in place.  (A bound step calls `dropped_rows` before the
-    step and `restore_rows` after it, since a step may consume its input.)"""
-    return restore_rows(dropped_rows(alive, old_state), new_state)
+    step and `restore_rows` after it, since a step may consume its input.)
+    With `shardings` (a `sharding.MeshShardings` or a rank's `Local`
+    view) both states hold this rank's rows and pieces (`alive` stays
+    whole, [m]), as JAX's `freeze_dropped` acts on sharded arrays."""
+    return restore_rows(dropped_rows(alive, old_state, shardings), new_state, shardings)
 
 
 def expected_matrix(topo: Topology, scenario: Scenario, num_samples: int = 256,

@@ -111,6 +111,8 @@ __all__ = [
     "MeshShardings",
     "Local",
     "local_view",
+    "node_ways",
+    "node_rows",
     "leaf_specs",
     "AXES",
     "mesh_layout",
@@ -413,6 +415,31 @@ def local_view(shardings: Optional["MeshShardings"], tree) -> Local:
     r = leaves[0].shape[0]
     return Local(shardings.mesh, layout, coord, specs, r * layout["node"],
                  coord["node"] * r, r)
+
+
+def node_ways(shardings) -> int:
+    """The ranks the nodes are split over: `shardings` is a `MeshShardings`,
+    a rank's `Local` view, or None (1)."""
+    if shardings is None:
+        return 1
+    if isinstance(shardings, Local):
+        return shardings.m // shardings.r
+    return mesh_layout(shardings.mesh)["node"]
+
+
+def node_rows(shardings, m: int) -> slice:
+    """The nodes r0 ... r0 + r - 1 of m whose rows the rank holds: node i is
+    its local row i - r0 (`shardings` as `node_ways` takes it; None gives
+    every node)."""
+    ways = node_ways(shardings)
+    if m % ways:
+        raise ValueError(f"{m} nodes do not divide over {ways} node ranks")
+    if isinstance(shardings, Local):
+        if shardings.m != m:
+            raise ValueError(f"the view covers {shardings.m} nodes, not {m}")
+        return shardings.rows()
+    r0 = 0 if shardings is None else mesh_coords(shardings.mesh)["node"] * (m // ways)
+    return slice(r0, r0 + m // ways)
 
 
 def mesh_layout(mesh) -> Dict[str, int]:

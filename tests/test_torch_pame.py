@@ -165,18 +165,17 @@ def test_registry_bind_and_wire_bits_match_jax():
 
 
 def test_not_ported_options_raise():
-    """What the port still lacks raises "not yet ported" (mesh shardings
-    with a dynamic network's realization, a self view, delivery masks);
-    a pacing that is not the port's `ServePacing` raises; the combinations
-    JAX refuses raise as JAX's do (message-only delay on the compressed
-    exchange, delivery masks without the padded selection)."""
+    """What neither package does raises: mesh shardings with lanes (JAX
+    shards no lanes either); a pacing that is not the port's `ServePacing`
+    raises; the combinations JAX refuses raise as JAX's do (message-only
+    delay on the compressed exchange, delivery masks without the padded
+    selection)."""
     cfg = tpame.PaMEConfig(exchange="compressed")
     ta = tpame.make_topology_arrays(tbuild("ring", 4), cfg, device="cpu")
     st = tpame.pame_init(0, torch.zeros(4, 3), 4, cfg)
-    for kw in ({"realization": object()}, {"self_params": st.params},
-               {"delivered": torch.ones(4, 2, dtype=torch.bool)}):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tpame.pame_step(st, None, t_grad, ta, cfg, param_shardings=object(), **kw)
+    lanes = tpame.fold_topology_arrays([ta, ta])
+    with pytest.raises(NotImplementedError, match="shards no lanes"):
+        tpame.pame_step(st, None, t_grad, lanes, cfg, param_shardings=object())
     with pytest.raises(NotImplementedError, match="compressed exchange"):
         tpame.pame_step(st, None, t_grad, ta, cfg, self_params=st.params)
     with pytest.raises(NotImplementedError, match="mixing='sparse'"):
