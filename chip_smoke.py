@@ -190,8 +190,10 @@ non-zero without the final result line:
      J1's batch, its max_memory_allocated; J5: the dry run's CLI
      (`repro_torch.launch.dryrun`, the card's memory) on J1-J4's combos
      (the prefills the card ran through flash and SSD with `--variant
-     kernels`), eight processes at a time on the host after every timed
-     path (the card idle), each record's bytes, FLOPs, memory and (train)
+     kernels`), J5_WORKERS (3) processes at a time on the host, started
+     in the background after phase 2 (they trace beside paths A-I and
+     never touch the card) and read here, each record's bytes, FLOPs,
+     memory and (train)
      collective bytes at 8 devices (JAX's convention; by kind and by use:
      the exchange, the gradient's gather, the metrics) beside the measured
      seconds and peak:
@@ -370,6 +372,28 @@ def time_ms(fn, reps, warmup=1):
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(fn, reps, name="pme_"):
+    """The median of a kernel's own durations on the card: `reps` calls of
+    fn() (after a warm one) under ``torch.profiler``'s CUDA activity, the
+    kernels whose name holds `name`.  Beside `time_ms` (CUDA events around
+    the call, the host's work in the wrapper included), what the card
+    spent."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    if not 1 <= len(times) <= reps:  # CUPTI may drop a record; never invents one
+        fail(f"the profiler saw {len(times)} {name} kernels of {reps} launched")
     return statistics.median(times)
 
 
@@ -641,6 +665,10 @@ def check_pme(dev):
             flops = 4 * m * m * n
             row["bound_ms"] = max(bytes_ / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
             row["bound_by"] = "bytes" if bytes_ / HBM_BYTES_PER_S >= flops / F32_FLOPS else "operations"
+            row["device_ms"] = device_ms(lambda: pme_average_cuda(w, masks, a), reps)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
+            row["inputs_digest"] = inputs_digest(w, masks, a)
         emit(**row)
         return row
 
@@ -693,8 +721,8 @@ def check_pme_range(dev):
     two ranks) of path N's largest leaf in bf16 (row 1rn); phase 2's
     tolerances.  The bound counts what the function needs:
     m·n reads of W and of the masks (the receivers' own rows are among
-    the senders' rows) and r·n writes; the kernel's second read of a
-    receiver's own row for the fill is its overhead."""
+    the senders' rows) and r·n writes; the kernel takes a receiver's fill
+    from its row as read for the sums."""
     import torch
     from repro_torch.core import pme
     from repro_torch.kernels.pme_average.kernel import pme_average_cuda
@@ -750,6 +778,11 @@ def check_pme_range(dev):
             bytes_ = M * n * w.element_size() + M * n * masks.element_size() \
                 + r * n * w.element_size() + a.numel() * 4
             row["bound_ms"], row["bound_by"] = bound(bytes_, 4 * M * r * n, F32_FLOPS)
+            row["device_ms"] = device_ms(
+                lambda: pme_average_cuda(w, masks, a, receivers=(r0, r)), reps)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
+            row["inputs_digest"] = inputs_digest(w, masks, a)
             emit(**row)
             rows[key] = row
         del w, masks, got
@@ -811,7 +844,10 @@ def check_lanes(dev):
         row["library_ms"] = time_ms(library, reps)
         bytes_ = lanes * (m * n * (2 * w.element_size() + masks.element_size()) + m * m * 4)
         row["bound_ms"], row["bound_by"] = bound(bytes_, 4 * lanes * m * m * n, F32_FLOPS)
+        row["device_ms"] = device_ms(lambda: pme_average_cuda(w, masks, a), reps)
         row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
+        row["inputs_digest"] = inputs_digest(w, masks, a)
         emit(**row)
         return row
 
@@ -3916,7 +3952,7 @@ def row_digests(tree):
 
     out = []
     for x in tree_leaves(tree):
-        ity = {2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]
+        ity = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]
         rows = []
         for row in x.reshape(x.shape[0], -1):
             acc = torch.zeros((), dtype=torch.int64, device=x.device)
@@ -3929,6 +3965,15 @@ def row_digests(tree):
             rows.append(int(acc))
         out.append(rows)
     return out
+
+
+def inputs_digest(*tensors):
+    """A kernel row's inputs as one digest (16 hex digits of the SHA-256 of
+    their `row_digests`): two runs that print the same one drew the same
+    inputs bit for bit.  tools/pme_ab.py prints it beside its rows too."""
+    import hashlib
+
+    return hashlib.sha256(json.dumps(row_digests(list(tensors))).encode()).hexdigest()[:16]
 
 
 # ---------------------------------------------------------------------------
@@ -5472,7 +5517,11 @@ J5 = (("J4b", ["--arch", "mamba2-1.3b", "--shape", "long_500k", "--kind", "prefi
 # an arch
 J5_T8_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
 J5_T8_SCRIPT = "import sys, chip_smoke; chip_smoke.j5_t8_arch(sys.argv[1:])"
-J5_WORKERS = 8
+# J5's dry runs at a time.  They start after phase 2 and trace on the
+# host while the card runs the paths after it (a dry run is one thread; the
+# host has 8 cores), and path J reads their records
+J5_WORKERS = 3
+J5_BG_SCRIPT = "import sys, chip_smoke; chip_smoke.j5_background(*sys.argv[1:])"
 # the dry run's peak against the card's max_memory_allocated, by J5 combo
 # and the measured run it sizes: within this share either way
 J5_PEAK_TOL = 0.10
@@ -5499,16 +5548,14 @@ def _env():
     return dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
 
 
-def run_dryruns(device_bytes, out_dir, combos=J5):
-    """J5: the dry run's CLI on its combos, J5_WORKERS processes at a
-    time on the host.  It runs after every timed path, so that its CPU-heavy
-    tracing overlaps none of them (the dry run allocates nothing and never
-    touches the card: the card's memory is passed in).  Returns the records
-    by name; a process still running after 300 s is killed and fails
-    the path."""
+def run_dryruns(device_bytes, out_dir, combos=J5, workers=J5_WORKERS):
+    """J5: the dry run's CLI on its combos, `workers` processes at a time
+    on the host (the dry run allocates nothing and never touches the card:
+    the card's memory is passed in).  Returns the records by name; a
+    process still running 300 s after its start is killed and fails the
+    path."""
     timeout = 300
     procs, errors = [], []
-    t_end = time.perf_counter() + timeout
 
     def run(name, argv):
         # a combo runs the dry run's CLI, or a script given as ["-c", ...]
@@ -5519,7 +5566,7 @@ def run_dryruns(device_bytes, out_dir, combos=J5):
                                 text=True, env=_env(), cwd=HERE)
         procs.append(proc)
         try:
-            log, _ = proc.communicate(timeout=max(1.0, t_end - time.perf_counter()))
+            log, _ = proc.communicate(timeout=timeout)
         except subprocess.TimeoutExpired:
             proc.kill()
             log, _ = proc.communicate()
@@ -5529,7 +5576,7 @@ def run_dryruns(device_bytes, out_dir, combos=J5):
             errors.append(f"{name}: exit {proc.returncode}\n{log[-2000:]}")
 
     try:
-        with concurrent.futures.ThreadPoolExecutor(J5_WORKERS) as pool:
+        with concurrent.futures.ThreadPoolExecutor(workers) as pool:
             for f in [pool.submit(run, name, argv) for name, argv in combos]:
                 f.result()
     finally:  # no dry run outlives the script
@@ -5548,6 +5595,69 @@ def run_dryruns(device_bytes, out_dir, combos=J5):
         else:  # one record a shape
             recs.update({f"{name}-{rec['shape']}": rec for rec in found})
     return recs
+
+
+def j5_background(device_bytes, out_dir, combos):
+    """`run_dryruns` in the process `start_dryruns` starts: the records,
+    and the seconds they took, into ``records.json`` in `out_dir`."""
+    t = time.perf_counter()
+    recs = run_dryruns(float(device_bytes), out_dir, [tuple(c) for c in json.loads(combos)])
+    with open(os.path.join(out_dir, "records.json"), "w") as f:
+        json.dump({"seconds": time.perf_counter() - t, "records": recs}, f)
+
+
+def start_dryruns(device_bytes, combos):
+    """J5's dry runs in the background: `j5_background` in a process of its
+    own, in a session of its own, so that `finish_dryruns`, or the script's
+    exit on a failure, stops it and every dry run it started at once.  The
+    dry runs only trace on the host, J5_WORKERS at a time, beside the paths
+    the card runs meanwhile."""
+    import atexit
+    import shutil
+    import signal
+    import tempfile
+
+    out_dir = tempfile.mkdtemp(prefix="repro_torch_dryrun_")
+    log = open(os.path.join(out_dir, "background.log"), "w+")
+    proc = subprocess.Popen([sys.executable, "-c", J5_BG_SCRIPT, str(device_bytes), out_dir,
+                             json.dumps(combos)], stdout=log, stderr=subprocess.STDOUT,
+                            env=_env(), cwd=HERE, start_new_session=True)
+    emit(phase="path_j5_start", at_s=time.perf_counter() - T0, combos=len(combos),
+         workers=J5_WORKERS)
+
+    def stop():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        log.close()
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    atexit.register(stop)
+    return {"proc": proc, "dir": out_dir, "stop": stop}
+
+
+def finish_dryruns(handle, timeout=900):
+    """Waits for `start_dryruns`' process (at most `timeout` seconds more)
+    and returns its records by name, its own seconds and the seconds waited
+    here.  Fails the path if it failed or is still running."""
+    t = time.perf_counter()
+    proc = handle["proc"]
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        pass
+    waited = time.perf_counter() - t
+    try:
+        if proc.returncode != 0:
+            with open(os.path.join(handle["dir"], "background.log")) as f:
+                tail = f.read()[-4000:]
+            fail(f"path J5: the dry runs exited {proc.returncode} after {waited:.0f} s of "
+                 f"waiting:\n{tail}")
+        with open(os.path.join(handle["dir"], "records.json")) as f:
+            out = json.load(f)
+    finally:
+        handle["stop"]()
+    return out["records"], out["seconds"], waited
 
 
 def j5_t8_combos():
@@ -5931,14 +6041,17 @@ def hold_m_dry(dev, m_rows, dry):
     return misses
 
 
-def path_j(dev, m_rows=None):
-    """J1-J4 on the card, then J5's dry runs (the card idle) and their
-    records beside what J1-J4 and path M measured."""
-    import shutil
-    import tempfile
+def j5_combos():
+    """J5's combos, the longest traces (J4b, J4c, then J1: 105, 83 and 43 s
+    of tracing on the H100 machine's host) first, so that none starts
+    last."""
+    return J5[:3] + j5_t8_combos() + m_dry_combos() + J5[3:]
 
-    import torch
 
+def path_j(dev, m_rows, dry_runs):
+    """J1-J4 on the card, then the records of J5's dry runs (`dry_runs`,
+    as `start_dryruns` returned it) beside what J1-J4 and path M
+    measured."""
     rows = {}
     for name, fn in (("J1", path_j1), ("J2", path_j2), ("J4", path_j4)):
         t = time.perf_counter()
@@ -5950,18 +6063,7 @@ def path_j(dev, m_rows=None):
     t = time.perf_counter()
     rows["J1-dry"] = path_j1_dry(dev)
     emit(phase="path_j1_dry_done", seconds=time.perf_counter() - t)
-    t = time.perf_counter()
-    emit(phase="path_j5_start", at_s=t - T0)
-    dry_dir = tempfile.mkdtemp(prefix="repro_torch_dryrun_")
-    try:
-        # the longest first (J4b, J4c, then J1: 105, 83 and 43 s of tracing
-        # on the H100 machine's host), so that none starts last
-        dry = run_dryruns(torch.cuda.get_device_properties(0).total_memory
-                          if dev.type == "cuda" else 80e9, dry_dir,
-                          J5[:3] + j5_t8_combos() + (m_dry_combos() if m_rows else ())
-                          + J5[3:])
-    finally:
-        shutil.rmtree(dry_dir, ignore_errors=True)
+    dry, dry_s, waited_s = finish_dryruns(dry_runs)
     # J1's dry-run combo is the dry run's own step, which J1-dry ran on the
     # card (J1 runs the trainer's sparse step); the others size the runs
     measured = {"J1": (rows["J1-dry"]["seconds"], rows["J1-dry"]["peak_bytes"]),
@@ -6004,8 +6106,8 @@ def path_j(dev, m_rows=None):
         if name in J5_PEAK_RUNS and dev.type == "cuda" \
                 and abs(dry_peak / peak - 1) > J5_PEAK_TOL:
             misses.append(f"{name}: dry run {dry_peak} B against the card's {peak} B")
-    emit(phase="path_j5_done", at_s=time.perf_counter() - T0,
-         seconds=time.perf_counter() - t, records=len(dry))
+    emit(phase="path_j5_done", at_s=time.perf_counter() - T0, seconds=dry_s,
+         waited_s=waited_s, records=len(dry))
     if misses:
         fail(f"path J5: the dry run's peak is not within {J5_PEAK_TOL:.0%} of the card's:\n"
              + "\n".join(misses))
@@ -6069,6 +6171,8 @@ def main():
     ssd, ssd_n128, ssd_l2 = check_ssd(dev)
     lane_rows = check_lanes(dev)
     emit(phase="kernels_checked", seconds=time.perf_counter() - t)
+    # J5's dry runs trace on the host from here on, beside paths A-I
+    dry_runs = start_dryruns(torch.cuda.get_device_properties(0).total_memory, j5_combos())
 
     t = time.perf_counter()
     gossip_launches = path_a()
@@ -6147,7 +6251,7 @@ def main():
     _, n_launches = path_n(dev)
     emit(phase="path_n_total", seconds=time.perf_counter() - t)
     t = time.perf_counter()
-    j = path_j(dev, m_rows)
+    j = path_j(dev, m_rows, dry_runs)
     emit(phase="path_j_done", seconds=time.perf_counter() - t)
     tc = lambda r, k: r["prefill_launches"][k]["tensor_cores"]  # noqa: E731
     j_gossip = j["J1"]["gossip_variant_launches"]["f32"]
@@ -6177,11 +6281,14 @@ def main():
              "library_ms": row["library_ms"]}
         if "variant" in row:
             e["variant"] = row["variant"]
+        if "device_ms" in row:
+            e["device_ms"] = row["device_ms"]
         return e
 
     def variant(launches, row):
-        return {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms", "case")} | {"launches": launches}
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "case",
+                "device_ms")
+        return {k: row[k] for k in keys if k in row} | {"launches": launches}
 
     g32 = entry("gossip_gather", "src/repro_torch/csrc/gossip_gather.cu",
                 "src/repro/kernels/gossip/kernel.py:95", f32_launches + bf16_launches,

@@ -11,6 +11,7 @@ float32 or bfloat16, one type for all terms of a launch).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -22,7 +23,9 @@ MAX_TERMS = 8
 VARIANTS = {torch.float32: ("f32", 0), torch.bfloat16: ("bf16", 1)}
 
 
+@functools.lru_cache(maxsize=None)
 def _bind():
+    """The C entry point, loaded and typed once, at first use."""
     lib = _build.load("gossip_gather")
     fn = lib.gossip_gather
     fn.argtypes = [

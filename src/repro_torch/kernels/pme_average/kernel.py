@@ -16,6 +16,7 @@ rank of a sharded step needs for its own nodes.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -24,12 +25,14 @@ from repro_torch.kernels import _build, fake_route
 
 # type codes of the C interface
 _W_TYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MASK_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2, torch.bool: 2}
+_MASK_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.bool: 2, torch.uint8: 3}
 MAX_NODES = 48 * 1024 // (8 * 4)  # eight A^T rows in 48 KB of shared memory (m, not L·m)
-MAX_LANES = 65535  # the grid's y dimension
+MAX_LANES = 65535  # the lanes one launch takes
 
 
+@functools.lru_cache(maxsize=None)
 def _bind():
+    """The C entry point, loaded and typed once, at first use."""
     fn = _build.load("pme_average").pme_average_range
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -74,7 +77,7 @@ def pme_average_cuda(
         raise ValueError("w, masks and a must be on one device")
     if not (w.is_contiguous() and masks.is_contiguous()):
         raise ValueError("w and masks must be contiguous")
-    a32 = a.to(torch.float32).contiguous()
+    a32 = a if a.dtype == torch.float32 and a.is_contiguous() else a.to(torch.float32).contiguous()
     out = w.new_empty(tuple(w.shape[:-2]) + (r, n))
     if n == 0 or fake:
         return out

@@ -4,14 +4,30 @@ JAX's threefry streams cannot be reproduced from torch, so parity runs the
 JAX step with its own key and recomputes the same draws outside it (the
 same fold_in chain as `repro.core.pame.pame_step`), then hands them to the
 port as injected draws.
-"""
-import jax
-import jax.numpy as jnp
-import numpy as np
-import pytest
-import torch
 
-from repro.core import pme as jpme
+In a pytest-xdist worker, importing this module gives torch one intra-op
+thread, and the processes a test starts one OpenMP thread
+(``OMP_NUM_THREADS``, unless it is set already).  Torch's default of a
+thread per core in each of several workers oversubscribes the CPU, where
+its OpenMP threads spin: the port's test files took 1127 s of wall time
+with six workers on 8 cores, 695 s with one thread a process.  Tests that
+need one thread for bit-equality also set it themselves.
+"""
+import os
+
+if "PYTEST_XDIST_WORKER" in os.environ:
+    os.environ.setdefault("OMP_NUM_THREADS", "1")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from repro.core import pme as jpme  # noqa: E402
+
+if "PYTEST_XDIST_WORKER" in os.environ:
+    torch.set_num_threads(int(os.environ["OMP_NUM_THREADS"]))
 
 
 def to_t(x, dtype=None):

@@ -93,6 +93,147 @@ def test_pme_average_kernel_lanes(dev, lanes, m, n, dtype):
         torch.testing.assert_close(poisoned[1:], out[1:], rtol=0, atol=0)
 
 
+def _ordered_ref(w, masks, a, receivers=None):
+    """The kernel's sums in plain PyTorch, in its order: senders j = 0 ...
+    m - 1 in turn, from 0, in f32, then an IEEE quotient.  A and the masks
+    hold 0 and 1, so every product is exact and this gives the kernel's
+    bits."""
+    if w.dim() == 3:
+        return torch.stack([_ordered_ref(*lane, receivers) for lane in zip(w, masks, a)])
+    m = w.shape[0]
+    r0, r = (0, m) if receivers is None else receivers
+    wf, mf, af = w.float(), masks.float(), a.float()[:, r0:r0 + r]
+    agg = torch.zeros((r, w.shape[1]), device=w.device)
+    cnt = torch.zeros_like(agg)
+    for j in range(m):
+        agg = agg + af[j, :, None] * (wf[j] * mf[j])
+        cnt = cnt + af[j, :, None] * mf[j]
+    return torch.where(cnt > 0, agg / cnt.clamp(min=1.0), wf[r0:r0 + r]).to(w.dtype)
+
+
+# coordinates enough for one ring tile (3840 at m <= 4) on each of 132 SMs
+# and a partial last tile; a smaller launch takes the loop form
+RING_N = 135 * 3840 + 520
+
+
+def _ring_inputs(dev, m, n, dtype, mask_type, seed, lanes=None):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (m, n) if lanes is None else (lanes, m, n)
+    w = torch.randn(shape, generator=g, device=dev).to(dtype)
+    masks = torch.rand(shape, generator=g, device=dev) < 0.3
+    masks = masks if mask_type == "bool" else masks.to(getattr(torch, mask_type))
+    a = ((torch.rand(shape[:-2] + (m, m), generator=g, device=dev) < 0.6)
+         & ~torch.eye(m, dtype=torch.bool, device=dev)).float()
+    a[..., :, 1 % m] = 0  # receiver 1 isolated: its row is its own W
+    return w, masks, a
+
+
+@pytest.mark.parametrize("m", [2, 4, 5, 8])
+@pytest.mark.parametrize("mask_type", ["bool", "uint8", "float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pme_average_ring_sizes(dev, m, mask_type, dtype):
+    """A launch of ring size at m = 2 and 4 (the ring form, its stage part
+    filled and full) and m = 5 and 8 (the loop form), each mask type, whole
+    tiles and a partial last one: equal bit for bit to the kernel's sum
+    order in plain PyTorch; the isolated receiver's row is its own W.  In
+    the ring, bool masks take the common pass, the others the general
+    one."""
+    w, masks, a = _ring_inputs(dev, m, RING_N, dtype, mask_type, seed=m)
+    out = pkernel.pme_average_cuda(w, masks, a)
+    torch.cuda.synchronize()
+    assert torch.equal(out, _ordered_ref(w, masks, a))
+    assert torch.equal(out[1 % m], w[1 % m])
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, pme_average_ref(w, masks.to(dtype), a),
+                                   rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["ragged", "w-misaligned", "masks-misaligned", "lanes-ragged"])
+@pytest.mark.parametrize("m", [4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pme_average_ring_unaligned_rows(dev, case, m, dtype):
+    """Rows a bulk copy cannot take whole: n = 512·1024 + 3 (every row's start
+    but the first off 16 bytes, a ragged tail), and contiguous [m, n] views
+    at an odd element offset of a larger flat buffer (W or the masks).  At
+    m = 4 the ring's heads and tails come by plain loads, at m = 8 the loop
+    form takes its scalar instance; the output is the kernel's sum order
+    bit for bit."""
+    n = 512 * 1024 + (3 if "ragged" in case else 0)
+    lanes = 3 if case.startswith("lanes") else None
+    w, masks, a = _ring_inputs(dev, m, n, dtype, "bool", seed=n + m, lanes=lanes)
+    if case == "w-misaligned":
+        buf = torch.empty(w.numel() + 8, dtype=dtype, device=dev)
+        w = buf[3:3 + w.numel()].view(w.shape).copy_(w)
+    if case == "masks-misaligned":
+        buf = torch.empty(masks.numel() + 8, dtype=masks.dtype, device=dev)
+        masks = buf[5:5 + masks.numel()].view(masks.shape).copy_(masks)
+    assert w.is_contiguous() and masks.is_contiguous()
+    out = pkernel.pme_average_cuda(w, masks, a)
+    torch.cuda.synchronize()
+    assert torch.equal(out, _ordered_ref(w, masks, a))
+    assert torch.equal(out[..., 1, :], w[..., 1, :])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [RING_N, 512 * 1024 + 3])
+def test_pme_average_ring_range(dev, dtype, n):
+    """The receiver range r0 = 1, r = 2 of m = 4: the square launch's rows 1
+    and 2 bit for bit, receiver 1 (isolated) its own W."""
+    w, masks, a = _ring_inputs(dev, 4, n, dtype, "bool", seed=n)
+    before = pkernel.pme_average_cuda.range_launches
+    got = pkernel.pme_average_cuda(w, masks, a, receivers=(1, 2))
+    square = pkernel.pme_average_cuda(w, masks, a)
+    torch.cuda.synchronize()
+    assert pkernel.pme_average_cuda.range_launches == before + 1
+    assert got.shape == (2, n)
+    assert torch.equal(got, square[1:3])
+    assert torch.equal(got, _ordered_ref(w, masks, a, receivers=(1, 2)))
+    assert torch.equal(got[0], w[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pme_average_ring_non_finite_w(dev, dtype):
+    """NaN, +Inf and -Inf in W, at coordinates whose mask is 1 and at
+    coordinates whose mask is 0, in a launch of ring size with bool masks
+    and a 0/1 selection (the common pass, which hands a group holding one to
+    the general pass): the output is the kernel's sum order in plain
+    PyTorch, NaN where it is NaN.  A masked-out NaN or Inf still reaches
+    every receiver that hears any sender there, through 0 * NaN, as IEEE
+    has it."""
+    m = 4
+    w, masks, a = _ring_inputs(dev, m, RING_N, dtype, "bool", seed=17)
+    specials = torch.tensor([float("nan"), float("inf"), -float("inf")], device=dev)
+    cols = torch.arange(0, RING_N, 4093, device=dev)  # spread over the tiles
+    rows = cols % m
+    w[rows, cols] = specials[torch.arange(cols.numel(), device=dev) % 3].to(dtype)
+    masks[rows, cols] = torch.arange(cols.numel(), device=dev) % 2 == 0  # 1, 0, 1, ...
+    out = pkernel.pme_average_cuda(w, masks, a)
+    torch.cuda.synchronize()
+    want = _ordered_ref(w, masks, a)
+    assert torch.isnan(want).any() and torch.isinf(want).any()
+    torch.testing.assert_close(out, want, rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(out[1], w[1], rtol=0, atol=0, equal_nan=True)
+
+
+def test_pme_average_quotient_equals_ieee_division(dev):
+    """The kernel's branch-free quotient agg / d (Markstein's correction of
+    agg * RN(1/d)) against IEEE division, for every float dividend (all 2^32
+    bit patterns) and d = 1 ... 8: bit for bit wherever the kernel takes it
+    (agg 0 or of magnitude 2^-100 ... 2^100)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    out = torch.zeros(2, dtype=torch.int64, device=dev)
+    fn = _build.load("pme_average").pme_average_quotient_check
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    assert fn(out.data_ptr()) == 0
+    wrong, compared = out.tolist()
+    assert wrong == 0
+    # each sign: 200 binades of 2^23 significands and 2^100 itself; 0, -0
+    assert compared == 8 * (2 * (200 * 2 ** 23 + 1) + 2)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("lanes,m,n", [(2, 4, 4096), (5, 9, 257), (3, 40, 130)])
 def test_gossip_kernel_folded_lanes(dev, dtype, lanes, m, n):

@@ -502,3 +502,35 @@ def test_build_target_hashes_included_headers(tmp_path):
     # the port's own kernels: the two tensor-core sources hash mma_bf16.cuh
     for name in ("flash_attention", "ssd_intra_chunk"):
         assert "mma_bf16.cuh" in [f.name for f in _build._sources(_build.CSRC / f"{name}.cu")]
+
+
+@pytest.mark.parametrize("module,lib,entry", [(pkernel, "pme_average", "pme_average_range"),
+                                              (gkernel, "gossip_gather", "gossip_gather")])
+def test_bind_loads_and_types_the_entry_point_once(monkeypatch, module, lib, entry):
+    """A wrapper's `_bind` loads its library and sets the C function's
+    argtypes at its first call only: later launches pay for neither."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    loads, typed = [], []
+
+    class Fn:
+        def __setattr__(self, name, value):
+            if name == "argtypes":
+                typed.append(value)
+            object.__setattr__(self, name, value)
+
+    fn = Fn()
+    library = type("Library", (), {entry: fn})()
+    monkeypatch.setattr(_build, "load", lambda name: loads.append(name) or library)
+    module._bind.cache_clear()
+    try:
+        assert module._bind() is fn
+        assert module._bind() is fn
+    finally:
+        module._bind.cache_clear()
+    assert loads == [lib] and len(typed) == 1
+    # pointers and the stream as c_void_p: ctypes would cut them to 32 bits
+    assert typed[0][0] is ctypes.c_void_p and typed[0][-1] is ctypes.c_void_p
+    assert fn.restype is ctypes.c_int
