@@ -10,8 +10,9 @@ non-zero without the final result line:
 
   1. the card's name and power limit (nvidia-smi); build the four CUDA
      kernels from ``src/repro_torch/csrc`` (one nvcc per source, in
-     parallel), with ptxas's registers, spills and shared memory of each
-     kernel and the dynamic shared memory of the tensor-core variants;
+     parallel), with ptxas's registers, spills, shared memory and
+     performance warnings of each kernel and the dynamic shared memory of
+     the tensor-core variants;
   2. each kernel against its plain PyTorch version on the card: gossip
      (f32 and bf16 variants) and PME average on small odd shapes (isolated
      node, star hub, NaN-poisoned padding, more receivers than one tile)
@@ -20,8 +21,10 @@ non-zero without the final result line:
      rows, each bit-equal to the f32 slots chain rounded to its type);
      flash attention on the JAX tests'
      sweep (f32, bf16), on ragged, windowed, D = 128 and 40/8 GQA bf16
-     shapes, at path C's [8, 2048, 32, 64] bf16 and at path L2's half of
-     the heads ([8, 2048, 16, 64]; qwen3-14b's 20 on 4 KV heads, D = 128);
+     shapes (one query row, one key past a tile, a window longer than S,
+     20/4 GQA, three batch rows of a ragged S), at path C's [8, 2048, 32,
+     64] bf16 and at path L2's half of the heads ([8, 2048, 16, 64];
+     qwen3-14b's 20 on 4 KV heads, D = 128);
      SSD intra-chunk on the JAX tests' shapes, on short-chunk and G > 1
      bf16 shapes, at path C's [8, 16, 128, 64, 64] bf16, at path L2's 32
      heads and at mamba2-1.3b's N = 128; gossip (f32)
@@ -1000,9 +1003,13 @@ def check_flash(dev):
                       (1, 64, 8, 1, 64, None), (1, 32, 2, 2, 8, 5)):
             case(f"sweep-{shape}-{dtype}", *shape, dtype)
     # the tensor-core variant: S not a multiple of a tile, a window inside
-    # one tile, D = 128, qwen3's 40/8 grouping
+    # one tile, D = 128, qwen3's 40/8 grouping; one query row, one key past
+    # a 64-key tile, a window longer than S, 20/4 GQA at D = 128, three
+    # batch rows of a ragged S
     for shape in ((2, 300, 4, 2, 64, None), (1, 1000, 2, 1, 64, 5), (1, 200, 4, 4, 128, 70),
-                  (1, 130, 40, 8, 128, None)):
+                  (1, 130, 40, 8, 128, None), (1, 1, 2, 1, 64, None), (1, 65, 4, 2, 128, None),
+                  (1, 300, 4, 2, 64, 1000), (1, 257, 20, 4, 128, None),
+                  (3, 333, 4, 1, 64, None)):
         case(f"tc-{shape}", *shape, torch.bfloat16)
     row = case("path-c", 8, 2048, 32, 32, 64, None, torch.bfloat16, reps=10)
     free()
@@ -6151,7 +6158,8 @@ def main():
          device=torch.cuda.get_device_name(0))
     build_s = _build.build()
     ptxas = {k: [ln.strip() for ln in v.splitlines()
-                 if "entry function" in ln or "registers" in ln or "spill" in ln]
+                 if "entry function" in ln or "registers" in ln or "spill" in ln
+                 or "Performance Loss" in ln]
              for k, v in _build.BUILD_LOG.items()}
     from repro_torch.kernels.flash_attention.kernel import tc_smem_bytes as flash_smem
     from repro_torch.kernels.ssd_scan.kernel import tc_smem_bytes as ssd_smem

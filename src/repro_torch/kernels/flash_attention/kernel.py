@@ -23,11 +23,25 @@ TC_HEAD_DIMS = (64, 128)               # the tensor_cores variant's (bf16 only)
 VARIANTS = {"cuda_cores": 0, "tensor_cores": 1}  # the C entry point's codes
 
 
+TC_STAGES = 4        # K / V tiles in flight in the tensor-core ring (``tc::kStages``)
+TC_QUERY_ROWS = 128  # query rows of a tensor-core work item (``tc::BQ``: two warpgroups of 64)
+
+
+def tc_key_tile(d: int) -> int:
+    """Keys of a tensor-core K / V tile (``tc::Shape<D>::BK``)."""
+    return 128 if d == 64 else 64
+
+
 def tc_smem_bytes(d: int) -> int:
-    """Dynamic shared memory of one tensor-core block: two stages of a
-    64-key K and V tile in bf16, rows padded by 8 elements
-    (``tc::Shape<D>::SMEM`` in the source)."""
-    return 2 * 2 * 64 * (d + 8) * 2
+    """Dynamic shared memory of one tensor-core block (``tc::Shape<D>::SMEM``
+    in the source; one block an SM): 1 KB of slack to align the tiles to the
+    128-byte swizzle's 1024-byte atoms, two q tiles (the item in hand and the
+    next), `TC_STAGES` stages of a K and a V tile, all bf16 in 128-byte
+    rows, then the mbarriers, 8 bytes each (a full and an empty one a stage
+    and a q tile), and the two q tiles' work items, 4 bytes each."""
+    q_tile = TC_QUERY_ROWS * d * 2
+    stage = 2 * tc_key_tile(d) * d * 2
+    return 1024 + 2 * q_tile + TC_STAGES * stage + 8 * (2 * TC_STAGES + 4) + 2 * 4
 
 
 def flash_variant(dtype: torch.dtype, d: int) -> str:

@@ -438,11 +438,16 @@ def test_ssd_intra_chunk_kernel(dev, b, nc, l, h, p, g, n, dtype):
 
 
 # the tensor-core variants: D = 64 and 128, S not a multiple of the 128-row
-# query tile or the 64-key tile, a window inside one tile, qwen3's 40/8 GQA
+# query tile or of a key tile, a window inside one tile, qwen3's 40/8 GQA;
+# then one query row, one key past a 64-key tile, a window longer than S,
+# 20/4 GQA at D = 128 and three batch rows of a ragged S (the TMA tensor
+# maps' zero fill and their head and batch coordinates)
 TC_FLASH_CASES = [
     (2, 256, 4, 2, 64, None), (1, 256, 2, 2, 128, None), (2, 100, 4, 2, 64, None),
     (1, 1000, 2, 1, 64, None), (1, 1000, 2, 2, 128, 37), (1, 300, 4, 4, 64, 5),
     (1, 200, 40, 8, 128, None), (1, 130, 40, 8, 64, 70),
+    (1, 1, 2, 1, 64, None), (1, 65, 4, 2, 128, None), (1, 300, 4, 2, 64, 1000),
+    (1, 257, 20, 4, 128, None), (3, 333, 4, 1, 64, None),
 ]
 
 

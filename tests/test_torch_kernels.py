@@ -366,10 +366,16 @@ def test_ssd_variant_dispatch(dtype, l, p, n, want):
 
 
 def test_tensor_core_shared_memory_fits_the_blocks_per_sm():
-    """At path C's shapes the tensor-core blocks leave room for several
-    blocks an SM (228 KB each, 1 KB of it reserved per block)."""
+    """At path C's shapes the tensor-core blocks fit the blocks an SM they
+    are built for (228 KB an SM, 1 KB of it reserved per block): flash one
+    persistent block of three warpgroups (its registers fill the SM's
+    file), two q tiles, four stages of K and V and the barriers; SSD
+    several."""
     sm = 233472
-    assert 2 * (fkernel.tc_smem_bytes(64) + 1024) <= sm
+    assert fkernel.tc_smem_bytes(64) == 1024 + 2 * 16384 + 4 * 32768 + 104
+    assert fkernel.tc_smem_bytes(128) == 1024 + 2 * 32768 + 4 * 32768 + 104
+    for d in fkernel.TC_HEAD_DIMS:
+        assert fkernel.tc_smem_bytes(d) + 1024 <= sm < 2 * (fkernel.tc_smem_bytes(d) + 1024)
     assert skernel.tc_smem_bytes(128, 64, 64) == 56832
     assert 4 * (skernel.tc_smem_bytes(128, 64, 64) + 1024) <= sm
     assert 2 * (skernel.tc_smem_bytes(128, 64, 128) + 1024) <= sm
@@ -379,11 +385,12 @@ def _bf(x):
     return x.to(torch.bfloat16).float()
 
 
-def _split(x, parts):
-    """x as `parts` bf16 terms, leading first (the kernels' hi / mid / lo)."""
+def _split(x, parts, rnd=_bf):
+    """x as `parts` bf16 terms (or of `rnd`'s type), leading first (the
+    kernels' hi / mid / lo)."""
     out = []
     for _ in range(parts):
-        out.append(_bf(x))
+        out.append(rnd(x))
         x = x - out[-1]
     return out
 
@@ -396,12 +403,15 @@ def _bf16_ulps_floored(got, want):
     return ((got.float() - w).abs() / ulp).max().item()
 
 
-def _flash_tc_model(q, k, v, window, p_parts, sub=64):
+def _flash_tc_model(q, k, v, window, p_parts, sub=None, rnd=_bf):
     """The tensor-core flash kernel's arithmetic in plain PyTorch: keys in
-    sub-tiles, a running max in unscaled scores, p = 2^(s c - m c), P split
-    into `p_parts` bf16 terms for P V (products exact, sums f32), output
-    rounded once to bf16.  q, k, v bf16 [B, S, H, D], H == KV."""
+    tiles of `sub` (the kernel's `tc_key_tile(D)` by default), a running
+    max in unscaled scores, p = 2^(s c - m c), P split into `p_parts` bf16
+    terms (or of `rnd`'s type), each tile's P V from zero (products exact,
+    sums f32) meeting the rescaled O once a tile, output rounded once to
+    bf16.  q, k, v bf16 [B, S, H, D], H == KV."""
     b, s, h, d = q.shape
+    sub = sub or fkernel.tc_key_tile(d)
     qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))  # [B, H, S, D]
     c = d ** -0.5 * 1.4426950408889634
     m = torch.full((b, h, s, 1), -1e30)
@@ -417,25 +427,54 @@ def _flash_tc_model(q, k, v, window, p_parts, sub=64):
         alpha = torch.exp2((m - mn) * c)
         p = torch.exp2(sc * c - mn * c)
         l = l * alpha + p.sum(-1, keepdim=True)
-        acc = acc * alpha + sum(pp @ vf[:, :, k0:k0 + sub] for pp in _split(p, p_parts))
+        pv = sum(pp @ vf[:, :, k0:k0 + sub] for pp in _split(p, p_parts, rnd))
+        acc = torch.addcmul(pv, acc, alpha)
         m = mn
     return (acc / l.clamp(min=1e-30)).transpose(1, 2).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("window", [None, 40])
-def test_flash_tensor_core_rounding_model(window):
-    """P split into bf16 hi + lo keeps the kernel's output within one bf16
-    ulp (floored) of the f32 plain version at S = 512, D = 64; P rounded
-    to one bf16 would not (the reason for the second product)."""
+# ids "None" and "40" are the D = 64 cases, as before D = 128 was added
+@pytest.mark.parametrize("window,d", [(None, 64), (40, 64), (None, 128), (40, 128)],
+                         ids=["None", "40", "d128-None", "d128-40"])
+def test_flash_tensor_core_rounding_model(window, d):
+    """P split into bf16 hi + lo, in the kernel's key tiles (128 keys at
+    D = 64, 64 at D = 128), keeps the kernel's output within one bf16 ulp
+    (floored) of the f32 plain version at S = 512; P rounded to one bf16
+    would not (the reason for the second product), nor to one fp16 (three
+    bits more, and V would have to be fp16 too)."""
     rng = np.random.default_rng(7)
-    q, k, v = (torch.from_numpy(rng.standard_normal((1, 512, 4, 64)).astype(np.float32))
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 512, 4, d)).astype(np.float32))
                .to(torch.bfloat16) for _ in range(3))
     want = attention_ref(q.float(), k.float(), v.float(), window)
-    sub = 32 if window else 64
-    split = _flash_tc_model(q, k, v, window, 2, sub)
+    split = _flash_tc_model(q, k, v, window, 2)
     assert split.dtype == torch.bfloat16 and torch.isfinite(split).all()
     assert _bf16_ulps_floored(split, want) <= 1.0
-    assert _bf16_ulps_floored(_flash_tc_model(q, k, v, window, 1, sub), want) > 2.0
+    assert _bf16_ulps_floored(_flash_tc_model(q, k, v, window, 1), want) > 2.0
+    fp16 = _flash_tc_model(q, k, v, window, 1, rnd=lambda x: x.half().float())
+    assert _bf16_ulps_floored(fp16, want) > 2.0
+
+
+def test_flash_tensor_core_variant_is_built_on_hoppers_instructions():
+    """The tensor-core variant takes both products by wgmma, copies q, K and
+    V by TMA into a ring that mbarriers guard, and splits its warpgroups
+    into a producer and consumers with setmaxnreg; it issues no mma.sync,
+    ldmatrix or cp.async of its own.  The header it takes those from is
+    hashed into the library's name."""
+    from repro_torch.kernels import _build
+
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    tc = src[src.index("namespace tc {"):src.index("}  // namespace tc")]
+    for call in ("wgmma_ss<", "wgmma_rs<", "tma_load_4d(", "tma_store_4d(", "mbar_wait(",
+                 "mbar_arrive_expect_tx(", "setmaxnreg_dec<", "setmaxnreg_inc<",
+                 "__grid_constant__ CUtensorMap"):
+        assert call in tc, call
+    for call in ("mma(", "ldmatrix", "cp_async16(", "mma.sync"):
+        assert call not in tc, call
+    header = (_build.CSRC / "hopper_sm90.cuh").read_text()
+    for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait",
+                "mbarrier.arrive.expect_tx", "setmaxnreg", "cudaGetDriverEntryPoint"):
+        assert ptx in header, ptx
+    assert "hopper_sm90.cuh" in [f.name for f in _build._sources(_build.CSRC / "flash_attention.cu")]
 
 
 def _ssd_tc_model(xc, dtc, cum, bc, cc, rep, w_parts, state_parts):
