@@ -1033,20 +1033,30 @@ def check_ssd(dev):
 
     gen = torch.Generator(device=dev).manual_seed(3)
 
-    def case(name, b, nc, l, h, p, g, n, dtype, reps=0):
+    def case(name, b, nc, l, h, p, g, n, dtype, reps=0, held=None):
+        """One launch held against the plain version in f32 (on its last
+        `held` chunks only, where the whole is too large for it)."""
         rnd = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
         xc = rnd(b, nc, l, h, p).to(dtype)
         dtc = torch.rand((b, nc, l, h), generator=gen, device=dev) * 0.2 + 0.01
         cum = torch.cumsum(dtc * -torch.exp(rnd(h) * 0.2), dim=2)
         bc, cc = rnd(b, nc, l, g, n).to(dtype), rnd(b, nc, l, g, n).to(dtype)
         y, st = ssd_intra_chunk_cuda(xc, dtc, cum, bc, cc, h // g)
-        y_r, st_r = ssd_intra_chunk_ref(xc.float(), dtc, cum, bc.float(), cc.float(), h // g)
-        y_p = ssd_intra_chunk_ref(xc, dtc, cum, bc, cc, h // g)[0] if dtype != torch.float32 else y_r
+        hs = slice(nc - held, None) if held else slice(None)
+        ins = (xc[:, hs], dtc[:, hs], cum[:, hs], bc[:, hs], cc[:, hs])
+        y_r, st_r = ssd_intra_chunk_ref(ins[0].float(), *ins[1:3], ins[3].float(), ins[4].float(),
+                                        h // g)
+        y_p = ssd_intra_chunk_ref(*ins, h // g)[0] if dtype != torch.float32 else y_r
         torch.cuda.synchronize()
         row = {"shape": [b, nc, l, h, p, g, n], "dtype": str(dtype),
                "variant": ssd_variant(dtype, l, p, n)}
-        _hold("ssd_intra_chunk", name, y, y_r, y_p, row)
-        st_err = (st - st_r).abs().max().item()
+        if held:
+            row["held_chunks"] = held
+            if not torch.isfinite(y).all():
+                emit(**row)
+                fail(f"ssd_intra_chunk y is not finite ({name})")
+        _hold("ssd_intra_chunk", name, y[:, hs], y_r, y_p, row)
+        st_err = (st[:, hs] - st_r).abs().max().item()
         row["state_max_abs_err"] = st_err
         if st_err > 1e-5 * max(1.0, st_r.abs().max().item()) or not torch.isfinite(st).all():
             emit(**row)
@@ -1081,6 +1091,11 @@ def check_ssd(dev):
     free()
     # path L2's chunk: a rank's half of zamba2-1.2b's heads
     row_l2 = case("path-l2-zamba2", 8, 16, 128, 32, 64, 1, 64, torch.bfloat16, reps=10)
+    free()
+    # path J4b's whole launch (mamba2-1.3b, 524,288 positions): x holds 2^31
+    # elements and the state 8.59 GB, so its tiles lie past 2^32 bytes from
+    # their starts; held on its last 64 chunks
+    case("path-j4b-whole", 1, 4096, 128, 64, 64, 1, 128, torch.bfloat16, held=64)
     free()
     return row, row_n128, row_l2
 
@@ -4333,7 +4348,9 @@ def _serve_run(dev, cfg, params, loop, shardings=None, forced=None):
         tok = torch.argmax(lg, -1).to(torch.int32)
         _sync(dev)
         prefill_ms = (time.perf_counter() - t0) * 1e3
-        launches = {k: sum(v.values()) for k, v in _kernel_counts().items()}
+        # the tensor-core variants' launches only: a CUDA-core one falls
+        # short of the prefill's sites
+        launches = {k: v["tensor_cores"] for k, v in _kernel_counts().items()}
         logits.append(lg)
 
         start = loop.prompt_len + loop.offset
@@ -6166,8 +6183,9 @@ def main():
 
     # dynamic shared memory of a tensor-core block (ptxas counts static only)
     smem = {"flash_tc_kernel<64>": flash_smem(64), "flash_tc_kernel<128>": flash_smem(128),
-            "ssd_tc_kernel path C": ssd_smem(128, 64, 64),
-            "ssd_tc_kernel mamba2-1.3b": ssd_smem(128, 64, 128)}
+            "ssd_tc_kernel<64> path C": ssd_smem(128, 64, 64),
+            "ssd_tc_kernel<64> mamba2-1.3b": ssd_smem(128, 64, 128),
+            "ssd_tc_kernel<128> P = N = 128": ssd_smem(128, 128, 128)}
     emit(phase="build", seconds=build_s, ptxas=ptxas, tc_dynamic_smem_bytes=smem)
     t = time.perf_counter()
     gossip = check_gossip(dev)

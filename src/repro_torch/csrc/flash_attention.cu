@@ -107,7 +107,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <atomic>
 #include <cstdint>
 
 #include "hopper_sm90.cuh"
@@ -294,17 +293,11 @@ constexpr int kConsumerRegs = 232;                 // a consumer thread's
 constexpr int kRow = 128;         // bytes of a swizzled row: 64 bf16
 constexpr int kStages = 4;        // K / V tiles in flight
 constexpr int kGroupHeads = 8;    // query heads of a group of work items (see Item)
-constexpr int kSlots = 64;        // launches that may run at once (see launch_w)
 // the registers a block is launched with (168 a thread) are shared out anew
 // by setmaxnreg: the producer gives up what the consumers take
 static_assert(kProducerRegs * 128 + kConsumerRegs * 128 * kConsumers <=
                   65536 / kThreads / 8 * 8 * kThreads,
               "the registers of one block an SM");
-
-// The next work item of launch slot s, counted from 0; the block that takes
-// the last one sets the count back to 0 for the slot's next launch.
-__device__ unsigned int g_next_item[kSlots];
-std::atomic<unsigned int> g_launches{0};  // launches so far, for their slots
 
 #ifdef FLASH_PHASE_CLOCKS
 // Instrumented builds only (tools/flash_phases.py): the clocks a consumer
@@ -452,10 +445,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
         }
         st_shared(item_of(buf), static_cast<uint32_t>(w));
         const It item(w, S, H, KV, B, window);
-        // every item takes one number, so the last one is n_items - 1
-        const unsigned int k = atomicAdd(next_item, 1u);
-        if (k == static_cast<unsigned int>(n_items) - 1) atomicExch(next_item, 0u);
-        w = gridDim.x + static_cast<int>(k);
+        w = take_item(next_item, n_items);
         const uint32_t qt = q_s + buf * Sh::Q_BYTES;
         mbar_arrive_expect_tx(q_full(buf), Sh::Q_BYTES);
 #pragma unroll
@@ -747,24 +737,12 @@ int launch_w(const void* q, const void* k, const void* v, void* out, int B, int 
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t n_items = static_cast<int64_t>((S + BQ - 1) / BQ) * H * B;
   if (n_items > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  int device = 0, sms = 0;
-  unsigned int* slots = nullptr;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaGetSymbolAddress(reinterpret_cast<void**>(&slots), g_next_item);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_tc_kernel<D, kWindow>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::SMEM);
+  PersistentLaunch pl;
+  const cudaError_t err = persistent_launch(flash_tc_kernel<D, kWindow>, Sh::SMEM, &pl);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // A persistent grid, one block an SM, each taking work items until none
-  // is left.  Each launch counts its items in a slot of its own (launches
-  // on two streams may overlap), which the launch leaves at 0.
-  const int grid = static_cast<int>(n_items < sms ? n_items : sms);
+  const int grid = static_cast<int>(n_items < pl.sms ? n_items : pl.sms);
   flash_tc_kernel<D, kWindow><<<grid, kThreads, Sh::SMEM, s>>>(
-      tq, tk, tv, to, S, H, KV, B, window, scale * 1.4426950408889634f,
-      slots + g_launches.fetch_add(1) % kSlots);
+      tq, tk, tv, to, S, H, KV, B, window, scale * 1.4426950408889634f, pl.next_item);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,8 +1,9 @@
 // Hopper's own building blocks (sm_90a only): TMA tensor copies between
-// device and shared memory, mbarriers that count a copy's bytes and the
-// consumers' arrivals, warpgroup matrix products (wgmma) with operands in
-// 128-byte-swizzled shared memory or in registers, named barriers, and
-// setmaxnreg.
+// device and shared memory (4-D and 5-D bf16 maps, a 3-D f32 one),
+// mbarriers that count a copy's bytes and the consumers' arrivals, warpgroup
+// matrix products (wgmma) with operands in 128-byte-swizzled shared memory
+// or in registers, named barriers, setmaxnreg, and the work-item count of a
+// persistent grid.
 //
 // Shared-memory layout of every wgmma operand here: 128-byte rows of 64
 // bf16, as TMA writes a box whose inner extent is 64 bf16 with
@@ -21,6 +22,7 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace hopper {
@@ -69,6 +71,15 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
       : "memory");
 }
+// 5-D tiles: the same, one coordinate more
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4), "r"(bar)
+      : "memory");
+}
 // shared -> global; the box's part outside the tensor is not written
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
                                              int c2, int c3) {
@@ -76,6 +87,22 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t sr
       "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_5d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5, %6}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 // close this thread's bulk group of stores ...
@@ -313,6 +340,86 @@ inline bool bf16_rows_map(CUtensorMap* map, const void* base, int B, int S, int 
                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A contiguous bf16 tensor [B, Nc, L, heads, D] (chunks of L positions) as
+// the 5-D map [D, heads, L, Nc, B] with a box of [64, 1, rows, 1, 1],
+// 128-byte swizzle: a box of rows past L (or columns past D) reads zeros
+// and writes nothing, whatever follows in memory.  False when the driver
+// refuses it.
+inline bool bf16_chunk_map(CUtensorMap* map, const void* base, int B, int Nc, int L, int heads,
+                           int D, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[5] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(L), static_cast<cuuint64_t>(Nc),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(D) * 2;  // bytes
+  const cuuint64_t strides[4] = {row, row * heads, row * heads * L, row * heads * L * Nc};
+  const cuuint32_t box[5] = {64, 1, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A contiguous f32 tensor [n, R, C] as the 3-D map [C, R, n] with a box of
+// [32, rows, 1] (128-byte rows), 128-byte swizzle; the box's part past R or
+// C is not written.  False when the driver refuses it.
+inline bool f32_tile_map(CUtensorMap* map, void* base, int n, int R, int C, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(R),
+                              static_cast<cuuint64_t>(n)};
+  const cuuint64_t row = static_cast<cuuint64_t>(C) * 4;  // bytes
+  const cuuint64_t strides[2] = {row, row * R};
+  const cuuint32_t box[3] = {32, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, base, dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// -------------------------------------------------------------------------
+// persistent grids: one block an SM, each taking work items until none is
+// left, the first gridDim.x by block index and the rest from a count of the
+// launch
+// -------------------------------------------------------------------------
+constexpr int kSlots = 64;  // launches that may run at once (on several streams)
+
+// The count of launch slot s, from 0; the block that takes the last item
+// sets it back to 0 for the slot's next launch.
+static __device__ unsigned int g_next_item[kSlots];
+static std::atomic<unsigned int> g_launches{0};  // launches so far, for their slots
+
+// The work item a block takes after the one it holds (n_items or more: none)
+__device__ __forceinline__ int take_item(unsigned int* next_item, int n_items) {
+  const unsigned int k = atomicAdd(next_item, 1u);
+  if (k == static_cast<unsigned int>(n_items) - 1) atomicExch(next_item, 0u);
+  return static_cast<int>(gridDim.x + k);
+}
+
+// Host: the card's SMs, and a count of its own for the next launch of
+// `kernel` (launches on two streams may overlap), whose dynamic shared
+// memory is allowed `smem` bytes first.
+struct PersistentLaunch {
+  int sms;
+  unsigned int* next_item;
+};
+template <typename Kernel>
+inline cudaError_t persistent_launch(Kernel kernel, int smem, PersistentLaunch* l) {
+  int device = 0;
+  unsigned int* slots = nullptr;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&l->sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) err = cudaGetSymbolAddress(reinterpret_cast<void**>(&slots), g_next_item);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) l->next_item = slots + g_launches.fetch_add(1) % kSlots;
+  return err;
 }
 
 }  // namespace hopper

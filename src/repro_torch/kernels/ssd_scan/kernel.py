@@ -35,11 +35,31 @@ def smem_bytes(l: int, p: int, n: int) -> int:
     return 4 * (2 * n * sl + rest)
 
 
+# the tensor-core layout's constants (``tc::`` in the source)
+_TC_PANEL = 128 * 128            # a 64-column panel of a 128-row chunk tile, bf16
+_TC_S = 64 * 64 * 4 + 64 * 128 * 4  # S = C B^T of both row tiles, f32
+_TC_OUT = 2 * 64 * 128           # a consumer warpgroup's staging buffer
+_TC_VEC = 3 * 128 * 4            # one head's cum, dt and decay, f32
+_TC_CONSUMERS = 3                # consumer warpgroups of a block
+
+
 def tc_smem_bytes(l: int, p: int, n: int) -> int:
-    """Shared memory one block of the tensor_cores variant takes: x, B and C
-    in bf16 with rows padded by 8 elements, then dt, cum and the decay in
-    f32 (``tc::smem_bytes`` in the source)."""
-    return 2 * (l * (p + 8) + 2 * l * (n + 8)) + 3 * 4 * l
+    """Shared memory one block of the tensor_cores variant takes
+    (``tc::choose_layout`` in the source): B of the work item as 64-column
+    panels of 128 rows, C and then S over it (the larger of the two), a ring
+    of x tiles, a staging buffer and two heads' vectors for each of the
+    three consumer warpgroups, the barriers, and 1024 bytes to align the
+    tiles; the most x stages (up to four) that fit.  Where none fits, one
+    stage's bytes (above the limit).  L does not enter: every chunk tile
+    has 128 rows, those past L zero."""
+    npan, xpan = -(-n // 64), -(-p // 64)
+    for stages in (4, 3, 2, 1):
+        bytes_ = (1024 + npan * _TC_PANEL + max(npan * _TC_PANEL, _TC_S)
+                  + stages * xpan * _TC_PANEL + _TC_CONSUMERS * (_TC_OUT + 2 * _TC_VEC)
+                  + 16 * stages + 24)
+        if bytes_ <= MAX_SMEM:
+            break
+    return bytes_
 
 
 def ssd_variant(dtype: torch.dtype, l: int, p: int, n: int) -> str:

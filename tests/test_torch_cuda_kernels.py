@@ -467,24 +467,54 @@ def test_flash_attention_tensor_core_variant(dev, b, s, h, kv, d, win):
 
 
 # the tensor-core variant: L = 128 with N = 64 and 128, chunks shorter than
-# 128, G > 1, P = 128
+# 128, G > 1, P = 128; then fewer work items than SMs, rep = 3 with two
+# heads a work item (a block of two and one of one), rep = 2 on three
+# groups, 40 heads in blocks of 32 and 8, L = 16 with N = 16 (64-row tiles
+# mostly past L), L = 112 with N = 128, and P = N = 128
 TC_SSD_CASES = [(2, 3, 128, 4, 64, 1, 64), (1, 2, 128, 4, 64, 1, 128), (1, 3, 64, 4, 64, 1, 64),
-                (2, 2, 48, 6, 32, 3, 16), (1, 2, 128, 8, 32, 2, 32), (1, 1, 112, 4, 128, 2, 48)]
+                (2, 2, 48, 6, 32, 3, 16), (1, 2, 128, 8, 32, 2, 32), (1, 1, 112, 4, 128, 2, 48),
+                (1, 1, 128, 4, 64, 1, 64), (2, 40, 128, 3, 64, 1, 64), (1, 70, 64, 6, 64, 3, 64),
+                (2, 40, 128, 40, 64, 1, 64), (1, 2, 16, 4, 32, 1, 16), (2, 3, 112, 8, 64, 1, 128),
+                (1, 2, 128, 4, 128, 1, 128)]
 
 
-@pytest.mark.parametrize("b,nc,l,h,p,g,n", TC_SSD_CASES)
-def test_ssd_intra_chunk_tensor_core_variant(dev, b, nc, l, h, p, g, n):
+def _ssd_inputs(dev, b, nc, l, h, p, g, n, rate=None):
+    """bf16 x, B, C and f32 dt in [0.01, 0.21); cum the chunk's running sum
+    of dt times a negative rate a head (exp(0.2 z), or `rate`)."""
     gen = torch.Generator(device=dev).manual_seed(b * 100 + l + n)
     rnd = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
     xc = rnd(b, nc, l, h, p).to(torch.bfloat16)
     dtc = torch.rand((b, nc, l, h), generator=gen, device=dev) * 0.2 + 0.01
-    cum = torch.cumsum(dtc * -torch.exp(rnd(h) * 0.2), dim=2)
+    a = -torch.exp(rnd(h) * 0.2) if rate is None else torch.full((h,), -rate, device=dev)
+    cum = torch.cumsum(dtc * a, dim=2)
     bc, cc = rnd(b, nc, l, g, n).to(torch.bfloat16), rnd(b, nc, l, g, n).to(torch.bfloat16)
+    return xc, dtc, cum, bc, cc
+
+
+@pytest.mark.parametrize("b,nc,l,h,p,g,n", TC_SSD_CASES)
+def test_ssd_intra_chunk_tensor_core_variant(dev, b, nc, l, h, p, g, n):
+    xc, dtc, cum, bc, cc = _ssd_inputs(dev, b, nc, l, h, p, g, n)
     assert skernel.ssd_variant(xc.dtype, l, p, n) == "tensor_cores"
     before = skernel.ssd_intra_chunk_cuda.variant_launches["tensor_cores"]
     y, st = skernel.ssd_intra_chunk_cuda(xc, dtc, cum, bc, cc, h // g)
     torch.cuda.synchronize()
     assert skernel.ssd_intra_chunk_cuda.variant_launches["tensor_cores"] == before + 1
+    y_r, st_r = ssd_intra_chunk_ref(xc.float(), dtc, cum, bc.float(), cc.float(), h // g)
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    torch.testing.assert_close(st, st_r, rtol=0, atol=1e-5 * max(1.0, st_r.abs().max().item()))
+    assert _bf16_ulps_floored(y, y_r) <= 1.0
+
+
+@pytest.mark.parametrize("b,nc,l,h,p,g,n", [(1, 2, 128, 4, 64, 1, 64), (1, 2, 112, 6, 64, 3, 128),
+                                            (2, 40, 128, 40, 64, 1, 64)])
+def test_ssd_intra_chunk_tensor_core_variant_steep_decay(dev, b, nc, l, h, p, g, n):
+    """cum falls by more than 88 inside a chunk, so above the diagonal
+    exp(cum_i - cum_j) overflows f32: the kernel must mask it, not multiply
+    it by 0 (NaN); y and the state stay finite and within the tolerances."""
+    xc, dtc, cum, bc, cc = _ssd_inputs(dev, b, nc, l, h, p, g, n, rate=10.0)
+    assert (cum[:, :, 0] - cum[:, :, -1]).min().item() > 88.0
+    y, st = skernel.ssd_intra_chunk_cuda(xc, dtc, cum, bc, cc, h // g)
+    torch.cuda.synchronize()
     y_r, st_r = ssd_intra_chunk_ref(xc.float(), dtc, cum, bc.float(), cc.float(), h // g)
     assert torch.isfinite(y).all() and torch.isfinite(st).all()
     torch.testing.assert_close(st, st_r, rtol=0, atol=1e-5 * max(1.0, st_r.abs().max().item()))

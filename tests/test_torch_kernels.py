@@ -369,16 +369,30 @@ def test_tensor_core_shared_memory_fits_the_blocks_per_sm():
     """At path C's shapes the tensor-core blocks fit the blocks an SM they
     are built for (228 KB an SM, 1 KB of it reserved per block): flash one
     persistent block of three warpgroups (its registers fill the SM's
-    file), two q tiles, four stages of K and V and the barriers; SSD
-    several."""
+    file), two q tiles, four stages of K and V and the barriers; SSD one
+    persistent block of four warpgroups too: B of the work item, C and then
+    S over it, four x tiles, a staging buffer and two heads' vectors for
+    each of the three consumer warpgroups and the barriers (P = N = 128
+    takes two x stages, N = 256 one)."""
     sm = 233472
     assert fkernel.tc_smem_bytes(64) == 1024 + 2 * 16384 + 4 * 32768 + 104
     assert fkernel.tc_smem_bytes(128) == 1024 + 2 * 32768 + 4 * 32768 + 104
     for d in fkernel.TC_HEAD_DIMS:
         assert fkernel.tc_smem_bytes(d) + 1024 <= sm < 2 * (fkernel.tc_smem_bytes(d) + 1024)
-    assert skernel.tc_smem_bytes(128, 64, 64) == 56832
-    assert 4 * (skernel.tc_smem_bytes(128, 64, 64) + 1024) <= sm
-    assert 2 * (skernel.tc_smem_bytes(128, 64, 128) + 1024) <= sm
+    panel, s_bytes, out, vec = 128 * 128, 64 * 64 * 4 + 64 * 128 * 4, 2 * 64 * 128, 3 * 128 * 4
+
+    def layout(npan, xpan, stages):
+        return (1024 + npan * panel + max(npan * panel, s_bytes) + stages * xpan * panel
+                + 3 * (out + 2 * vec) + 16 * stages + 24)
+
+    assert skernel.tc_smem_bytes(128, 64, 64) == layout(1, 1, 4)
+    assert skernel.tc_smem_bytes(128, 64, 128) == layout(2, 1, 4)
+    assert skernel.tc_smem_bytes(128, 128, 128) == layout(2, 2, 2)
+    assert skernel.tc_smem_bytes(128, 128, 256) == layout(4, 2, 1)
+    for shape in ((128, 64, 64), (128, 64, 128), (128, 128, 128), (128, 128, 256), (16, 32, 16)):
+        bytes_ = skernel.tc_smem_bytes(*shape)
+        assert bytes_ + 1024 <= sm < 2 * (bytes_ + 1024)
+        assert bytes_ == skernel.tc_smem_bytes(128, *shape[1:])  # every tile takes 128 rows
 
 
 def _bf(x):
@@ -475,6 +489,35 @@ def test_flash_tensor_core_variant_is_built_on_hoppers_instructions():
                 "mbarrier.arrive.expect_tx", "setmaxnreg", "cudaGetDriverEntryPoint"):
         assert ptx in header, ptx
     assert "hopper_sm90.cuh" in [f.name for f in _build._sources(_build.CSRC / "flash_attention.cu")]
+
+
+def test_ssd_tensor_core_variant_is_built_on_hoppers_instructions():
+    """The SSD tensor-core variant takes S, W x and the state by wgmma,
+    copies x, B and C by TMA into mbarrier-guarded buffers, stores y and
+    the state by TMA, and splits its warpgroups into a producer and
+    consumers with setmaxnreg; it issues no mma.sync and no cp.async of its
+    own (the state's A comes from x by ldmatrix).  C B^T is issued once a
+    work item, outside the loop over the item's heads."""
+    from repro_torch.kernels import _build
+
+    src = (_build.CSRC / "ssd_intra_chunk.cu").read_text()
+    tc = src[src.index("namespace tc {"):src.index("}  // namespace tc")]
+    for call in ("wgmma_ss<", "wgmma_rs<", "tma_load_5d(", "tma_store_5d(", "tma_store_3d(",
+                 "mbar_wait(", "mbar_arrive_expect_tx(", "setmaxnreg_dec<", "setmaxnreg_inc<",
+                 "__grid_constant__ CUtensorMap", "take_item("):
+        assert call in tc, call
+    for call in ("mma(", "cp_async16(", "mma.sync", "cp_async_wait"):
+        assert call not in tc, call
+    consumer = tc[tc.index("void consume("):]
+    heads = consumer.index("for (int hh = first; hh < it.nh;")
+    assert 0 < consumer.index("wgmma_ss<") < heads
+    assert "wgmma_ss<" not in consumer[heads:]
+    header = (_build.CSRC / "hopper_sm90.cuh").read_text()
+    for ptx in ("cp.async.bulk.tensor.5d", "cp.async.bulk.tensor.3d",
+                "CU_TENSOR_MAP_DATA_TYPE_FLOAT32"):
+        assert ptx in header, ptx
+    sources = _build._sources(_build.CSRC / "ssd_intra_chunk.cu")
+    assert "hopper_sm90.cuh" in [f.name for f in sources]
 
 
 def _ssd_tc_model(xc, dtc, cum, bc, cc, rep, w_parts, state_parts):
